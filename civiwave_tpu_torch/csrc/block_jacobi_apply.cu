@@ -1,0 +1,53 @@
+// K3 block_jacobi_apply: z = M^-1 r from the (6, 3, 3, 3) block-Jacobi
+// class table of a homogeneous structured grid, z = +0.0 (by select) on
+// constrained components.
+//
+// Replaces the Pallas TPU kernel apply_block_jacobi_pallas
+// (civiwave_tpu/ops/pallas/block_jacobi_apply.py:144, pallas_call at :170),
+// which streams B-plane slabs through VMEM, paints the x-interior class
+// everywhere and repaints the boundary rows, columns and x-face planes.
+// Here the op is pointwise: each thread takes one node, picks its 6
+// coefficients by its per-axis boundary class (civi::block_jacobi_node,
+// shared with K2) and writes the symmetric 3x3 product.
+//
+// Bound on the H100: device memory — r in (12 B/node), the mask (3 B/node),
+// z out (12 B/node): ~0.45 GB at 255^3 cells.  The 648-byte table stays in
+// the read-only cache.  Nothing to reuse across nodes, so the simple
+// one-pass form is already the memory-bound design.
+#include "structured.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(256) block_jacobi_apply_kernel(
+    const float* __restrict__ table, const float* __restrict__ r,
+    const uint8_t* __restrict__ bc, float* __restrict__ z, int X, int Y, int Z,
+    int nx, int ny, int nz) {
+  const int row = blockIdx.x;  // x * Y + y
+  const int ix = row / Y;
+  const int iy = row - ix * Y;
+  const int64_t comp = static_cast<int64_t>(X) * Y * Z;
+  const int cxy = (civi::node_class(ix, nx) * 3 + civi::node_class(iy, ny)) * 3;
+  for (int iz = threadIdx.x; iz < Z; iz += blockDim.x) {
+    const int64_t n0 = static_cast<int64_t>(row) * Z + iz;
+    float z0, z1, z2;
+    civi::block_jacobi_node(table, cxy + civi::node_class(iz, nz), r[n0],
+                            r[n0 + comp], r[n0 + 2 * comp], z0, z1, z2);
+    z[n0] = bc[n0] ? 0.0f : z0;
+    z[n0 + comp] = bc[n0 + comp] ? 0.0f : z1;
+    z[n0 + 2 * comp] = bc[n0 + 2 * comp] ? 0.0f : z2;
+  }
+}
+
+}  // namespace
+
+extern "C" int civi_block_jacobi_apply(const float* table, const float* r,
+                                       const unsigned char* bc, float* z,
+                                       int X, int Y, int Z, int nx, int ny,
+                                       int nz, void* stream) {
+  if (X <= 0 || Y <= 0 || Z <= 0) return 0;
+  block_jacobi_apply_kernel<<<static_cast<unsigned>(X * Y),
+                              civi::row_threads(Z), 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      table, r, bc, z, X, Y, Z, nx, ny, nz);
+  return static_cast<int>(cudaGetLastError());
+}

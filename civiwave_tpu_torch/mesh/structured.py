@@ -1,0 +1,384 @@
+"""Structured-grid route: uniform homogeneous hex8 grids without gathers.
+
+Port of :mod:`civiwave_tpu.mesh.structured`.  For an axis-aligned box of
+(nx, ny, nz) uniform hex cells every element shares one constant Gauss
+gradient table and connectivity is implicit, so the element-by-element
+matvec becomes a 27-point block stencil on the node grid (see
+``ops/structured.py``).
+
+Solver vectors are component-separated grids ``(3, X, Y, Z)`` f32 with Z
+the minor (contiguous) axis — the reference's layout, kept at the port's
+public functions so parity tests compare like with like.  On the card Z is
+also the fastest thread index of every kernel, so loads coalesce.
+
+The model is a frozen dataclass of tensors on one device (the counterpart
+of the JAX pytree); it holds no trainable parameters and nothing needs a
+gradient.  One build path builds every grid with torch directly on the
+target device.
+
+Not ported yet: heterogeneous per-element material grids, the +Y dead rows
+and sharding fields of the 2-D slab decomposition (ROADMAP A11), the
+multigrid hierarchy (A9) and absorbing faces (A7).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..physics.materials import ElasticProperties
+
+# corner offsets in Gmsh hex ordering (matches preprocess._HEX_XI)
+CORNERS = (
+    (0, 0, 0),
+    (1, 0, 0),
+    (1, 1, 0),
+    (0, 1, 0),
+    (0, 0, 1),
+    (1, 0, 1),
+    (1, 1, 1),
+    (0, 1, 1),
+)
+
+
+@dataclass(frozen=True, eq=False)
+class StructuredModel:
+    """Uniform homogeneous hex grid implementing the solver operator
+    protocol.
+
+    Node grid is (X, Y, Z) = (nx+1+pad_planes, ny+1, nz+1); the nodal order
+    of ``to_nodal``/``from_nodal`` is x-major flattening.
+    """
+
+    # per-element material fields, padded along X to the node extent
+    # (dead tail cells are never read — consume through lam_cells/mu_cells)
+    lam_grid: torch.Tensor  # (X, ny, nz) f32
+    mu_grid: torch.Tensor  # (X, ny, nz) f32
+    # node-grid fields (component-separated layout)
+    mass_grid: torch.Tensor  # (X, Y, Z) f32
+    bc_mask: torch.Tensor  # (3, X, Y, Z) bool
+    bc_value: torch.Tensor  # (3, X, Y, Z) f32
+    position0: torch.Tensor  # (N, 3) f32 — host-facing nodal coordinates
+    # (27 classes, 27 offsets, 3, 3) f32 per-boundary-class assembled
+    # stencil (ops.structured.class_stencil_table) read by the K1/K2
+    # kernels; uploaded once per model
+    stencil_table: torch.Tensor
+    nx: int = 0
+    ny: int = 0
+    nz: int = 0
+    node_count: int = 0
+    padded_node_count: int = 0
+    # node planes along +X beyond nx+1: dead (fully constrained, massless)
+    pad_planes: int = 0
+    spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    lam0: float = 0.0
+    mu0: float = 0.0
+    # interior lumped mass rho*V_cell; every stored mass is m8 times 0.5
+    # per boundary axis, bit for bit, so the kernels synthesize the mass
+    # instead of streaming the grid (see interior_mass)
+    m8: float = 0.0
+
+    @property
+    def device(self) -> torch.device:
+        return self.bc_mask.device
+
+    @property
+    def lam_cells(self) -> torch.Tensor:
+        """(nx, ny, nz) live-cell view of the X-padded material grid."""
+        return self.lam_grid[: self.nx, : self.ny]
+
+    @property
+    def mu_cells(self) -> torch.Tensor:
+        return self.mu_grid[: self.nx, : self.ny]
+
+    @property
+    def grid_shape(self) -> Tuple[int, int, int]:
+        return (self.nx + 1 + self.pad_planes, self.ny + 1, self.nz + 1)
+
+    @property
+    def dof_count(self) -> int:
+        return self.node_count * 3
+
+    # --- operator protocol -------------------------------------------------
+    @property
+    def vector_shape(self) -> Tuple[int, ...]:
+        return (3, *self.grid_shape)
+
+    @property
+    def mass_b(self) -> torch.Tensor:
+        """Lumped mass broadcastable against solver vectors."""
+        return self.mass_grid[None]
+
+    def zero_state(self):
+        from .pack import SimState
+
+        z = torch.zeros(self.vector_shape, dtype=torch.float32, device=self.device)
+        return SimState(z, z, z, z)
+
+    def to_nodal(self, vector: torch.Tensor) -> torch.Tensor:
+        """CSG vector -> (node_count, 3) nodal rows (x-major order)."""
+        flat = vector.permute(1, 2, 3, 0).reshape(-1, 3)
+        return flat[: self.node_count]
+
+    def from_nodal(self, rows) -> torch.Tensor:
+        """(node_count, 3) nodal rows -> CSG vector (pad planes zeroed)."""
+        rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+        flat = torch.zeros(
+            (int(np.prod(self.grid_shape)), 3), dtype=torch.float32,
+            device=self.device,
+        )
+        flat[: self.node_count] = rows[: self.node_count]
+        return flat.reshape(*self.grid_shape, 3).permute(3, 0, 1, 2).contiguous()
+
+    def apply_keff(self, x, stiffness_scale, mass_factor):
+        from ..ops import structured as _ops
+
+        return _ops.apply_keff_structured(self, x, stiffness_scale, mass_factor)
+
+    def assemble_node_blocks(self, stiffness_scale, mass_factor):
+        from ..ops import structured as _ops
+
+        return _ops.assemble_node_blocks_structured(
+            self, stiffness_scale, mass_factor
+        )
+
+    def build_preconditioner(self, stiffness_scale, mass_factor):
+        """Class-table block-Jacobi (the homogeneous grid's only form)."""
+        from ..ops import structured as _ops
+
+        return _ops.build_compact_block_jacobi(self, stiffness_scale, mass_factor)
+
+    def prefers_fused_pcg(self, block_inverse, vector_dtype) -> bool:
+        """'auto' variant probe: Chronopoulos-Gear wherever the fused
+        pc+matvec+dots kernel runs (CUDA, f32), classic elsewhere."""
+        from ..ops import structured as _ops
+
+        return _ops.pc_keff_kernel_eligible(self, block_inverse, vector_dtype)
+
+    def apply_pc_keff(self, block_inverse, residual, stiffness_scale,
+                      mass_factor):
+        """(u, w) = (M^-1 r, K_eff u) — one kernel launch on CUDA."""
+        from ..ops import structured as _ops
+
+        return _ops.apply_pc_keff_structured(
+            self, block_inverse, residual, stiffness_scale, mass_factor
+        )
+
+    def apply_pc_keff_dots(self, block_inverse, residual, stiffness_scale,
+                           mass_factor, reduction_dtype):
+        """(u, w, (gamma, delta, rr)) with the three iteration dots
+        reduced in the same kernel pass on CUDA."""
+        from ..ops import structured as _ops
+
+        return _ops.apply_pc_keff_dots_structured(
+            self, block_inverse, residual, stiffness_scale, mass_factor,
+            reduction_dtype,
+        )
+
+    def apply_preconditioner(self, block_inverse, residual):
+        from ..ops import structured as _ops
+
+        return _ops.apply_compact_preconditioner_structured(
+            self, block_inverse, residual
+        )
+
+
+def interior_mass(mass_grid, nx: int, ny: int, nz: int) -> float:
+    """The interior lumped-mass scalar ``m8 = rho * V_cell`` recovered from
+    a stored mass grid: node (1, 1, 1) always exists (extents are n+1 >= 2)
+    and carries ``m8 * 2^-d`` where d counts axes with n == 1.  Power-of-2
+    scaling is exact in f32, so ``m8 * wx * wy * wz`` reproduces every
+    stored value bitwise (pallas structured_stencil._interior_mass)."""
+    corr = (
+        (2.0 if nx == 1 else 1.0)
+        * (2.0 if ny == 1 else 1.0)
+        * (2.0 if nz == 1 else 1.0)
+    )
+    return float(np.float32(mass_grid[1, 1, 1]) * np.float32(corr))
+
+
+def _box_plane_slice(tag: str, xs: int, axis_extents: Tuple[int, int, int]):
+    """Grid slice for an axis plane tag "x0"/"x1"/"y0"/...; the +X physical
+    boundary is plane xs-1 (NOT the padded end)."""
+    axis = {"x": 0, "y": 1, "z": 2}[tag[0]]
+    if tag[1] == "0":
+        index = 0
+    else:
+        index = (xs - 1) if axis == 0 else axis_extents[axis] - 1
+    sl = [slice(None)] * 3
+    sl[axis] = index
+    return axis, tuple(sl)
+
+
+def _face_share(
+    plane_tag: str,
+    cell_counts: Tuple[int, int, int],
+    spacings: Tuple[float, float, float],
+) -> Tuple[int, np.ndarray]:
+    """Equal nodal shares of face area on an axis plane (each boundary quad
+    contributes area/4 to its 4 corner nodes, loads.cpp:104-149)."""
+    axis = {"x": 0, "y": 1, "z": 2}[plane_tag[0]]
+    face_dims = [d for d in range(3) if d != axis]
+    face_area = spacings[face_dims[0]] * spacings[face_dims[1]]
+    share = np.zeros([cell_counts[d] + 1 for d in face_dims])
+    quad = np.full([cell_counts[d] for d in face_dims], face_area / 4.0)
+    for da in (0, 1):
+        for db in (0, 1):
+            share[
+                da : da + cell_counts[face_dims[0]],
+                db : db + cell_counts[face_dims[1]],
+            ] += quad
+    return axis, share
+
+
+def traction_force_grid(
+    model: StructuredModel, plane_tag: str, value: Tuple[float, float, float]
+) -> np.ndarray:
+    """One traction's nodal force contribution in CSG layout (3, X, Y, Z),
+    as a host numpy f32 array.  The plane is indexed through the real
+    x-extent view, so y/z planes of an X-padded grid work too (the
+    reference's version raises there); dead pad planes carry no force."""
+    counts = (model.nx, model.ny, model.nz)
+    _, share = _face_share(plane_tag, counts, model.spacing)
+    grid = np.zeros(model.grid_shape + (3,))
+    _, sl = _box_plane_slice(
+        plane_tag, model.nx + 1,
+        (model.nx + 1, model.ny + 1, model.nz + 1),
+    )
+    grid[: model.nx + 1][sl] = share[..., None] * np.asarray(value, np.float64)
+    return grid.transpose(3, 0, 1, 2).astype(np.float32)
+
+
+def build_structured_model(
+    nx: int,
+    ny: int,
+    nz: int,
+    material: ElasticProperties,
+    density: float,
+    spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+    fixed_axis_planes: Tuple[str, ...] = ("x0",),
+    traction: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+    traction_plane: str = "x1",
+    gravity: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+    pad_x_multiple: int = 1,
+    fixes: Optional[Sequence] = None,
+    *,
+    device,
+):
+    """Build the structured cantilever-style model + initial force on
+    ``device``.
+
+    ``fixed_axis_planes``/``traction_plane``: "x0"/"x1"/"y0"/... meaning the
+    min/max plane normal to that axis.  ``fixes`` generalizes
+    ``fixed_axis_planes`` to the reference's Dirichlet contract
+    (config.cpp:500-567): a sequence of ``(plane_tag, constrain_axis(3,),
+    values(3,))`` with per-axis flags and optional targets (None => 0).
+    ``pad_x_multiple`` appends dead (constrained, massless) node planes
+    along +X until (nx+1+pad) is a multiple.
+
+    Every node-grid array is an analytic per-axis cell-adjacency count
+    product (values in {0,1,2}) scaled by one f64 scalar, built in f64 on
+    the device and cast to the storage dtype at the end — the same
+    arithmetic as the reference's numpy and on-device builders, so the
+    fields agree with both bit for bit.
+
+    Returns (model, external_force (3, X, Y, Z) f32 tensor).
+    """
+    device = torch.device(device)
+    xs, ys, zs = nx + 1, ny + 1, nz + 1
+    pad_planes = (-xs) % max(pad_x_multiple, 1)
+    xs_pad = xs + pad_planes
+    hx, hy, hz = (float(s) for s in spacing)
+    lam0 = float(np.float32(material.lame.lam))
+    mu0 = float(np.float32(material.lame.mu))
+    if fixes is None:
+        fixes = [(tag, (True, True, True), (None, None, None))
+                 for tag in fixed_axis_planes]
+
+    f64, f32 = torch.float64, torch.float32
+    ix = torch.arange(xs_pad, device=device)[:, None, None]
+    iy = torch.arange(ys, device=device)[None, :, None]
+    iz = torch.arange(zs, device=device)[None, None, :]
+
+    def adj(i, ncells):  # cells adjacent to node plane i along an axis
+        return ((i >= 1) & (i <= ncells)).to(f64) + (i <= ncells - 1).to(f64)
+
+    ax_, ay_, az_ = adj(ix, nx), adj(iy, ny), adj(iz, nz)
+    counts = ax_ * ay_ * az_  # cells per node: 0 on pads, 8 interior
+    cm = density * (hx * hy * hz) / 8.0
+    mass = (cm * counts).to(f32)
+
+    # material grids: the material value on real cells, 0 on the x pad tail
+    cell_real = (torch.arange(xs_pad, device=device) < nx)[:, None, None]
+    cell_real = cell_real.expand(xs_pad, ny, nz)
+    lam = torch.where(cell_real, lam0, 0.0).to(f32)
+    mu = torch.where(cell_real, mu0, 0.0).to(f32)
+
+    # Dirichlet planes, then the dead-pad override (the reference's order)
+    bc = torch.zeros((3, xs_pad, ys, zs), dtype=torch.bool, device=device)
+    vals = torch.zeros((3, xs_pad, ys, zs), dtype=f32, device=device)
+    for tag, constrain, values in fixes:
+        _, sl = _box_plane_slice(tag, xs, (xs, ys, zs))
+        for a in range(3):
+            if constrain[a]:
+                bc[(a,) + sl] = True
+                target = 0.0 if values[a] is None else float(values[a])
+                vals[(a,) + sl] = float(np.float32(target))
+    bc[:, xs:] = True
+    vals[:, xs:] = 0.0
+
+    # nodal positions continue the lattice across the x pads
+    pos = torch.stack(
+        [
+            (ix.to(f64) * hx).expand(xs_pad, ys, zs),
+            (iy.to(f64) * hy).expand(xs_pad, ys, zs),
+            (iz.to(f64) * hz).expand(xs_pad, ys, zs),
+        ],
+        dim=-1,
+    ).to(f32).reshape(xs_pad * ys * zs, 3)
+
+    # external force: gravity rides the mass counts; the traction plane adds
+    # face-area shares (the face-dim adjacency product)
+    t_axis, _ = _box_plane_slice(traction_plane, xs, (xs, ys, zs))
+    t_index = 0 if traction_plane[1] == "0" else (
+        xs - 1 if t_axis == 0 else (ys, zs)[t_axis - 1] - 1
+    )
+    face_adj = [ax_, ay_, az_]
+    face_adj[t_axis] = ((ix, iy, iz)[t_axis] == t_index).to(f64)
+    face = face_adj[0] * face_adj[1] * face_adj[2]
+    fd = [d for d in range(3) if d != t_axis]
+    face_area = (hx, hy, hz)[fd[0]] * (hx, hy, hz)[fd[1]]
+    cmg = cm * np.asarray(gravity, np.float64)
+    a4t = (face_area / 4.0) * np.asarray(traction, np.float64)
+    force = torch.stack(
+        [counts * float(cmg[c]) + face * float(a4t[c]) for c in range(3)]
+    ).to(f32)
+
+    from ..ops.structured import class_stencil_table
+
+    table = class_stencil_table((hx, hy, hz), lam0, mu0)
+    model = StructuredModel(
+        lam_grid=lam,
+        mu_grid=mu,
+        mass_grid=mass,
+        bc_mask=bc,
+        bc_value=vals,
+        position0=pos,
+        stencil_table=torch.as_tensor(table, device=device),
+        nx=nx,
+        ny=ny,
+        nz=nz,
+        # pad planes sit at the end of the x-major flat order, so the real
+        # nodes stay a contiguous prefix
+        node_count=xs * ys * zs,
+        padded_node_count=xs_pad * ys * zs,
+        pad_planes=pad_planes,
+        spacing=(hx, hy, hz),
+        lam0=lam0,
+        mu0=mu0,
+        m8=float(np.float32(cm * 8.0)),
+    )
+    return model, force

@@ -1,0 +1,132 @@
+"""Build the CUDA kernels under ``civiwave_tpu_torch/csrc`` and bind them.
+
+The ``.cu`` sources expose a plain C interface.  At first use they are
+compiled by ``nvcc`` in one call into a shared library under
+``civiwave_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
+``ctypes``.  The library's name carries a hash of the sources and the
+flags, so an edited source rebuilds and an unchanged one is reused within
+a checkout.  Nothing here runs at import time: the CPU tests import every
+module on hosts without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C entry points and their argument types (each returns the cudaError_t
+# of its launch as an int)
+_SIGNATURES = {
+    # x, bc, stencil, out, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
+    "civi_keff_structured": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    # pc_table, r, bc, z, X, Y, Z, nx, ny, nz, stream
+    "civi_block_jacobi_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # pc_table, stencil, r, bc, u, w, partials, X, Y, Z, nx, ny, nz,
+    # ss, mf, m8, stream
+    "civi_pc_keff_structured": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+}
+
+
+@dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when an up-to-date library was reused
+    log: str  # nvcc/ptxas output of the build ("" when reused)
+
+
+def _sources():
+    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.isfile(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME, /usr/local/cuda): the CUDA "
+        "kernels are built from csrc/ at first use"
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; cached per process."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    so = BUILD_DIR / f"libcivi_kernels_{digest.hexdigest()[:16]}.so"
+    build_seconds, log = 0.0, ""
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [
+            _nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp),
+            *(str(s) for s in sorted(CSRC_DIR.glob("*.cu"))),
+        ]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_seconds = time.perf_counter() - start
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{log}"
+            )
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.civi_error_string.argtypes = [ctypes.c_int]
+    lib.civi_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(lib=lib, path=so, build_seconds=build_seconds, log=log)
+
+
+def check_launch(library: KernelLibrary, name: str, code: int) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        text = library.lib.civi_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} ({text}) at launch")
+
+
+def check_tensor(t, name: str, shape, dtype, device) -> None:
+    """Validate a tensor handed to a kernel: device, dtype, shape and
+    contiguity (the kernels index dense row-major buffers)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

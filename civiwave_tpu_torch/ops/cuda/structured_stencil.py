@@ -1,0 +1,138 @@
+"""Wrappers of the structured-operator kernels K1 and K2, with their plain
+versions.
+
+K1, ``keff_structured`` (``csrc/keff_structured.cu``), replaces the Pallas
+kernel ``apply_keff_fused_pallas`` (civiwave_tpu/ops/pallas/
+structured_stencil.py:931, pallas_call at :1041/:1068): the complete
+``bc ? x : ss * K(xs) + mf * mass * xs`` in one pass.
+
+K2, ``pc_keff_structured`` (``csrc/pc_keff_structured.cu``), replaces
+``apply_pc_keff_fused_pallas`` (structured_stencil.py:820, pallas_call at
+:895): ``u = M^-1 r`` from the (6, 3, 3, 3) class table and ``w = K_eff u``
+in one launch, plus with ``with_dots`` the per-(x, y)-row f32 partials of
+(r, u), (r, r) and (w, u), summed here in the reduction dtype.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises (f32 only, contiguous, shapes of the model).  Each wrapper counts
+its launches in ``<wrapper>.launches``, a plain int that only a launch
+increments.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+
+def _launch_args(model, residual_or_x):
+    """Common shape/device checks; returns (library, device, stream)."""
+    dev = residual_or_x.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    shape = model.vector_shape
+    _build.check_tensor(residual_or_x, "vector", shape, torch.float32, dev)
+    _build.check_tensor(model.bc_mask, "bc_mask", shape, torch.bool, dev)
+    _build.check_tensor(
+        model.stencil_table, "stencil_table", (27, 27, 3, 3), torch.float32,
+        dev,
+    )
+    return _build.load_library(), dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def apply_keff_fused_plain(model, x, stiffness_scale, mass_factor):
+    """Plain PyTorch K_eff * x (the reference's XLA form: interior stencil
+    minus inclusion-exclusion corrections, envelope by select)."""
+    from ..structured import apply_keff_structured_plain
+
+    return apply_keff_structured_plain(model, x, stiffness_scale, mass_factor)
+
+
+def apply_keff_fused(model, x, stiffness_scale, mass_factor):
+    """K1: the complete K_eff * x; kernel on CUDA, plain version on CPU."""
+    if x.device.type == "cpu":
+        return apply_keff_fused_plain(model, x, stiffness_scale, mass_factor)
+    library, dev, stream = _launch_args(model, x)
+    out = torch.empty_like(x)
+    X, Y, Z = model.grid_shape
+    with torch.cuda.device(dev):
+        code = library.lib.civi_keff_structured(
+            x.data_ptr(), model.bc_mask.data_ptr(),
+            model.stencil_table.data_ptr(), out.data_ptr(),
+            X, Y, Z, model.nx, model.ny, model.nz,
+            float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
+            float(np.float32(model.m8)), stream,
+        )
+    _build.check_launch(library, "keff_structured", code)
+    apply_keff_fused.launches += 1
+    return out
+
+
+apply_keff_fused.launches = 0
+
+
+def apply_pc_keff_fused_plain(
+    model, table, residual, stiffness_scale, mass_factor, *,
+    with_dots: bool = False, reduction_dtype=torch.float64,
+):
+    """Plain PyTorch (u, w[, dots]): the class-table apply, then the plain
+    operator, then the three dots via fused_dots."""
+    from ...solver.pcg import fused_dots
+    from ..structured import (
+        apply_compact_preconditioner_structured_plain,
+        apply_keff_structured_plain,
+    )
+
+    u = apply_compact_preconditioner_structured_plain(model, table, residual)
+    w = apply_keff_structured_plain(model, u, stiffness_scale, mass_factor)
+    if not with_dots:
+        return u, w
+    gamma, delta, rr = fused_dots(
+        [(residual, u), (w, u), (residual, residual)], reduction_dtype
+    )
+    return u, w, (gamma, delta, rr)
+
+
+def apply_pc_keff_fused(
+    model, table, residual, stiffness_scale, mass_factor, *,
+    with_dots: bool = False, reduction_dtype=torch.float64,
+):
+    """K2: ``(u, w)`` or ``(u, w, (gamma, delta, rr))`` with gamma = (r,u),
+    delta = (w,u), rr = (r,r) in ``reduction_dtype``; kernel on CUDA,
+    plain version on CPU."""
+    if residual.device.type == "cpu":
+        return apply_pc_keff_fused_plain(
+            model, table, residual, stiffness_scale, mass_factor,
+            with_dots=with_dots, reduction_dtype=reduction_dtype,
+        )
+    library, dev, stream = _launch_args(model, residual)
+    _build.check_tensor(table, "pc_table", (6, 3, 3, 3), torch.float32, dev)
+    X, Y, Z = model.grid_shape
+    u = torch.empty_like(residual)
+    w = torch.empty_like(residual)
+    # rows of (r,u), (r,r), (w,u) partials — each (x, y) row reduced over z
+    # and the 3 components inside one block
+    partials = (
+        torch.empty((3, X, Y), dtype=torch.float32, device=dev)
+        if with_dots else None
+    )
+    with torch.cuda.device(dev):
+        code = library.lib.civi_pc_keff_structured(
+            table.data_ptr(), model.stencil_table.data_ptr(),
+            residual.data_ptr(), model.bc_mask.data_ptr(),
+            u.data_ptr(), w.data_ptr(),
+            partials.data_ptr() if with_dots else None,
+            X, Y, Z, model.nx, model.ny, model.nz,
+            float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
+            float(np.float32(model.m8)), stream,
+        )
+    _build.check_launch(library, "pc_keff_structured", code)
+    apply_pc_keff_fused.launches += 1
+    if not with_dots:
+        return u, w
+    gamma, rr, delta = partials.to(reduction_dtype).sum(dim=(1, 2))
+    return u, w, (gamma, delta, rr)
+
+
+apply_pc_keff_fused.launches = 0

@@ -1,0 +1,531 @@
+"""Structured-grid operators in component-separated (3, X, Y, Z) layout.
+
+Port of :mod:`civiwave_tpu.ops.structured` for homogeneous grids (the
+heterogeneous corner-gather operator waits).  Same math as the
+unstructured hex path (2x2x2 Gauss, tensor-form isotropic stress).
+
+For a uniform homogeneous grid the assembled interior operator is a
+constant 27-tap stencil of 3x3 blocks: ``out[b][n] = sum_d sum_c
+C[d][b][c] * u[c][n+d]``.  The constant stencil assumes full element
+coverage; the plain form recovers the exact operator by inclusion-exclusion
+boundary corrections (ghost face slabs, edge beams and corner cells are
+lower-dimensional constant stencils applied to the boundary planes):
+
+    real = full - (sum faces - sum edges + sum corners)
+
+The CUDA kernels (``ops/cuda``) evaluate the same operator from one
+*per-boundary-class* table instead (:func:`class_stencil_table`): a node's
+stencil depends only on whether it sits on the low face, in the interior
+or on the high face of each axis, so 27 classes x 27 offsets of 3x3 blocks
+carry every node's exact taps and no correction pass is needed.
+
+Constrained rows (Dirichlet, dead +X pad planes) use the sanitize /
+identity-row envelope: ``bc ? x : ss * K(xs) + mf * mass * xs`` with
+``xs = where(bc, 0, x)``, written by select so constrained outputs keep the
+input's sign (+0.0 stays +0.0).
+
+Dispatch is on the tensor's device: a CUDA tensor goes to the kernel
+wrapper (which raises on anything but f32), a CPU tensor to the plain
+version.  There are no size thresholds.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..mesh.structured import CORNERS, StructuredModel
+from .cuda import block_jacobi_apply as _k3
+from .cuda import structured_stencil as _k12
+
+_DET_TOL = 1.0e-12
+
+
+# --------------------------------------------------------------------------
+# constant tables (numpy, cached per spacing/material)
+# --------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=32)
+def _element_tables(spacing: Tuple[float, float, float]):
+    """Constant Gauss gradient table for one uniform cell: (8gp, 8l, 3), (8,)."""
+    from ..mesh.preprocess import hex_gradients
+
+    corner = np.array(CORNERS, np.float64) * np.asarray(spacing, np.float64)
+    grads, gp_vol = hex_gradients(corner[None])
+    return grads[0], gp_vol[0]
+
+
+@lru_cache(maxsize=32)
+def _pair_matrices(spacing: Tuple[float, float, float]):
+    """Constant 24x24 per-element operators: K_e = lam*Klam + mu*Kmu.
+
+    Klam[l,b,m,c] = sum_gp V g[gp,l,b] g[gp,m,c]              (volumetric)
+    Kmu[l,b,m,c]  = d_bc sum_gp V g[gp,l,:].g[gp,m,:]
+                    + sum_gp V g[gp,l,c] g[gp,m,b]            (deviatoric)
+    """
+    grads, gp_vol = _element_tables(spacing)
+    klam = np.einsum("g,glb,gmc->lbmc", gp_vol, grads, grads)
+    kmu1 = np.einsum("g,gla,gma->lm", gp_vol, grads, grads)
+    kmu = np.zeros((8, 3, 8, 3))
+    for b in range(3):
+        kmu[:, b, :, b] += kmu1
+    kmu += np.einsum("g,glc,gmb->lbmc", gp_vol, grads, grads)
+    return klam, kmu
+
+
+def _restricted_stencil(kfull: np.ndarray, fixed: Dict[int, int]) -> np.ndarray:
+    """Assembled stencil over corner pairs restricted to fixed axis slots.
+
+    ``fixed[axis] = s`` keeps only pairs with both corners at slot ``s`` on
+    that axis (s=1: the ghost slab sits on the low side of the plane, s=0:
+    high side).  Free axes become tap dims indexed by (offset + 1), where
+    offset = corner_m - corner_l (input node relative to output node).
+    Returns taps of shape (3,)*len(free) + (3, 3).
+    """
+    free = [a for a in range(3) if a not in fixed]
+    out = np.zeros((3,) * len(free) + (3, 3))
+    for l, cl in enumerate(CORNERS):
+        for m, cm in enumerate(CORNERS):
+            if any(cl[a] != s or cm[a] != s for a, s in fixed.items()):
+                continue
+            idx = tuple(cm[a] - cl[a] + 1 for a in free)
+            out[idx] += kfull[l, :, m, :]
+    return out
+
+
+@lru_cache(maxsize=32)
+def _stencil_tables(spacing, lam0: float, mu0: float):
+    """All constant stencils for a homogeneous grid (see module docstring)."""
+    klam, kmu = _pair_matrices(spacing)
+    kfull = lam0 * klam + mu0 * kmu
+    faces = {}
+    edges = {}
+    corners = {}
+    for axis in range(3):
+        for side in (0, 1):  # 0 = low boundary plane, 1 = high
+            faces[(axis, side)] = _restricted_stencil(kfull, {axis: 1 - side})
+    for a1 in range(3):
+        for a2 in range(a1 + 1, 3):
+            for s1 in (0, 1):
+                for s2 in (0, 1):
+                    edges[(a1, s1, a2, s2)] = _restricted_stencil(
+                        kfull, {a1: 1 - s1, a2: 1 - s2}
+                    )
+    for sx in (0, 1):
+        for sy in (0, 1):
+            for sz in (0, 1):
+                corners[(sx, sy, sz)] = _restricted_stencil(
+                    kfull, {0: 1 - sx, 1: 1 - sy, 2: 1 - sz}
+                )
+    interior = _restricted_stencil(kfull, {})
+    return interior, faces, edges, corners
+
+
+# local corner slots a node may occupy in its incident cells, per axis
+# boundary class: low face (0) is slot 0 of the cell above it, high face (2)
+# slot 1 of the cell below, interior (1) both
+_CLASS_SLOTS = {0: (0,), 1: (0, 1), 2: (1,)}
+
+
+@lru_cache(maxsize=32)
+def class_stencil_table(spacing, lam0: float, mu0: float) -> np.ndarray:
+    """Per-boundary-class assembled stencil, (27, 27, 3, 3) f32.
+
+    ``table[(cx*3+cy)*3+cz, ((dx+1)*3+(dy+1))*3+(dz+1)][b, c]`` is the
+    exact 3x3 tap coupling input component c at node n+d to output
+    component b at a node of class (cx, cy, cz): the sum of ``kfull[l, :,
+    m, :]`` over the corner pairs (l, m) with offset cm - cl = d whose
+    output corner l sits in a slot the class allows on every axis.  It
+    equals the interior stencil minus the inclusion-exclusion corrections
+    of :func:`_stencil_tables` node by node.  A node's class on an axis of
+    n cells at index i is 0 at i == 0, 2 at i >= n (the +X dead pad planes
+    land there; they are constrained, so their taps are never used) and 1
+    otherwise; n == 1 has no interior class.
+    """
+    klam, kmu = _pair_matrices(tuple(spacing))
+    kfull = lam0 * klam + mu0 * kmu
+    table = np.zeros((3, 3, 3, 3, 3, 3, 3, 3))
+    for cls in np.ndindex(3, 3, 3):
+        for l, cl in enumerate(CORNERS):
+            if any(cl[a] not in _CLASS_SLOTS[cls[a]] for a in range(3)):
+                continue
+            for m, cm in enumerate(CORNERS):
+                d = tuple(cm[a] - cl[a] + 1 for a in range(3))
+                table[cls + d] += kfull[l, :, m, :]
+    return np.ascontiguousarray(table.reshape(27, 27, 3, 3).astype(np.float32))
+
+
+def axis_classes(size: int, cells: int) -> np.ndarray:
+    """Boundary class (0 low face / 1 interior / 2 high face and beyond) of
+    each of ``size`` node positions along an axis of ``cells`` cells."""
+    idx = np.arange(size)
+    return np.where(idx == 0, 0, np.where(idx >= cells, 2, 1))
+
+
+# --------------------------------------------------------------------------
+# plain stencil application (the port of the XLA forms)
+# --------------------------------------------------------------------------
+
+
+def _axpy_rows(rows, window, blk, b_range=range(3)):
+    """rows[b] += sum_c f32(blk[b, c]) * window[c], skipping zero taps."""
+    for b in b_range:
+        for c in range(3):
+            w = float(blk[b, c])
+            if w == 0.0:
+                continue
+            term = window[c] * float(np.float32(w))
+            rows[b] = term if rows[b] is None else rows[b] + term
+    return rows
+
+
+def _stack_rows(rows, shape, like: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
+        [r if r is not None else like.new_zeros(shape) for r in rows]
+    )
+
+
+def _apply_taps(v: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
+    """Apply a constant block stencil to ``v`` (3, *spatial) with zero-padded
+    boundaries; taps has shape (3,)*nd + (3, 3), nd = spatial rank."""
+    nd = v.ndim - 1
+    vp = F.pad(v, (1, 1) * nd) if nd else v
+    spatial = tuple(v.shape[1:])
+    rows = [None, None, None]
+    for idx in np.ndindex(*taps.shape[:nd]):
+        window = vp[(slice(None),) + tuple(
+            slice(t, t + s) for t, s in zip(idx, spatial)
+        )]
+        _axpy_rows(rows, window, taps[idx])
+    return _stack_rows(rows, spatial, v)
+
+
+def _apply_taps_axis(plane: torch.Tensor, taps: np.ndarray, axis_pos: int):
+    """Apply a 1D block stencil (taps (3, 3, 3)) along one spatial axis of a
+    (3, d1, d2) plane, at every position of the other axis."""
+    pad = [0, 0, 0, 0]  # F.pad order: last dim first
+    pad[2 * (1 - axis_pos)] = pad[2 * (1 - axis_pos) + 1] = 1
+    vp = F.pad(plane, pad)
+    size = plane.shape[1 + axis_pos]
+    rows = [None, None, None]
+    for t in range(3):
+        sl = [slice(None)] * plane.ndim
+        sl[1 + axis_pos] = slice(t, t + size)
+        _axpy_rows(rows, vp[tuple(sl)], taps[t])
+    return _stack_rows(rows, tuple(plane.shape[1:]), plane)
+
+
+def _matvec_const(plane: torch.Tensor, blk: np.ndarray) -> torch.Tensor:
+    """Pointwise constant 3x3 matvec over a (3, ...) field."""
+    rows = _axpy_rows([None, None, None], plane, blk)
+    return _stack_rows(rows, tuple(plane.shape[1:]), plane)
+
+
+def _onehot(size: int, index: int, like: torch.Tensor) -> torch.Tensor:
+    m = torch.zeros(size, dtype=torch.float32, device=like.device)
+    m[index] = 1.0
+    return m
+
+
+def _face_correction(model: StructuredModel, xs, axis, side, tables):
+    """Correction plane for one face, with its assigned edge/corner terms
+    folded in as dense masked ops (one-hot row/point masks)."""
+    _, faces, edges, corners = tables
+    hi = (model.nx, model.ny, model.nz)
+    plane_sl = [slice(None)] * 4
+    plane_sl[1 + axis] = 0 if side == 0 else hi[axis]
+    plane_sl = tuple(plane_sl)
+    plane = xs[plane_sl]  # (3, d1, d2)
+    corr = _apply_taps(plane, faces[(axis, side)])
+    rem = [a for a in range(3) if a != axis]  # plane's spatial axes
+    d1, d2 = plane.shape[1], plane.shape[2]
+    # edges assigned to their lower-axis face: sign flips inside corr
+    # (out -= corr, so -edge here means +edge in out)
+    for (a1, s1, a2, s2), edge_taps in edges.items():
+        if a1 != axis or s1 != side:
+            continue
+        pos = rem.index(a2)  # plane axis the edge line is pinned on
+        pinned = 0 if s2 == 0 else hi[a2]
+        mask = (
+            _onehot(d1, pinned, xs)[None, :, None]
+            if pos == 0
+            else _onehot(d2, pinned, xs)[None, None, :]
+        )
+        corr = corr - mask * _apply_taps_axis(plane, edge_taps, 1 - pos)
+    # corners assigned to their x face (+corner here -> -corner in out)
+    if axis == 0:
+        for (sx, sy, sz), corner_taps in corners.items():
+            if sx != side:
+                continue
+            mask = (
+                _onehot(d1, 0 if sy == 0 else hi[1], xs)[None, :, None]
+                * _onehot(d2, 0 if sz == 0 else hi[2], xs)[None, None, :]
+            )
+            corr = corr + mask * _matvec_const(plane, corner_taps)
+    return plane_sl, corr
+
+
+def _apply_homogeneous_stiffness(model: StructuredModel, xs: torch.Tensor):
+    """Exact assembled K*xs for a uniform homogeneous grid: interior
+    constant stencil minus the six face corrections (edge and corner terms
+    folded into the face buffers)."""
+    tables = _stencil_tables(model.spacing, model.lam0, model.mu0)
+    out = _apply_taps(xs, tables[0])
+    for (axis, side) in tables[1]:
+        plane_sl, corr = _face_correction(model, xs, axis, side, tables)
+        out[plane_sl] -= corr
+    return out
+
+
+def apply_keff_structured_plain(
+    model: StructuredModel, x: torch.Tensor, stiffness_scale, mass_factor
+) -> torch.Tensor:
+    """K_eff * x, plain PyTorch (the XLA form of the reference): sanitize ->
+    stiffness -> scale -> mass term -> identity rows.  Any float dtype, any
+    device."""
+    xs = x.masked_fill(model.bc_mask, 0.0)
+    stiff = _apply_homogeneous_stiffness(model, xs)
+    out = stiff * float(stiffness_scale)
+    out = out + (model.mass_grid.to(x.dtype) * float(mass_factor))[None] * xs
+    return torch.where(model.bc_mask, x, out)
+
+
+def apply_keff_structured(
+    model: StructuredModel, x: torch.Tensor, stiffness_scale, mass_factor
+) -> torch.Tensor:
+    """K_eff * x in CSG layout: the K1 kernel on CUDA, the plain form on
+    CPU.  Absorbing faces (which add a1*C on face planes) wait for
+    ROADMAP A7."""
+    return _k12.apply_keff_fused(model, x, stiffness_scale, mass_factor)
+
+
+# --------------------------------------------------------------------------
+# block-Jacobi preconditioner (CSG layout)
+# --------------------------------------------------------------------------
+
+
+def assemble_node_blocks_structured(
+    model: StructuredModel, stiffness_scale, mass_factor
+) -> torch.Tensor:
+    """Per-node 3x3 K_eff diagonal blocks, (3, 3, X, Y, Z) f32.
+
+    Per corner l the gp-summed diagonal block is
+    ``scale * [(lam+mu) A_l + mu b_l I]`` with constant
+    ``A_l = sum_gp V g_gl (x) g_gl`` and ``b_l = sum_gp V |g_gl|^2``
+    (pcg.cpp:270-378 without building Ke), scattered to the 8 corners.
+    """
+    grads, gp_vol = _element_tables(model.spacing)
+    a_const = np.einsum("g,gla,glb->lab", gp_vol, grads, grads)  # (8, 3, 3)
+    b_const = np.einsum("g,gla,gla->l", gp_vol, grads, grads)  # (8,)
+    nx, ny, nz = model.nx, model.ny, model.nz
+
+    ss = float(np.float32(stiffness_scale))
+    lam_mu = (model.lam_cells + model.mu_cells) * ss
+    mu = model.mu_cells * ss
+    mf = float(np.float32(mass_factor))
+
+    rows = []
+    for a in range(3):
+        for b in range(3):
+            acc = torch.zeros(
+                model.grid_shape, dtype=torch.float32, device=model.device
+            )
+            for l, (di, dj, dk) in enumerate(CORNERS):
+                contrib = lam_mu * float(np.float32(a_const[l, a, b]))
+                if a == b:
+                    contrib = contrib + mu * float(np.float32(b_const[l]))
+                acc[di : di + nx, dj : dj + ny, dk : dk + nz] += contrib
+            if a == b:
+                acc = acc + model.mass_grid * mf
+            rows.append(acc)
+    return torch.stack(rows).reshape(3, 3, *model.grid_shape)
+
+
+def _det3_lead(m: torch.Tensor) -> torch.Tensor:
+    return (
+        m[0, 0] * (m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1])
+        - m[0, 1] * (m[1, 0] * m[2, 2] - m[1, 2] * m[2, 0])
+        + m[0, 2] * (m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0])
+    )
+
+
+def _adjugate_lead(m: torch.Tensor) -> torch.Tensor:
+    return torch.stack(
+        [
+            m[1, 1] * m[2, 2] - m[1, 2] * m[2, 1],
+            m[0, 2] * m[2, 1] - m[0, 1] * m[2, 2],
+            m[0, 1] * m[1, 2] - m[0, 2] * m[1, 1],
+            m[1, 2] * m[2, 0] - m[1, 0] * m[2, 2],
+            m[0, 0] * m[2, 2] - m[0, 2] * m[2, 0],
+            m[0, 2] * m[1, 0] - m[0, 0] * m[1, 2],
+            m[1, 0] * m[2, 1] - m[1, 1] * m[2, 0],
+            m[0, 1] * m[2, 0] - m[0, 0] * m[2, 1],
+            m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0],
+        ]
+    ).reshape(3, 3, *m.shape[2:])
+
+
+def _invert_spd_3x3_lead(blocks: torch.Tensor) -> torch.Tensor:
+    """Regularized SPD 3x3 inverse on leading axes (pcg.cpp:215-268)."""
+    det = _det3_lead(blocks)
+    singular = det.abs() < _DET_TOL
+
+    diag = torch.stack([blocks[0, 0], blocks[1, 1], blocks[2, 2]])
+    max_diag = diag.max(dim=0).values
+    epsilon = torch.clamp_min(max_diag * 1.0e-6 + 1.0e-12, 1.0e-6)
+    eye = torch.eye(3, dtype=blocks.dtype, device=blocks.device).reshape(
+        3, 3, *([1] * (blocks.ndim - 2))
+    )
+    regularized = torch.where(
+        singular[None, None], blocks + epsilon[None, None] * eye, blocks
+    )
+    det2 = _det3_lead(regularized)
+    still_singular = det2.abs() < _DET_TOL
+
+    inv_det = 1.0 / torch.where(still_singular, 1.0, det2)
+    inverse = _adjugate_lead(regularized) * inv_det[None, None]
+
+    reg_diag = torch.stack(
+        [regularized[0, 0], regularized[1, 1], regularized[2, 2]]
+    )
+    inv_diag = 1.0 / torch.clamp_min(reg_diag, 1.0e-6)
+    diag_only = inv_diag[:, None] * eye
+    return torch.where(still_singular[None, None], diag_only, inverse)
+
+
+def build_block_jacobi_inverse_structured(
+    model: StructuredModel, stiffness_scale, mass_factor
+) -> torch.Tensor:
+    """Symmetric-packed inverse blocks (6, X, Y, Z): [00, 11, 22, 01, 02, 12]
+    (pcg.cpp:479-503).  Constrained rows and columns are unreachable: PCG
+    clamps r to 0 there and the apply writes +0.0 on constrained outputs."""
+    blocks = assemble_node_blocks_structured(model, stiffness_scale, mass_factor)
+    inverse = _invert_spd_3x3_lead(blocks)
+    return torch.stack(
+        [
+            inverse[0, 0],
+            inverse[1, 1],
+            inverse[2, 2],
+            inverse[0, 1],
+            inverse[0, 2],
+            inverse[1, 2],
+        ]
+    )
+
+
+class CompactBlockJacobi(NamedTuple):
+    """Class-table block-Jacobi inverse for homogeneous uniform grids.
+
+    The assembled 3x3 node block depends only on the node's per-axis
+    boundary class (low face / interior / high face), so the per-node
+    (6, X, Y, Z) packed inverse carries exactly the (6, 3, 3, 3) table
+
+        inv[m, i, j, k] = table[m, x_class(i), y_class(j), z_class(k)].
+    """
+
+    table: torch.Tensor  # (6, 3, 3, 3) f32 — [comp, x-class, y-class, z-class]
+
+
+def build_compact_block_jacobi(
+    model: StructuredModel, stiffness_scale, mass_factor
+) -> CompactBlockJacobi:
+    """Compact form of :func:`build_block_jacobi_inverse_structured`: the
+    full per-node inverse (built only when dt changes — the stepper hoists
+    it) sliced at one representative node per class combination.
+    Degenerate extents (n == 1: no interior class) leave the interior
+    entry unused."""
+    full = build_block_jacobi_inverse_structured(
+        model, stiffness_scale, mass_factor
+    )
+    xsel = [0, min(1, model.nx), model.nx]
+    ysel = [0, min(1, model.ny), model.ny]
+    zsel = [0, min(1, model.nz), model.nz]
+    table = full[:, xsel][:, :, ysel][:, :, :, zsel]  # (6, 3, 3, 3)
+    return CompactBlockJacobi(table=table.contiguous())
+
+
+def apply_compact_preconditioner_structured_plain(
+    model: StructuredModel, table: torch.Tensor, residual: torch.Tensor
+) -> torch.Tensor:
+    """z = M^-1 r from the class table, plain PyTorch (the reference's XLA
+    form): the coefficient grids are broadcast products of a per-x-plane
+    table gather with one-hot y/z class vectors.  Constrained outputs are
+    +0.0 by select."""
+    x_planes, ys, zs = model.grid_shape
+    dev = residual.device
+    clsx = torch.as_tensor(axis_classes(x_planes, model.nx), device=dev)
+    tab_x = table[:, clsx]  # (6, X, 3, 3)
+    eye = np.eye(3, dtype=np.float32)
+    wy = eye[:, axis_classes(ys, model.ny)]  # (3, Y)
+    wz = eye[:, axis_classes(zs, model.nz)]  # (3, Z)
+
+    def coef(m):  # (X, Y, Z) coefficient map
+        t = tab_x[m]  # (X, 3, 3)
+        c = None
+        for a in range(3):
+            for b in range(3):
+                yz = torch.as_tensor(wy[a][:, None] * wz[b][None, :], device=dev)
+                term = t[:, a, b][:, None, None] * yz[None]
+                c = term if c is None else c + term
+        return c
+
+    c00, c11, c22, c01, c02, c12 = (coef(m) for m in range(6))
+    r0, r1, r2 = residual
+    z = torch.stack(
+        [
+            c00 * r0 + c01 * r1 + c02 * r2,
+            c01 * r0 + c11 * r1 + c12 * r2,
+            c02 * r0 + c12 * r1 + c22 * r2,
+        ]
+    )
+    return z.masked_fill(model.bc_mask, 0.0)
+
+
+def apply_compact_preconditioner_structured(
+    model: StructuredModel, pc: CompactBlockJacobi, residual: torch.Tensor
+) -> torch.Tensor:
+    """z = M^-1 r from the class table: the K3 kernel on CUDA, the plain
+    form on CPU."""
+    return _k3.apply_block_jacobi(model, pc.table, residual)
+
+
+def pc_keff_kernel_eligible(model: StructuredModel, pc, dtype) -> bool:
+    """Whether the fused pc+matvec(+dots) kernel K2 runs: class-table
+    preconditioner, f32 vectors, model on a CUDA device.  No size gates —
+    the CUDA kernels take any extent."""
+    return (
+        isinstance(pc, CompactBlockJacobi)
+        and dtype == torch.float32
+        and model.device.type == "cuda"
+    )
+
+
+def apply_pc_keff_structured(
+    model: StructuredModel, pc: CompactBlockJacobi, residual: torch.Tensor,
+    stiffness_scale, mass_factor,
+):
+    """(u, w) = (M^-1 r, K_eff u) — the back-to-back pc apply + matvec of
+    the Chronopoulos-Gear iteration: one K2 launch on CUDA, the
+    composition of the two plain forms on CPU."""
+    return _k12.apply_pc_keff_fused(
+        model, pc.table, residual, stiffness_scale, mass_factor
+    )
+
+
+def apply_pc_keff_dots_structured(
+    model: StructuredModel, pc: CompactBlockJacobi, residual: torch.Tensor,
+    stiffness_scale, mass_factor, reduction_dtype=torch.float64,
+):
+    """(u, w, (gamma, delta, rr)) with the three Chronopoulos-Gear dots
+    (r,u), (w,u), (r,r) reduced in ``reduction_dtype``: on CUDA emitted as
+    row partials by the same K2 pass; on CPU the composition followed by
+    :func:`~civiwave_tpu_torch.solver.pcg.fused_dots`."""
+    return _k12.apply_pc_keff_fused(
+        model, pc.table, residual, stiffness_scale, mass_factor,
+        with_dots=True, reduction_dtype=reduction_dtype,
+    )

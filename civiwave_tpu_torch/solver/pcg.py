@@ -1,0 +1,322 @@
+"""Block-Jacobi PCG on device tensors, driven by a host loop.
+
+Port of :mod:`civiwave_tpu.solver.pcg`.  The reference runs the whole solve
+as one ``lax.while_loop``; here the loop is Python, every vector operation
+and every reduction stays on the model's device, and the host reads the
+iteration's ``converged``/``breakdown`` flags once per iteration (one
+synchronisation).  The loop reproduces the reference's carry semantics
+exactly: after the flags are read, the host keeps the old carries where the
+reference's ``where(stop, old, new)`` / ``where(breakdown, old, new)``
+would, and counts ``iteration + where(breakdown, 0, 1)``, so iteration
+counts match.  (Batching k iterations per synchronisation behind CUDA
+graphs is later performance work, ROADMAP A12.)
+
+Precision contract (README.md:14, docs/spec.md:16 of the reference): FP32
+vectors in the hot loop, FP64 dot-product reductions.  alpha, beta and the
+dots are 0-d f64 device tensors, cast to f32 before each axpy.
+
+Dirichlet semantics at all five touchpoints (pcg.cpp:458-475, 530-546,
+674-686, 860, 903-914): sanitize input, identity rows in the operator,
+x=rhs / r=0 after the initial residual, and p zeroed on constrained axes.
+Degenerate denominators (|p.Ap| or |rho| < 1e-18) set ``breakdown`` and stop
+the loop with converged=False.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_BREAKDOWN_TOL = 1.0e-18
+_RHS_NORM_FLOOR = 1.0e-12  # pcg.cpp:774
+
+
+class PcgTelemetry(NamedTuple):
+    """Solve statistics (pcg.hpp:126-133).  The flags and the iteration
+    count are host values (the loop reads them anyway); the norms and step
+    scalars stay 0-d device tensors in the reduction dtype."""
+
+    iterations: int
+    residual_norm: torch.Tensor
+    rhs_norm: torch.Tensor
+    alpha_last: torch.Tensor
+    beta_last: torch.Tensor
+    converged: bool
+    breakdown: bool  # denominator/rho collapse
+
+
+def dot_f64(a: torch.Tensor, b: torch.Tensor, dtype=torch.float64):
+    """High-precision reduction over f32 solver vectors — the precision
+    contract.  fp64 is chunked as in the reference (pcg.cpp:170-207): the
+    f32 product is partially reduced along the minor axis (Z) in f32 and
+    only the partials accumulate in ``dtype``.  ``dtype=float32`` is the
+    YAML ``precision.reductions: fp32`` opt-out."""
+    if dtype == torch.float32:
+        return (a.to(torch.float32) * b.to(torch.float32)).sum()
+    prod = a * b  # f32 vectors stay f32 (chunked); f64 vectors keep f64
+    if prod.ndim >= 2:
+        return prod.sum(dim=-1).to(dtype).sum()
+    return prod.to(dtype).sum()
+
+
+def _clamp_dirichlet(model, rhs, x, r):
+    """x = rhs, r = 0 on constrained axes (pcg.cpp:458-475)."""
+    x = torch.where(model.bc_mask, rhs.to(x.dtype), x)
+    r = r.masked_fill(model.bc_mask, 0.0)
+    return x, r
+
+
+def dot_partials(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 minor-axis-chunked partial products of one dot (the chunk phase
+    of :func:`dot_f64` without the final accumulate)."""
+    prod = a * b
+    if prod.ndim >= 2:
+        return prod.sum(dim=-1)
+    return prod
+
+
+def fused_dots(pairs, dtype=torch.float64) -> torch.Tensor:
+    """k dot products reduced in one pass: returns a (k,) tensor of the
+    stacked f32 chunk partials accumulated in ``dtype``."""
+    stacked = torch.stack([dot_partials(a, b) for a, b in pairs])
+    axes = tuple(range(1, stacked.ndim))
+    return stacked.to(dtype).sum(dim=axes)
+
+
+def _flags(*conds: torch.Tensor):
+    """Read boolean 0-d device tensors on the host in one transfer."""
+    return [bool(v) for v in torch.stack(conds).tolist()]
+
+
+def solve_pcg(
+    model,
+    rhs: torch.Tensor,
+    stiffness_scale,
+    mass_factor,
+    relative_tolerance,
+    max_iterations,
+    x0: torch.Tensor,
+    warm_start: bool = True,
+    reduction_dtype=torch.float64,
+    vector_dtype=torch.float32,
+    preconditioner=None,
+    variant: str = "classic",
+):
+    """PCG solve; returns (solution, PcgTelemetry).
+
+    ``preconditioner``: a prebuilt ``model.build_preconditioner(ss, mf)`` to
+    reuse across solves (the stepper hoists it and rebuilds on dt changes
+    only).  ``variant``: 'classic' is the reference's 3-dot loop
+    (pcg.cpp:830-915); 'fused' the Chronopoulos-Gear single-reduction
+    recurrence (:func:`solve_pcg_fused`); 'auto' picks 'fused' where the
+    model runs the fused pc+matvec+dots kernel (CUDA, f32) and 'classic'
+    otherwise.  'pipelined' (Ghysels-Vanroose) waits for ROADMAP A9.
+    """
+    block_inverse = (
+        model.build_preconditioner(stiffness_scale, mass_factor)
+        if preconditioner is None
+        else preconditioner
+    )
+    if variant == "auto":
+        variant = (
+            "fused"
+            if model.prefers_fused_pcg(block_inverse, vector_dtype)
+            else "classic"
+        )
+    if variant == "fused":
+        return solve_pcg_fused(
+            model, rhs, stiffness_scale, mass_factor, relative_tolerance,
+            max_iterations, x0, warm_start=warm_start,
+            reduction_dtype=reduction_dtype, vector_dtype=vector_dtype,
+            preconditioner=block_inverse,
+        )
+    if variant == "pipelined":
+        raise NotImplementedError(
+            "solver.variant 'pipelined' is not ported yet (ROADMAP A9)"
+        )
+    if variant != "classic":
+        raise ValueError(f"unknown PCG variant {variant!r}")
+    f32 = vector_dtype
+    rdt = reduction_dtype
+    bc = model.bc_mask
+
+    def rdot(a, b):
+        return dot_f64(a, b, rdt)
+
+    x = x0 if warm_start else torch.zeros_like(x0)
+
+    ax = model.apply_keff(x, stiffness_scale, mass_factor)
+    r = (rhs - ax).to(f32)
+    x, r = _clamp_dirichlet(model, rhs, x, r)
+
+    rhs_norm_true = torch.sqrt(rdot(rhs, rhs))
+    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
+    tolerance = relative_tolerance * rhs_norm
+
+    residual_norm = torch.sqrt(rdot(r, r))
+    z = model.apply_preconditioner(block_inverse, r)
+    rho = rdot(r, z)
+    converged, rho_small = _flags(
+        residual_norm <= tolerance, rho.abs() < _BREAKDOWN_TOL
+    )
+    breakdown = (not converged) and rho_small
+    p = z.masked_fill(bc, 0.0).to(f32)
+    alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
+    beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
+
+    iteration = 0
+    while iteration < max_iterations and not converged and not breakdown:
+        ap = model.apply_keff(p, stiffness_scale, mass_factor)
+        denom = rdot(p, ap)
+        denom_small = denom.abs() < _BREAKDOWN_TOL
+        alpha = rho / torch.where(denom_small, 1.0, denom)
+
+        # f32 axpys with an f32 scalar, as the reference's pcg_axpy.slang.
+        # The per-iteration x/r Dirichlet re-clamp is an exact no-op by
+        # invariant (p is zero on constrained axes and the identity rows
+        # give ap = p = 0 there) and is elided, as in the reference.
+        alpha32 = alpha.to(f32)
+        x_new = x + alpha32 * p
+        r_new = r - alpha32 * ap
+
+        z = model.apply_preconditioner(block_inverse, r_new)
+        res_new = torch.sqrt(rdot(r_new, r_new))
+        rho_new = rdot(r_new, z)
+        rho_small = rho.abs() < _BREAKDOWN_TOL
+        beta = rho_new / torch.where(rho_small, 1.0, rho)
+
+        conv, denom_bd, rho_bd = _flags(
+            res_new <= tolerance, denom_small, rho_small
+        )
+        rho_bd = rho_bd and not conv
+        stop = conv or denom_bd or rho_bd
+        if not denom_bd:
+            x, r, residual_norm, alpha_last = x_new, r_new, res_new, alpha
+            iteration += 1
+        if not stop:
+            p = (z + beta.to(f32) * p).masked_fill(bc, 0.0)
+            rho, beta_last = rho_new, beta
+        converged = conv
+        breakdown = denom_bd or rho_bd
+
+    telemetry = PcgTelemetry(
+        iterations=iteration,
+        residual_norm=residual_norm,
+        rhs_norm=rhs_norm_true,
+        alpha_last=alpha_last,
+        beta_last=beta_last,
+        converged=converged,
+        breakdown=breakdown,
+    )
+    return x, telemetry
+
+
+def solve_pcg_fused(
+    model,
+    rhs: torch.Tensor,
+    stiffness_scale,
+    mass_factor,
+    relative_tolerance,
+    max_iterations,
+    x0: torch.Tensor,
+    warm_start: bool = True,
+    reduction_dtype=torch.float64,
+    vector_dtype=torch.float32,
+    preconditioner=None,
+):
+    """Chronopoulos-Gear PCG: ONE fused reduction per iteration.
+
+    Mathematically identical to classic PCG (Chronopoulos & Gear 1989), with
+    the three dot products rearranged to be mutually independent:
+
+        x += alpha p ; r -= alpha s          (s = A p, recurred)
+        u  = M^-1 r ; w = A u
+        gamma' = (r,u); delta = (w,u); rr = (r,r)
+        beta  = gamma'/gamma
+        alpha = gamma' / (delta - beta gamma'/alpha)
+        p = u + beta p ; s = w + beta s
+
+    On CUDA the pc apply, the matvec and the three dots are one K2 launch
+    (``model.apply_pc_keff_dots``).  The whole-iteration kernel of the
+    reference (``CIVIWAVE_MEGA_PCG``) waits for ROADMAP B6.
+    """
+    f32 = vector_dtype
+    rdt = reduction_dtype
+    bc = model.bc_mask
+
+    block_inverse = (
+        model.build_preconditioner(stiffness_scale, mass_factor)
+        if preconditioner is None
+        else preconditioner
+    )
+
+    x = x0 if warm_start else torch.zeros_like(x0)
+
+    ax = model.apply_keff(x, stiffness_scale, mass_factor)
+    r = (rhs - ax).to(f32)
+    x, r = _clamp_dirichlet(model, rhs, x, r)
+
+    u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
+    # one fused setup reduction: gamma0, delta0, ||r||^2 and ||rhs||^2
+    gamma, delta0, rr0, rhs2 = fused_dots(
+        [(r, u), (w, u), (r, r), (rhs, rhs)], rdt
+    )
+    rhs_norm_true = torch.sqrt(rhs2)
+    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
+    tolerance = relative_tolerance * rhs_norm
+
+    residual_norm = torch.sqrt(rr0)
+    delta_small = delta0.abs() < _BREAKDOWN_TOL
+    alpha = gamma / torch.where(delta_small, 1.0, delta0)
+    converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
+    breakdown = (not converged) and delta_bd
+
+    p = u.masked_fill(bc, 0.0).to(f32)
+    s = w.masked_fill(bc, 0.0).to(f32)
+    alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
+    beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
+
+    iteration = 0
+    while iteration < max_iterations and not converged and not breakdown:
+        alpha32 = alpha.to(f32)
+        x = x + alpha32 * p
+        r = r - alpha32 * s
+        # constrained axes: p and s are zero there by recurrence, so x stays
+        # = rhs and r stays = 0 bit for bit (the reference's elided clamp)
+        u, w, (gamma_new, delta, rr) = model.apply_pc_keff_dots(
+            block_inverse, r, stiffness_scale, mass_factor, rdt
+        )
+        residual_norm = torch.sqrt(rr)
+
+        gamma_small = gamma.abs() < _BREAKDOWN_TOL
+        beta = gamma_new / torch.where(gamma_small, 1.0, gamma)
+        alpha_denom = delta - beta * gamma_new / torch.where(
+            alpha.abs() < _BREAKDOWN_TOL, 1.0, alpha
+        )
+        denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
+        alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
+
+        conv, g_bd, d_bd = _flags(
+            residual_norm <= tolerance, gamma_small, denom_small
+        )
+        alpha_last = alpha  # the step just applied
+        iteration += 1
+        converged = conv
+        breakdown = (not conv) and (g_bd or d_bd)
+        if not (converged or breakdown):
+            beta32 = beta.to(f32)
+            p = (u + beta32 * p).masked_fill(bc, 0.0)
+            s = (w + beta32 * s).to(f32).masked_fill(bc, 0.0)
+            gamma, alpha, beta_last = gamma_new, alpha_new, beta
+
+    telemetry = PcgTelemetry(
+        iterations=iteration,
+        residual_norm=residual_norm,
+        rhs_norm=rhs_norm_true,
+        alpha_last=alpha_last,
+        beta_last=beta_last,
+        converged=converged,
+        breakdown=breakdown,
+    )
+    return x, telemetry

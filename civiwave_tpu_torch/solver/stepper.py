@@ -1,0 +1,360 @@
+"""Implicit Newmark-beta frame orchestration on device tensors.
+
+Port of :mod:`civiwave_tpu.solver.stepper` (the reference's
+newmark_stepper.cpp:1094-1399).  Step order preserved exactly:
+
+1. coefficients a0..a5 from the *current* dt (host f64 scalars);
+2. predictor u_pred/v_pred from the pre-step state;
+3. effective RHS from the pre-step state (NOT the predictor) with mass +
+   Rayleigh terms, and the beta_R * K * damping_rhs matvec through the
+   stiffness-only operator;
+4. Dirichlet RHS clamp (total-displacement form: rhs = bc_value);
+5. PCG with warm start + runtime/pause tolerance;
+6. update u = u_pred + d, a = d/(beta dt^2), v = v_pred + gamma/(beta dt) d.
+
+Every f64 -> f32 scalar cast of the reference is mirrored explicitly with
+``np.float32(...)``; the vector arithmetic then runs in f32 on the model's
+device.  ``dt``, the tolerance and the iteration cap are plain arguments:
+nothing is rebuilt when they change except the hoisted preconditioner,
+which depends on dt.  Checkpointing waits for ROADMAP A10.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config.schema import SolverSettings, TimeSettings
+from ..mesh.pack import SimState
+from ..physics.materials import RayleighCoefficients
+from .pcg import PcgTelemetry, solve_pcg
+
+
+@dataclass(frozen=True)
+class AdaptivePolicy:
+    """Adaptive dt knobs (newmark_stepper.hpp:56-63)."""
+
+    low_iteration_ratio: float = 0.3
+    increase_factor: float = 1.1
+    decrease_factor: float = 0.5
+
+
+@dataclass
+class StepTelemetry:
+    """Host-side per-frame telemetry (newmark_stepper.hpp:68-79)."""
+
+    simulation_time: float
+    time_step: float
+    applied_tolerance: float
+    paused_mode: bool
+    dt_increased: bool = False
+    dt_decreased: bool = False
+    dt_clamped_min: bool = False
+    dt_clamped_max: bool = False
+    pcg_iterations: int = 0
+    pcg_residual_norm: float = 0.0
+    pcg_rhs_norm: float = 0.0
+    pcg_alpha_last: float = 0.0
+    pcg_beta_last: float = 0.0
+    pcg_converged: bool = False
+    pcg_breakdown: bool = False
+
+
+class StepOut(NamedTuple):
+    state: SimState
+    pcg: PcgTelemetry
+
+
+def effective_scalars(
+    dt: float,
+    rayleigh_alpha: float,
+    rayleigh_beta: float,
+    newmark_beta: float = 0.25,
+    newmark_gamma: float = 0.5,
+    vector_precision: str = "fp32",
+):
+    """(stiffness_scale, mass_factor) in the vector precision — bitwise the
+    values newmark_step derives from the same f64 dt
+    (newmark_stepper.cpp:1322-1326), for prebuilding the preconditioner."""
+    a0 = 1.0 / (newmark_beta * dt * dt)
+    a1 = newmark_gamma / (newmark_beta * dt)
+    scalar = np.float64 if vector_precision == "fp64" else np.float32
+    return (
+        scalar(1.0 + a1 * rayleigh_beta),
+        scalar(a0 + a1 * rayleigh_alpha),
+    )
+
+
+def newmark_step(
+    model,
+    state: SimState,
+    external_force: torch.Tensor,
+    dt: float,
+    tolerance: float,
+    max_iterations: int,
+    *,
+    rayleigh_alpha: float,
+    rayleigh_beta: float,
+    newmark_beta: float = 0.25,
+    newmark_gamma: float = 0.5,
+    warm_start: bool = True,
+    warm_start_policy: str = "predictor",
+    solver_variant: str = "auto",
+    reduction_precision: str = "fp64",
+    vector_precision: str = "fp32",
+    preconditioner=None,
+) -> StepOut:
+    """One implicit Newmark frame on the model's device.
+
+    ``vector_precision`` is the YAML ``precision.vectors`` knob: "fp32" is
+    the production contract, "fp64" the accuracy/debug mode (CPU only in
+    this port; the CUDA kernels are f32).
+    """
+    vdt = torch.float64 if vector_precision == "fp64" else torch.float32
+    sc = np.float64 if vector_precision == "fp64" else np.float32
+    dt = float(dt)
+    if state.displacement.dtype != vdt:
+        state = SimState(
+            *(v.to(vdt) for v in (
+                state.displacement, state.velocity,
+                state.acceleration, state.warm_x,
+            ))
+        )
+    external_force = external_force.to(vdt)
+
+    # coefficients (newmark.cpp:34-47) in f64 host scalars
+    beta, gamma = newmark_beta, newmark_gamma
+    a0 = 1.0 / (beta * dt * dt)
+    a1 = gamma / (beta * dt)
+    a2 = 1.0 / (beta * dt)
+    a3 = (1.0 / (2.0 * beta)) - 1.0
+    a4 = (gamma / beta) - 1.0
+    a5 = dt * ((gamma / (2.0 * beta)) - 1.0)
+
+    stiffness_scale = sc(1.0 + a1 * rayleigh_beta)
+    mass_factor = sc(a0 + a1 * rayleigh_alpha)
+
+    def s(value) -> float:  # f64 -> vector-precision scalar, explicitly
+        return float(sc(value))
+
+    u = state.displacement
+    v = state.velocity
+    acc = state.acceleration
+
+    # predictor from the pre-step state (newmark_stepper.cpp:1245-1286)
+    u_pred = u + s(dt) * v + s((0.5 - beta) * dt * dt) * acc
+    v_pred = v + s((1.0 - gamma) * dt) * acc
+
+    # effective RHS from the pre-step state (newmark_stepper.cpp:1162-1217)
+    mass = model.mass_b
+    mass_term = mass * (s(a0) * u + s(a2) * v + s(a3) * acc)
+    damping_rhs = s(a1) * u + s(a4) * v + s(a5) * acc
+    rhs = external_force + mass_term + s(rayleigh_alpha) * mass * damping_rhs
+    if rayleigh_beta != 0.0:
+        # stiffness-only operator (identity rows on constrained axes, as the
+        # reference adds beta_R * (K * damping_rhs) verbatim)
+        damping_output = model.apply_keff(damping_rhs, sc(1.0), sc(0.0))
+        rhs = rhs + s(rayleigh_beta) * damping_output
+
+    # Dirichlet RHS clamp: the total-displacement Newmark form, so the
+    # constrained solution component is the target itself
+    rhs = torch.where(model.bc_mask, model.bc_value.to(vdt), rhs)
+
+    # warm-start seed: "predictor" (default), "delta" (u_pred + previous
+    # correction) or "solution" (reference parity)
+    if warm_start_policy == "delta":
+        x_seed = u_pred + state.warm_x
+    elif warm_start_policy == "predictor":
+        x_seed = u_pred
+    else:
+        x_seed = state.warm_x
+
+    solution, pcg_telemetry = solve_pcg(
+        model,
+        rhs,
+        stiffness_scale,
+        mass_factor,
+        tolerance,
+        max_iterations,
+        x_seed,
+        warm_start=warm_start,
+        reduction_dtype=(
+            torch.float32 if reduction_precision == "fp32" else torch.float64
+        ),
+        vector_dtype=vdt,
+        preconditioner=preconditioner,
+        variant=solver_variant,
+    )
+
+    # state update (newmark_stepper.cpp:1288-1314) with delta = x - u_pred
+    delta = solution - u_pred
+    new_state = SimState(
+        displacement=u_pred + delta,
+        velocity=v_pred + s(gamma / (beta * dt)) * delta,
+        acceleration=s(1.0 / (beta * dt * dt)) * delta,
+        warm_x=delta if warm_start_policy == "delta" else solution,
+    )
+    return StepOut(state=new_state, pcg=pcg_telemetry)
+
+
+class NewmarkStepper:
+    """Host orchestration: one frame per ``step`` + the adaptive dt policy.
+
+    Mirrors cwf::gpu::newmark::Stepper (newmark_stepper.hpp:92-190): grow dt
+    x1.1 when iterations <= 0.3 * max, halve when non-converged, clamp to
+    [min_dt, max_dt] (newmark_stepper.cpp:1328-1367).
+    """
+
+    def __init__(
+        self,
+        model,
+        initial_state: SimState,
+        external_force: torch.Tensor,
+        rayleigh: RayleighCoefficients,
+        solver_settings: SolverSettings,
+        time_settings: TimeSettings,
+        adaptive_policy: AdaptivePolicy = AdaptivePolicy(),
+        newmark_beta: float = 0.25,
+        newmark_gamma: float = 0.5,
+        warm_start: bool = True,
+        reduction_precision: str = "fp64",
+        vector_precision: str = "fp32",
+        warm_start_policy: str | None = None,
+        solver_variant: str | None = None,
+    ) -> None:
+        self.model = model
+        self.state = initial_state
+        self.external_force = external_force
+        self.rayleigh = rayleigh
+        self.solver_settings = solver_settings
+        self.time_settings = time_settings
+        self.adaptive_policy = adaptive_policy
+        self.current_dt = (
+            time_settings.initial_dt if time_settings.initial_dt > 0.0 else 1.0e-3
+        )
+        self.accumulated_time = 0.0
+        self.frame_index = 0
+        self.newmark_beta = newmark_beta
+        self.newmark_gamma = newmark_gamma
+        self.warm_start_enabled = warm_start
+        self.reduction_precision = reduction_precision
+        self.vector_precision = vector_precision
+        self.warm_start_policy = (
+            warm_start_policy
+            if warm_start_policy is not None
+            else solver_settings.warm_start_policy
+        )
+        self.solver_variant = (
+            solver_variant if solver_variant is not None
+            else solver_settings.variant
+        )
+        # preconditioner hoisting: the build depends on dt only (through
+        # the K_eff scalars), so it is reused across frames and rebuilt when
+        # dt changes (the reference's ADR-17)
+        self._precond = None
+        self._precond_dt = None
+
+    @property
+    def node_count(self) -> int:
+        return self.model.node_count
+
+    @property
+    def dof_count(self) -> int:
+        return self.model.dof_count
+
+    def set_external_force(self, external_force: torch.Tensor) -> None:
+        self.external_force = external_force
+
+    def step(self, simulation_time_seconds: float, paused_mode: bool = False) -> StepTelemetry:
+        """Run one frame (newmark_stepper.cpp:1094-1160)."""
+        self.accumulated_time = simulation_time_seconds
+        tolerance = (
+            self.solver_settings.pause_tolerance
+            if paused_mode
+            else self.solver_settings.runtime_tolerance
+        )
+        if self._precond_dt != self.current_dt:
+            ss, mf = effective_scalars(
+                self.current_dt,
+                self.rayleigh.alpha,
+                self.rayleigh.beta,
+                self.newmark_beta,
+                self.newmark_gamma,
+                vector_precision=self.vector_precision,
+            )
+            self._precond = self.model.build_preconditioner(ss, mf)
+            self._precond_dt = self.current_dt
+        out = newmark_step(
+            self.model,
+            self.state,
+            self.external_force,
+            self.current_dt,
+            tolerance,
+            int(self.solver_settings.max_iterations),
+            rayleigh_alpha=self.rayleigh.alpha,
+            rayleigh_beta=self.rayleigh.beta,
+            newmark_beta=self.newmark_beta,
+            newmark_gamma=self.newmark_gamma,
+            warm_start=self.warm_start_enabled,
+            warm_start_policy=self.warm_start_policy,
+            solver_variant=self.solver_variant,
+            reduction_precision=self.reduction_precision,
+            vector_precision=self.vector_precision,
+            preconditioner=self._precond,
+        )
+        self.state = out.state
+        pcg = out.pcg
+        residual, rhs_norm, alpha_last, beta_last = torch.stack(
+            [pcg.residual_norm, pcg.rhs_norm, pcg.alpha_last, pcg.beta_last]
+        ).tolist()
+
+        telemetry = StepTelemetry(
+            simulation_time=simulation_time_seconds,
+            time_step=self.current_dt,
+            applied_tolerance=tolerance,
+            paused_mode=paused_mode,
+            pcg_iterations=pcg.iterations,
+            pcg_residual_norm=residual,
+            pcg_rhs_norm=rhs_norm,
+            pcg_alpha_last=alpha_last,
+            pcg_beta_last=beta_last,
+            pcg_converged=pcg.converged,
+            pcg_breakdown=pcg.breakdown,
+        )
+        self._adapt_timestep(telemetry)
+        self.frame_index += 1
+        self.accumulated_time = simulation_time_seconds + self.current_dt
+        return telemetry
+
+    def _adapt_timestep(self, telemetry: StepTelemetry) -> None:
+        """Grow/shrink/clamp dt (newmark_stepper.cpp:1328-1367)."""
+        if not self.time_settings.adaptive:
+            return
+        threshold = self.adaptive_policy.low_iteration_ratio * float(
+            self.solver_settings.max_iterations
+        )
+        if telemetry.pcg_iterations <= threshold:
+            self.current_dt *= self.adaptive_policy.increase_factor
+            telemetry.dt_increased = True
+        elif not telemetry.pcg_converged:
+            self.current_dt *= self.adaptive_policy.decrease_factor
+            telemetry.dt_decreased = True
+        if self.time_settings.min_dt > 0.0 and self.current_dt <= self.time_settings.min_dt:
+            self.current_dt = self.time_settings.min_dt
+            telemetry.dt_clamped_min = True
+        if self.time_settings.max_dt > 0.0 and self.current_dt >= self.time_settings.max_dt:
+            self.current_dt = self.time_settings.max_dt
+            telemetry.dt_clamped_max = True
+
+    # --- host views of the device state (unpadded nodal rows) ------------
+    def displacement(self) -> np.ndarray:
+        return self.model.to_nodal(self.state.displacement).cpu().numpy()
+
+    def velocity(self) -> np.ndarray:
+        return self.model.to_nodal(self.state.velocity).cpu().numpy()
+
+    def acceleration(self) -> np.ndarray:
+        return self.model.to_nodal(self.state.acceleration).cpu().numpy()
