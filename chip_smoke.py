@@ -6,18 +6,34 @@
 Phases, each printing its result:
 
 1. require CUDA; print the card (``nvidia-smi`` name and power limit);
-2. build the kernels from ``civiwave_tpu_torch/csrc`` with nvcc (sm_90a);
-3. hold each kernel (K1 keff_structured, K2 pc_keff_structured with and
-   without dots, K3 block_jacobi_apply) against its plain PyTorch version
-   on small grids, an odd grid with fixes on several faces and the full
-   255^3-cell grid, and time kernel and plain version with CUDA events;
-4. drive the port's main path at full width — ``build_simulation`` on the
+2. build the kernels from ``civiwave_tpu_torch/csrc`` with nvcc (sm_90a),
+   one nvcc process per source, all at once;
+3. structured route: hold each kernel (K1 keff_structured, K2
+   pc_keff_structured with and without dots, K3 block_jacobi_apply)
+   against its plain PyTorch version on small grids, an odd grid with
+   fixes on several faces and the full 255^3-cell grid, and time kernel
+   and plain version with CUDA events;
+4. structured main path at full width — ``build_simulation`` on the
    255^3-cell steel cantilever (50,331,648 DOF) — for 8 frames on the
-   'auto' (fused) PCG and 2 on 'classic', and check that every frame
-   converged, the state is finite and every kernel was launched;
-5. run the cantilever_box example (24x8x8, gravity, curve-ramped traction,
-   adaptive dt) for 10 frames on the GPU and on the CPU (plain versions)
-   and compare the trajectories.
+   'auto' (fused) PCG and 2 on 'classic': every frame converged, the state
+   is finite and every kernel was launched;
+5. the cantilever_box example (24x8x8, gravity, curve-ramped traction,
+   adaptive dt) for 10 frames on the GPU and on the CPU (plain versions);
+6. general gather path: hold K7 element_forces (tet and hex) and G1
+   assemble_csr against their plain versions on a 16^3 hex box, a 9^3 tet
+   box, a mixed tet+hex box, a shuffled 12^3 hex box and both 66^3 boxes,
+   and time them (CUDA events) at the 66^3 shapes;
+7. general_matvec_throughput's workload: 32 chained matvecs on the 66^3
+   hex box (902,289 DOF), GDOF/s;
+8. the general main path at full width — ``build_simulation`` on the
+   steel cantilever over ``synthetic://box/66,66,66,tet`` (1,724,976 tets,
+   902,289 DOF) — for 8 frames: iterations, steps/s, peak memory, launches;
+9. general_steps_per_s's workload: 8 Newmark steps on the shuffled
+   (RCM-renumbered) 34^3 hex box (128,625 DOF) with a prebuilt
+   preconditioner: steps/s and mean iterations (the reference recorded
+   25.0);
+10. examples/seismic_column_tet.yaml (tet Gmsh mesh, two materials, curve
+    traction) for 10 frames on the GPU and on the CPU.
 
 Any failed check exits non-zero.  The last two lines of stdout are a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.
@@ -44,7 +60,14 @@ U_TOL, A_TOL = 2.5e-4, 3e-3
 # least bytes per node a kernel must move: K1 and K3 read one f32 vector
 # (12 B) and the mask (3 B) and write one vector; K2 writes two
 KERNEL_BYTES_PER_NODE = {"keff": 27, "bj": 27, "pc": 39}
+# least f32 operations per node: the 27-neighbour 3x3 block stencil
+# (27 * 9 multiply-adds) plus the mass term and select; the 3x3 symmetric
+# class-table product; K2 both plus its three dot partials
+KERNEL_FLOPS_PER_NODE = {"keff": 498, "bj": 15, "pc": 531}
 HBM_TBPS = 3.35  # H100 SXM published device-memory bandwidth at 700 W
+F32_TFLOPS = 67.0  # H100 SXM published f32 rate outside the tensor cores
+GENERAL_N = 66  # bench.py's general-path box (66^3 cells, 902,289 DOF)
+ITERS_REF = 25.0  # BENCH_r05: PCG iterations per step, 34^3 shuffled box
 
 
 def fail(message: str) -> None:
@@ -73,6 +96,14 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms, "bytes" | "operations"): the larger of the bytes over
+    the card's memory rate and the operations over its f32 rate."""
+    t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
+    t_ops = flops / (F32_TFLOPS * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def check_close(name, out, ref, rel):
@@ -302,6 +333,427 @@ def trajectory_phase(device):
           flush=True)
 
 
+# --- general gather path -------------------------------------------------
+
+# least f32 operations per element of K7 (per Gauss point: G = 9 sums of
+# NL products, the trace, S, and f += grad^T S; plus the volume scale)
+K7_FLOPS = {"tet": 171, "hex": 2520}
+
+
+def general_counts():
+    """Launch counters of the general path's kernels, by JSON name."""
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+
+    return {
+        "element_forces_tet": k7.tet_element_forces.launches,
+        "element_forces_hex": k7.hex_element_forces.launches,
+        "assemble_csr": g1.assemble_keff.launches,
+    }
+
+
+def reset_general_counts():
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+
+    k7.tet_element_forces.launches = 0
+    k7.hex_element_forces.launches = 0
+    g1.assemble_keff.launches = 0
+
+
+def packed_model(mesh, cfg, device, **pads):
+    """Preprocess + pack a mesh on ``device`` (host seconds printed)."""
+    from civiwave_tpu_torch.mesh import pack, preprocess
+    from civiwave_tpu_torch.physics import materials
+
+    t0 = time.perf_counter()
+    pre = preprocess.run(mesh, cfg)
+    mats = [materials.make_properties(m) for m in cfg.materials]
+    model, _state, force = pack.build_packed_model(
+        mesh, pre, cfg, mats, device=device, **pads
+    )
+    torch.cuda.synchronize()
+    return model, force, time.perf_counter() - t0
+
+
+def random_vector(model, device):
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    return torch.randn(model.vector_shape, generator=gen, device=device)
+
+
+def check_general_kernels(label, model, x, ss, mf):
+    """K7 (each block present) and G1 against their plain versions, and
+    the whole operator against its plain form; returns {name: (abs, rel)}."""
+    from civiwave_tpu_torch.ops import apply_keff as gops
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+
+    errs = {}
+    for block, wrapper, count in (
+        ("tet", k7.tet_element_forces, model.padded_tet_count),
+        ("hex", k7.hex_element_forces, model.padded_hex_count),
+    ):
+        if count:
+            errs[f"element_forces_{block}"] = check_close(
+                f"K7 {block} {label}", wrapper(model, x, ss),
+                k7.element_forces_plain(model, x, ss, block), OP_TOL,
+            )
+    rows = k7.element_force_rows(model, x, ss)
+    for name, m in (("assemble_csr", mf), ("assemble_csr mf=0", 0.0)):
+        errs[name] = check_close(
+            f"G1 {label} ({name})", g1.assemble_keff(model, rows, x, m),
+            g1.assemble_keff_plain(model, rows, x, m), OP_TOL,
+        )
+    errs["apply_keff"] = check_close(
+        f"apply_keff {label}", gops.apply_keff(model, x, ss, mf),
+        gops.apply_keff_plain(model, x, ss, mf), OP_TOL,
+    )
+    torch.cuda.synchronize()
+    print(f"general kernels vs plain [{label}: {model.tet_count:,} tets, "
+          f"{model.hex_count:,} hexes, {model.node_count:,} nodes, D "
+          f"{model.csr_degree}] abs/rel err: " + ", ".join(
+              f"{k}={a:.3e}/{r:.2e}" for k, (a, r) in errs.items()), flush=True)
+    return errs
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def time_k7(model, x, ss, block):
+    """K7 on one block: (ms, plain ms, least bytes, least flops)."""
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+
+    wrapper = k7.tet_element_forces if block == "tet" else k7.hex_element_forces
+    out = torch.empty(
+        (model.force_row_count, 3), dtype=torch.float32, device=x.device
+    )
+    if block == "tet":
+        tables = (model.conn_tet, model.grads_tet, model.vol_tet,
+                  model.lam_tet, model.mu_tet)
+        e, nl = model.tet_count, 4
+        out = out[: model.padded_tet_count * 4]
+    else:
+        tables = (model.conn_hex, model.grads_hex, model.vol_hex,
+                  model.lam_hex, model.mu_hex)
+        e, nl = model.hex_count, 8
+        out = out[model.padded_tet_count * 4:]
+    ms = time_ms(lambda: wrapper(model, x, ss, out=out), 20)
+    plain_ms = time_ms(lambda: k7.element_forces_plain(model, x, ss, block), 3)
+    # the tables and the force rows as stored (padded elements included)
+    least = nbytes(x, model.bc_mask, *tables, out)
+    return ms, plain_ms, least, K7_FLOPS[block] * e
+
+
+def time_g1(model, x, mf):
+    """G1: (ms, plain ms, least bytes, least flops, library ms).  The
+    library call is one CSR sparse-dense product (torch.sparse.mm) over the
+    same incidences — the gather-sum only, without mass and identity rows;
+    timed as a yardstick, never used by the port."""
+    from civiwave_tpu_torch.ops import apply_keff as gops
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+
+    rows = k7.element_force_rows(model, x, 1.0)
+    ms = time_ms(lambda: g1.assemble_keff(model, rows, x, mf), 20)
+    plain_ms = time_ms(lambda: g1.assemble_keff_plain(model, rows, x, mf), 3)
+    real = model.csr_weight != 0
+    nnz = int(real.sum())
+    crow = torch.zeros(model.padded_node_count + 1, dtype=torch.int64,
+                       device=x.device)
+    crow[1:] = torch.cumsum(real.sum(dim=1), 0)
+    incidence = torch.sparse_csr_tensor(
+        crow, model.csr_idx[real].long(), model.csr_weight[real],
+        size=(model.padded_node_count, model.force_row_count),
+        check_invariants=True,
+    )
+    library_ms = time_ms(lambda: torch.sparse.mm(incidence, rows), 20)
+    lib_err = float(
+        (torch.sparse.mm(incidence, rows) - gops.assemble(model, rows)).abs().max()
+    )
+    print(f"  G1 library yardstick torch.sparse.mm ({nnz:,} incidences): "
+          f"{library_ms:.4f} ms, max abs diff from the plain gather-sum "
+          f"{lib_err:.3e}", flush=True)
+    least = (nbytes(model.csr_idx, model.csr_weight, model.lumped_mass, x,
+                    model.bc_mask) + nnz * 12 + nbytes(x))
+    flops = 6 * nnz + 7 * model.padded_node_count
+    return ms, plain_ms, least, flops, library_ms
+
+
+def report_time(name, shape, ms, plain_ms, least, flops, library_ms=None):
+    bound_ms, bound_by = bound(least, flops)
+    lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
+    print(f"time {name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+          f"{lib} ({least / 1e9:.4f} GB computed least traffic -> "
+          f"{least / 1e9 / ms:.3f} TB/s, {least / 1e9 / ms / HBM_TBPS:.3f} of "
+          f"{HBM_TBPS} TB/s; {flops / 1e9:.3f} GFLOP; bound {bound_ms:.4f} ms "
+          f"by {bound_by})", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def general_small_kernel_phase(device, ss, mf):
+    """Phase 6a: K7 and G1 against plain on the small general meshes."""
+    from civiwave_tpu_torch.utils.synthetic import (
+        box_mesh, cantilever_config, shuffle_mesh_nodes, split_last_hex)
+
+    cfg = cantilever_config()
+    cases = [
+        ("hex 16^3", box_mesh(16, 16, 16, hex_elements=True)),
+        ("tet 9^3", box_mesh(9, 9, 9)),
+        ("mixed 8^3", split_last_hex(box_mesh(8, 8, 8, hex_elements=True))),
+        ("shuffled hex 12^3",
+         shuffle_mesh_nodes(box_mesh(12, 12, 12, hex_elements=True), seed=5)),
+    ]
+    for label, mesh in cases:
+        model, _, _ = packed_model(mesh, cfg, device)
+        if label.startswith("shuffled") and not model.renumbered:
+            fail(f"{label}: pack did not renumber the shuffled mesh")
+        check_general_kernels(label, model, random_vector(model, device), ss, mf)
+
+
+def general_matvec_phase(device, ss, mf):
+    """Phases 6b + 7: the 66^3 hex box — K7 hex against plain, its time,
+    then general_matvec_throughput's 32 chained matvecs (bench.py:41-90,
+    132-148: ss 1, mf 4e6, rescale 1/2e11, best of 5)."""
+    from civiwave_tpu_torch.utils.synthetic import box_mesh, cantilever_config
+
+    n = GENERAL_N
+    cfg = cantilever_config()
+    model, _, build_s = packed_model(
+        box_mesh(n, n, n, hex_elements=True), cfg, device,
+        pad_nodes=1024, pad_elems=1024,
+    )
+    print(f"general matvec: 66^3 hex box packed in {build_s:.3f} s "
+          f"({model.hex_count:,} hexes, {model.dof_count:,} DOF, D "
+          f"{model.csr_degree}, renumbered {model.renumbered})", flush=True)
+    x = random_vector(model, device)
+    errs = check_general_kernels("hex 66^3", model, x, ss, mf)
+    timing = report_time("K7 hex", "hex 66^3", *time_k7(model, x, ss, "hex"))
+
+    inner = 32
+    m_ss, m_mf, rescale = np.float32(1.0), np.float32(4.0e6), np.float32(1.0 / 2.0e11)
+
+    def chain(v):
+        for _ in range(inner):
+            v = model.apply_keff(v, m_ss, m_mf) * rescale
+        return v
+
+    reset_general_counts()
+    y = chain(x)
+    torch.cuda.synchronize()
+    counts = general_counts()
+    if not bool(torch.isfinite(y).all()):
+        fail("general matvec chain produced non-finite values")
+    best = float("inf")
+    for rep in range(5):
+        x_rep = x + np.float32(1.0e-6 * (rep + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain(x_rep)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    gdofs = model.dof_count * inner / best / 1e9
+    print(f"general_matvec_throughput: {gdofs:.4f} GDOF/s "
+          f"({best / inner * 1e3:.4f} ms/matvec, best of 5 x {inner}; "
+          f"{model.dof_count:,} DOF); launches in one chain {counts}",
+          flush=True)
+    del model, x, y
+    torch.cuda.empty_cache()
+    return errs, timing, gdofs
+
+
+def profile_window(label, run):
+    """Run ``run()`` once under torch.profiler and print the device busy
+    share (the device-side events' total time over the window's wall time,
+    which the profiler itself stretches: a lower bound) and the kernels
+    with the most device time.  Only device-side events are summed: an
+    operator's own row repeats the time of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    print(f"{label} profile: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
+          f"(share {busy_ms / wall_ms:.3f}); by device time: " + "; ".join(
+              f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
+              for e in top), flush=True)
+
+
+def general_main_path_phase(device, ss, mf):
+    """Phases 6c + 8: the general main path at full width through
+    build_simulation, K7 tet and G1 held and timed on its model first."""
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    n = GENERAL_N
+    cfg = cantilever_config(
+        mesh={"path": f"synthetic://box/{n},{n},{n},tet"}, dt=1e-3,
+        adaptive=False, tol_runtime=2e-4, max_iters=300,
+    )
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = sim.model
+    if model.tet_count != 6 * n ** 3 or model.dof_count != 3 * (n + 1) ** 3:
+        fail(f"general main path: {model.tet_count:,} tets / "
+             f"{model.dof_count:,} DOF do not match the {n}^3 tet box")
+    print(f"general main path: model build {build_s:.3f} s ({model.tet_count:,} "
+          f"tets, {model.dof_count:,} DOF, D {model.csr_degree}, renumbered "
+          f"{model.renumbered})", flush=True)
+    x = random_vector(model, device)
+    errs = check_general_kernels("tet 66^3", model, x, ss, mf)
+    timings = {
+        "element_forces_tet": report_time(
+            "K7 tet", "tet 66^3", *time_k7(model, x, ss, "tet")),
+        "assemble_csr": report_time(
+            "G1", "tet 66^3", *time_g1(model, x, mf)),
+    }
+    del x
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_general_counts()
+    frame_s, telemetries = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        telemetries += sim.run(1)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    counts = general_counts()
+    peak = torch.cuda.max_memory_allocated()
+    iters = [t.pcg_iterations for t in telemetries]
+    if not all(t.pcg_converged for t in telemetries):
+        fail(f"general main path: not every frame converged: {iters}")
+    state = sim.stepper.state
+    for name in ("displacement", "velocity", "acceleration"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            fail(f"general main path: non-finite {name}")
+    for key in ("element_forces_tet", "assemble_csr"):
+        if counts[key] <= 0:
+            fail(f"general main path never launched {key}")
+    u = sim.stepper.displacement()
+    tip = float(u[np.isclose(sim.mesh.node_positions[:, 0], n), 2].min())
+    if not tip < 0.0:
+        fail(f"general main path: the loaded face did not deflect (min u_z {tip})")
+    steady = frame_s[1:]
+    print(f"general main path: pcg iterations per frame {iters} "
+          f"(mean {np.mean(iters):.3f})", flush=True)
+    print("general main path: frame seconds " + ", ".join(
+        f"{t:.4f}" for t in frame_s), flush=True)
+    print(f"general main path: steps/s {len(steady) / sum(steady):.4f} "
+          f"(frames 2-8; frame 1 includes the pc build)", flush=True)
+    print(f"general main path: peak device memory {peak / 2**30:.3f} GiB "
+          f"({peak} bytes)", flush=True)
+    print(f"general main path: kernel launches {counts}; tip u_z {tip:.6e} m",
+          flush=True)
+    profile_window("general main path frame 9", lambda: sim.run(1))
+    del sim, model, state
+    torch.cuda.empty_cache()
+    return errs, timings, counts
+
+
+def general_steps_phase(device):
+    """Phase 9: general_steps_per_s's workload (bench.py:165-231)."""
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.solver.stepper import effective_scalars, newmark_step
+    from civiwave_tpu_torch.utils.synthetic import (
+        box_mesh, cantilever_config, shuffle_mesh_nodes)
+
+    cfg = cantilever_config()
+    model, force, build_s = packed_model(
+        shuffle_mesh_nodes(box_mesh(34, 34, 34, hex_elements=True), seed=5),
+        cfg, device, pad_nodes=1024, pad_elems=1024,
+    )
+    if not model.renumbered:
+        fail("general steps: pack did not renumber the shuffled 34^3 box")
+    ray = materials.compute_rayleigh(cfg.damping)
+    pc = model.build_preconditioner(*effective_scalars(1.0e-3, ray.alpha, ray.beta))
+    n_steps = 8
+
+    def run_steps():
+        state, iters = model.zero_state(), []
+        for _ in range(n_steps):
+            out = newmark_step(
+                model, state, force, 1.0e-3, 2.0e-4, 120,
+                rayleigh_alpha=ray.alpha, rayleigh_beta=ray.beta,
+                preconditioner=pc,
+            )
+            state = out.state
+            if not out.pcg.converged:
+                fail(f"general steps: a step did not converge ({out.pcg})")
+            iters.append(out.pcg.iterations)
+        return state, iters
+
+    reset_general_counts()
+    state, iters = run_steps()
+    torch.cuda.synchronize()
+    counts = general_counts()
+    if not bool(torch.isfinite(state.displacement).all()):
+        fail("general steps: non-finite displacement")
+    for key in ("element_forces_hex", "assemble_csr"):
+        if counts[key] <= 0:
+            fail(f"general steps never launched {key}")
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        _, rep_iters = run_steps()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+        if rep_iters != iters:
+            fail(f"general steps: iterations changed between runs "
+                 f"{iters} vs {rep_iters}")
+    profile_window("general steps (8 steps)", run_steps)
+    mean = float(np.mean(iters))
+    print(f"general_steps_per_s: {n_steps / best:.4f} steps/s at "
+          f"{model.dof_count:,} DOF (pack {build_s:.3f} s, renumbered "
+          f"{model.renumbered}; best of 3); iterations {iters}, mean "
+          f"{mean:.3f} (reference {ITERS_REF}); launches {counts}", flush=True)
+    if abs(mean - ITERS_REF) > 2.0:
+        fail(f"general steps: mean iterations {mean} not within 2 of {ITERS_REF}")
+    del model, force, pc, state
+    torch.cuda.empty_cache()
+    return counts
+
+
+def column_trajectory_phase(device):
+    """Phase 10: examples/seismic_column_tet.yaml, GPU against CPU."""
+    from civiwave_tpu_torch.runner import build_simulation
+
+    scenario = "examples/seismic_column_tet.yaml"
+    runs = {}
+    for dev in (device, "cpu"):
+        sim = build_simulation(scenario, device=dev)
+        tel = sim.run(10)
+        runs[str(dev)] = (tel, sim.stepper)
+    (tg, sg), (tc, sc) = runs[str(device)], runs["cpu"]
+    it_g = [t.pcg_iterations for t in tg]
+    it_c = [t.pcg_iterations for t in tc]
+    if any(abs(a - b) > 1 for a, b in zip(it_g, it_c)):
+        fail(f"column: iterations differ by more than 1: {it_g} vs {it_c}")
+    if not all(t.pcg_converged for t in tg):
+        fail(f"column: GPU frames not all converged: {it_g}")
+    errs = {}
+    for name, tol in (("displacement", U_TOL), ("acceleration", A_TOL)):
+        got = torch.as_tensor(getattr(sg, name)())
+        ref = torch.as_tensor(getattr(sc, name)())
+        if not bool(torch.isfinite(got).all()):
+            fail(f"column: non-finite {name}")
+        _, errs[name] = check_close(f"column {name}", got, ref, tol)
+    print(f"seismic_column_tet 10 frames: iterations gpu {it_g} cpu {it_c}; "
+          f"max abs err / max|cpu| u {errs['displacement']:.3e} "
+          f"(tol {U_TOL:g}), a {errs['acceleration']:.3e} (tol {A_TOL:g})",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -327,30 +779,76 @@ def main() -> int:
     launches = main_path_phase(device)
     trajectory_phase(device)
 
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.solver.stepper import effective_scalars
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    ray = materials.compute_rayleigh(cantilever_config().damping)
+    ss, mf = effective_scalars(1.0e-3, ray.alpha, ray.beta)
+    general_small_kernel_phase(device, ss, mf)
+    hex_errs, hex_timing, gdofs = general_matvec_phase(device, ss, mf)
+    tet_errs, tet_timings, main_counts = general_main_path_phase(device, ss, mf)
+    steps_counts = general_steps_phase(device)
+    column_trajectory_phase(device)
+
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
-    # errors and times at 255^3; max_rel_err is max abs err / max|plain|,
-    # the quantity held to OP_TOL
+    nodes = int(np.prod([n + 1 for n in FULL]))
+
+    def structured_bound(key):
+        ms, by = bound(KERNEL_BYTES_PER_NODE[key] * nodes,
+                       KERNEL_FLOPS_PER_NODE[key] * nodes)
+        return dict(bound_ms=ms, bound_by=by, library_ms=None)
+
+    # structured errors and times at 255^3, general ones at the 66^3 shapes
+    # of their paths; max_rel_err is max abs err / max|plain|, the quantity
+    # held to OP_TOL.  launches: the structured main path for K1-K3, the
+    # general main path (a) for K7 tet and G1, the general steps workload
+    # (c) for K7 hex
     kernels = [
         dict(name="keff_structured", route="cuda", source=src + "keff_structured.cu",
              replaces=pallas + "structured_stencil.py:931",
              launches=launches["keff"], max_abs_err=errs["keff"][0],
              max_rel_err=errs["keff"][1], tol=OP_TOL,
-             ms=times["keff"][0], plain_ms=times["keff"][1]),
+             ms=times["keff"][0], plain_ms=times["keff"][1],
+             **structured_bound("keff")),
         dict(name="pc_keff_structured", route="cuda",
              source=src + "pc_keff_structured.cu",
              replaces=pallas + "structured_stencil.py:820",
              launches=launches["pc"],
              max_abs_err=max(errs["pc_u"][0], errs["pc_w"][0]),
              max_rel_err=max(errs["pc_u"][1], errs["pc_w"][1]), tol=OP_TOL,
-             ms=times["pc"][0], plain_ms=times["pc"][1]),
+             ms=times["pc"][0], plain_ms=times["pc"][1],
+             **structured_bound("pc")),
         dict(name="block_jacobi_apply", route="cuda",
              source=src + "block_jacobi_apply.cu",
              replaces=pallas + "block_jacobi_apply.py:144",
              launches=launches["bj"], max_abs_err=errs["bj"][0],
              max_rel_err=errs["bj"][1], tol=OP_TOL,
-             ms=times["bj"][0], plain_ms=times["bj"][1]),
+             ms=times["bj"][0], plain_ms=times["bj"][1],
+             **structured_bound("bj")),
+        dict(name="element_forces_hex", route="cuda",
+             source=src + "element_forces.cu",
+             replaces=pallas + "element_forces.py:125",
+             launches=steps_counts["element_forces_hex"],
+             max_abs_err=hex_errs["element_forces_hex"][0],
+             max_rel_err=hex_errs["element_forces_hex"][1], tol=OP_TOL,
+             **hex_timing),
+        dict(name="element_forces_tet", route="cuda",
+             source=src + "element_forces.cu",
+             replaces=pallas + "element_forces.py:130",
+             launches=main_counts["element_forces_tet"],
+             max_abs_err=tet_errs["element_forces_tet"][0],
+             max_rel_err=tet_errs["element_forces_tet"][1], tol=OP_TOL,
+             **tet_timings["element_forces_tet"]),
+        dict(name="assemble_csr", route="cuda", source=src + "assemble_csr.cu",
+             replaces="civiwave_tpu/ops/apply_keff.py:283",
+             launches=main_counts["assemble_csr"],
+             max_abs_err=tet_errs["assemble_csr"][0],
+             max_rel_err=tet_errs["assemble_csr"][1], tol=OP_TOL,
+             **tet_timings["assemble_csr"]),
     ]
+    print(f"general_matvec_throughput {gdofs:.4f} GDOF/s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

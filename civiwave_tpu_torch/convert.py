@@ -1,10 +1,11 @@
 """Carry model and solver state across from host arrays.
 
-The structured model, the solver state and the block-Jacobi class table are
-plain arrays plus a few scalars, so a run can be handed over from any
-source that can export them as numpy (the JAX reference package, a file)
-and continued in this package on any device.  The tests use it to feed
-both packages the same model and state.
+The structured model, the general path's packed model, the solver state
+and the block-Jacobi class table are plain arrays plus a few scalars, so a
+run can be handed over from any source that can export them as numpy (the
+JAX reference package, a file) and continued in this package on any
+device.  The tests use it to feed both packages the same model (the same
+element order and node numbering) and state.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from .mesh.pack import SimState
+from .mesh.pack import PackedModel, SimState
 from .mesh.structured import StructuredModel, interior_mass
 from .ops.structured import CompactBlockJacobi, class_stencil_table
 
@@ -91,3 +92,70 @@ def compact_pc_from_array(table, device) -> CompactBlockJacobi:
     if table.shape != (6, 3, 3, 3):
         raise ValueError(f"class table shape {table.shape}, expected (6, 3, 3, 3)")
     return CompactBlockJacobi(table=torch.as_tensor(table, device=device))
+
+
+# array fields of a packed model, with their storage dtypes (the JAX
+# model's padding is accepted as it stands: it is 4096-aligned on large
+# blocks, and padded elements are exact no-ops either way)
+PACKED_ARRAYS = {
+    "conn_tet": np.int32,
+    "grads_tet": np.float32,
+    "vol_tet": np.float32,
+    "lam_tet": np.float32,
+    "mu_tet": np.float32,
+    "mat_tet": np.int32,
+    "conn_hex": np.int32,
+    "grads_hex": np.float32,
+    "vol_hex": np.float32,
+    "lam_hex": np.float32,
+    "mu_hex": np.float32,
+    "mat_hex": np.int32,
+    "csr_idx": np.int32,
+    "csr_weight": np.float32,
+    "position0": np.float32,
+    "lumped_mass": np.float32,
+    "bc_mask": np.bool_,
+    "bc_value": np.float32,
+    "lam": np.float32,
+    "mu": np.float32,
+    "stiffness_6x6": np.float32,
+}
+# optional arrays (None = identity numbering)
+PACKED_PERMS = ("perm_new_of_old", "perm_old_of_new")
+PACKED_META = (
+    "node_count", "padded_node_count", "tet_count", "padded_tet_count",
+    "hex_count", "padded_hex_count", "element_count", "csr_degree",
+)
+# fields of the JAX model that are not ported: absorbing dashpots (A7) and
+# the multi-device halo tables (A11)
+UNPORTED_PACKED = (
+    "damp_blocks", "halo_conn", "halo_grads", "halo_vol", "halo_lam",
+    "halo_mu", "halo_csr_idx", "halo_csr_weight",
+)
+
+
+def packed_model_from_arrays(
+    arrays: Mapping[str, np.ndarray], meta: Mapping[str, object], device
+) -> PackedModel:
+    """A :class:`PackedModel` on ``device`` from its array fields (as
+    numpy: ``PACKED_ARRAYS`` plus the optional ``PACKED_PERMS``) and its
+    scalar fields (``PACKED_META``).  Absorbing-dashpot or halo fields
+    that are not None, or ``meta["has_damping"]``, raise
+    NotImplementedError."""
+    present = [k for k in UNPORTED_PACKED if arrays.get(k) is not None]
+    if present or meta.get("has_damping", False):
+        raise NotImplementedError(
+            f"packed-model fields {present or ['has_damping']} are not ported "
+            "(absorbing faces: ROADMAP A7; halo exchange: A11)"
+        )
+    fields = {
+        name: torch.as_tensor(np.array(arrays[name], dtype), device=device)
+        for name, dtype in PACKED_ARRAYS.items()
+    }
+    for name in PACKED_PERMS:
+        perm = arrays.get(name)
+        fields[name] = (
+            None if perm is None
+            else torch.as_tensor(np.array(perm, np.int64), device=device)
+        )
+    return PackedModel(**fields, **{k: int(meta[k]) for k in PACKED_META})

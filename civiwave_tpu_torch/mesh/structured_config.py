@@ -4,7 +4,7 @@ Port of :mod:`civiwave_tpu.mesh.structured_config`.  A scenario maps onto
 :class:`~civiwave_tpu_torch.mesh.structured.StructuredModel` when it is a
 ``synthetic://box`` hex mesh with one material and loads/fixes on the box's
 axis planes (FIXED = x0, LOAD_FACE = x1, SIDE_* faces).  Anything else
-returns None; the general gather path waits for ROADMAP A6.
+returns None and takes the general gather path (``mesh/pack.py``).
 
 Time-curve-scaled tractions keep each curved traction's nodal force grid as
 a separate device tensor: the per-frame force is
@@ -56,10 +56,6 @@ class StructuredForceSchedule:
 
     base: torch.Tensor  # (3, X, Y, Z) f32
     curve_parts: List[Tuple[str, torch.Tensor]]
-
-    @property
-    def has_curves(self) -> bool:
-        return bool(self.curve_parts)
 
     def at_time(self, curves: Dict[str, Curve], t: float) -> torch.Tensor:
         force = self.base

@@ -1,8 +1,9 @@
 """Build the CUDA kernels under ``civiwave_tpu_torch/csrc`` and bind them.
 
-The ``.cu`` sources expose a plain C interface.  At first use they are
-compiled by ``nvcc`` in one call into a shared library under
-``civiwave_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
+The ``.cu`` sources expose a plain C interface.  At first use each source
+is compiled to an object by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library under
+``civiwave_tpu_torch/_build/`` (listed in ``.gitignore``), loaded with
 ``ctypes``.  The library's name carries a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one is reused within
 a checkout.  Nothing here runs at import time: the CPU tests import every
@@ -27,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -49,6 +50,11 @@ _SIGNATURES = {
     "civi_pc_keff_structured": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
+    # x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream
+    "civi_element_forces_tet": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+    "civi_element_forces_hex": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+    # rows, csr_idx, csr_weight, mass, x, bc, out, N, D, mf, stream
+    "civi_assemble_csr": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
 }
 
 
@@ -89,18 +95,37 @@ def load_library() -> KernelLibrary:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [
-            _nvcc(), *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp),
-            *(str(s) for s in sorted(CSRC_DIR.glob("*.cu"))),
-        ]
+        nvcc = _nvcc()
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_seconds = time.perf_counter() - start
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{log}"
+        # one nvcc per source, all running at once, then one link
+        jobs = []
+        for src in sorted(CSRC_DIR.glob("*.cu")):
+            obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            cmd = [nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-c", "-o", str(obj), str(src)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )
+            jobs.append((cmd, obj, proc))
+        logs, failed = [], []
+        for cmd, obj, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"rc {proc.returncode}: {' '.join(cmd)}\n{out}")
+        objects = [str(obj) for _, obj, _ in jobs]
+        if not failed:
+            cmd = [nvcc, "-shared", "-o", str(tmp), *objects]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append(proc.stdout + proc.stderr)
+            if proc.returncode != 0:
+                failed.append(f"rc {proc.returncode}: {' '.join(cmd)}\n{logs[-1]}")
+        for obj in objects:
+            if os.path.exists(obj):
+                os.remove(obj)
+        build_seconds = time.perf_counter() - start
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():
@@ -117,6 +142,13 @@ def check_launch(library: KernelLibrary, name: str, code: int) -> None:
     if code != 0:
         text = library.lib.civi_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({text}) at launch")
+
+
+def check_aligned(t, name: str, nbytes: int) -> None:
+    """Raise unless ``t``'s data starts on an ``nbytes`` boundary (kernels
+    that move rows as int4/float4 vectors)."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data not {nbytes}-byte aligned")
 
 
 def check_tensor(t, name: str, shape, dtype, device) -> None:

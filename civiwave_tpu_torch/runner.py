@@ -1,14 +1,22 @@
-"""Scenario runner: scenario -> structured model -> Newmark loop.
+"""Scenario runner: scenario -> model -> Newmark loop.
 
-Port of :mod:`civiwave_tpu.runner` for the structured route:
+Port of :mod:`civiwave_tpu.runner`.  Two routes, as in the reference:
 
-    load_config -> try_build_structured -> NewmarkStepper -> per-frame step
+* the structured route, for ``synthetic://box`` hex scenarios with one
+  material and loads/fixes on the box's axis planes::
+
+      load_config -> try_build_structured -> NewmarkStepper -> per-frame step
+
+* the general gather path, for every other scenario (Gmsh files, tet or
+  mixed meshes, several materials, point loads)::
+
+      load_config -> load mesh -> preprocess.run -> build_packed_model
+      -> NewmarkStepper -> per-frame step (curve loads re-assembled)
 
 ``build_simulation`` takes a scenario YAML path or an already-parsed
 :class:`~civiwave_tpu_torch.config.schema.Config` (which needs no pyyaml)
-and the torch device to run on.  A scenario the structured route does not
-take (Gmsh meshes, tets, several materials, point loads) raises: the
-general gather path waits for ROADMAP A6.
+and the torch device to run on.  Absorbing faces (ROADMAP A7) raise
+``NotImplementedError`` on both routes.
 
 Usage::
 
@@ -20,15 +28,26 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from dataclasses import asdict, dataclass
 from typing import List, Optional, Union
 
+import torch
+
 from .config.loader import load_config_from_file
 from .config.schema import Config
-from .mesh.structured import StructuredModel
-from .mesh.structured_config import StructuredForceSchedule, try_build_structured
+from .mesh import pack, preprocess
+from .mesh.gmsh import load_gmsh_file
+from .mesh.model import Mesh
+from .mesh.structured_config import (
+    BOX_PREFIX,
+    StructuredForceSchedule,
+    parse_box_spec,
+    try_build_structured,
+)
+from .physics import loads as loads_mod
 from .physics import materials
 from .solver.stepper import NewmarkStepper, StepTelemetry
 from .utils.errors import CwfError
@@ -36,26 +55,36 @@ from .utils.errors import CwfError
 
 @dataclass
 class Simulation:
-    """A fully-wired structured scenario ready to step."""
+    """A fully-wired scenario ready to step.
+
+    ``model`` is a :class:`~civiwave_tpu_torch.mesh.structured.
+    StructuredModel` (with its ``force_schedule``) or a general
+    :class:`~civiwave_tpu_torch.mesh.pack.PackedModel` (with the host
+    ``mesh`` and ``preprocess`` its curve loads are assembled from).
+    """
 
     config: Config
-    model: StructuredModel
+    model: object
     stepper: NewmarkStepper
-    force_schedule: StructuredForceSchedule
+    force_schedule: Optional[StructuredForceSchedule] = None
+    mesh: Optional[Mesh] = None
+    preprocess: Optional[preprocess.PreprocessOutputs] = None
 
     def run(
         self, frames: int, paused_mode: bool = False, verbose: bool = False
     ) -> List[StepTelemetry]:
         """Advance ``frames`` steps, re-evaluating time-curve loads per
         frame."""
+        loads = self.config.loads
+        has_curves = any(t.scale_curve for t in loads.tractions) or any(
+            p.scale_curve for p in loads.points
+        )
         telemetries: List[StepTelemetry] = []
         t = self.stepper.accumulated_time
         start_frame = self.stepper.frame_index
         for frame in range(start_frame, start_frame + frames):
-            if self.force_schedule.has_curves and frame > 0:
-                self.stepper.set_external_force(
-                    self.force_schedule.at_time(self.config.curves, t)
-                )
+            if has_curves and frame > 0:
+                self.stepper.set_external_force(self._force_at(t))
             telemetry = self.stepper.step(t, paused_mode=paused_mode)
             telemetries.append(telemetry)
             t = self.stepper.accumulated_time
@@ -69,37 +98,105 @@ class Simulation:
                 )
         return telemetries
 
+    def _force_at(self, t: float) -> torch.Tensor:
+        """External force at time ``t`` in the model's vector layout."""
+        if self.force_schedule is not None:
+            return self.force_schedule.at_time(self.config.curves, t)
+        load = loads_mod.assemble_load_vector(
+            self.mesh, self.config, self.preprocess, t
+        )
+        # from_nodal handles padding AND any RCM renumbering of the pack
+        return self.model.from_nodal(pack.clamp_to_f32(load))
+
+
+def _load_mesh(cfg: Config, scenario_path: str) -> Mesh:
+    """Resolve the mesh: a Gmsh file (a relative path is tried against the
+    working directory, then against the scenario file's directory), or
+    the synthetic box scheme ``synthetic://box/nx,ny,nz[,tet|hex][,spacing]``."""
+    mesh_path = cfg.mesh_path
+    if mesh_path.startswith(BOX_PREFIX):
+        from .utils.synthetic import box_mesh
+
+        nx, ny, nz, hex_elements, spacing = parse_box_spec(mesh_path)
+        refs = (
+            list(cfg.absorbing)
+            + [t.group for t in cfg.loads.tractions]
+            + [f.group for f in cfg.dirichlet]
+        )
+        return box_mesh(
+            nx, ny, nz, hex_elements=hex_elements, spacing=spacing,
+            # the six SIDE_* face groups whenever the scenario names one
+            side_groups=any(g.startswith("SIDE_") for g in refs),
+        )
+    if not os.path.isabs(mesh_path):
+        candidate = os.path.join(os.getcwd(), mesh_path)
+        if not os.path.isfile(candidate):
+            alt = os.path.join(os.path.dirname(scenario_path), mesh_path)
+            candidate = alt if os.path.isfile(alt) else candidate
+        mesh_path = candidate
+    return load_gmsh_file(mesh_path)
+
 
 def build_simulation(
     scenario: Union[str, Config], device="cuda"
 ) -> Simulation:
-    """Wire the structured route from a scenario path or a parsed Config,
-    with every tensor on ``device``."""
-    cfg = (
-        scenario if isinstance(scenario, Config)
-        else load_config_from_file(scenario)
-    )
+    """Wire the structured route or the general gather path from a
+    scenario path or a parsed Config, with every tensor on ``device``.
+    Relative Gmsh paths of a parsed Config resolve against the working
+    directory."""
+    if isinstance(scenario, Config):
+        cfg, scenario_path = scenario, ""
+    else:
+        cfg, scenario_path = load_config_from_file(scenario), scenario
     rayleigh = materials.compute_rayleigh(cfg.damping)
     routed = try_build_structured(cfg, device=device)
-    if routed is None:
-        raise NotImplementedError(
-            f"scenario mesh {cfg.mesh_path!r} needs the general gather path, "
-            "which is not ported yet (ROADMAP A6)"
+    mesh = pre = schedule = None
+    if routed is not None:
+        model, schedule = routed
+        force = schedule.at_time(cfg.curves, 0.0)
+        print(
+            f"path: structured route ({model.nx}x{model.ny}x{model.nz} grid, "
+            f"{model.dof_count:,} DOF, device {model.device})",
+            file=sys.stderr,
         )
-    model, schedule = routed
-    print(
-        f"path: structured route ({model.nx}x{model.ny}x{model.nz} grid, "
-        f"{model.dof_count:,} DOF, device {model.device})",
-        file=sys.stderr,
-    )
+    else:
+        if cfg.solver.preconditioner == "multigrid":
+            # as the reference: geometric MG needs the structured route's
+            # uniform grid; the general path solves with block-Jacobi
+            print(
+                "note: solver.preconditioner 'multigrid' requires the "
+                "structured route; this scenario takes the general path "
+                "with block_jacobi",
+                file=sys.stderr,
+            )
+        if (
+            cfg.precision.vector_precision == "fp64"
+            and torch.device(device).type == "cuda"
+        ):
+            raise NotImplementedError(
+                "precision.vectors 'fp64' has no CUDA kernels yet (ROADMAP A13); "
+                "run it on the CPU"
+            )
+        mats = [materials.make_properties(m) for m in cfg.materials]
+        mesh = _load_mesh(cfg, scenario_path)
+        pre = preprocess.run(mesh, cfg)
+        model, _state, force = pack.build_packed_model(
+            mesh, pre, cfg, mats, device=device
+        )
+        print(
+            f"path: general gather path ({mesh.element_count:,} elements, "
+            f"{model.dof_count:,} DOF, dual-CSR assembly, device {model.device})",
+            file=sys.stderr,
+        )
     stepper = NewmarkStepper(
-        model, model.zero_state(), schedule.at_time(cfg.curves, 0.0),
+        model, model.zero_state(), force,
         rayleigh, cfg.solver, cfg.time,
         reduction_precision=cfg.precision.reduction_precision,
         vector_precision=cfg.precision.vector_precision,
     )
     return Simulation(
-        config=cfg, model=model, stepper=stepper, force_schedule=schedule
+        config=cfg, model=model, stepper=stepper, force_schedule=schedule,
+        mesh=mesh, preprocess=pre,
     )
 
 

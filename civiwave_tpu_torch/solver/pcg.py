@@ -49,9 +49,10 @@ class PcgTelemetry(NamedTuple):
 def dot_f64(a: torch.Tensor, b: torch.Tensor, dtype=torch.float64):
     """High-precision reduction over f32 solver vectors — the precision
     contract.  fp64 is chunked as in the reference (pcg.cpp:170-207): the
-    f32 product is partially reduced along the minor axis (Z) in f32 and
-    only the partials accumulate in ``dtype``.  ``dtype=float32`` is the
-    YAML ``precision.reductions: fp32`` opt-out."""
+    f32 product is partially reduced along the minor axis (Z of a
+    structured (3, X, Y, Z) vector, the 3 components of an (N*, 3) nodal
+    vector) in f32 and only the partials accumulate in ``dtype``.
+    ``dtype=float32`` is the YAML ``precision.reductions: fp32`` opt-out."""
     if dtype == torch.float32:
         return (a.to(torch.float32) * b.to(torch.float32)).sum()
     prod = a * b  # f32 vectors stay f32 (chunked); f64 vectors keep f64
@@ -119,9 +120,13 @@ def solve_pcg(
         else preconditioner
     )
     if variant == "auto":
+        # as the reference (pcg.py:173-182): fused where the model says it
+        # profits (a fused pc+matvec+dots kernel), classic otherwise and for
+        # models with no preference
+        prefers = getattr(model, "prefers_fused_pcg", None)
         variant = (
             "fused"
-            if model.prefers_fused_pcg(block_inverse, vector_dtype)
+            if prefers is not None and prefers(block_inverse, vector_dtype)
             else "classic"
         )
     if variant == "fused":
@@ -237,9 +242,11 @@ def solve_pcg_fused(
         alpha = gamma' / (delta - beta gamma'/alpha)
         p = u + beta p ; s = w + beta s
 
-    On CUDA the pc apply, the matvec and the three dots are one K2 launch
-    (``model.apply_pc_keff_dots``).  The whole-iteration kernel of the
-    reference (``CIVIWAVE_MEGA_PCG``) waits for ROADMAP B6.
+    On CUDA the structured model's pc apply, matvec and three dots are one
+    K2 launch (``model.apply_pc_keff_dots``); a model without that method
+    (the general path) composes ``apply_pc_keff`` and :func:`fused_dots`.
+    The whole-iteration kernel of the reference (``CIVIWAVE_MEGA_PCG``)
+    waits for ROADMAP B5.
     """
     f32 = vector_dtype
     rdt = reduction_dtype
@@ -277,6 +284,9 @@ def solve_pcg_fused(
     alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
     beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
 
+    # the pc apply, the matvec and the three dots in one pass where the
+    # model has it (the structured K2 kernel), else composed
+    dots_fn = getattr(model, "apply_pc_keff_dots", None)
     iteration = 0
     while iteration < max_iterations and not converged and not breakdown:
         alpha32 = alpha.to(f32)
@@ -284,9 +294,15 @@ def solve_pcg_fused(
         r = r - alpha32 * s
         # constrained axes: p and s are zero there by recurrence, so x stays
         # = rhs and r stays = 0 bit for bit (the reference's elided clamp)
-        u, w, (gamma_new, delta, rr) = model.apply_pc_keff_dots(
-            block_inverse, r, stiffness_scale, mass_factor, rdt
-        )
+        if dots_fn is not None:
+            u, w, (gamma_new, delta, rr) = dots_fn(
+                block_inverse, r, stiffness_scale, mass_factor, rdt
+            )
+        else:
+            u, w = model.apply_pc_keff(
+                block_inverse, r, stiffness_scale, mass_factor
+            )
+            gamma_new, delta, rr = fused_dots([(r, u), (w, u), (r, r)], rdt)
         residual_norm = torch.sqrt(rr)
 
         gamma_small = gamma.abs() < _BREAKDOWN_TOL

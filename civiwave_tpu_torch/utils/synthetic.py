@@ -1,17 +1,251 @@
-"""Synthetic scenarios for benchmarks, smoke runs and tests.
+"""Synthetic scenarios and meshes for benchmarks, smoke runs and tests.
 
-Port of :mod:`civiwave_tpu.utils.synthetic`, cut to ``cantilever_config``.
-The structured route builds its grid from the ``synthetic://box/nx,ny,nz``
-mesh path directly, so the host-side ``box_mesh`` waits for the
-general-path port (ROADMAP A6).
+Port of :mod:`civiwave_tpu.utils.synthetic` (numpy host code, copied):
+``box_mesh`` builds an axis-aligned box of nx*ny*nz cells on
+[0,nx]x[0,ny]x[0,nz] with FIXED (x=0 quads), LOAD_FACE (x=nx quads) and
+SOLID groups — hex8 cells or their 6-tet split — and ``shuffle_mesh_nodes``
+scrambles its node numbering.  Both give the same arrays as the JAX
+package's from the same arguments and seed.  The structured route builds
+its grid from the ``synthetic://box/nx,ny,nz`` mesh path directly; the
+general gather path meshes the box with ``box_mesh``.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
+
 from ..config.loader import parse_config_node
 from ..config.schema import Config
+from ..mesh.model import Mesh, PhysicalGroup, SENTINEL
+
+# consistent 6-tet decomposition of a hex (shared main diagonal 0-6)
+_TET_CORNERS = np.array(
+    [
+        (0, 1, 2, 6),
+        (0, 2, 3, 6),
+        (0, 3, 7, 6),
+        (0, 7, 4, 6),
+        (0, 4, 5, 6),
+        (0, 5, 1, 6),
+    ],
+    dtype=np.int64,
+)
+
+
+def box_mesh(
+    nx: int, ny: int, nz: int, hex_elements: bool = False,
+    spacing: float = 1.0, side_groups: bool = False,
+) -> Mesh:
+    """Structured box mesh; hex8 cells or their 6-tet decomposition.
+
+    ``side_groups``: also emit the six face quad groups SIDE_X0..SIDE_Z1
+    (ids 4-9) so scenarios can reference any box face — absorbing
+    boundaries in particular (physics/absorbing.py).  Off by default to
+    keep the canonical FIXED/LOAD_FACE-only surface table."""
+    xs, ys, zs = nx + 1, ny + 1, nz + 1
+    grid = np.stack(
+        np.meshgrid(
+            np.arange(xs), np.arange(ys), np.arange(zs), indexing="ij"
+        ),
+        axis=-1,
+    ).reshape(-1, 3)
+
+    def nid(i, j, k):
+        return (i * ys + j) * zs + k
+
+    mesh = Mesh()
+    mesh.node_positions = grid.astype(np.float64) * spacing
+    mesh.node_original_ids = np.arange(1, len(grid) + 1, dtype=np.int64)
+
+    # vectorized cell corner table (C, 8) in Gmsh hex ordering
+    ii, jj, kk = np.meshgrid(
+        np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"
+    )
+    ii, jj, kk = ii.reshape(-1), jj.reshape(-1), kk.reshape(-1)
+    cells = np.stack(
+        [
+            nid(ii, jj, kk),
+            nid(ii + 1, jj, kk),
+            nid(ii + 1, jj + 1, kk),
+            nid(ii, jj + 1, kk),
+            nid(ii, jj, kk + 1),
+            nid(ii + 1, jj, kk + 1),
+            nid(ii + 1, jj + 1, kk + 1),
+            nid(ii, jj + 1, kk + 1),
+        ],
+        axis=1,
+    ).astype(np.int64)
+
+    if hex_elements:
+        conn = cells.astype(np.int32)
+        counts = np.full(len(cells), 8, dtype=np.int32)
+        mesh.elements = conn
+    else:
+        tets = cells[:, _TET_CORNERS]  # (C, 6, 4)
+        tets = tets.reshape(-1, 4)
+        conn = np.full((len(tets), 8), SENTINEL, dtype=np.int32)
+        conn[:, :4] = tets.astype(np.int32)
+        counts = np.full(len(tets), 4, dtype=np.int32)
+        mesh.elements = conn
+
+    mesh.element_node_counts = counts
+    mesh.element_physical_group = np.full(len(mesh.elements), 3, dtype=np.int64)
+    mesh.element_original_ids = np.arange(1, len(mesh.elements) + 1, dtype=np.int64)
+
+    # boundary quads at x=0 (FIXED, id 1) and x=nx (LOAD_FACE, id 2)
+    jj2, kk2 = np.meshgrid(np.arange(ny), np.arange(nz), indexing="ij")
+    jj2, kk2 = jj2.reshape(-1), kk2.reshape(-1)
+    quads0 = np.stack(
+        [
+            nid(0, jj2, kk2),
+            nid(0, jj2 + 1, kk2),
+            nid(0, jj2 + 1, kk2 + 1),
+            nid(0, jj2, kk2 + 1),
+        ],
+        axis=1,
+    )
+    quadsn = np.stack(
+        [
+            nid(nx, jj2, kk2),
+            nid(nx, jj2 + 1, kk2),
+            nid(nx, jj2 + 1, kk2 + 1),
+            nid(nx, jj2, kk2 + 1),
+        ],
+        axis=1,
+    )
+    face_lists = [quads0, quadsn]
+    face_group_ids = [1, 2]
+    groups = [
+        PhysicalGroup(2, 1, "FIXED"),
+        PhysicalGroup(2, 2, "LOAD_FACE"),
+        PhysicalGroup(3, 3, "SOLID"),
+    ]
+    if side_groups:
+        def face_quads(axis: int, pos: int):
+            """Quads tiling one axis plane of the box."""
+            dims = [nx, ny, nz]
+            a1, a2 = [a for a in range(3) if a != axis]
+            u1, u2 = np.meshgrid(
+                np.arange(dims[a1]), np.arange(dims[a2]), indexing="ij"
+            )
+            u1, u2 = u1.reshape(-1), u2.reshape(-1)
+
+            def at(d1, d2):
+                ijk = [None, None, None]
+                ijk[axis] = np.full_like(u1, pos)
+                ijk[a1] = u1 + d1
+                ijk[a2] = u2 + d2
+                return nid(*ijk)
+
+            return np.stack(
+                [at(0, 0), at(1, 0), at(1, 1), at(0, 1)], axis=1
+            )
+
+        tags = [
+            ("SIDE_X0", 0, 0), ("SIDE_X1", 0, nx),
+            ("SIDE_Y0", 1, 0), ("SIDE_Y1", 1, ny),
+            ("SIDE_Z0", 2, 0), ("SIDE_Z1", 2, nz),
+        ]
+        for gid, (name, axis, pos) in enumerate(tags, start=4):
+            face_lists.append(face_quads(axis, pos))
+            face_group_ids.append(gid)
+            groups.append(PhysicalGroup(2, gid, name))
+
+    surfaces = np.concatenate(face_lists).astype(np.int32)
+    mesh.surfaces = surfaces
+    mesh.surface_node_counts = np.full(len(surfaces), 4, dtype=np.int32)
+    mesh.surface_physical_group = np.concatenate(
+        [
+            np.full(len(f), gid)
+            for f, gid in zip(face_lists, face_group_ids)
+        ]
+    ).astype(np.int64)
+    mesh.surface_original_ids = np.arange(1, len(surfaces) + 1, dtype=np.int64)
+
+    mesh.physical_groups = groups
+    mesh.group_lookup = {g.id: i for i, g in enumerate(groups)}
+    mesh.surface_groups = {}
+    start = 0
+    for f, gid in zip(face_lists, face_group_ids):
+        idx = np.arange(start, start + len(f), dtype=np.int64)
+        mesh.surface_groups.setdefault(gid, []).append(idx)
+        start += len(f)
+    mesh.surface_groups = {
+        gid: np.concatenate(parts)
+        for gid, parts in mesh.surface_groups.items()
+    }
+    mesh.node_groups = {}
+    return mesh
+
+
+def split_last_hex(mesh: Mesh) -> Mesh:
+    """A mixed tet4 + hex8 mesh: ``mesh`` (a hex box, modified in place and
+    returned) with its last hex cell replaced by that cell's 6-tet split —
+    the mixed case the JAX package's tests build
+    (tests/test_windowed_gather.py:78-104)."""
+    tets = mesh.elements[-1][_TET_CORNERS]  # (6, 4)
+    tet_rows = np.full((6, 8), SENTINEL, dtype=np.int32)
+    tet_rows[:, :4] = tets
+    group = mesh.element_physical_group[-1]
+    mesh.elements = np.concatenate([mesh.elements[:-1], tet_rows])
+    mesh.element_node_counts = np.concatenate(
+        [mesh.element_node_counts[:-1], np.full(6, 4, dtype=np.int32)]
+    )
+    mesh.element_physical_group = np.concatenate(
+        [mesh.element_physical_group[:-1], np.full(6, group, dtype=np.int64)]
+    )
+    mesh.element_original_ids = np.arange(
+        1, len(mesh.elements) + 1, dtype=np.int64
+    )
+    return mesh
+
+
+def shuffle_mesh_nodes(mesh: Mesh, seed: int = 0) -> Mesh:
+    """Randomly permute a mesh's node numbering — same geometry and
+    topology, scrambled ids.
+
+    Real Gmsh output is often far from bandwidth-optimal; the solver must
+    be numbering-indifferent like the reference engine's CSR gather
+    (src/gpu/pcg.cpp:653-661).  This helper produces the worst case for
+    the gathers' locality, which the pack-time RCM renumbering
+    (mesh/renumber.py) restores.
+    """
+    rng = np.random.default_rng(seed)
+    n = mesh.node_count
+    perm = rng.permutation(n).astype(np.int64)  # perm[old_id] = new_id
+    iperm = np.argsort(perm)
+
+    def remap(conn: np.ndarray) -> np.ndarray:
+        safe = np.where(conn == SENTINEL, 0, conn).astype(np.int64)
+        return np.where(conn == SENTINEL, SENTINEL, perm[safe]).astype(
+            conn.dtype
+        )
+
+    out = Mesh()
+    out.node_positions = mesh.node_positions[iperm]
+    out.node_original_ids = mesh.node_original_ids[iperm]
+    out.elements = remap(mesh.elements)
+    out.element_node_counts = mesh.element_node_counts.copy()
+    out.element_physical_group = mesh.element_physical_group.copy()
+    out.element_original_ids = mesh.element_original_ids.copy()
+    out.surfaces = remap(mesh.surfaces)
+    out.surface_node_counts = mesh.surface_node_counts.copy()
+    out.surface_physical_group = mesh.surface_physical_group.copy()
+    out.surface_original_ids = mesh.surface_original_ids.copy()
+    out.physical_groups = list(mesh.physical_groups)
+    out.group_lookup = dict(mesh.group_lookup)
+    out.node_groups = {
+        gid: perm[np.asarray(idx, dtype=np.int64)]
+        for gid, idx in mesh.node_groups.items()
+    }
+    # surface_groups hold SURFACE indices, not node ids — copy verbatim
+    out.surface_groups = {
+        gid: np.asarray(idx).copy()
+        for gid, idx in mesh.surface_groups.items()
+    }
+    return out
 
 
 def cantilever_config(

@@ -38,8 +38,12 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 def test_every_module_imports_with_jax_blocked():
     modules = _modules()
-    assert "civiwave_tpu_torch.runner" in modules
-    assert "civiwave_tpu_torch.ops.cuda.structured_stencil" in modules
+    for name in (
+        "runner", "ops.cuda.structured_stencil", "mesh.gmsh", "mesh.pack",
+        "mesh.renumber", "ops.apply_keff", "ops.block_jacobi",
+        "ops.cuda.element_forces", "ops.cuda.assemble_csr", "physics.oracle",
+    ):
+        assert f"civiwave_tpu_torch.{name}" in modules
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
@@ -84,6 +88,29 @@ def test_structured_route_runs_without_pyyaml():
         "cfg = cantilever_config(tol_runtime=2e-4, max_iters=120,\n"
         "                        mesh={'path': 'synthetic://box/4,3,3'})\n"
         "sim = build_simulation(cfg, device='cpu')\n"
+        "tel = sim.run(2)\n"
+        "assert all(t.pcg_converged for t in tel)\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_general_route_runs_without_pyyaml():
+    """The general gather path (a tet box) on the CPU needs neither jax
+    nor pyyaml."""
+    code = (
+        "import sys\n"
+        "sys.modules['yaml'] = None\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['civiwave_tpu'] = None\n"
+        "from civiwave_tpu_torch.runner import build_simulation\n"
+        "from civiwave_tpu_torch.utils.synthetic import cantilever_config\n"
+        "cfg = cantilever_config(tol_runtime=2e-4, max_iters=200,\n"
+        "                        mesh={'path': 'synthetic://box/3,2,2,tet'})\n"
+        "sim = build_simulation(cfg, device='cpu')\n"
+        "assert type(sim.model).__name__ == 'PackedModel'\n"
         "tel = sim.run(2)\n"
         "assert all(t.pcg_converged for t in tel)\n"
         "print('ok')\n"

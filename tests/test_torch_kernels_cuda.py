@@ -1,4 +1,6 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: K1-K3
+of the structured route, K7 (element forces, tet and hex) and G1 (CSR
+assembly) of the general gather path.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -11,16 +13,27 @@ Tolerances: operator and preconditioner outputs at 1e-5 * max|ref|, dots
 at rtol 1e-5 (the sums run in another order than the plain version's).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from civiwave_tpu_torch.mesh import pack, preprocess
 from civiwave_tpu_torch.mesh.structured import build_structured_model
+from civiwave_tpu_torch.ops import apply_keff as gops
+from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
 from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+from civiwave_tpu_torch.ops.cuda import element_forces as k7
 from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 from civiwave_tpu_torch.physics import materials
 from civiwave_tpu_torch.runner import build_simulation
-from civiwave_tpu_torch.utils.synthetic import cantilever_config
+from civiwave_tpu_torch.utils.synthetic import (
+    box_mesh,
+    cantilever_config,
+    shuffle_mesh_nodes,
+    split_last_hex,
+)
 
 torch.set_num_threads(2)
 
@@ -140,3 +153,90 @@ def test_small_cantilever_runs_fused_on_the_card(device):
     np.testing.assert_allclose(
         ug.numpy(), uc.numpy(), rtol=0, atol=2.5e-4 * float(uc.abs().max())
     )
+
+
+# --- general gather path: K7 and G1 --------------------------------------
+
+GENERAL = {
+    "tet_5x4x3": lambda: box_mesh(5, 4, 3),
+    "hex_6x5x4": lambda: box_mesh(6, 5, 4, hex_elements=True),
+    "mixed_4x4x4": lambda: split_last_hex(box_mesh(4, 4, 4, hex_elements=True)),
+    "shuffled_hex_5x5x5": lambda: shuffle_mesh_nodes(
+        box_mesh(5, 5, 5, hex_elements=True), seed=5
+    ),
+    "tet_12x6x6": lambda: box_mesh(12, 6, 6),  # 2592 tets: many thread blocks
+}
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _general(device, case):
+    cfg = cantilever_config()
+    mesh = GENERAL[case]()
+    pre = preprocess.run(mesh, cfg)
+    mats = [materials.make_properties(m) for m in cfg.materials]
+    model, _, _ = pack.build_packed_model(mesh, pre, cfg, mats, device=device)
+    x = torch.as_tensor(
+        np.random.default_rng(4).standard_normal(model.vector_shape, dtype=np.float32),
+        device=device,
+    )
+    return model, x
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL))
+def test_element_forces_kernel_matches_plain(device, case):
+    model, x = _general(device, case)
+    for block, wrapper, count in (
+        ("tet", k7.tet_element_forces, model.padded_tet_count),
+        ("hex", k7.hex_element_forces, model.padded_hex_count),
+    ):
+        if not count:
+            continue
+        before = wrapper.launches
+        rows = wrapper(model, x, SS)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        _close(rows, k7.element_forces_plain(model, x, SS, block))
+
+
+@pytest.mark.parametrize("mf", [MF, np.float32(0.0)], ids=["mass", "no_mass"])
+@pytest.mark.parametrize("case", sorted(GENERAL))
+def test_assemble_kernel_matches_plain(device, case, mf):
+    model, x = _general(device, case)
+    rows = k7.element_force_rows(model, x, SS)
+    before = g1.assemble_keff.launches
+    out = g1.assemble_keff(model, rows, x, mf)
+    torch.cuda.synchronize()
+    assert g1.assemble_keff.launches == before + 1
+    _close(out, g1.assemble_keff_plain(model, rows, x, mf))
+    assert torch.equal(out[model.bc_mask], x[model.bc_mask])
+
+
+def test_general_apply_keff_launches_k7_and_g1(device):
+    model, x = _general(device, "mixed_4x4x4")
+    counts = (k7.tet_element_forces.launches, k7.hex_element_forces.launches,
+              g1.assemble_keff.launches)
+    out = gops.apply_keff(model, x, SS, MF)
+    torch.cuda.synchronize()
+    assert (k7.tet_element_forces.launches, k7.hex_element_forces.launches,
+            g1.assemble_keff.launches) == tuple(c + 1 for c in counts)
+    _close(out, gops.apply_keff_plain(model, x, SS, MF))
+    with pytest.raises(TypeError):
+        gops.apply_keff(model, x.double(), SS, MF)
+
+
+def test_seismic_column_runs_on_the_card(device):
+    """The general path (tet Gmsh mesh, two materials, curve-scaled
+    traction) on the card against the CPU run of the plain versions."""
+    scenario = os.path.join(REPO, "examples", "seismic_column_tet.yaml")
+    runs = {}
+    for dev in (device, "cpu"):
+        sim = build_simulation(scenario, device=dev)
+        before = g1.assemble_keff.launches
+        tel = sim.run(4)
+        runs[str(dev)] = (tel, sim.stepper.displacement(),
+                          g1.assemble_keff.launches - before)
+    (tg, ug, n_gpu), (tc, uc, n_cpu) = runs[str(device)], runs["cpu"]
+    assert n_gpu > 0 and n_cpu == 0
+    assert all(t.pcg_converged for t in tg)
+    assert all(abs(a.pcg_iterations - b.pcg_iterations) <= 1 for a, b in zip(tg, tc))
+    np.testing.assert_allclose(ug, uc, rtol=0, atol=2.5e-4 * float(np.abs(uc).max()))

@@ -119,10 +119,7 @@ def test_cli_unported_options_exit_1(args, item, capsys):
     assert len(err) == 1 and item in err[0]
 
 
-@pytest.mark.parametrize(
-    "scenario, item",
-    [("seismic_column_tet.yaml", "A6"), ("seismic_basin.yaml", "A7")],
-)
+@pytest.mark.parametrize("scenario, item", [("seismic_basin.yaml", "A7")])
 def test_cli_unported_scenarios_exit_1(scenario, item, capsys):
     rc = main([os.path.join(REPO, "examples", scenario), "--frames", "1",
                "--device", "cpu", "--quiet"])
