@@ -9,16 +9,23 @@ Phases, each printing its result:
 2. build the kernels from ``civiwave_tpu_torch/csrc`` with nvcc (sm_90a),
    one nvcc process per source, all at once;
 3. structured route: hold each kernel (K1 keff_structured, K2
-   pc_keff_structured with and without dots, K3 block_jacobi_apply)
-   against its plain PyTorch version on small grids, an odd grid with
-   fixes on several faces and the full 255^3-cell grid, and time kernel
-   and plain version with CUDA events;
+   pc_keff_structured with and without dots, K3 block_jacobi_apply, K6
+   pcg_iteration_structured — one whole PCG iteration) against its plain
+   PyTorch version on small grids, an odd grid with fixes on several faces
+   and the full 255^3-cell grid, and time kernel and plain version with
+   CUDA events;
 4. structured main path at full width — ``build_simulation`` on the
    255^3-cell steel cantilever (50,331,648 DOF) — for 8 frames on the
    'auto' (fused) PCG and 2 on 'classic': every frame converged, the state
    is finite and every kernel was launched;
+4b. the megafused main path (``CIVIWAVE_MEGA_PCG=1``, set for this phase
+   only): the same 255^3 cantilever for 8 'auto' frames, one K6 launch per
+   PCG iteration: every frame converged, iterations within +-1 of phase
+   4's fused frames, the loaded face within 2.5e-4 of max|u| of phase 4's,
+   and a profile of one megafused and one split fused frame;
 5. the cantilever_box example (24x8x8, gravity, curve-ramped traction,
-   adaptive dt) for 10 frames on the GPU and on the CPU (plain versions);
+   adaptive dt) for 10 frames on the GPU and on the CPU (plain versions),
+   then again with ``CIVIWAVE_MEGA_PCG=1`` on the fused variant;
 6. general gather path: hold K7 element_forces (tet and hex) and G1
    assemble_csr against their plain versions on a 16^3 hex box, a 9^3 tet
    box, a mixed tet+hex box, a shuffled 12^3 hex box and both 66^3 boxes,
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -58,12 +66,15 @@ OP_TOL = 1e-5
 DOT_RTOL = 1e-5
 U_TOL, A_TOL = 2.5e-4, 3e-3
 # least bytes per node a kernel must move: K1 and K3 read one f32 vector
-# (12 B) and the mask (3 B) and write one vector; K2 writes two
-KERNEL_BYTES_PER_NODE = {"keff": 27, "bj": 27, "pc": 39}
+# (12 B) and the mask (3 B) and write one vector; K2 writes two; K6 reads
+# the six carries and the mask and writes the six carries
+KERNEL_BYTES_PER_NODE = {"keff": 27, "bj": 27, "pc": 39, "k6": 147}
 # least f32 operations per node: the 27-neighbour 3x3 block stencil
 # (27 * 9 multiply-adds) plus the mass term and select; the 3x3 symmetric
-# class-table product; K2 both plus its three dot partials
-KERNEL_FLOPS_PER_NODE = {"keff": 498, "bj": 15, "pc": 531}
+# class-table product; K2 both plus its three dot partials; K6 that plus the
+# p/s recurrence and the x/r axpys (4 multiply-adds per component)
+KERNEL_FLOPS_PER_NODE = {"keff": 498, "bj": 15, "pc": 531, "k6": 560}
+MEGA = "CIVIWAVE_MEGA_PCG"  # the opt-in switch of the whole-iteration path
 HBM_TBPS = 3.35  # H100 SXM published device-memory bandwidth at 700 W
 F32_TFLOPS = 67.0  # H100 SXM published f32 rate outside the tensor cores
 GENERAL_N = 66  # bench.py's general-path box (66^3 cells, 902,289 DOF)
@@ -120,6 +131,7 @@ def kernel_phase(device):
     """Phase 3: every kernel against its plain version."""
     from civiwave_tpu_torch.mesh.structured import build_structured_model
     from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
     from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
     from civiwave_tpu_torch.physics import materials
     from civiwave_tpu_torch.solver.stepper import effective_scalars
@@ -177,11 +189,36 @@ def kernel_phase(device):
             if not abs(a - b) <= DOT_RTOL * abs(b):
                 fail(f"K2 dot {name} {label}: {a!r} vs plain {b!r}")
             errs[f"dot_{name}"] = (abs(a - b), abs(a - b) / max(abs(b), 1e-300))
+        del u, w, u_ref, w_ref, u2, w2
+        # K6: one whole PCG iteration on random carries; the kernel updates
+        # x, u and p in place, so it gets copies
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        carries = tuple(
+            torch.randn(model.vector_shape, generator=gen, device=device)
+            for _ in range(6)
+        )
+        k6_args = (torch.tensor(0.3, device=device),
+                   torch.tensor(0.2, device=device), ss, mf)
+        refs, dots_ref = k6.pcg_iteration_fused_plain(
+            model, pc.table, carries, *k6_args)
+        outs, dots = k6.pcg_iteration_fused(
+            model, pc.table, tuple(c.clone() for c in carries), *k6_args)
+        torch.cuda.synchronize()
+        k6_errs = [check_close(f"K6 {name} {label}", o, r, OP_TOL)
+                   for name, o, r in zip("xruwps", outs, refs)]
+        errs["k6"] = (max(a for a, _ in k6_errs), max(r for _, r in k6_errs))
+        for name, a, b in zip(("gamma", "delta", "rr"), dots, dots_ref):
+            a, b = float(a), float(b)
+            if not abs(a - b) <= DOT_RTOL * abs(b):
+                fail(f"K6 dot {name} {label}: {a!r} vs plain {b!r}")
+            errs[f"k6_dot_{name}"] = (abs(a - b), abs(a - b) / max(abs(b), 1e-300))
+        del refs, outs
         print(f"kernels vs plain [{label}] abs/rel err: " + ", ".join(
             f"{k}={a:.3e}/{r:.2e}" for k, (a, r) in errs.items()), flush=True)
-        results[label] = (model, pc, x, errs)
+        results[label] = (model, pc, x, errs, carries, k6_args)
 
-    model, pc, x, errs = results["255x255x255"]
+    model, pc, x, errs, carries, k6_args = results["255x255x255"]
+    work = tuple(c.clone() for c in carries)
     times = {
         "keff": (
             time_ms(lambda: k12.apply_keff_fused(model, x, ss, mf), 20),
@@ -197,6 +234,12 @@ def kernel_phase(device):
             time_ms(lambda: k12.apply_pc_keff_fused_plain(
                 model, pc.table, x, ss, mf, with_dots=True), 3),
         ),
+        "k6": (
+            time_ms(lambda: k6.pcg_iteration_fused(
+                model, pc.table, work, *k6_args), 20),
+            time_ms(lambda: k6.pcg_iteration_fused_plain(
+                model, pc.table, carries, *k6_args), 3),
+        ),
     }
     nodes = int(np.prod(model.grid_shape))
     for key, (ms, plain_ms) in times.items():
@@ -207,7 +250,7 @@ def kernel_phase(device):
               f"{gbytes / ms:.3f} TB/s, {gbytes / ms / HBM_TBPS:.3f} of "
               f"{HBM_TBPS} TB/s)", flush=True)
     # drop the 255^3 tensors before the main path allocates its own
-    del results, model, pc, x
+    del results, model, pc, x, carries, work
     torch.cuda.empty_cache()
     return errs, times
 
@@ -244,6 +287,9 @@ def main_path_phase(device):
             telemetries += sim.run(1)
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
+        if variant == "auto":  # the fused frames' result, for phase 4b
+            u8 = sim.stepper.state.displacement
+            split = dict(tip=u8[2, FULL[0]].clone(), umax=float(u8.abs().max()))
 
     launches = {
         "keff": k12.apply_keff_fused.launches,
@@ -272,10 +318,110 @@ def main_path_phase(device):
           flush=True)
     print(f"main path: fused steps/s {len(steady) / sum(steady):.4f} "
           f"(frames 2-8), classic steps/s {2 / sum(frame_s[8:]):.4f}", flush=True)
+    split.update(iters=iters[:8], steps_per_s=len(steady) / sum(steady),
+                 ms_per_iter=sum(steady) / sum(iters[1:8]) * 1e3)
+    print(f"main path: fused ms per iteration {split['ms_per_iter']:.4f} "
+          f"(frames 2-8, host clock)", flush=True)
     print(f"main path: peak device memory {peak / 2**30:.3f} GiB "
           f"({peak} bytes)", flush=True)
     print(f"main path: kernel launches {launches}; tip u_z {tip:.6e} m",
           flush=True)
+    del sim, state
+    torch.cuda.empty_cache()
+    return launches, split
+
+
+def structured_counts():
+    """Launch counters of the structured route's kernels, by short name."""
+    from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+
+    return {"k6": k6.pcg_iteration_fused.launches,
+            "pc": k12.apply_pc_keff_fused.launches,
+            "keff": k12.apply_keff_fused.launches,
+            "bj": k3.apply_block_jacobi.launches}
+
+
+def reset_structured_counts():
+    from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+
+    k6.pcg_iteration_fused.launches = 0
+    k12.apply_pc_keff_fused.launches = 0
+    k12.apply_keff_fused.launches = 0
+    k3.apply_block_jacobi.launches = 0
+
+
+def mega_main_path_phase(device, split):
+    """Phase 4b: the megafused main path at full width, against phase 4's
+    split fused frames (``split``: their iterations, the loaded face's u_z
+    after frame 8 and max|u|)."""
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cfg = cantilever_config(
+        tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
+        mesh={"path": "synthetic://box/%d,%d,%d" % FULL},
+    )
+    os.environ[MEGA] = "1"
+    try:
+        sim = build_simulation(cfg, device=device)
+        sim.stepper.solver_variant = "auto"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_structured_counts()
+        frame_s, telemetries = [], []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            telemetries += sim.run(1)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+        launches = structured_counts()
+        peak = torch.cuda.max_memory_allocated()
+        iters = [t.pcg_iterations for t in telemetries]
+        if not all(t.pcg_converged for t in telemetries):
+            fail(f"megafused main path: not every frame converged: {iters}")
+        state = sim.stepper.state
+        for name in ("displacement", "velocity", "acceleration"):
+            if not bool(torch.isfinite(getattr(state, name)).all()):
+                fail(f"megafused main path: non-finite {name}")
+        if launches["k6"] != sum(iters) or launches["k6"] <= 0:
+            fail(f"megafused main path: {launches['k6']} K6 launches for "
+                 f"{sum(iters)} PCG iterations")
+        for key in ("pc", "keff"):
+            if launches[key] <= 0:
+                fail(f"megafused main path never launched kernel {key}")
+        if any(abs(a - b) > 1 for a, b in zip(iters, split["iters"])):
+            fail(f"megafused main path: iterations {iters} not within 1 of "
+                 f"the split fused frames' {split['iters']}")
+        tip_err = float((state.displacement[2, FULL[0]] - split["tip"]).abs().max())
+        if not tip_err <= U_TOL * split["umax"]:
+            fail(f"megafused main path: loaded face u_z differs by {tip_err:.3e} "
+                 f"> {U_TOL:g} * max|u| {split['umax']:.3e}")
+        steady = frame_s[1:]
+        ms_per_iter = sum(steady) / sum(iters[1:]) * 1e3
+        print(f"megafused main path: pcg iterations per frame {iters} (split "
+              f"fused {split['iters']})", flush=True)
+        print("megafused main path: frame seconds " + ", ".join(
+            f"{t:.4f}" for t in frame_s), flush=True)
+        print(f"megafused main path: steps/s {len(steady) / sum(steady):.4f} "
+              f"(frames 2-8; split fused {split['steps_per_s']:.4f}), "
+              f"{ms_per_iter:.4f} ms per iteration (split fused "
+              f"{split['ms_per_iter']:.4f})", flush=True)
+        print(f"megafused main path: peak device memory {peak / 2**30:.3f} GiB "
+              f"({peak} bytes)", flush=True)
+        print(f"megafused main path: kernel launches {launches} = K6 "
+              f"{launches['k6'] / sum(iters):.3f} per iteration, K2 "
+              f"{launches['pc'] / 8:.3f} and K1 {launches['keff'] / 8:.3f} per "
+              f"frame; loaded face u_z max abs diff from the split run "
+              f"{tip_err:.3e} ({tip_err / split['umax']:.3e} of max|u|)",
+              flush=True)
+        profile_window("megafused main path frame 9", lambda: sim.run(1))
+    finally:
+        os.environ.pop(MEGA, None)
+    profile_window("split fused main path frame 10", lambda: sim.run(1))
     del sim, state
     torch.cuda.empty_cache()
     return launches
@@ -303,17 +449,30 @@ def cantilever_box_config():
     })
 
 
-def trajectory_phase(device):
-    """Phase 5: the example scenario on the GPU against the CPU."""
+def trajectory_phase(device, mega=False):
+    """Phase 5: the example scenario on the GPU against the CPU; with
+    ``mega`` both run the fused variant with the whole-iteration path (K6
+    on the GPU, its plain version on the CPU)."""
     from civiwave_tpu_torch.runner import build_simulation
 
     cfg = cantilever_box_config()
     runs = {}
-    for dev in (device, "cpu"):
-        sim = build_simulation(cfg, device=dev)
-        tel = sim.run(10)
-        runs[dev] = (tel, sim.stepper.state)
-    (tg, sg), (tc, sc) = runs[device], runs["cpu"]
+    if mega:
+        os.environ[MEGA] = "1"
+    try:
+        for dev in (device, "cpu"):
+            sim = build_simulation(cfg, device=dev)
+            if mega:
+                sim.stepper.solver_variant = "fused"
+            reset_structured_counts()
+            tel = sim.run(10)
+            runs[dev] = (tel, sim.stepper.state, structured_counts())
+    finally:
+        os.environ.pop(MEGA, None)
+    (tg, sg, counts), (tc, sc, _) = runs[device], runs["cpu"]
+    if mega and counts["k6"] != sum(t.pcg_iterations for t in tg):
+        fail(f"trajectory (megafused): {counts['k6']} K6 launches for "
+             f"{sum(t.pcg_iterations for t in tg)} PCG iterations")
     it_g = [t.pcg_iterations for t in tg]
     it_c = [t.pcg_iterations for t in tc]
     if any(abs(a - b) > 1 for a, b in zip(it_g, it_c)):
@@ -327,7 +486,8 @@ def trajectory_phase(device):
         _, errs[name] = check_close(
             f"trajectory {name}", getattr(sg, name).cpu(), getattr(sc, name), tol
         )
-    print(f"cantilever_box 10 frames: iterations gpu {it_g} cpu {it_c}; "
+    print(f"cantilever_box 10 frames{' megafused' if mega else ''}: "
+          f"iterations gpu {it_g} cpu {it_c}; "
           f"max abs err / max|cpu| u {errs['displacement']:.3e} "
           f"(tol {U_TOL:g}), a {errs['acceleration']:.3e} (tol {A_TOL:g})",
           flush=True)
@@ -775,9 +935,14 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"  ptxas: {line.strip()}", flush=True)
 
+    # the whole-iteration path is opt-in: phases 4b and 5's second run set
+    # the switch for themselves, every other phase runs without it
+    os.environ.pop(MEGA, None)
     errs, times = kernel_phase(device)
-    launches = main_path_phase(device)
+    launches, split = main_path_phase(device)
+    mega_launches = mega_main_path_phase(device, split)
     trajectory_phase(device)
+    trajectory_phase(device, mega=True)
 
     from civiwave_tpu_torch.physics import materials
     from civiwave_tpu_torch.solver.stepper import effective_scalars
@@ -803,8 +968,8 @@ def main() -> int:
     # structured errors and times at 255^3, general ones at the 66^3 shapes
     # of their paths; max_rel_err is max abs err / max|plain|, the quantity
     # held to OP_TOL.  launches: the structured main path for K1-K3, the
-    # general main path (a) for K7 tet and G1, the general steps workload
-    # (c) for K7 hex
+    # megafused main path for K6, the general main path (a) for K7 tet and
+    # G1, the general steps workload (c) for K7 hex
     kernels = [
         dict(name="keff_structured", route="cuda", source=src + "keff_structured.cu",
              replaces=pallas + "structured_stencil.py:931",
@@ -827,6 +992,13 @@ def main() -> int:
              max_rel_err=errs["bj"][1], tol=OP_TOL,
              ms=times["bj"][0], plain_ms=times["bj"][1],
              **structured_bound("bj")),
+        dict(name="pcg_iteration_structured", route="cuda",
+             source=src + "pcg_iteration_structured.cu",
+             replaces=pallas + "structured_stencil.py:1226",
+             launches=mega_launches["k6"], max_abs_err=errs["k6"][0],
+             max_rel_err=errs["k6"][1], tol=OP_TOL,
+             ms=times["k6"][0], plain_ms=times["k6"][1],
+             **structured_bound("k6")),
         dict(name="element_forces_hex", route="cuda",
              source=src + "element_forces.cu",
              replaces=pallas + "element_forces.py:125",

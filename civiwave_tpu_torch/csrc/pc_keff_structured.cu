@@ -27,12 +27,6 @@
 
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __global__ void __launch_bounds__(256) pc_keff_structured_kernel(
     const float* __restrict__ pc_table, const float* __restrict__ stencil,
     const float* __restrict__ r, const uint8_t* __restrict__ bc,
@@ -104,30 +98,8 @@ __global__ void __launch_bounds__(256) pc_keff_structured_kernel(
     }
   }
   if (partials == nullptr) return;  // uniform across the block
-  __shared__ float sh[3][8];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  ru = warp_sum(ru);
-  rr = warp_sum(rr);
-  wu = warp_sum(wu);
-  if (lane == 0) {
-    sh[0][warp] = ru;
-    sh[1][warp] = rr;
-    sh[2][warp] = wu;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) {
-      s0 += sh[0][i];
-      s1 += sh[1][i];
-      s2 += sh[2][i];
-    }
-    const int64_t rows = static_cast<int64_t>(X) * Y;
-    partials[row] = s0;
-    partials[rows + row] = s1;
-    partials[2 * rows + row] = s2;
-  }
+  civi::store_row_sums3(ru, rr, wu, partials, static_cast<int64_t>(X) * Y,
+                        row);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // Device code shared by the structured-grid kernels (K1 keff_structured,
-// K2 pc_keff_structured, K3 block_jacobi_apply).
+// K2 pc_keff_structured, K3 block_jacobi_apply, K6
+// pcg_iteration_structured).
 //
 // Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
 // row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
-// (torch.bool).  All three kernels launch one block per (x, y) row of the
+// (torch.bool).  All four kernels launch one block per (x, y) row of the
 // node grid and let the threads stride over z, so neighbouring threads
 // touch neighbouring addresses.  Offsets into the vectors are 64-bit.
 #pragma once
@@ -48,6 +49,44 @@ __device__ __forceinline__ void block_jacobi_node(
 inline unsigned row_threads(int z) {
   const int t = ((z + 31) / 32) * 32;
   return static_cast<unsigned>(t > 256 ? 256 : t);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sums three per-thread values over the block (at most 256 threads, whole
+// warps) and has thread 0 write them to partials[k * rows + row], k = 0, 1,
+// 2.  One block owns one row, so the sums need no atomics and are
+// deterministic.  Every thread of the block must call it.
+__device__ __forceinline__ void store_row_sums3(float s0, float s1, float s2,
+                                                float* __restrict__ partials,
+                                                int64_t rows, int row) {
+  __shared__ float sh[3][8];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  s0 = warp_sum(s0);
+  s1 = warp_sum(s1);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    sh[0][warp] = s0;
+    sh[1][warp] = s1;
+    sh[2][warp] = s2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t0 = 0.0f, t1 = 0.0f, t2 = 0.0f;
+    for (int i = 0; i < static_cast<int>(blockDim.x >> 5); ++i) {
+      t0 += sh[0][i];
+      t1 += sh[1][i];
+      t2 += sh[2][i];
+    }
+    partials[row] = t0;
+    partials[rows + row] = t1;
+    partials[2 * rows + row] = t2;
+  }
 }
 
 }  // namespace civi

@@ -158,6 +158,18 @@ class StructuredModel:
 
         return _ops.pc_keff_kernel_eligible(self, block_inverse, vector_dtype)
 
+    def build_fused_pcg_iteration(self, block_inverse, stiffness_scale,
+                                  mass_factor, reduction_dtype,
+                                  vector_dtype):
+        """Whole-iteration PCG bundle (one K6 launch per iteration on
+        CUDA), or None when ineligible — see ops.structured."""
+        from ..ops import structured as _ops
+
+        return _ops.build_fused_pcg_iteration(
+            self, block_inverse, stiffness_scale, mass_factor,
+            reduction_dtype, vector_dtype,
+        )
+
     def apply_pc_keff(self, block_inverse, residual, stiffness_scale,
                       mass_factor):
         """(u, w) = (M^-1 r, K_eff u) — one kernel launch on CUDA."""

@@ -50,6 +50,12 @@ _SIGNATURES = {
     "civi_pc_keff_structured": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
+    # pc_table, stencil, alpha_beta, x, r, u, w, p, s, bc, r_out, w_out,
+    # s_out, partials, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
+    "civi_pcg_iteration_structured": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
     # x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream
     "civi_element_forces_tet": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "civi_element_forces_hex": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),

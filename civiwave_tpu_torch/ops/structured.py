@@ -31,6 +31,7 @@ version.  There are no size thresholds.
 
 from __future__ import annotations
 
+import os
 from functools import lru_cache
 from typing import Dict, NamedTuple, Tuple
 
@@ -40,6 +41,7 @@ import torch.nn.functional as F
 
 from ..mesh.structured import CORNERS, StructuredModel
 from .cuda import block_jacobi_apply as _k3
+from .cuda import pcg_iteration as _k6
 from .cuda import structured_stencil as _k12
 
 _DET_TOL = 1.0e-12
@@ -529,3 +531,51 @@ def apply_pc_keff_dots_structured(
         model, pc.table, residual, stiffness_scale, mass_factor,
         with_dots=True, reduction_dtype=reduction_dtype,
     )
+
+
+def build_fused_pcg_iteration(
+    model: StructuredModel, pc, stiffness_scale, mass_factor,
+    reduction_dtype=torch.float64, vector_dtype=torch.float32,
+):
+    """Whole-iteration PCG bundle, or None when ineligible.
+
+    Returns ``iteration(carries, alpha, beta)``, which runs ONE
+    Chronopoulos-Gear iteration on the carries ``(x, r, u, w, p, s)`` (the
+    p/s recurrence, the x/r axpys, the class-table preconditioner, K_eff
+    and all three dots) and returns the updated carries and ``(gamma,
+    delta, rr)`` in ``reduction_dtype``: one K6 launch on CUDA (which
+    updates x, u and p in place), the plain K6 on CPU.  The carries are
+    the plain solver vectors; the reference's x_ext padding is not ported,
+    so there is no pad/unpad step.
+
+    Opt-in through ``CIVIWAVE_MEGA_PCG=1``, read at call time, as in the
+    reference (its ADR-22: on v5e the whole-iteration kernel lost to the
+    split form).  Eligibility is the reference's minus its TPU-only rules
+    (VMEM plane fit, even plane count, stream profitability, TPU backend):
+    the class-table block-Jacobi, a homogeneous unsharded grid, f32 vectors
+    and no absorbing faces.  The device does not gate it: CPU tensors take
+    the plain K6, as every other dispatch of the port goes by device.
+    """
+    if os.environ.get("CIVIWAVE_MEGA_PCG", "0") != "1":
+        return None
+    # fields the port's model does not carry yet (absorbing faces: A7; the
+    # heterogeneous grid and the shard mesh: A11); the rules stay so those
+    # slices inherit them.  With absorbing faces the kernel could not add
+    # the face term to w.
+    if getattr(model, "absorb_faces", None):
+        return None
+    if not (
+        isinstance(pc, CompactBlockJacobi)
+        and getattr(model, "homogeneous", True)
+        and getattr(model, "shard_mesh", None) is None
+        and vector_dtype == torch.float32
+    ):
+        return None
+
+    def iteration(carries, alpha, beta):
+        return _k6.pcg_iteration_fused(
+            model, pc.table, carries, alpha, beta, stiffness_scale,
+            mass_factor, reduction_dtype,
+        )
+
+    return iteration

@@ -245,8 +245,9 @@ def solve_pcg_fused(
     On CUDA the structured model's pc apply, matvec and three dots are one
     K2 launch (``model.apply_pc_keff_dots``); a model without that method
     (the general path) composes ``apply_pc_keff`` and :func:`fused_dots`.
-    The whole-iteration kernel of the reference (``CIVIWAVE_MEGA_PCG``)
-    waits for ROADMAP B5.
+    With ``CIVIWAVE_MEGA_PCG=1`` a model that builds a whole-iteration
+    bundle (the structured model) runs :func:`_solve_pcg_megafused`
+    instead: the whole iteration is one K6 launch on CUDA.
     """
     f32 = vector_dtype
     rdt = reduction_dtype
@@ -257,6 +258,20 @@ def solve_pcg_fused(
         if preconditioner is None
         else preconditioner
     )
+
+    # the whole-iteration path (the reference's pcg.py:381-396)
+    builder = getattr(model, "build_fused_pcg_iteration", None)
+    if builder is not None:
+        iteration_fn = builder(
+            block_inverse, stiffness_scale, mass_factor, rdt, f32
+        )
+        if iteration_fn is not None:
+            return _solve_pcg_megafused(
+                model, rhs, stiffness_scale, mass_factor, relative_tolerance,
+                max_iterations, x0, warm_start=warm_start,
+                reduction_dtype=rdt, vector_dtype=f32,
+                block_inverse=block_inverse, iteration_fn=iteration_fn,
+            )
 
     x = x0 if warm_start else torch.zeros_like(x0)
 
@@ -336,3 +351,98 @@ def solve_pcg_fused(
         breakdown=breakdown,
     )
     return x, telemetry
+
+
+def _solve_pcg_megafused(
+    model,
+    rhs: torch.Tensor,
+    stiffness_scale,
+    mass_factor,
+    relative_tolerance,
+    max_iterations,
+    x0: torch.Tensor,
+    *,
+    warm_start: bool,
+    reduction_dtype,
+    vector_dtype,
+    block_inverse,
+    iteration_fn,
+):
+    """Chronopoulos-Gear PCG with the WHOLE iteration in one call of
+    ``iteration_fn`` (one K6 launch on CUDA).
+
+    Port of the reference's ``_solve_pcg_megafused`` (pcg.py:809-947).
+    Same algebra as :func:`solve_pcg_fused` with the p/s direction update
+    deferred across the loop boundary: body n feeds (u_{n-1}, w_{n-1},
+    p_{n-2}, s_{n-2}, alpha_{n-1}, beta_{n-1}) to the kernel, which forms
+    p_{n-1}/s_{n-1} in flight, applies the axpys, preconditions, applies
+    the operator and emits the three dots.  beta starts at 0, so the first
+    update forms p_0 = u_0.  The carries advance every body (on exit p/s
+    are one iterate old and consumed by nothing); gamma, alpha, beta and
+    beta_last freeze on the stopping body, and the count is iteration + 1
+    every body, as in the reference.  One host read of the flags per
+    iteration, as the other loops.
+    """
+    f32 = vector_dtype
+    rdt = reduction_dtype
+
+    x = x0 if warm_start else torch.zeros_like(x0)
+    ax = model.apply_keff(x, stiffness_scale, mass_factor)
+    r = (rhs - ax).to(f32)
+    x, r = _clamp_dirichlet(model, rhs, x, r)
+
+    u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
+    gamma, delta0, rr0, rhs2 = fused_dots(
+        [(r, u), (w, u), (r, r), (rhs, rhs)], rdt
+    )
+    rhs_norm_true = torch.sqrt(rhs2)
+    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
+    tolerance = relative_tolerance * rhs_norm
+
+    residual_norm = torch.sqrt(rr0)
+    delta_small = delta0.abs() < _BREAKDOWN_TOL
+    alpha = gamma / torch.where(delta_small, 1.0, delta0)
+    converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
+    breakdown = (not converged) and delta_bd
+
+    # x, u (and p) are this loop's own tensors: K6 updates them in place
+    carries = (x, r, u, w, torch.zeros_like(x), torch.zeros_like(x))
+    beta = torch.zeros((), dtype=rdt, device=rhs.device)
+    alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
+    beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
+
+    iteration = 0
+    while iteration < max_iterations and not converged and not breakdown:
+        carries, (gamma_new, delta, rr) = iteration_fn(
+            carries, alpha.to(f32), beta.to(f32)
+        )
+        residual_norm = torch.sqrt(rr)
+
+        gamma_small = gamma.abs() < _BREAKDOWN_TOL
+        beta_new = gamma_new / torch.where(gamma_small, 1.0, gamma)
+        alpha_denom = delta - beta_new * gamma_new / torch.where(
+            alpha.abs() < _BREAKDOWN_TOL, 1.0, alpha
+        )
+        denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
+        alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
+
+        conv, g_bd, d_bd = _flags(
+            residual_norm <= tolerance, gamma_small, denom_small
+        )
+        alpha_last = alpha  # the step just applied
+        iteration += 1
+        converged = conv
+        breakdown = (not conv) and (g_bd or d_bd)
+        if not (converged or breakdown):
+            gamma, alpha, beta, beta_last = gamma_new, alpha_new, beta_new, beta_new
+
+    telemetry = PcgTelemetry(
+        iterations=iteration,
+        residual_norm=residual_norm,
+        rhs_norm=rhs_norm_true,
+        alpha_last=alpha_last,
+        beta_last=beta_last,
+        converged=converged,
+        breakdown=breakdown,
+    )
+    return carries[0], telemetry

@@ -42,6 +42,7 @@ def test_every_module_imports_with_jax_blocked():
         "runner", "ops.cuda.structured_stencil", "mesh.gmsh", "mesh.pack",
         "mesh.renumber", "ops.apply_keff", "ops.block_jacobi",
         "ops.cuda.element_forces", "ops.cuda.assemble_csr", "physics.oracle",
+        "ops.cuda.pcg_iteration",
     ):
         assert f"civiwave_tpu_torch.{name}" in modules
     code = (

@@ -1,6 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: K1-K3
-of the structured route, K7 (element forces, tet and hex) and G1 (CSR
-assembly) of the general gather path.
+and K6 (the whole PCG iteration) of the structured route, K7 (element
+forces, tet and hex) and G1 (CSR assembly) of the general gather path.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -25,6 +25,7 @@ from civiwave_tpu_torch.ops import apply_keff as gops
 from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
 from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
 from civiwave_tpu_torch.ops.cuda import element_forces as k7
+from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
 from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 from civiwave_tpu_torch.physics import materials
 from civiwave_tpu_torch.runner import build_simulation
@@ -124,6 +125,44 @@ def test_pc_keff_kernel_matches_plain(device, case):
         assert float(ours) == pytest.approx(float(ref), rel=DOT_RTOL)
 
 
+@pytest.mark.parametrize("beta", [0.2, 0.0], ids=["beta", "beta0"])
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_pcg_iteration_kernel_matches_plain(device, case, beta):
+    model, _ = _model(device, case)
+    pc = model.build_preconditioner(SS, MF)
+    rng = np.random.default_rng(8)
+    carries = tuple(
+        torch.as_tensor(
+            rng.standard_normal(model.vector_shape, dtype=np.float32), device=device
+        )
+        for _ in range(6)
+    )
+    alpha = torch.tensor(0.3, dtype=torch.float64, device=device)
+    refs, ref_dots = k6.pcg_iteration_fused_plain(
+        model, pc.table, carries, alpha.float(), beta, SS, MF
+    )
+    mine = tuple(c.clone() for c in carries)
+    before = k6.pcg_iteration_fused.launches
+    outs, dots = k6.pcg_iteration_fused(model, pc.table, mine, alpha, beta, SS, MF)
+    torch.cuda.synchronize()
+    assert k6.pcg_iteration_fused.launches == before + 1
+    for out, ref in zip(outs, refs):
+        _close(out, ref)
+    # x, u and p are updated in place; r, w and s come back in new buffers
+    for i in (0, 2, 4):
+        assert outs[i] is mine[i]
+    for i in (1, 3, 5):
+        assert outs[i] is not mine[i] and torch.equal(mine[i], carries[i])
+    for ours, ref in zip(dots, ref_dots):
+        assert ours.dtype == torch.float64
+        assert float(ours) == pytest.approx(float(ref), rel=DOT_RTOL)
+    with pytest.raises(TypeError):
+        k6.pcg_iteration_fused(
+            model, pc.table, tuple(c.double() for c in carries), alpha, beta,
+            SS, MF,
+        )
+
+
 def test_wrappers_refuse_wrong_dtype_and_layout(device):
     model, x = _model(device, "xpad4")
     with pytest.raises(TypeError):
@@ -148,6 +187,32 @@ def test_small_cantilever_runs_fused_on_the_card(device):
                           k12.apply_pc_keff_fused.launches - before)
     (tg, ug, n_gpu), (tc, uc, n_cpu) = runs[str(device)], runs["cpu"]
     assert n_gpu > 0 and n_cpu == 0
+    assert all(t.pcg_converged for t in tg)
+    assert all(abs(a.pcg_iterations - b.pcg_iterations) <= 1 for a, b in zip(tg, tc))
+    np.testing.assert_allclose(
+        ug.numpy(), uc.numpy(), rtol=0, atol=2.5e-4 * float(uc.abs().max())
+    )
+
+
+def test_small_cantilever_runs_megafused_on_the_card(device, monkeypatch):
+    """With CIVIWAVE_MEGA_PCG=1 the fused variant runs one K6 launch per
+    PCG iteration on CUDA; the trajectory matches the CPU run of the plain
+    K6 (iterations +-1, u at 2.5e-4 of max|ref|)."""
+    monkeypatch.setenv("CIVIWAVE_MEGA_PCG", "1")
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120,
+                            mesh={"path": "synthetic://box/12,6,6"})
+    runs = {}
+    for dev in (device, "cpu"):
+        sim = build_simulation(cfg, device=dev)
+        sim.stepper.solver_variant = "fused"
+        before = (k6.pcg_iteration_fused.launches, k12.apply_pc_keff_fused.launches)
+        tel = sim.run(4)
+        runs[str(dev)] = (tel, sim.stepper.state.displacement.cpu(),
+                          k6.pcg_iteration_fused.launches - before[0],
+                          k12.apply_pc_keff_fused.launches - before[1])
+    (tg, ug, n6, n2), (tc, uc, n6_cpu, _) = runs[str(device)], runs["cpu"]
+    assert n6 == sum(t.pcg_iterations for t in tg) and n6_cpu == 0
+    assert n2 == 4  # K2 only in each solve's setup
     assert all(t.pcg_converged for t in tg)
     assert all(abs(a.pcg_iterations - b.pcg_iterations) <= 1 for a, b in zip(tg, tc))
     np.testing.assert_allclose(
