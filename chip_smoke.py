@@ -40,7 +40,21 @@ Phases, each printing its result:
    preconditioner: steps/s and mean iterations (the reference recorded
    25.0);
 10. examples/seismic_column_tet.yaml (tet Gmsh mesh, two materials, curve
-    traction) for 10 frames on the GPU and on the CPU.
+    traction) for 10 frames on the GPU and on the CPU;
+11. slender route: hold K4 interior_stencil and G2 keff_boundary against
+    their plain versions, and the split operator (sanitize + K4 + G2)
+    against K1, on small and odd grids, the soil column's grid and 255^3;
+    time K4 (beside one cuDNN conv3d in full f32, the yardstick), G2 and
+    the split operator against K1;
+12. the slender main path at full width — ``build_simulation`` on
+    ``soil_column_config()`` (1023x47x47 cells, 7,077,888 DOF, absorbing
+    base) — for 8 frames on 'auto' (= classic there): every frame
+    converged, K4 and G2 once per matvec, K1, K2 and K6 never; then 3
+    frames on the K4 route against 3 on the K1 route (the route switched
+    inside this script only);
+13. examples/seismic_basin.yaml (five absorbing faces) for 10 frames on the
+    GPU and on the CPU, then the basin at synthetic://box/255,255,255 for 4
+    frames (K1 and K2 without in-kernel dots, the face term outside them).
 
 Any failed check exits non-zero.  The last two lines of stdout are a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.
@@ -48,6 +62,7 @@ summary of the kernels and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -79,6 +94,13 @@ HBM_TBPS = 3.35  # H100 SXM published device-memory bandwidth at 700 W
 F32_TFLOPS = 67.0  # H100 SXM published f32 rate outside the tensor cores
 GENERAL_N = 66  # bench.py's general-path box (66^3 cells, 902,289 DOF)
 ITERS_REF = 25.0  # BENCH_r05: PCG iterations per step, 34^3 shuffled box
+COLUMN = (1023, 47, 47)  # soil_column_config's cells: 1024x48x48 nodes
+BASIN = "examples/seismic_basin.yaml"
+# least bytes per node: K4 reads xs and writes out; G2 reads interior, x
+# and the mask and writes out.  G2's least f32 operations: 12 per node
+# (subtract, scale and mass FMA per component) plus 2 per nonzero ghost
+# tap at each boundary-class node (counted from the run's grid)
+K4_BYTES_PER_NODE, G2_BYTES_PER_NODE, G2_FLOPS_PER_NODE = 24, 39, 12
 
 
 def fail(message: str) -> None:
@@ -914,6 +936,332 @@ def column_trajectory_phase(device):
           flush=True)
 
 
+# --- slender route: K4 + G2, the soil column, the basin ------------------
+
+
+def slender_counts():
+    """Launch counters of the slender route's kernels, by short name."""
+    from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
+    from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
+
+    return {"k4": k4.interior_stencil.launches, "g2": g2.keff_boundary.launches}
+
+
+def reset_slender_counts():
+    from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
+    from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
+
+    k4.interior_stencil.launches = 0
+    g2.keff_boundary.launches = 0
+
+
+def all_counts():
+    return {**structured_counts(), **slender_counts()}
+
+
+def reset_all_counts():
+    reset_structured_counts()
+    reset_slender_counts()
+
+
+def column_model(device):
+    """The soil column's model as the main path builds it, with the
+    scenario's K_eff scalars at its dt."""
+    from civiwave_tpu_torch.mesh.structured_config import try_build_structured
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.solver.stepper import effective_scalars
+    from civiwave_tpu_torch.utils.synthetic import soil_column_config
+
+    cfg = soil_column_config(cells=COLUMN)
+    model, _ = try_build_structured(cfg, device=device)
+    ray = materials.compute_rayleigh(cfg.damping)
+    return model, effective_scalars(cfg.time.initial_dt, ray.alpha, ray.beta)
+
+
+def g2_least(model):
+    """G2's (least bytes, least f32 operations) on ``model``'s grid."""
+    from civiwave_tpu_torch.ops import structured as tops
+
+    X, Y, Z = model.grid_shape
+    ghost = tops.ghost_stencil_table(model.spacing, model.lam0, model.mu0)
+    per_axis = [np.bincount(tops.axis_classes(n, c), minlength=3)
+                for n, c in zip((X, Y, Z), (model.nx, model.ny, model.nz))]
+    nodes = np.einsum("i,j,k->ijk", *per_axis).reshape(27)
+    taps = np.count_nonzero(ghost.reshape(27, -1), axis=1)
+    ghost_flops = 2 * int((nodes * taps).sum())  # the interior class has none
+    total = X * Y * Z
+    return G2_BYTES_PER_NODE * total, G2_FLOPS_PER_NODE * total + ghost_flops
+
+
+def conv3d_yardstick(xs, taps):
+    """One cuDNN conv3d in full f32 (TF32 off) computing K4's function:
+    (the call, its weight W[b, c, dx, dy, dz] = T[dx, dy, dz, b, c])."""
+    import torch.nn.functional as F
+
+    weight = torch.as_tensor(
+        np.ascontiguousarray(np.transpose(taps, (3, 4, 0, 1, 2)), np.float32),
+        device=xs.device,
+    )
+    return lambda: F.conv3d(xs[None], weight, padding=1)[0]
+
+
+def slender_kernel_phase(device, ss, mf):
+    """Phase 11: K4, G2 and the split operator against their plain versions
+    and K1; times at the soil column's grid and at 255^3."""
+    from civiwave_tpu_torch.mesh.structured import build_structured_model
+    from civiwave_tpu_torch.ops import structured as tops
+    from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
+    from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cfg = cantilever_config()
+    mat = materials.make_properties(cfg.materials[0])
+    rho = cfg.materials[0].density
+    cases = [
+        ("5x4x3 fixes x0,z1", (5, 4, 3), dict(fixed_axis_planes=("x0", "z1"))),
+        ("1x3x2", (1, 3, 2), {}),
+        ("6x5x4 pad_x4", (6, 5, 4), dict(pad_x_multiple=4)),
+        ("37x23x11 fixes x0,y1,z0 partial", (37, 23, 11), dict(fixes=[
+            ("x0", (True, True, True), (None, None, None)),
+            ("y1", (False, True, False), (None, None, None)),
+            ("z0", (True, False, True), (None, None, None)),
+        ])),
+        ("2x3x300", (2, 3, 300), {}),
+        ("soil column", None, None),
+        ("255x255x255", FULL, {}),
+    ]
+    errs = {"k4": (0.0, 0.0), "g2": (0.0, 0.0), "split": (0.0, 0.0)}
+    timing = {}
+    for label, dims, kw in cases:
+        if dims is None:
+            model, (m_ss, m_mf) = column_model(device)
+        else:
+            model, _ = build_structured_model(*dims, mat, rho, device=device, **kw)
+            m_ss, m_mf = ss, mf
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        x = torch.randn(model.vector_shape, generator=gen, device=device)
+        xs = x.masked_fill(model.bc_mask, 0.0)
+        taps = tops.interior_taps(model)
+        interior = k4.interior_stencil_plain(xs, taps)
+        found = {
+            "k4": check_close(f"K4 {label}", k4.interior_stencil(xs, taps),
+                              interior, OP_TOL),
+            "g2": check_close(
+                f"G2 {label}", g2.keff_boundary(model, interior, x, m_ss, m_mf),
+                g2.keff_boundary_plain(model, interior, x, m_ss, m_mf), OP_TOL),
+            "split": check_close(
+                f"split vs K1 {label}",
+                tops.apply_keff_split_structured(model, x, m_ss, m_mf),
+                k12.apply_keff_fused(model, x, m_ss, m_mf), OP_TOL),
+        }
+        torch.cuda.synchronize()
+        for key, (a, r) in found.items():
+            errs[key] = (max(errs[key][0], a), max(errs[key][1], r))
+        print(f"slender kernels vs plain [{label}, grid {model.grid_shape}] "
+              "abs/rel err: " + ", ".join(
+                  f"{k}={a:.3e}/{r:.2e}" for k, (a, r) in found.items()),
+              flush=True)
+        if label not in ("soil column", "255x255x255"):
+            continue
+        nodes = int(np.prod(model.grid_shape))
+        conv = conv3d_yardstick(xs, taps)
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            conv_err = float((conv() - interior).abs().max()) / float(
+                interior.abs().max())
+            conv_ms = time_ms(conv, 20)
+        finally:
+            torch.backends.cudnn.allow_tf32 = tf32
+        k4_flops = 2 * int(np.count_nonzero(taps)) * nodes
+        g2_bytes, g2_flops = g2_least(model)
+        timing[label] = {
+            "k4": report_time(
+                "K4 interior_stencil", label,
+                time_ms(lambda: k4.interior_stencil(xs, taps), 50),
+                time_ms(lambda: k4.interior_stencil_plain(xs, taps), 3),
+                K4_BYTES_PER_NODE * nodes, k4_flops, conv_ms),
+            "g2": report_time(
+                "G2 keff_boundary", label,
+                time_ms(lambda: g2.keff_boundary(model, interior, x, m_ss, m_mf), 50),
+                time_ms(lambda: g2.keff_boundary_plain(
+                    model, interior, x, m_ss, m_mf), 3),
+                g2_bytes, g2_flops),
+        }
+        split_ms = time_ms(
+            lambda: tops.apply_keff_split_structured(model, x, m_ss, m_mf), 50)
+        k1_ms = time_ms(lambda: k12.apply_keff_fused(model, x, m_ss, m_mf), 50)
+        print(f"  K4 library yardstick conv3d (cuDNN, TF32 off): {conv_ms:.4f} ms, "
+              f"max abs diff from the plain K4 {conv_err:.3e} of max|plain|", flush=True)
+        print(f"time split operator [{label}]: sanitize + K4 + G2 {split_ms:.4f} ms "
+              f"against K1 {k1_ms:.4f} ms on the same model", flush=True)
+        timing[label]["split_ms"], timing[label]["k1_ms"] = split_ms, k1_ms
+        del model, x, xs, interior
+        torch.cuda.empty_cache()
+    return errs, timing
+
+
+def column_main_path_phase(device):
+    """Phase 12: the slender main path at full width through
+    build_simulation, then the K4 route against the K1 route."""
+    from civiwave_tpu_torch.ops import structured as tops
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.synthetic import soil_column_config
+
+    cfg = soil_column_config(cells=COLUMN)
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = sim.model
+    grid = tuple(n + 1 for n in COLUMN)
+    if model.grid_shape != grid or model.dof_count != 3 * int(np.prod(grid)):
+        fail(f"soil column: {model.dof_count:,} DOF on {model.grid_shape}")
+    if not tops.slender_route(model, torch.float32) or model.absorb_faces != ("x0",):
+        fail("soil column: not on the slender route with an absorbing base")
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_counts()
+    frame_s, telemetries = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        telemetries += sim.run(1)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    counts = all_counts()
+    peak = torch.cuda.max_memory_allocated()
+    iters = [t.pcg_iterations for t in telemetries]
+    if not all(t.pcg_converged for t in telemetries):
+        fail(f"soil column: not every frame converged: {iters}")
+    state = sim.stepper.state
+    for name in ("displacement", "velocity", "acceleration"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            fail(f"soil column: non-finite {name}")
+    # classic PCG: each frame's Rayleigh-beta and residual matvecs, then one
+    # per iteration
+    matvecs = sum(iters) + 2 * len(iters)
+    if counts["k4"] != matvecs or counts["g2"] != matvecs:
+        fail(f"soil column: K4/G2 launched {counts['k4']}/{counts['g2']} "
+             f"times for {matvecs} matvecs")
+    if counts["keff"] or counts["pc"] or counts["k6"] or counts["bj"] <= 0:
+        fail(f"soil column: wrong kernels on the slender route {counts}")
+    base_uy = float(state.displacement[1, 0].abs().max())
+    if not base_uy > 0.0:
+        fail("soil column: the base did not move under the shear pulse")
+    steady = frame_s[1:]
+    print(f"soil column: {model.dof_count:,} DOF, grid {model.grid_shape}, "
+          f"model build {build_s:.3f} s", flush=True)
+    print(f"soil column: pcg iterations per frame {iters} (classic)", flush=True)
+    print("soil column: frame seconds " + ", ".join(f"{t:.4f}" for t in frame_s),
+          flush=True)
+    summary = dict(iters=iters, steps_per_s=len(steady) / sum(steady),
+                   ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3, peak=peak)
+    print(f"soil column: steps/s {summary['steps_per_s']:.4f} (frames 2-8), "
+          f"{summary['ms_per_iter']:.4f} ms per iteration (host clock)", flush=True)
+    print(f"soil column: peak device memory {peak / 2**30:.3f} GiB ({peak} bytes)",
+          flush=True)
+    print(f"soil column: kernel launches {counts} for {matvecs} matvecs; base "
+          f"max |u_y| {base_uy:.6e} m", flush=True)
+    profile_window("soil column frame 9", lambda: sim.run(1))
+    del sim, model, state
+    torch.cuda.empty_cache()
+
+    # the K4 route against the K1 route, 3 classic frames each
+    runs = {}
+    saved = tops._FLAT_INTERIOR_NODE_THRESHOLD
+    for route in ("split", "k1"):
+        if route == "k1":  # every grid takes K1 again
+            tops._FLAT_INTERIOR_NODE_THRESHOLD = 1 << 62
+        try:
+            sim = build_simulation(cfg, device=device)
+            sim.stepper.solver_variant = "classic"
+            reset_all_counts()
+            tel = sim.run(3)
+            runs[route] = (tel, sim.stepper.state, all_counts())
+        finally:
+            tops._FLAT_INTERIOR_NODE_THRESHOLD = saved
+        del sim
+    (ts, state_s, cs), (tk, state_k, ck) = runs["split"], runs["k1"]
+    if cs["k4"] <= 0 or cs["keff"] or ck["k4"] or ck["keff"] <= 0:
+        fail(f"soil column routes: split {cs}, k1 {ck}")
+    it_s = [t.pcg_iterations for t in ts]
+    it_k = [t.pcg_iterations for t in tk]
+    if any(abs(a - b) > 1 for a, b in zip(it_s, it_k)):
+        fail(f"soil column routes: iterations {it_s} vs {it_k}")
+    if not all(t.pcg_converged for t in ts + tk):
+        fail("soil column routes: a frame did not converge")
+    errs = {}
+    for name, tol in (("displacement", U_TOL), ("acceleration", A_TOL)):
+        _, errs[name] = check_close(f"soil column routes {name}",
+                                    getattr(state_s, name),
+                                    getattr(state_k, name), tol)
+    print(f"soil column K4 route vs K1 route, 3 classic frames: iterations "
+          f"{it_s} vs {it_k}; max abs err / max|K1 run| u "
+          f"{errs['displacement']:.3e} (tol {U_TOL:g}), a "
+          f"{errs['acceleration']:.3e} (tol {A_TOL:g})", flush=True)
+    del runs, state_s, state_k
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def basin_phase(device):
+    """Phase 13: examples/seismic_basin.yaml GPU against CPU, then the
+    basin at 255^3 on the GPU."""
+    from civiwave_tpu_torch.config.loader import load_config_from_file
+    from civiwave_tpu_torch.runner import build_simulation
+
+    runs = {}
+    for dev in (device, "cpu"):
+        sim = build_simulation(BASIN, device=dev)
+        reset_all_counts()
+        tel = sim.run(10)
+        runs[str(dev)] = (tel, sim.stepper.state, all_counts())
+    (tg, sg, counts), (tc, sc, _) = runs[str(device)], runs["cpu"]
+    it_g = [t.pcg_iterations for t in tg]
+    it_c = [t.pcg_iterations for t in tc]
+    if any(abs(a - b) > 1 for a, b in zip(it_g, it_c)):
+        fail(f"basin: iterations differ by more than 1: {it_g} vs {it_c}")
+    if not all(t.pcg_converged for t in tg):
+        fail(f"basin: GPU frames not all converged: {it_g}")
+    if counts["pc"] <= 0 or counts["keff"] <= 0 or counts["k4"] or counts["k6"]:
+        fail(f"basin: wrong kernels {counts}")
+    errs = {}
+    for name, tol in (("displacement", U_TOL), ("acceleration", A_TOL)):
+        _, errs[name] = check_close(
+            f"basin {name}", getattr(sg, name).cpu(), getattr(sc, name), tol)
+    print(f"seismic_basin 10 frames: iterations gpu {it_g} cpu {it_c}; max abs "
+          f"err / max|cpu| u {errs['displacement']:.3e} (tol {U_TOL:g}), a "
+          f"{errs['acceleration']:.3e} (tol {A_TOL:g}); gpu launches {counts}",
+          flush=True)
+    del runs, sg, sc
+
+    cfg = dataclasses.replace(load_config_from_file(BASIN),
+                              mesh_path="synthetic://box/%d,%d,%d" % FULL)
+    sim = build_simulation(cfg, device=device)
+    reset_all_counts()
+    frame_s, tel = [], []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        tel += sim.run(1)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    counts = all_counts()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel) or sum(iters[1:]) <= 0:
+        fail(f"basin 255^3: frames {iters} not all converged with load")
+    if not bool(torch.isfinite(sim.stepper.state.displacement).all()):
+        fail("basin 255^3: non-finite displacement")
+    if counts["pc"] <= 0 or counts["keff"] <= 0 or counts["k4"] or counts["k6"]:
+        fail(f"basin 255^3: wrong kernels {counts}")
+    print(f"seismic_basin at 255^3 ({sim.model.dof_count:,} DOF, five absorbing "
+          f"faces): pcg iterations {iters}, frame seconds " + ", ".join(
+              f"{t:.4f}" for t in frame_s) + f"; steps/s {3 / sum(frame_s[1:]):.4f} "
+          f"(frames 2-4); launches {counts}", flush=True)
+    del sim
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -955,6 +1303,9 @@ def main() -> int:
     tet_errs, tet_timings, main_counts = general_main_path_phase(device, ss, mf)
     steps_counts = general_steps_phase(device)
     column_trajectory_phase(device)
+    slender_errs, slender_times = slender_kernel_phase(device, ss, mf)
+    column_counts, _ = column_main_path_phase(device)
+    basin_phase(device)
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
@@ -1019,6 +1370,19 @@ def main() -> int:
              max_abs_err=tet_errs["assemble_csr"][0],
              max_rel_err=tet_errs["assemble_csr"][1], tol=OP_TOL,
              **tet_timings["assemble_csr"]),
+        # K4 and G2: errors over every grid of phase 11, times at the soil
+        # column's grid, launches on its main path (phase 12)
+        dict(name="interior_stencil", route="cuda",
+             source=src + "interior_stencil.cu",
+             replaces=pallas + "structured_stencil.py:110",
+             launches=column_counts["k4"], max_abs_err=slender_errs["k4"][0],
+             max_rel_err=slender_errs["k4"][1], tol=OP_TOL,
+             **slender_times["soil column"]["k4"]),
+        dict(name="keff_boundary", route="cuda", source=src + "keff_boundary.cu",
+             replaces="civiwave_tpu/ops/structured.py:449",
+             launches=column_counts["g2"], max_abs_err=slender_errs["g2"][0],
+             max_rel_err=slender_errs["g2"][1], tol=OP_TOL,
+             **slender_times["soil column"]["g2"]),
     ]
     print(f"general_matvec_throughput {gdofs:.4f} GDOF/s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -28,11 +28,12 @@ STRUCTURED_ARRAYS = {
     "bc_value": np.float32,
     "position0": np.float32,
 }
-# scalar fields; a source with Y dead rows or a heterogeneous grid is
-# refused (not ported)
+# scalar fields (the absorbing faces and their impedances included; the
+# stepper sets damp_factor per step); a source with Y dead rows or a
+# heterogeneous grid is refused (not ported)
 STRUCTURED_META = (
     "nx", "ny", "nz", "node_count", "padded_node_count", "pad_planes",
-    "spacing", "lam0", "mu0",
+    "spacing", "lam0", "mu0", "absorb_faces", "rho_cp", "rho_cs",
 )
 
 
@@ -72,6 +73,9 @@ def structured_model_from_arrays(
         lam0=lam0,
         mu0=mu0,
         m8=interior_mass(np.asarray(arrays["mass_grid"], np.float32), nx, ny, nz),
+        absorb_faces=tuple(meta["absorb_faces"]),
+        rho_cp=float(meta["rho_cp"]),
+        rho_cs=float(meta["rho_cs"]),
     )
 
 
@@ -126,8 +130,8 @@ PACKED_META = (
     "node_count", "padded_node_count", "tet_count", "padded_tet_count",
     "hex_count", "padded_hex_count", "element_count", "csr_degree",
 )
-# fields of the JAX model that are not ported: absorbing dashpots (A7) and
-# the multi-device halo tables (A11)
+# fields of the JAX model that are not ported: absorbing dashpots on the
+# general path (A7-general) and the multi-device halo tables (A11)
 UNPORTED_PACKED = (
     "damp_blocks", "halo_conn", "halo_grads", "halo_vol", "halo_lam",
     "halo_mu", "halo_csr_idx", "halo_csr_weight",
@@ -146,7 +150,8 @@ def packed_model_from_arrays(
     if present or meta.get("has_damping", False):
         raise NotImplementedError(
             f"packed-model fields {present or ['has_damping']} are not ported "
-            "(absorbing faces: ROADMAP A7; halo exchange: A11)"
+            "(absorbing faces on the general path: ROADMAP A7-general; "
+            "halo exchange: A11)"
         )
     fields = {
         name: torch.as_tensor(np.array(arrays[name], dtype), device=device)

@@ -1,12 +1,13 @@
 // Device code shared by the structured-grid kernels (K1 keff_structured,
-// K2 pc_keff_structured, K3 block_jacobi_apply, K6
-// pcg_iteration_structured).
+// K2 pc_keff_structured, K3 block_jacobi_apply, K4 interior_stencil, K6
+// pcg_iteration_structured, G2 keff_boundary).
 //
 // Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
 // row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
-// (torch.bool).  All four kernels launch one block per (x, y) row of the
-// node grid and let the threads stride over z, so neighbouring threads
-// touch neighbouring addresses.  Offsets into the vectors are 64-bit.
+// (torch.bool).  K1-K3 and K6 launch one block per (x, y) row of the node
+// grid and let the threads stride over z; K4 and G2 give each thread one
+// node of the flat index.  Either way neighbouring threads touch
+// neighbouring addresses.  Offsets into the vectors are 64-bit.
 #pragma once
 
 #include <cstdint>

@@ -27,7 +27,8 @@ spans (``mesh/renumber.py``); ``to_nodal``/``from_nodal`` translate.
 Left out, as TPU-only: the BLOCK_ELEMS = 4096 element padding (only the
 ``pad_elems`` rounding stays), the banded gather windows and oct plans
 (ROADMAP "Do not port") and the halo fields of the multi-device path
-(A11).  Absorbing dashpots (A7) raise ``NotImplementedError``.
+(A11).  Absorbing dashpots raise ``NotImplementedError`` (A7-general; the
+structured route has them).
 """
 
 from __future__ import annotations
@@ -302,7 +303,9 @@ def build_packed_model(
         raise PackError("padding multiples must be >= 1", ["PackingParameters"])
     if cfg.absorbing:
         raise NotImplementedError(
-            "absorbing boundaries are not ported yet (ROADMAP A7)"
+            "absorbing boundaries on the general path are not ported yet "
+            "(ROADMAP A7-general); a synthetic://box hex scenario with one "
+            "material takes the structured route, which has them"
         )
 
     n = mesh.node_count

@@ -16,9 +16,13 @@ of the JAX pytree); it holds no trainable parameters and nothing needs a
 gradient.  One build path builds every grid with torch directly on the
 target device.
 
+Lysmer-Kuhlemeyer absorbing faces ride on the model as face tags and the
+material's impedances; the stepper sets ``damp_factor`` (Newmark a1) on a
+copy of the model per step.
+
 Not ported yet: heterogeneous per-element material grids, the +Y dead rows
-and sharding fields of the 2-D slab decomposition (ROADMAP A11), the
-multigrid hierarchy (A9) and absorbing faces (A7).
+and sharding fields of the 2-D slab decomposition (ROADMAP A11) and the
+multigrid hierarchy (A9).
 """
 
 from __future__ import annotations
@@ -80,6 +84,14 @@ class StructuredModel:
     # per boundary axis, bit for bit, so the kernels synthesize the mass
     # instead of streaming the grid (see interior_mass)
     m8: float = 0.0
+    # Lysmer-Kuhlemeyer absorbing axis planes ("x0".."z1") with viscous
+    # dashpots of per-unit-area normal/tangential impedances rho*c_p /
+    # rho*c_s; damp_factor is the Newmark a1 the stepper sets per step
+    # (K_eff += a1 C; None: no term)
+    absorb_faces: Tuple[str, ...] = ()
+    rho_cp: float = 0.0
+    rho_cs: float = 0.0
+    damp_factor: Optional[float] = None
 
     @property
     def device(self) -> torch.device:
@@ -197,6 +209,13 @@ class StructuredModel:
             self, block_inverse, residual
         )
 
+    def absorbing_force(self, v: torch.Tensor) -> torch.Tensor:
+        """C v from the absorbing-face dashpots, bc-masked (zeros without
+        absorbing faces): the Newmark right-hand side's damping force."""
+        from ..ops import structured as _ops
+
+        return _ops.absorbing_force_structured(self, v)
+
 
 def interior_mass(mass_grid, nx: int, ny: int, nz: int) -> float:
     """The interior lumped-mass scalar ``m8 = rho * V_cell`` recovered from
@@ -277,6 +296,7 @@ def build_structured_model(
     gravity: Tuple[float, float, float] = (0.0, 0.0, 0.0),
     pad_x_multiple: int = 1,
     fixes: Optional[Sequence] = None,
+    absorb_planes: Tuple[str, ...] = (),
     *,
     device,
 ):
@@ -289,7 +309,11 @@ def build_structured_model(
     (config.cpp:500-567): a sequence of ``(plane_tag, constrain_axis(3,),
     values(3,))`` with per-axis flags and optional targets (None => 0).
     ``pad_x_multiple`` appends dead (constrained, massless) node planes
-    along +X until (nx+1+pad) is a multiple.
+    along +X until (nx+1+pad) is a multiple.  ``absorb_planes`` names the
+    absorbing faces; their impedances rho*c_p = sqrt(rho (lam + 2 mu)) and
+    rho*c_s = sqrt(rho mu) come from the one material (the builder makes
+    homogeneous grids only, so the reference's refusal of a heterogeneous
+    grid with absorbing faces has no case here).
 
     Every node-grid array is an analytic per-axis cell-adjacency count
     product (values in {0,1,2}) scaled by one f64 scalar, built in f64 on
@@ -392,5 +416,9 @@ def build_structured_model(
         lam0=lam0,
         mu0=mu0,
         m8=float(np.float32(cm * 8.0)),
+        absorb_faces=tuple(absorb_planes),
+        rho_cp=float(np.sqrt(density * (lam0 + 2.0 * mu0)))
+        if absorb_planes else 0.0,
+        rho_cs=float(np.sqrt(density * mu0)) if absorb_planes else 0.0,
     )
     return model, force

@@ -10,9 +10,11 @@ Time-curve-scaled tractions keep each curved traction's nodal force grid as
 a separate device tensor: the per-frame force is
 ``base + sum_i curve_i(t) * part_i``.
 
-Scenario features not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item instead of running a half-port: geometric multigrid (A9),
-absorbing faces (A7) and fp64 solver vectors on CUDA (A13).
+Absorbing groups (``boundaries.absorbing``) on the box's axis planes become
+the model's Lysmer-Kuhlemeyer faces.  Scenario features not ported yet
+raise ``NotImplementedError`` naming their ROADMAP item instead of running
+a half-port: geometric multigrid (A9) and fp64 solver vectors on CUDA
+(A13).
 """
 
 from __future__ import annotations
@@ -89,10 +91,6 @@ def try_build_structured(
         raise NotImplementedError(
             "solver.preconditioner 'multigrid' is not ported yet (ROADMAP A9)"
         )
-    if cfg.absorbing:
-        raise NotImplementedError(
-            "absorbing boundaries are not ported yet (ROADMAP A7)"
-        )
     if cfg.precision.vector_precision == "fp64" and torch.device(device).type == "cuda":
         raise NotImplementedError(
             "precision.vectors 'fp64' has no CUDA kernels yet (ROADMAP A13); "
@@ -110,6 +108,7 @@ def try_build_structured(
         fixes=fixes,
         gravity=cfg.loads.gravity,
         pad_x_multiple=pad_x_multiple,
+        absorb_planes=tuple(_PLANE_OF_GROUP[g] for g in cfg.absorbing),
         device=device,
     )
     curve_parts: List[Tuple[str, torch.Tensor]] = []

@@ -61,6 +61,12 @@ _SIGNATURES = {
     "civi_element_forces_hex": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     # rows, csr_idx, csr_weight, mass, x, bc, out, N, D, mf, stream
     "civi_assemble_csr": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # xs, taps (243 host floats), out, X, Y, Z, stream
+    "civi_interior_stencil": (_P, _P, _P, _I, _I, _I, _P),
+    # interior, x, bc, ghost, out, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
+    "civi_keff_boundary": (
+        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
 }
 
 

@@ -26,7 +26,19 @@ input's sign (+0.0 stays +0.0).
 
 Dispatch is on the tensor's device: a CUDA tensor goes to the kernel
 wrapper (which raises on anything but f32), a CPU tensor to the plain
-version.  There are no size thresholds.
+version.  The grid's shape picks the form, as in the reference:
+
+* every grid takes the complete operator K1, except
+* large slender members (more than 700,000 nodes and a (Y, Z) plane under
+  5,000 nodes, f32 vectors: :func:`slender_route`), which take the split
+  form of the reference's ``_interior_dispatch``: the interior stencil K4
+  on the sanitized vector, then G2, which subtracts each boundary node's
+  ghost taps (from the class table, :func:`ghost_stencil_table`) and adds
+  the scale, the mass term and the identity rows.  There the fused K2
+  and K6 decline and 'auto' PCG is classic.
+
+Lysmer-Kuhlemeyer absorbing faces add ``damp_factor * C x`` on their face
+planes after the identity rows, on both forms.
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ import torch.nn.functional as F
 
 from ..mesh.structured import CORNERS, StructuredModel
 from .cuda import block_jacobi_apply as _k3
+from .cuda import interior_stencil as _k4
+from .cuda import keff_boundary as _g2
 from .cuda import pcg_iteration as _k6
 from .cuda import structured_stencil as _k12
 
@@ -135,6 +149,21 @@ _CLASS_SLOTS = {0: (0,), 1: (0, 1), 2: (1,)}
 
 
 @lru_cache(maxsize=32)
+def _class_stencil_table64(spacing, lam0: float, mu0: float) -> np.ndarray:
+    """:func:`class_stencil_table` in f64, shape (27, 27, 3, 3)."""
+    klam, kmu = _pair_matrices(tuple(spacing))
+    kfull = lam0 * klam + mu0 * kmu
+    table = np.zeros((3, 3, 3, 3, 3, 3, 3, 3))
+    for cls in np.ndindex(3, 3, 3):
+        for l, cl in enumerate(CORNERS):
+            if any(cl[a] not in _CLASS_SLOTS[cls[a]] for a in range(3)):
+                continue
+            for m, cm in enumerate(CORNERS):
+                d = tuple(cm[a] - cl[a] + 1 for a in range(3))
+                table[cls + d] += kfull[l, :, m, :]
+    return table.reshape(27, 27, 3, 3)
+
+
 def class_stencil_table(spacing, lam0: float, mu0: float) -> np.ndarray:
     """Per-boundary-class assembled stencil, (27, 27, 3, 3) f32.
 
@@ -149,17 +178,21 @@ def class_stencil_table(spacing, lam0: float, mu0: float) -> np.ndarray:
     land there; they are constrained, so their taps are never used) and 1
     otherwise; n == 1 has no interior class.
     """
-    klam, kmu = _pair_matrices(tuple(spacing))
-    kfull = lam0 * klam + mu0 * kmu
-    table = np.zeros((3, 3, 3, 3, 3, 3, 3, 3))
-    for cls in np.ndindex(3, 3, 3):
-        for l, cl in enumerate(CORNERS):
-            if any(cl[a] not in _CLASS_SLOTS[cls[a]] for a in range(3)):
-                continue
-            for m, cm in enumerate(CORNERS):
-                d = tuple(cm[a] - cl[a] + 1 for a in range(3))
-                table[cls + d] += kfull[l, :, m, :]
-    return np.ascontiguousarray(table.reshape(27, 27, 3, 3).astype(np.float32))
+    table = _class_stencil_table64(tuple(spacing), lam0, mu0)
+    return np.ascontiguousarray(table.astype(np.float32))
+
+
+@lru_cache(maxsize=32)
+def ghost_stencil_table(spacing, lam0: float, mu0: float) -> np.ndarray:
+    """Per-boundary-class ghost taps, (27, 27, 3, 3) f32: the interior
+    stencil minus the class's own (``ghost[cls] = interior -
+    class_stencil_table[cls]``, taken in f64).  They couple a node to its
+    neighbours through cells that do not exist, so ``interior(xs) - ghost
+    taps . xs`` is the exact stencil at every node; the row of the
+    interior class (1, 1, 1), index 13, is zero.  Read by G2 (``keff_boundary``) after K4."""
+    interior = _stencil_tables(tuple(spacing), lam0, mu0)[0].reshape(27, 3, 3)
+    table = interior[None] - _class_stencil_table64(tuple(spacing), lam0, mu0)
+    return np.ascontiguousarray(table.astype(np.float32))
 
 
 def axis_classes(size: int, cells: int) -> np.ndarray:
@@ -272,16 +305,28 @@ def _face_correction(model: StructuredModel, xs, axis, side, tables):
     return plane_sl, corr
 
 
-def _apply_homogeneous_stiffness(model: StructuredModel, xs: torch.Tensor):
-    """Exact assembled K*xs for a uniform homogeneous grid: interior
-    constant stencil minus the six face corrections (edge and corner terms
-    folded into the face buffers)."""
+def interior_taps(model: StructuredModel) -> np.ndarray:
+    """The constant interior stencil (3, 3, 3, 3, 3) f64 that K4 applies."""
+    return _stencil_tables(model.spacing, model.lam0, model.mu0)[0]
+
+
+def subtract_face_corrections(model: StructuredModel, xs, interior):
+    """Exact assembled K*xs from the interior stencil's output: the six
+    face corrections (edge and corner terms folded into the face buffers)
+    subtracted from ``interior`` in place."""
     tables = _stencil_tables(model.spacing, model.lam0, model.mu0)
-    out = _apply_taps(xs, tables[0])
     for (axis, side) in tables[1]:
         plane_sl, corr = _face_correction(model, xs, axis, side, tables)
-        out[plane_sl] -= corr
-    return out
+        interior[plane_sl] -= corr
+    return interior
+
+
+def keff_envelope(model: StructuredModel, x, xs, stiff, stiffness_scale,
+                  mass_factor):
+    """scale -> mass term -> identity rows around the stiffness K*xs."""
+    out = stiff * float(stiffness_scale)
+    out = out + (model.mass_grid.to(x.dtype) * float(mass_factor))[None] * xs
+    return torch.where(model.bc_mask, x, out)
 
 
 def apply_keff_structured_plain(
@@ -289,21 +334,73 @@ def apply_keff_structured_plain(
 ) -> torch.Tensor:
     """K_eff * x, plain PyTorch (the XLA form of the reference): sanitize ->
     stiffness -> scale -> mass term -> identity rows.  Any float dtype, any
-    device."""
+    device.  No absorbing term."""
     xs = x.masked_fill(model.bc_mask, 0.0)
-    stiff = _apply_homogeneous_stiffness(model, xs)
-    out = stiff * float(stiffness_scale)
-    out = out + (model.mass_grid.to(x.dtype) * float(mass_factor))[None] * xs
-    return torch.where(model.bc_mask, x, out)
+    stiff = subtract_face_corrections(
+        model, xs, _apply_taps(xs, interior_taps(model))
+    )
+    return keff_envelope(model, x, xs, stiff, stiffness_scale, mass_factor)
+
+
+# --------------------------------------------------------------------------
+# routing (the reference's ops/structured.py:330-386)
+# --------------------------------------------------------------------------
+
+# grids above this node count take the split interior/boundary form where
+# the complete-operator kernel is not profitable (the reference's
+# flattened-lane and K4 threshold)
+_FLAT_INTERIOR_NODE_THRESHOLD = 700_000
+
+# the reference's complete-operator kernel floor (its ADR-23, measured on a
+# TPU v5e): enough nodes AND a (Y, Z) plane of enough work per grid step
+_KERNEL_MIN_NODES = 500_000
+_KERNEL_MIN_PLANE = 5_000  # y*z lanes per plane
+
+
+def stream_kernel_profitable(model: StructuredModel) -> bool:
+    """Whether the reference runs its fused stream kernels (K1/K2/K6) at
+    this grid's shape (node count + plane-size floors)."""
+    _, y, z = model.grid_shape
+    return (
+        int(np.prod(model.grid_shape)) > _KERNEL_MIN_NODES
+        and y * z >= _KERNEL_MIN_PLANE
+    )
+
+
+def slender_route(model: StructuredModel, dtype) -> bool:
+    """Whether the operator takes the split form K4 + G2: f32 vectors, more
+    than ``_FLAT_INTERIOR_NODE_THRESHOLD`` nodes (``grid_shape``, +X pad
+    planes included) and a plane too small for the stream kernels (the
+    reference's route to ``interior_stencil_pallas``).  Shape alone decides:
+    the reference's VMEM plane-fit rule and TPU-backend gate are not
+    ported."""
+    return (
+        dtype == torch.float32
+        and int(np.prod(model.grid_shape)) > _FLAT_INTERIOR_NODE_THRESHOLD
+        and not stream_kernel_profitable(model)
+    )
+
+
+def apply_keff_split_structured(
+    model: StructuredModel, x: torch.Tensor, stiffness_scale, mass_factor
+) -> torch.Tensor:
+    """K_eff * x in the split form, without the absorbing term: sanitize ->
+    K4 interior stencil -> G2 (ghost taps, scale, mass, identity rows)."""
+    xs = x.masked_fill(model.bc_mask, 0.0)
+    interior = _k4.interior_stencil(xs, interior_taps(model))
+    return _g2.keff_boundary(model, interior, x, stiffness_scale, mass_factor)
 
 
 def apply_keff_structured(
     model: StructuredModel, x: torch.Tensor, stiffness_scale, mass_factor
 ) -> torch.Tensor:
-    """K_eff * x in CSG layout: the K1 kernel on CUDA, the plain form on
-    CPU.  Absorbing faces (which add a1*C on face planes) wait for
-    ROADMAP A7."""
-    return _k12.apply_keff_fused(model, x, stiffness_scale, mass_factor)
+    """K_eff * x in CSG layout: K1 (or K4 + G2 on :func:`slender_route`)
+    on CUDA, the plain forms on CPU; plus the absorbing-face term."""
+    if slender_route(model, x.dtype):
+        out = apply_keff_split_structured(model, x, stiffness_scale, mass_factor)
+    else:
+        out = _k12.apply_keff_fused(model, x, stiffness_scale, mass_factor)
+    return add_absorbing_operator_term(model, out, x)
 
 
 # --------------------------------------------------------------------------
@@ -498,12 +595,13 @@ def apply_compact_preconditioner_structured(
 
 def pc_keff_kernel_eligible(model: StructuredModel, pc, dtype) -> bool:
     """Whether the fused pc+matvec(+dots) kernel K2 runs: class-table
-    preconditioner, f32 vectors, model on a CUDA device.  No size gates —
-    the CUDA kernels take any extent."""
+    preconditioner, f32 vectors, model on a CUDA device, and not the
+    slender route (where the reference's kernel is not profitable)."""
     return (
         isinstance(pc, CompactBlockJacobi)
         and dtype == torch.float32
         and model.device.type == "cuda"
+        and not slender_route(model, dtype)
     )
 
 
@@ -512,11 +610,17 @@ def apply_pc_keff_structured(
     stiffness_scale, mass_factor,
 ):
     """(u, w) = (M^-1 r, K_eff u) — the back-to-back pc apply + matvec of
-    the Chronopoulos-Gear iteration: one K2 launch on CUDA, the
-    composition of the two plain forms on CPU."""
-    return _k12.apply_pc_keff_fused(
+    the Chronopoulos-Gear iteration: one K2 launch on CUDA (the
+    composition of the two plain forms on CPU) plus the absorbing term on
+    w; on the slender route the composition of the preconditioner and the
+    operator."""
+    if slender_route(model, residual.dtype):
+        u = model.apply_preconditioner(pc, residual)
+        return u, model.apply_keff(u, stiffness_scale, mass_factor)
+    u, w = _k12.apply_pc_keff_fused(
         model, pc.table, residual, stiffness_scale, mass_factor
     )
+    return u, add_absorbing_operator_term(model, w, u)
 
 
 def apply_pc_keff_dots_structured(
@@ -526,7 +630,13 @@ def apply_pc_keff_dots_structured(
     """(u, w, (gamma, delta, rr)) with the three Chronopoulos-Gear dots
     (r,u), (w,u), (r,r) reduced in ``reduction_dtype``: on CUDA emitted as
     row partials by the same K2 pass; on CPU the composition followed by
-    :func:`~civiwave_tpu_torch.solver.pcg.fused_dots`."""
+    :func:`~civiwave_tpu_torch.solver.pcg.fused_dots`.
+
+    None — the caller composes ``apply_pc_keff`` and ``fused_dots`` — on
+    the slender route and with absorbing faces: the face term is added to
+    w after the kernel, so an in-kernel (w, u) partial would miss it."""
+    if model.absorb_faces or slender_route(model, residual.dtype):
+        return None
     return _k12.apply_pc_keff_fused(
         model, pc.table, residual, stiffness_scale, mass_factor,
         with_dots=True, reduction_dtype=reduction_dtype,
@@ -552,23 +662,23 @@ def build_fused_pcg_iteration(
     reference (its ADR-22: on v5e the whole-iteration kernel lost to the
     split form).  Eligibility is the reference's minus its TPU-only rules
     (VMEM plane fit, even plane count, stream profitability, TPU backend):
-    the class-table block-Jacobi, a homogeneous unsharded grid, f32 vectors
-    and no absorbing faces.  The device does not gate it: CPU tensors take
-    the plain K6, as every other dispatch of the port goes by device.
+    the class-table block-Jacobi, a homogeneous unsharded grid, f32 vectors,
+    no absorbing faces (the kernel could not add the face term to w) and
+    not the slender route (the reference's stream-profitability rule, by
+    shape).  The device does not gate it: CPU tensors take the plain K6, as
+    every other dispatch of the port goes by device.
     """
     if os.environ.get("CIVIWAVE_MEGA_PCG", "0") != "1":
         return None
-    # fields the port's model does not carry yet (absorbing faces: A7; the
-    # heterogeneous grid and the shard mesh: A11); the rules stay so those
-    # slices inherit them.  With absorbing faces the kernel could not add
-    # the face term to w.
-    if getattr(model, "absorb_faces", None):
-        return None
+    # the heterogeneous grid and the shard mesh are fields the port's model
+    # does not carry yet (A11); the rules stay so that slice inherits them
     if not (
         isinstance(pc, CompactBlockJacobi)
+        and not model.absorb_faces
         and getattr(model, "homogeneous", True)
         and getattr(model, "shard_mesh", None) is None
         and vector_dtype == torch.float32
+        and not slender_route(model, vector_dtype)
     ):
         return None
 
@@ -579,3 +689,84 @@ def build_fused_pcg_iteration(
         )
 
     return iteration
+
+
+# --------------------------------------------------------------------------
+# Lysmer-Kuhlemeyer absorbing faces (the reference's ops/structured.py:
+# 1004-1076)
+# --------------------------------------------------------------------------
+
+_FACE_TAGS = {"x0": (0, 0), "x1": (0, 1), "y0": (1, 0), "y1": (1, 1),
+              "z0": (2, 0), "z1": (2, 1)}
+
+
+@lru_cache(maxsize=64)
+def _face_weights(tag, spacing, extents, plane_shape, rho_cp, rho_cs, device):
+    """(plane index, (3, 1, 1) impedances, (d1, d2) tributary areas) of
+    one absorbing face, f32 on ``device``, uploaded once."""
+    axis, side = _FACE_TAGS[tag]
+    in_plane = [a for a in range(3) if a != axis]
+    area = float(spacing[in_plane[0]] * spacing[in_plane[1]])
+    sl = [slice(None)] * 4
+    sl[1 + axis] = 0 if side == 0 else extents[axis]
+    half, one = np.float32(0.5), np.float32(1.0)
+    r1, r2 = np.arange(plane_shape[0]), np.arange(plane_shape[1])
+    w1 = np.where((r1 == 0) | (r1 == extents[in_plane[0]]), half, one)
+    w2 = np.where((r2 == 0) | (r2 == extents[in_plane[1]]), half, one)
+    aw = np.float32(area) * (w1[:, None] * w2[None, :])
+    coef = np.array([rho_cs, rho_cs, rho_cs], np.float32)
+    coef[axis] = np.float32(rho_cp)
+    return (
+        tuple(sl),
+        torch.as_tensor(coef, device=device)[:, None, None],
+        torch.as_tensor(aw, device=device),
+    )
+
+
+def _face_damp_terms(model: StructuredModel, x: torch.Tensor):
+    """Yield (plane index, masked C x term) per absorbing face.
+
+    Per node on face (axis, side) C is diagonal in the grid frame: rho*c_p
+    against the normal component, rho*c_s tangential, times the tributary
+    face area (the in-plane spacing product, halved at plane edges as the
+    lumped mass).  Output components on constrained axes are zeroed and
+    the input plane is sanitized, so the term is P_free C P_free:
+    symmetric, as CG requires."""
+    extents = (model.nx, model.ny, model.nz)
+    for tag in model.absorb_faces:
+        axis, _ = _FACE_TAGS[tag]
+        plane_shape = tuple(
+            s for a, s in enumerate(model.grid_shape) if a != axis
+        )
+        sl, coef, aw = _face_weights(
+            tag, model.spacing, extents, plane_shape, model.rho_cp,
+            model.rho_cs, x.device,
+        )
+        bc_plane = model.bc_mask[sl]
+        xs_plane = x[sl].masked_fill(bc_plane, 0.0)
+        yield sl, (coef * (aw[None] * xs_plane)).masked_fill(bc_plane, 0.0)
+
+
+def add_absorbing_operator_term(
+    model: StructuredModel, out: torch.Tensor, x: torch.Tensor
+) -> torch.Tensor:
+    """out += damp_factor * C x on the absorbing face planes, in place (a
+    no-op without absorbing faces or before the stepper set the Newmark a1
+    factor).  Applied after the identity rows: the term is bc-masked, so
+    constrained entries stay the passthrough."""
+    if not model.absorb_faces or model.damp_factor is None:
+        return out
+    factor = float(np.float32(model.damp_factor))
+    for sl, term in _face_damp_terms(model, x):
+        out[sl] += factor * term.to(out.dtype)
+    return out
+
+
+def absorbing_force_structured(
+    model: StructuredModel, v: torch.Tensor
+) -> torch.Tensor:
+    """C v (no a1 factor): the Newmark right-hand side's damping force."""
+    out = torch.zeros_like(v)
+    for sl, term in _face_damp_terms(model, v):
+        out[sl] += term.to(out.dtype)
+    return out

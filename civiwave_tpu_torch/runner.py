@@ -15,8 +15,9 @@ Port of :mod:`civiwave_tpu.runner`.  Two routes, as in the reference:
 
 ``build_simulation`` takes a scenario YAML path or an already-parsed
 :class:`~civiwave_tpu_torch.config.schema.Config` (which needs no pyyaml)
-and the torch device to run on.  Absorbing faces (ROADMAP A7) raise
-``NotImplementedError`` on both routes.
+and the torch device to run on.  Absorbing faces run on the structured
+route; on the general path they raise ``NotImplementedError`` naming
+ROADMAP A7-general.
 
 Usage::
 

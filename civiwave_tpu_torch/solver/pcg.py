@@ -244,7 +244,8 @@ def solve_pcg_fused(
 
     On CUDA the structured model's pc apply, matvec and three dots are one
     K2 launch (``model.apply_pc_keff_dots``); a model without that method
-    (the general path) composes ``apply_pc_keff`` and :func:`fused_dots`.
+    (the general path), or whose method returns None (absorbing faces, the
+    slender route), composes ``apply_pc_keff`` and :func:`fused_dots`.
     With ``CIVIWAVE_MEGA_PCG=1`` a model that builds a whole-iteration
     bundle (the structured model) runs :func:`_solve_pcg_megafused`
     instead: the whole iteration is one K6 launch on CUDA.
@@ -300,7 +301,8 @@ def solve_pcg_fused(
     beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
 
     # the pc apply, the matvec and the three dots in one pass where the
-    # model has it (the structured K2 kernel), else composed
+    # model has it (the structured K2 kernel), else composed (also where
+    # the model's method declines with None)
     dots_fn = getattr(model, "apply_pc_keff_dots", None)
     iteration = 0
     while iteration < max_iterations and not converged and not breakdown:
@@ -309,10 +311,11 @@ def solve_pcg_fused(
         r = r - alpha32 * s
         # constrained axes: p and s are zero there by recurrence, so x stays
         # = rhs and r stays = 0 bit for bit (the reference's elided clamp)
-        if dots_fn is not None:
-            u, w, (gamma_new, delta, rr) = dots_fn(
-                block_inverse, r, stiffness_scale, mass_factor, rdt
-            )
+        fused_out = None if dots_fn is None else dots_fn(
+            block_inverse, r, stiffness_scale, mass_factor, rdt
+        )
+        if fused_out is not None:
+            u, w, (gamma_new, delta, rr) = fused_out
         else:
             u, w = model.apply_pc_keff(
                 block_inverse, r, stiffness_scale, mass_factor

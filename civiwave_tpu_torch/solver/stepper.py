@@ -7,7 +7,8 @@ newmark_stepper.cpp:1094-1399).  Step order preserved exactly:
 2. predictor u_pred/v_pred from the pre-step state;
 3. effective RHS from the pre-step state (NOT the predictor) with mass +
    Rayleigh terms, and the beta_R * K * damping_rhs matvec through the
-   stiffness-only operator;
+   stiffness-only operator; absorbing faces add C * damping_rhs and the
+   step's model copy carries ``damp_factor = a1`` (K_eff += a1 C);
 4. Dirichlet RHS clamp (total-displacement form: rhs = bc_value);
 5. PCG with warm start + runtime/pause tolerance;
 6. update u = u_pred + d, a = d/(beta dt^2), v = v_pred + gamma/(beta dt) d.
@@ -21,6 +22,7 @@ which depends on dt.  Checkpointing waits for ROADMAP A10.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -158,6 +160,12 @@ def newmark_step(
         # reference adds beta_R * (K * damping_rhs) verbatim)
         damping_output = model.apply_keff(damping_rhs, sc(1.0), sc(0.0))
         rhs = rhs + s(rayleigh_beta) * damping_output
+    # Lysmer-Kuhlemeyer dashpots: a damping matrix C enters as rhs += C
+    # (a1 u + a4 v + a5 a) and K_eff += a1 C, the algebra of the Rayleigh
+    # terms; the preconditioner stays free of C, as in the reference
+    if getattr(model, "absorb_faces", ()):
+        rhs = rhs + model.absorbing_force(damping_rhs)
+        model = dataclasses.replace(model, damp_factor=s(a1))
 
     # Dirichlet RHS clamp: the total-displacement Newmark form, so the
     # constrained solution component is the target itself

@@ -290,3 +290,43 @@ def cantilever_config(
     }
     node.update(extra)
     return parse_config_node(node)
+
+
+def soil_column_config(
+    cells=(1023, 47, 47), spacing: float = 0.25, **extra: Dict
+) -> Config:
+    """Site-response soil column on a compliant base: a deep, narrow box of
+    hex cells with X the depth (the default is 255.75 m deep and 11.75 m x
+    11.75 m: 1024 x 48 x 48 nodes, 7,077,888 DOF).  The material, damping,
+    time step, solver and pulse are ``examples/seismic_basin.yaml``'s; the
+    base (SIDE_X0) is a Lysmer-Kuhlemeyer absorbing face that feeds the
+    input wave as a horizontal shear traction under the pulse; the sides
+    and the top are free.  ``extra`` replaces top-level keys."""
+    nx, ny, nz = cells
+    node = {
+        "mesh": {"path": f"synthetic://box/{nx},{ny},{nz},hex,{spacing}"},
+        "materials": [{"name": "soil", "E": 2.0e8, "nu": 0.3, "rho": 1800.0}],
+        "assignments": [{"group": "SOLID", "material": "soil"}],
+        "damping": {"xi": 0.01, "w1": 5.0, "w2": 50.0},
+        "time": {"dt": 0.002, "adaptive": False},
+        "solver": {
+            "type": "pcg",
+            "preconditioner": "block_jacobi",
+            "tol_runtime": 2.0e-4,
+            "tol_pause": 1.0e-5,
+            "max_iters": 120,
+        },
+        "precision": {"vectors": "fp32", "reductions": "fp64"},
+        "curves": {"pulse": [[0.0, 0.0], [0.02, 1.0], [0.04, -0.6],
+                             [0.06, 0.15], [0.08, 0.0]]},
+        "loads": {
+            "gravity": [0.0, 0.0, 0.0],
+            "tractions": [{"group": "SIDE_X0", "value": [0.0, 5.0e4, 0.0],
+                           "scale_curve": "pulse"}],
+        },
+        "dirichlet": {"fixes": []},
+        "boundaries": {"absorbing": ["SIDE_X0"]},
+        "output": {"vtu_stride": 10, "probes": [0]},
+    }
+    node.update(extra)
+    return parse_config_node(node)

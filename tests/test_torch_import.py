@@ -42,7 +42,8 @@ def test_every_module_imports_with_jax_blocked():
         "runner", "ops.cuda.structured_stencil", "mesh.gmsh", "mesh.pack",
         "mesh.renumber", "ops.apply_keff", "ops.block_jacobi",
         "ops.cuda.element_forces", "ops.cuda.assemble_csr", "physics.oracle",
-        "ops.cuda.pcg_iteration",
+        "ops.cuda.pcg_iteration", "ops.cuda.interior_stencil",
+        "ops.cuda.keff_boundary",
     ):
         assert f"civiwave_tpu_torch.{name}" in modules
     code = (
@@ -113,6 +114,30 @@ def test_general_route_runs_without_pyyaml():
         "sim = build_simulation(cfg, device='cpu')\n"
         "assert type(sim.model).__name__ == 'PackedModel'\n"
         "tel = sim.run(2)\n"
+        "assert all(t.pcg_converged for t in tel)\n"
+        "print('ok')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_soil_column_runs_without_jax():
+    """The slender route (forced onto a small soil column) with its
+    absorbing base, on the CPU, needs neither jax nor pyyaml."""
+    code = (
+        "import sys\n"
+        "sys.modules['yaml'] = None\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['civiwave_tpu'] = None\n"
+        "from civiwave_tpu_torch.ops import structured as ops\n"
+        "from civiwave_tpu_torch.runner import build_simulation\n"
+        "from civiwave_tpu_torch.utils.synthetic import soil_column_config\n"
+        "ops._FLAT_INTERIOR_NODE_THRESHOLD = 0\n"
+        "sim = build_simulation(soil_column_config(cells=(12, 3, 3)), device='cpu')\n"
+        "assert sim.model.absorb_faces == ('x0',)\n"
+        "assert ops.slender_route(sim.model, sim.stepper.state.displacement.dtype)\n"
+        "tel = sim.run(3)\n"
         "assert all(t.pcg_converged for t in tel)\n"
         "print('ok')\n"
     )

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: K1-K3
-and K6 (the whole PCG iteration) of the structured route, K7 (element
-forces, tet and hex) and G1 (CSR assembly) of the general gather path.
+and K6 (the whole PCG iteration) of the structured route, K4 (interior
+stencil) and G2 (boundary corrections and envelope) of its slender route,
+K7 (element forces, tet and hex) and G1 (CSR assembly) of the general
+gather path.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -22,9 +24,12 @@ import torch
 from civiwave_tpu_torch.mesh import pack, preprocess
 from civiwave_tpu_torch.mesh.structured import build_structured_model
 from civiwave_tpu_torch.ops import apply_keff as gops
+from civiwave_tpu_torch.ops import structured as tops
 from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
 from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
 from civiwave_tpu_torch.ops.cuda import element_forces as k7
+from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
+from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
 from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
 from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 from civiwave_tpu_torch.physics import materials
@@ -33,6 +38,7 @@ from civiwave_tpu_torch.utils.synthetic import (
     box_mesh,
     cantilever_config,
     shuffle_mesh_nodes,
+    soil_column_config,
     split_last_hex,
 )
 
@@ -213,6 +219,80 @@ def test_small_cantilever_runs_megafused_on_the_card(device, monkeypatch):
     (tg, ug, n6, n2), (tc, uc, n6_cpu, _) = runs[str(device)], runs["cpu"]
     assert n6 == sum(t.pcg_iterations for t in tg) and n6_cpu == 0
     assert n2 == 4  # K2 only in each solve's setup
+    assert all(t.pcg_converged for t in tg)
+    assert all(abs(a.pcg_iterations - b.pcg_iterations) <= 1 for a, b in zip(tg, tc))
+    np.testing.assert_allclose(
+        ug.numpy(), uc.numpy(), rtol=0, atol=2.5e-4 * float(uc.abs().max())
+    )
+
+
+# --- slender route: K4 and G2 --------------------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_interior_stencil_kernel_matches_plain(device, case):
+    model, x = _model(device, case)
+    xs = x.masked_fill(model.bc_mask, 0.0)
+    taps = tops.interior_taps(model)
+    before = k4.interior_stencil.launches
+    out = k4.interior_stencil(xs, taps)
+    torch.cuda.synchronize()
+    assert k4.interior_stencil.launches == before + 1
+    _close(out, k4.interior_stencil_plain(xs, taps))
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_keff_boundary_kernel_matches_plain(device, case):
+    model, x = _model(device, case)
+    interior = k4.interior_stencil_plain(
+        x.masked_fill(model.bc_mask, 0.0), tops.interior_taps(model)
+    )
+    before = g2.keff_boundary.launches
+    out = g2.keff_boundary(model, interior, x, SS, MF)
+    torch.cuda.synchronize()
+    assert g2.keff_boundary.launches == before + 1
+    _close(out, g2.keff_boundary_plain(model, interior, x, SS, MF))
+    bc = model.bc_mask
+    assert torch.equal(out[bc], x[bc])
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_split_route_matches_k1(device, case):
+    model, x = _model(device, case)
+    _close(tops.apply_keff_split_structured(model, x, SS, MF),
+           k12.apply_keff_fused(model, x, SS, MF))
+
+
+def test_slender_wrappers_refuse_wrong_dtype_and_layout(device):
+    model, x = _model(device, "xpad4")
+    taps = tops.interior_taps(model)
+    with pytest.raises(TypeError):
+        k4.interior_stencil(x.double(), taps)
+    with pytest.raises(ValueError):
+        k4.interior_stencil(x[0], taps)
+    with pytest.raises(ValueError):
+        g2.keff_boundary(model, x.transpose(2, 3), x, SS, MF)
+
+
+def test_small_soil_column_runs_split_on_the_card(device, monkeypatch):
+    """The soil column on the forced slender route: K4 and G2 once per
+    matvec (classic PCG: each frame's Rayleigh and residual matvecs plus
+    one per iteration), K1 and K2 never; the trajectory matches the CPU run
+    of the plain versions (iterations +-1, u at 2.5e-4 of max|ref|)."""
+    monkeypatch.setattr(tops, "_FLAT_INTERIOR_NODE_THRESHOLD", 0)
+    cfg = soil_column_config(cells=(40, 5, 5))
+    runs = {}
+    for dev in (device, "cpu"):
+        sim = build_simulation(cfg, device=dev)
+        wrappers = (k4.interior_stencil, g2.keff_boundary,
+                    k12.apply_keff_fused, k12.apply_pc_keff_fused)
+        before = [w.launches for w in wrappers]
+        tel = sim.run(6)
+        runs[str(dev)] = (tel, sim.stepper.state.displacement.cpu(),
+                          [w.launches - b for w, b in zip(wrappers, before)])
+    (tg, ug, counts), (tc, uc, cpu_counts) = runs[str(device)], runs["cpu"]
+    matvecs = sum(t.pcg_iterations for t in tg) + 2 * len(tg)
+    assert counts == [matvecs, matvecs, 0, 0] and cpu_counts == [0, 0, 0, 0]
     assert all(t.pcg_converged for t in tg)
     assert all(abs(a.pcg_iterations - b.pcg_iterations) <= 1 for a, b in zip(tg, tc))
     np.testing.assert_allclose(
