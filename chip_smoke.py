@@ -54,7 +54,26 @@ Phases, each printing its result:
     inside this script only);
 13. examples/seismic_basin.yaml (five absorbing faces) for 10 frames on the
     GPU and on the CPU, then the basin at synthetic://box/255,255,255 for 4
-    frames (K1 and K2 without in-kernel dots, the face term outside them).
+    frames (K1 and K2 without in-kernel dots, the face term outside them);
+14. sharded route, in this process and without a process group: cut the
+    reference's sharded grids ((6,3,3) over 8 slabs, (15,4,4) over 4,
+    (9,4,5) on 2x4 tiles with dead +Y rows, (7,7,3) on 2x2) and 255^3 (4
+    slabs, 2x2 tiles, the whole slab) into blocks with their neighbours'
+    ghosts; hold K5 keff_structured_halo against its plain version on
+    every block, the gathered blocks against K1, and the overlap split's
+    three launches against one; time K5 on a 64-plane and the 256-plane
+    slab beside K1 on the same nodes;
+15. the sharded main path at full width: the 255^3 cantilever from
+    ``build_simulation``, sharded over a one-rank NCCL group
+    (``shard_structured``), 8 'auto' (= fused) frames with the overlap
+    split, then 3 over a one-rank 2-D group (the ghost-Y form) and 3 with
+    ``CIVIWAVE_HALO_OVERLAP=0``: every frame converged, iterations within
+    +-1 of phase 4's fused frames, u and a against phase 4's (and the
+    later runs against the first's frame 3), K5 three launches per matvec
+    with the split and one without, K3 once per iteration and setup, K1,
+    K2 and K6 never, one f64 (3,) all-reduce per PCG iteration, 2 or 4
+    ghost exchanges per matvec; steps/s, ms per iteration, peak memory
+    and the busy share of one profiled frame.
 
 Any failed check exits non-zero.  The last two lines of stdout are a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.
@@ -309,9 +328,10 @@ def main_path_phase(device):
             telemetries += sim.run(1)
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
-        if variant == "auto":  # the fused frames' result, for phase 4b
+        if variant == "auto":  # the fused frames' result, for 4b and 15
             u8 = sim.stepper.state.displacement
-            split = dict(tip=u8[2, FULL[0]].clone(), umax=float(u8.abs().max()))
+            split = dict(tip=u8[2, FULL[0]].clone(), umax=float(u8.abs().max()),
+                         u=u8.cpu(), a=sim.stepper.state.acceleration.cpu())
 
     launches = {
         "keff": k12.apply_keff_fused.launches,
@@ -356,17 +376,20 @@ def main_path_phase(device):
 def structured_counts():
     """Launch counters of the structured route's kernels, by short name."""
     from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
     from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
     from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 
     return {"k6": k6.pcg_iteration_fused.launches,
             "pc": k12.apply_pc_keff_fused.launches,
             "keff": k12.apply_keff_fused.launches,
-            "bj": k3.apply_block_jacobi.launches}
+            "bj": k3.apply_block_jacobi.launches,
+            "k5": k5.keff_structured_halo.launches}
 
 
 def reset_structured_counts():
     from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
     from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
     from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 
@@ -374,6 +397,7 @@ def reset_structured_counts():
     k12.apply_pc_keff_fused.launches = 0
     k12.apply_keff_fused.launches = 0
     k3.apply_block_jacobi.launches = 0
+    k5.keff_structured_halo.launches = 0
 
 
 def mega_main_path_phase(device, split):
@@ -1262,6 +1286,278 @@ def basin_phase(device):
     torch.cuda.empty_cache()
 
 
+# phase 14's grids: (label, cells, (npx, npy), 2-D, timing key); the
+# reference's own (tests/test_sharding.py:183-185, :585-586) and the 255^3
+# cuts, timed on an inner 64-plane slab and on the main path's whole slab
+HALO_GRIDS = [
+    ("6x3x3 over 8 (Xl 1)", (6, 3, 3), (8, 1), False, None),
+    ("15x4x4 over 4 (split)", (15, 4, 4), (4, 1), False, None),
+    ("9x4x5 on 2x4 (3 dead +Y rows)", (9, 4, 5), (2, 4), True, None),
+    ("7x7x3 on 2x2", (7, 7, 3), (2, 2), True, None),
+    ("255^3 over 4 (Xl 64)", FULL, (4, 1), False, "slab64"),
+    ("255^3 on 2x2 (128x128 tiles)", FULL, (2, 2), True, None),
+    ("255^3 whole slab", FULL, (1, 1), False, "slab256"),
+]
+K5_GHOST_BYTES_PER_NODE = 15  # a ghost node's 3 f32 values and 3 mask bytes
+
+
+def halo_tiles(model, x, shape, two_d):
+    """(tile model with its mask ghosts, x block, x ghosts, offsets) per
+    tile of a (npx, npy) cut, without a process group: the ghosts a shard
+    would receive, cut from the global arrays."""
+    from civiwave_tpu_torch.ops.structured_sharded import cut_ghosts
+    from civiwave_tpu_torch.parallel import sharding
+
+    out = []
+    for local in sharding.local_tiles(model, shape, two_d):
+        x0, y0, (xl, yl) = local.x0, local.y0, local.local_extent
+        out.append((local, sharding.cut_block(x, x0, y0, xl, yl),
+                    cut_ghosts(x, x0, y0, xl, yl, two_d), (x0, y0, xl, yl)))
+    return out
+
+
+def split_keff(local, xt, ghosts, ss, mf):
+    """The overlap split's three K5 launches (the library's own)."""
+    from civiwave_tpu_torch.ops.structured_sharded import local_keff
+
+    os.environ["CIVIWAVE_HALO_OVERLAP"] = "1"
+    try:
+        return local_keff(local, xt, ghosts, ss, mf)
+    finally:
+        os.environ.pop("CIVIWAVE_HALO_OVERLAP", None)
+
+
+def k5_least(local):
+    """K5's (least bytes, least f32 operations) on one shard: K1's per node
+    plus each ghost node's values and mask once."""
+    xl, yl, z = local.grid_shape
+    ghost_nodes = 2 * (yl + 2 * int(local.bc_ghosts.y_lo is not None)) * z
+    if local.bc_ghosts.y_lo is not None:
+        ghost_nodes += 2 * xl * z
+    nodes = xl * yl * z
+    return (KERNEL_BYTES_PER_NODE["keff"] * nodes
+            + K5_GHOST_BYTES_PER_NODE * ghost_nodes,
+            KERNEL_FLOPS_PER_NODE["keff"] * nodes)
+
+
+def halo_kernel_phase(device, ss, mf):
+    """Phase 14: K5 against its plain version on every tile, the gathered
+    tiles against K1 on the whole grid, the overlap split's three launches
+    against one launch, and K5's times beside K1's on the same nodes."""
+    from civiwave_tpu_torch.mesh.structured import build_structured_model
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    mat = cantilever_config().materials[0]
+    props = materials.make_properties(mat)
+    rng = np.random.default_rng(SEED + 14)
+    worst = (0.0, 0.0)
+    timing = {}
+    for label, cells, shape, two_d, key in HALO_GRIDS:
+        model, _ = build_structured_model(
+            *cells, props, mat.density, device=device,
+            pad_x_multiple=shape[0], pad_y_multiple=shape[1] if two_d else 1,
+        )
+        x = torch.as_tensor(rng.standard_normal(model.vector_shape,
+                                                dtype=np.float32), device=device)
+        gathered = torch.empty_like(x)
+        errs = []
+        tiles = halo_tiles(model, x, shape, two_d)
+        for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+            out = k5.keff_structured_halo(local, xt, ghosts, ss, mf)
+            errs.append(check_close(
+                f"K5 {label} tile ({x0}, {y0})", out,
+                k5.keff_structured_halo_plain(local, xt, ghosts, ss, mf), OP_TOL))
+            if xl >= 4:  # the overlap split: interior first, reading no X ghost
+                if not torch.equal(split_keff(local, xt, ghosts, ss, mf), out):
+                    fail(f"K5 {label}: the overlap split differs from one launch")
+            gathered[:, x0:x0 + xl, y0:y0 + yl] = out
+        k1_err = check_close(f"K5 {label} gathered vs K1", gathered,
+                             k12.apply_keff_fused(model, x, ss, mf), OP_TOL)
+        rel = max(r for _, r in errs)
+        worst = max(worst, max(errs, key=lambda e: e[1]), k1_err,
+                    key=lambda e: e[1])
+        print(f"K5 [{label}]: {len(tiles)} tiles, vs plain max rel err "
+              f"{rel:.2e}, gathered vs K1 {k1_err[1]:.2e}", flush=True)
+        if key is not None:
+            # an inner slab (both X ghosts real) or the whole grid
+            local, xt, ghosts, _ = tiles[min(1, len(tiles) - 1)]
+            xl = local.grid_shape[0]
+            same, _ = build_structured_model(
+                xl - 1, *cells[1:], props, mat.density, device=device)
+            xk1 = xt.clone()
+            ms = time_ms(lambda: k5.keff_structured_halo(
+                local, xt, ghosts, ss, mf), 20)
+            split_ms = time_ms(lambda: split_keff(local, xt, ghosts, ss, mf), 20)
+            k1_ms = time_ms(lambda: k12.apply_keff_fused(same, xk1, ss, mf), 20)
+            plain_ms = time_ms(lambda: k5.keff_structured_halo_plain(
+                local, xt, ghosts, ss, mf), 3)
+            least, flops = k5_least(local)
+            bound_ms, bound_by = bound(least, flops)
+            timing[key] = dict(ms=ms, split_ms=split_ms, k1_ms=k1_ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+            print(f"time K5 {key} {tuple(local.grid_shape)}: kernel {ms:.4f} ms "
+                  f"(overlap split, 3 launches, {split_ms:.4f} ms), K1 on the "
+                  f"same nodes {k1_ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+                  f"{bound_ms:.4f} ms by {bound_by} ({least / 1e9:.4f} GB), "
+                  f"{least / 1e9 / ms:.3f} TB/s", flush=True)
+            del same, xk1
+        del model, x, gathered, tiles
+        torch.cuda.empty_cache()
+    return worst, timing
+
+
+def sharded_counts():
+    """K5/K3/K1/K2/K6 launches and the collectives' calls."""
+    from civiwave_tpu_torch.parallel import collectives
+
+    return {**structured_counts(), "ppermute": collectives.ppermute.calls,
+            "psum": collectives.psum.calls,
+            "psum_f64_3": collectives.psum.shapes[(torch.float64, (3,))],
+            "psum_f64_4": collectives.psum.shapes[(torch.float64, (4,))]}
+
+
+def reset_sharded_counts():
+    from civiwave_tpu_torch.parallel import collectives
+
+    reset_structured_counts()
+    collectives.reset_counts()
+
+
+def sharded_sim(device, cfg, group):
+    """The cantilever as build_simulation builds it, sharded over
+    ``group`` and stepped by a NewmarkStepper over the shard."""
+    from civiwave_tpu_torch.parallel.sharding import shard_structured
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.solver.stepper import NewmarkStepper
+
+    sim = build_simulation(cfg, device=device)
+    old = sim.stepper
+    model, state, force = shard_structured(
+        sim.model, sim.model.zero_state(), old.external_force, group)
+    sim.model = model
+    sim.stepper = NewmarkStepper(
+        model, state, force, old.rayleigh, cfg.solver, cfg.time,
+        reduction_precision=old.reduction_precision,
+        vector_precision=old.vector_precision)
+    return sim
+
+
+def check_sharded_counts(label, counts, iters, per_matvec, exchanges):
+    """Every sharded frame: the Rayleigh, residual and setup matvecs, then
+    one per fused iteration; K5 ``per_matvec`` times each, K3 once per
+    iteration and setup; one f64 (3,) all-reduce per iteration."""
+    frames, total = len(iters), sum(iters)
+    matvecs = 3 * frames + total
+    want = {"k5": per_matvec * matvecs, "bj": total + frames, "keff": 0,
+            "pc": 0, "k6": 0, "ppermute": exchanges * matvecs,
+            "psum": total + frames, "psum_f64_3": total, "psum_f64_4": frames}
+    if counts != want:
+        fail(f"{label}: counts {counts}, expected {want}")
+
+
+def sharded_main_path_phase(device, split):
+    """Phase 15: the sharded main path at full width over one-rank NCCL
+    groups, against phase 4's unsharded fused frames."""
+    from civiwave_tpu_torch.parallel.sharding import (
+        close_shard_group,
+        make_shard_group,
+        make_shard_group_2d,
+    )
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cfg = cantilever_config(
+        tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
+        mesh={"path": "synthetic://box/%d,%d,%d" % FULL},
+    )
+    group = make_shard_group(1, device)
+    sim = sharded_sim(device, cfg, group)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_sharded_counts()
+    frame_s, tel = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        tel += sim.run(1)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        if len(tel) == 3:  # for the 3-frame runs below, off the card
+            third = dict(u=sim.stepper.state.displacement.cpu(),
+                         a=sim.stepper.state.acceleration.cpu())
+    counts = sharded_counts()
+    peak = torch.cuda.max_memory_allocated()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel):
+        fail(f"sharded main path: not every frame converged: {iters}")
+    if any(abs(a - b) > 1 for a, b in zip(iters, split["iters"])):
+        fail(f"sharded main path: iterations {iters} not within 1 of the "
+             f"unsharded fused frames' {split['iters']}")
+    check_sharded_counts("sharded main path", counts, iters, 3, 2)
+    state = sim.stepper.state
+    errs = {}
+    for name, key, tol in (("displacement", "u", U_TOL),
+                           ("acceleration", "a", A_TOL)):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            fail(f"sharded main path: non-finite {name}")
+        _, errs[key] = check_close(f"sharded main path {name}",
+                                   getattr(state, name).cpu(), split[key], tol)
+    steady = frame_s[1:]
+    summary = dict(iters=iters, counts=counts, peak=peak,
+                   steps_per_s=len(steady) / sum(steady),
+                   ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3)
+    print(f"sharded main path (1-D, one rank, overlap split): pcg iterations "
+          f"{iters} (unsharded fused {split['iters']}); max abs err / max|ref| "
+          f"u {errs['u']:.3e} (tol {U_TOL:g}), a {errs['a']:.3e} (tol {A_TOL:g})",
+          flush=True)
+    print("sharded main path: frame seconds " + ", ".join(
+        f"{t:.4f}" for t in frame_s), flush=True)
+    print(f"sharded main path: steps/s {summary['steps_per_s']:.4f} (frames 2-8; "
+          f"unsharded fused {split['steps_per_s']:.4f}), {summary['ms_per_iter']:.4f} "
+          f"ms per iteration (unsharded fused {split['ms_per_iter']:.4f}); peak "
+          f"device memory {peak / 2**30:.3f} GiB ({peak} bytes)", flush=True)
+    print(f"sharded main path: counts {counts}", flush=True)
+    profile_window("sharded main path frame 9", lambda: sim.run(1))
+    del sim, state
+    torch.cuda.empty_cache()
+
+    # 3 frames over a one-rank 2-D group (the ghost-Y form), then 3 on the
+    # 1-D group without the overlap split
+    for label, make, per_matvec, exchanges, overlap in (
+        ("2-D ghost-Y form", lambda: make_shard_group_2d(1, 1, device), 3, 4, "1"),
+        ("1-D without the split", lambda: make_shard_group(1, device), 1, 2, "0"),
+    ):
+        os.environ["CIVIWAVE_HALO_OVERLAP"] = overlap
+        try:
+            sim = sharded_sim(device, cfg, make())
+            reset_sharded_counts()
+            tel3 = sim.run(3)
+            counts3 = sharded_counts()
+        finally:
+            os.environ.pop("CIVIWAVE_HALO_OVERLAP", None)
+        it3 = [t.pcg_iterations for t in tel3]
+        if not all(t.pcg_converged for t in tel3) or any(
+                abs(a - b) > 1 for a, b in zip(it3, iters)):
+            fail(f"sharded {label}: iterations {it3} vs {iters[:3]}")
+        check_sharded_counts(f"sharded {label}", counts3, it3, per_matvec,
+                             exchanges)
+        state = sim.stepper.state
+        e = {}
+        for name, key, tol in (("displacement", "u", U_TOL),
+                               ("acceleration", "a", A_TOL)):
+            _, e[key] = check_close(f"sharded {label} {name}",
+                                    getattr(state, name).cpu(), third[key], tol)
+        print(f"sharded {label}, 3 frames: iterations {it3}; max abs err / "
+              f"max|1-D run| u {e['u']:.3e}, a {e['a']:.3e}; counts {counts3}",
+              flush=True)
+        del sim, state
+        torch.cuda.empty_cache()
+    close_shard_group()
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -1306,6 +1602,8 @@ def main() -> int:
     slender_errs, slender_times = slender_kernel_phase(device, ss, mf)
     column_counts, _ = column_main_path_phase(device)
     basin_phase(device)
+    halo_worst, halo_times = halo_kernel_phase(device, ss, mf)
+    sharded = sharded_main_path_phase(device, split)
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
@@ -1383,6 +1681,21 @@ def main() -> int:
              launches=column_counts["g2"], max_abs_err=slender_errs["g2"][0],
              max_rel_err=slender_errs["g2"][1], tol=OP_TOL,
              **slender_times["soil column"]["g2"]),
+        # K5: errors over every grid of phase 14, the time of one launch on
+        # the 256-plane slab of the main path (and on a 64-plane slab),
+        # launches on the sharded main path (phase 15)
+        dict(name="keff_structured_halo", route="cuda",
+             source=src + "keff_structured_halo.cu",
+             replaces=pallas + "structured_stencil.py:968",
+             launches=sharded["counts"]["k5"], max_abs_err=halo_worst[0],
+             max_rel_err=halo_worst[1], tol=OP_TOL,
+             ms=halo_times["slab256"]["ms"],
+             plain_ms=halo_times["slab256"]["plain_ms"],
+             bound_ms=halo_times["slab256"]["bound_ms"],
+             bound_by=halo_times["slab256"]["bound_by"], library_ms=None,
+             ms_split=halo_times["slab256"]["split_ms"],
+             ms_slab64=halo_times["slab64"]["ms"],
+             bound_ms_slab64=halo_times["slab64"]["bound_ms"]),
     ]
     print(f"general_matvec_throughput {gdofs:.4f} GDOF/s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

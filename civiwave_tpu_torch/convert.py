@@ -28,12 +28,12 @@ STRUCTURED_ARRAYS = {
     "bc_value": np.float32,
     "position0": np.float32,
 }
-# scalar fields (the absorbing faces and their impedances included; the
-# stepper sets damp_factor per step); a source with Y dead rows or a
+# scalar fields (the dead +X planes and +Y rows, the absorbing faces and
+# their impedances included; the stepper sets damp_factor per step); a
 # heterogeneous grid is refused (not ported)
 STRUCTURED_META = (
     "nx", "ny", "nz", "node_count", "padded_node_count", "pad_planes",
-    "spacing", "lam0", "mu0", "absorb_faces", "rho_cp", "rho_cs",
+    "pad_rows", "spacing", "lam0", "mu0", "absorb_faces", "rho_cp", "rho_cs",
 )
 
 
@@ -41,12 +41,8 @@ def structured_model_from_arrays(
     arrays: Mapping[str, np.ndarray], meta: Mapping[str, object], device
 ) -> StructuredModel:
     """A :class:`StructuredModel` on ``device`` from its array fields (as
-    numpy) and its scalar fields.  ``meta`` may also carry ``pad_rows`` and
-    ``homogeneous``; anything but 0 / True raises NotImplementedError."""
-    if meta.get("pad_rows", 0):
-        raise NotImplementedError(
-            "dead +Y rows (2-D slab decomposition) are not ported (ROADMAP A11)"
-        )
+    numpy) and its scalar fields (``pad_rows`` defaults to 0).  ``meta``
+    may also carry ``homogeneous``; False raises NotImplementedError."""
     if not meta.get("homogeneous", True):
         raise NotImplementedError(
             "heterogeneous structured grids are not ported yet"
@@ -69,6 +65,7 @@ def structured_model_from_arrays(
         node_count=int(meta["node_count"]),
         padded_node_count=int(meta["padded_node_count"]),
         pad_planes=int(meta["pad_planes"]),
+        pad_rows=int(meta.get("pad_rows", 0)),
         spacing=spacing,
         lam0=lam0,
         mu0=mu0,

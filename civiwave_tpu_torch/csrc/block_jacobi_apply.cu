@@ -10,6 +10,10 @@
 // coefficients by its per-axis boundary class (civi::block_jacobi_node,
 // shared with K2) and writes the symmetric 3x3 product.
 //
+// A shard of a multi-device decomposition passes its global node offsets
+// (x0, y0): a node's class is taken at its global coordinate, so the same
+// table serves every slab or tile (0, 0 on an unsharded grid).
+//
 // Bound on the H100: device memory — r in (12 B/node), the mask (3 B/node),
 // z out (12 B/node): ~0.45 GB at 255^3 cells.  The 648-byte table stays in
 // the read-only cache.  Nothing to reuse across nodes, so the simple
@@ -21,12 +25,13 @@ namespace {
 __global__ void __launch_bounds__(256) block_jacobi_apply_kernel(
     const float* __restrict__ table, const float* __restrict__ r,
     const uint8_t* __restrict__ bc, float* __restrict__ z, int X, int Y, int Z,
-    int nx, int ny, int nz) {
+    int nx, int ny, int nz, int x0, int y0) {
   const int row = blockIdx.x;  // x * Y + y
   const int ix = row / Y;
   const int iy = row - ix * Y;
   const int64_t comp = static_cast<int64_t>(X) * Y * Z;
-  const int cxy = (civi::node_class(ix, nx) * 3 + civi::node_class(iy, ny)) * 3;
+  const int cxy =
+      (civi::node_class(x0 + ix, nx) * 3 + civi::node_class(y0 + iy, ny)) * 3;
   for (int iz = threadIdx.x; iz < Z; iz += blockDim.x) {
     const int64_t n0 = static_cast<int64_t>(row) * Z + iz;
     float z0, z1, z2;
@@ -43,11 +48,11 @@ __global__ void __launch_bounds__(256) block_jacobi_apply_kernel(
 extern "C" int civi_block_jacobi_apply(const float* table, const float* r,
                                        const unsigned char* bc, float* z,
                                        int X, int Y, int Z, int nx, int ny,
-                                       int nz, void* stream) {
+                                       int nz, int x0, int y0, void* stream) {
   if (X <= 0 || Y <= 0 || Z <= 0) return 0;
   block_jacobi_apply_kernel<<<static_cast<unsigned>(X * Y),
                               civi::row_threads(Z), 0,
                               static_cast<cudaStream_t>(stream)>>>(
-      table, r, bc, z, X, Y, Z, nx, ny, nz);
+      table, r, bc, z, X, Y, Z, nx, ny, nz, x0, y0);
   return static_cast<int>(cudaGetLastError());
 }

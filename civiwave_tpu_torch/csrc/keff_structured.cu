@@ -54,10 +54,8 @@ __global__ void __launch_bounds__(256) keff_structured_kernel(
           const float v0 = bc[n] ? 0.0f : x[n];
           const float v1 = bc[n + comp] ? 0.0f : x[n + comp];
           const float v2 = bc[n + 2 * comp] ? 0.0f : x[n + 2 * comp];
-          const float* k = tab + (((dx + 1) * 3 + (dy + 1)) * 3 + (dz + 1)) * 9;
-          a0 += __ldg(k + 0) * v0 + __ldg(k + 1) * v1 + __ldg(k + 2) * v2;
-          a1 += __ldg(k + 3) * v0 + __ldg(k + 4) * v1 + __ldg(k + 5) * v2;
-          a2 += __ldg(k + 6) * v0 + __ldg(k + 7) * v1 + __ldg(k + 8) * v2;
+          civi::add_taps(tab + (((dx + 1) * 3 + (dy + 1)) * 3 + (dz + 1)) * 9,
+                         v0, v1, v2, a0, a1, a2);
         }
       }
     }

@@ -1,6 +1,6 @@
 // Device code shared by the structured-grid kernels (K1 keff_structured,
-// K2 pc_keff_structured, K3 block_jacobi_apply, K4 interior_stencil, K6
-// pcg_iteration_structured, G2 keff_boundary).
+// K2 pc_keff_structured, K3 block_jacobi_apply, K4 interior_stencil, K5
+// keff_structured_halo, K6 pcg_iteration_structured, G2 keff_boundary).
 //
 // Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
 // row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
@@ -27,6 +27,16 @@ __device__ __forceinline__ int node_class(int i, int n) {
 // product reproduces the stored f32 grid bit for bit).
 __device__ __forceinline__ float class_weight(int c) {
   return c == 1 ? 1.0f : 0.5f;
+}
+
+// a += K v for one neighbour: the 3x3 tap block k (row-major, read through
+// the read-only cache) times its three sanitized components (K1, K5).
+__device__ __forceinline__ void add_taps(const float* __restrict__ k, float v0,
+                                         float v1, float v2, float& a0,
+                                         float& a1, float& a2) {
+  a0 += __ldg(k + 0) * v0 + __ldg(k + 1) * v1 + __ldg(k + 2) * v2;
+  a1 += __ldg(k + 3) * v0 + __ldg(k + 4) * v1 + __ldg(k + 5) * v2;
+  a2 += __ldg(k + 6) * v0 + __ldg(k + 7) * v1 + __ldg(k + 8) * v2;
 }
 
 // z = M^-1 r for one node from the (6, 3, 3, 3) block-Jacobi class table

@@ -20,8 +20,15 @@ Lysmer-Kuhlemeyer absorbing faces ride on the model as face tags and the
 material's impedances; the stepper sets ``damp_factor`` (Newmark a1) on a
 copy of the model per step.
 
-Not ported yet: heterogeneous per-element material grids, the +Y dead rows
-and sharding fields of the 2-D slab decomposition (ROADMAP A11) and the
+Dead +X planes and dead +Y rows (``pad_x_multiple``/``pad_y_multiple``)
+pad the grid to a multiple of a shard group's extents; they are fully
+constrained and massless.  A shard of a multi-device decomposition
+(``parallel.sharding.shard_structured``) is a StructuredModel too: its
+node-grid fields are the shard's local slab or tile, ``grid_shape`` and
+``vector_shape`` are local, and ``nx``/``ny``/``nz``, the node counts and
+``position0`` stay global.
+
+Not ported yet: heterogeneous per-element material grids and the
 multigrid hierarchy (A9).
 """
 
@@ -75,8 +82,10 @@ class StructuredModel:
     nz: int = 0
     node_count: int = 0
     padded_node_count: int = 0
-    # node planes along +X beyond nx+1: dead (fully constrained, massless)
+    # node planes along +X beyond nx+1 and node rows along +Y beyond ny+1:
+    # dead (fully constrained, massless), so the grid divides a shard group
     pad_planes: int = 0
+    pad_rows: int = 0
     spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     lam0: float = 0.0
     mu0: float = 0.0
@@ -92,10 +101,26 @@ class StructuredModel:
     rho_cp: float = 0.0
     rho_cs: float = 0.0
     damp_factor: Optional[float] = None
+    # a shard (parallel.sharding.shard_structured): its group (a
+    # parallel.sharding.ShardGroup), its node offsets (x0, y0) in the global
+    # grid, its local node extents (Xl, Yl) and the bc mask's ghost planes
+    # and rows (an ops.structured_sharded.Ghosts of bool tensors, exchanged
+    # once); None and 0 on an unsharded model
+    shard_group: Optional[object] = None
+    x0: int = 0
+    y0: int = 0
+    local_extent: Optional[Tuple[int, int]] = None
+    bc_ghosts: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
         return self.bc_mask.device
+
+    @property
+    def psum(self):
+        """The shard group's all-reduce (PCG's reduction hook), or None on
+        an unsharded model."""
+        return None if self.shard_group is None else self.shard_group.psum
 
     @property
     def lam_cells(self) -> torch.Tensor:
@@ -107,8 +132,19 @@ class StructuredModel:
         return self.mu_grid[: self.nx, : self.ny]
 
     @property
+    def global_grid_shape(self) -> Tuple[int, int, int]:
+        return (
+            self.nx + 1 + self.pad_planes,
+            self.ny + 1 + self.pad_rows,
+            self.nz + 1,
+        )
+
+    @property
     def grid_shape(self) -> Tuple[int, int, int]:
-        return (self.nx + 1 + self.pad_planes, self.ny + 1, self.nz + 1)
+        """The node grid this model's tensors hold: a shard's local one."""
+        if self.local_extent is None:
+            return self.global_grid_shape
+        return (*self.local_extent, self.nz + 1)
 
     @property
     def dof_count(self) -> int:
@@ -131,19 +167,34 @@ class StructuredModel:
         return SimState(z, z, z, z)
 
     def to_nodal(self, vector: torch.Tensor) -> torch.Tensor:
-        """CSG vector -> (node_count, 3) nodal rows (x-major order)."""
+        """CSG vector -> (node_count, 3) nodal rows (x-major order; the dead
+        +Y rows are stripped first).  A shard's vector is gathered first
+        (``parallel.sharding.gather_structured``, a collective)."""
+        if self.shard_group is not None:
+            from ..parallel.sharding import gather_structured
+
+            vector = gather_structured(vector, self.shard_group)
+        if self.pad_rows:  # dead Y rows interleave in x-major flat order
+            vector = vector[:, :, : self.ny + 1]
         flat = vector.permute(1, 2, 3, 0).reshape(-1, 3)
         return flat[: self.node_count]
 
     def from_nodal(self, rows) -> torch.Tensor:
-        """(node_count, 3) nodal rows -> CSG vector (pad planes zeroed)."""
+        """(node_count, 3) nodal rows -> CSG vector (pad planes and dead
+        rows zeroed); a shard's own block of it on a shard."""
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+        real = (self.nx + 1 + self.pad_planes, self.ny + 1, self.nz + 1)
         flat = torch.zeros(
-            (int(np.prod(self.grid_shape)), 3), dtype=torch.float32,
-            device=self.device,
+            (int(np.prod(real)), 3), dtype=torch.float32, device=self.device,
         )
         flat[: self.node_count] = rows[: self.node_count]
-        return flat.reshape(*self.grid_shape, 3).permute(3, 0, 1, 2).contiguous()
+        grid = flat.reshape(*real, 3).permute(3, 0, 1, 2)
+        if self.pad_rows:
+            grid = torch.nn.functional.pad(grid, (0, 0, 0, self.pad_rows))
+        if self.local_extent is not None:
+            xl, yl = self.local_extent
+            grid = grid[:, self.x0:self.x0 + xl, self.y0:self.y0 + yl]
+        return grid.contiguous()
 
     def apply_keff(self, x, stiffness_scale, mass_factor):
         from ..ops import structured as _ops
@@ -271,15 +322,18 @@ def traction_force_grid(
     """One traction's nodal force contribution in CSG layout (3, X, Y, Z),
     as a host numpy f32 array.  The plane is indexed through the real
     x-extent view, so y/z planes of an X-padded grid work too (the
-    reference's version raises there); dead pad planes carry no force."""
+    reference's version raises there); dead pad planes and rows carry no
+    force."""
     counts = (model.nx, model.ny, model.nz)
     _, share = _face_share(plane_tag, counts, model.spacing)
-    grid = np.zeros(model.grid_shape + (3,))
+    grid = np.zeros(model.global_grid_shape + (3,))
     _, sl = _box_plane_slice(
         plane_tag, model.nx + 1,
         (model.nx + 1, model.ny + 1, model.nz + 1),
     )
-    grid[: model.nx + 1][sl] = share[..., None] * np.asarray(value, np.float64)
+    grid[: model.nx + 1, : model.ny + 1][sl] = (
+        share[..., None] * np.asarray(value, np.float64)
+    )
     return grid.transpose(3, 0, 1, 2).astype(np.float32)
 
 
@@ -297,6 +351,7 @@ def build_structured_model(
     pad_x_multiple: int = 1,
     fixes: Optional[Sequence] = None,
     absorb_planes: Tuple[str, ...] = (),
+    pad_y_multiple: int = 1,
     *,
     device,
 ):
@@ -309,7 +364,10 @@ def build_structured_model(
     (config.cpp:500-567): a sequence of ``(plane_tag, constrain_axis(3,),
     values(3,))`` with per-axis flags and optional targets (None => 0).
     ``pad_x_multiple`` appends dead (constrained, massless) node planes
-    along +X until (nx+1+pad) is a multiple.  ``absorb_planes`` names the
+    along +X until (nx+1+pad) is a multiple; ``pad_y_multiple`` appends dead
+    node rows along +Y the same way (the 2-D shard decomposition), and then
+    pads the material cell grids along Y to the padded node extent, as the
+    reference does.  ``absorb_planes`` names the
     absorbing faces; their impedances rho*c_p = sqrt(rho (lam + 2 mu)) and
     rho*c_s = sqrt(rho mu) come from the one material (the builder makes
     homogeneous grids only, so the reference's refusal of a heterogeneous
@@ -327,6 +385,9 @@ def build_structured_model(
     xs, ys, zs = nx + 1, ny + 1, nz + 1
     pad_planes = (-xs) % max(pad_x_multiple, 1)
     xs_pad = xs + pad_planes
+    pad_rows = (-ys) % max(pad_y_multiple, 1)
+    ys_pad = ys + pad_rows
+    cell_ys = ys_pad if pad_y_multiple > 1 else ny
     hx, hy, hz = (float(s) for s in spacing)
     lam0 = float(np.float32(material.lame.lam))
     mu0 = float(np.float32(material.lame.mu))
@@ -336,26 +397,28 @@ def build_structured_model(
 
     f64, f32 = torch.float64, torch.float32
     ix = torch.arange(xs_pad, device=device)[:, None, None]
-    iy = torch.arange(ys, device=device)[None, :, None]
+    iy = torch.arange(ys_pad, device=device)[None, :, None]
     iz = torch.arange(zs, device=device)[None, None, :]
 
     def adj(i, ncells):  # cells adjacent to node plane i along an axis
         return ((i >= 1) & (i <= ncells)).to(f64) + (i <= ncells - 1).to(f64)
 
     ax_, ay_, az_ = adj(ix, nx), adj(iy, ny), adj(iz, nz)
-    counts = ax_ * ay_ * az_  # cells per node: 0 on pads, 8 interior
+    counts = ax_ * ay_ * az_  # cells per node: 0 on pads and dead rows
     cm = density * (hx * hy * hz) / 8.0
     mass = (cm * counts).to(f32)
 
-    # material grids: the material value on real cells, 0 on the x pad tail
-    cell_real = (torch.arange(xs_pad, device=device) < nx)[:, None, None]
-    cell_real = cell_real.expand(xs_pad, ny, nz)
+    # material grids: the material value on real cells, 0 on the x/y pad tails
+    cell_real = (
+        (torch.arange(xs_pad, device=device) < nx)[:, None, None]
+        & (torch.arange(cell_ys, device=device) < ny)[None, :, None]
+    ).expand(xs_pad, cell_ys, nz)
     lam = torch.where(cell_real, lam0, 0.0).to(f32)
     mu = torch.where(cell_real, mu0, 0.0).to(f32)
 
     # Dirichlet planes, then the dead-pad override (the reference's order)
-    bc = torch.zeros((3, xs_pad, ys, zs), dtype=torch.bool, device=device)
-    vals = torch.zeros((3, xs_pad, ys, zs), dtype=f32, device=device)
+    bc = torch.zeros((3, xs_pad, ys_pad, zs), dtype=torch.bool, device=device)
+    vals = torch.zeros((3, xs_pad, ys_pad, zs), dtype=f32, device=device)
     for tag, constrain, values in fixes:
         _, sl = _box_plane_slice(tag, xs, (xs, ys, zs))
         for a in range(3):
@@ -365,12 +428,15 @@ def build_structured_model(
                 vals[(a,) + sl] = float(np.float32(target))
     bc[:, xs:] = True
     vals[:, xs:] = 0.0
+    bc[:, :, ys:] = True
+    vals[:, :, ys:] = 0.0
 
-    # nodal positions continue the lattice across the x pads
+    # nodal positions continue the lattice across the x pads (the
+    # host-facing flat order has no dead Y rows)
     pos = torch.stack(
         [
             (ix.to(f64) * hx).expand(xs_pad, ys, zs),
-            (iy.to(f64) * hy).expand(xs_pad, ys, zs),
+            (iy[:, :ys].to(f64) * hy).expand(xs_pad, ys, zs),
             (iz.to(f64) * hz).expand(xs_pad, ys, zs),
         ],
         dim=-1,
@@ -412,6 +478,7 @@ def build_structured_model(
         node_count=xs * ys * zs,
         padded_node_count=xs_pad * ys * zs,
         pad_planes=pad_planes,
+        pad_rows=pad_rows,
         spacing=(hx, hy, hz),
         lam0=lam0,
         mu0=mu0,

@@ -68,10 +68,11 @@ class StructuredForceSchedule:
 
 
 def try_build_structured(
-    cfg: Config, pad_x_multiple: int = 1, *, device
+    cfg: Config, pad_x_multiple: int = 1, *, device, pad_y_multiple: int = 1,
 ) -> Optional[Tuple[StructuredModel, StructuredForceSchedule]]:
     """(model, force schedule) on ``device`` when the scenario fits the
-    structured route, else None."""
+    structured route, else None.  The pad multiples add dead +X planes and
+    +Y rows so the grid divides a shard group."""
     if not cfg.mesh_path.startswith(BOX_PREFIX):
         return None
     nx, ny, nz, hex_elements, spacing = parse_box_spec(cfg.mesh_path)
@@ -108,6 +109,7 @@ def try_build_structured(
         fixes=fixes,
         gravity=cfg.loads.gravity,
         pad_x_multiple=pad_x_multiple,
+        pad_y_multiple=pad_y_multiple,
         absorb_planes=tuple(_PLANE_OF_GROUP[g] for g in cfg.absorbing),
         device=device,
     )

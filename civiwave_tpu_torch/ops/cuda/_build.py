@@ -43,8 +43,10 @@ _SIGNATURES = {
     "civi_keff_structured": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # pc_table, r, bc, z, X, Y, Z, nx, ny, nz, stream
-    "civi_block_jacobi_apply": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # pc_table, r, bc, z, X, Y, Z, nx, ny, nz, x0, y0, stream
+    "civi_block_jacobi_apply": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
     # pc_table, stencil, r, bc, u, w, partials, X, Y, Z, nx, ny, nz,
     # ss, mf, m8, stream
     "civi_pc_keff_structured": (
@@ -66,6 +68,13 @@ _SIGNATURES = {
     # interior, x, bc, ghost, out, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
     "civi_keff_boundary": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+    ),
+    # x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi, bgy_hi,
+    # stencil, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1, ss, mf,
+    # m8, stream
+    "civi_keff_structured_halo": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
 }
 

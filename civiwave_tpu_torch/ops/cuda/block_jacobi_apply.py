@@ -5,7 +5,10 @@ K3, ``block_jacobi_apply`` (``csrc/block_jacobi_apply.cu``), replaces the
 Pallas kernel ``apply_block_jacobi_pallas`` (civiwave_tpu/ops/pallas/
 block_jacobi_apply.py:144, pallas_call at :170): ``z = M^-1 r`` from the
 (6, 3, 3, 3) class table, +0.0 by select on constrained components.  The
-classic PCG variant applies it once per iteration.
+classic PCG variant applies it once per iteration, the Chronopoulos-Gear
+loop of a shard once per iteration too.  A shard's nodes are classified by
+their global coordinates: the wrapper passes the model's offsets
+``x0``/``y0`` (0 on an unsharded model).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises.  ``apply_block_jacobi.launches`` counts launches.
@@ -43,7 +46,7 @@ def apply_block_jacobi(model, table, residual):
         code = library.lib.civi_block_jacobi_apply(
             table.data_ptr(), residual.data_ptr(), model.bc_mask.data_ptr(),
             z.data_ptr(), X, Y, Z, model.nx, model.ny, model.nz,
-            torch.cuda.current_stream(dev).cuda_stream,
+            model.x0, model.y0, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(library, "block_jacobi_apply", code)
     apply_block_jacobi.launches += 1

@@ -39,6 +39,12 @@ version.  The grid's shape picks the form, as in the reference:
 
 Lysmer-Kuhlemeyer absorbing faces add ``damp_factor * C x`` on their face
 planes after the identity rows, on both forms.
+
+A shard of a multi-device decomposition (a model carrying a
+``shard_group``) takes the sharded operator instead
+(``ops/structured_sharded.py``: ghost exchange + K5), whatever its shape;
+the preconditioner is K3 with the shard's global offsets, and K2 and K6
+decline, so PCG composes the two and reduces its dots across the group.
 """
 
 from __future__ import annotations
@@ -195,10 +201,11 @@ def ghost_stencil_table(spacing, lam0: float, mu0: float) -> np.ndarray:
     return np.ascontiguousarray(table.astype(np.float32))
 
 
-def axis_classes(size: int, cells: int) -> np.ndarray:
+def axis_classes(size: int, cells: int, offset: int = 0) -> np.ndarray:
     """Boundary class (0 low face / 1 interior / 2 high face and beyond) of
-    each of ``size`` node positions along an axis of ``cells`` cells."""
-    idx = np.arange(size)
+    each of ``size`` node positions along an axis of ``cells`` cells,
+    starting at global position ``offset`` (a shard's)."""
+    idx = np.arange(offset, offset + size)
     return np.where(idx == 0, 0, np.where(idx >= cells, 2, 1))
 
 
@@ -395,7 +402,14 @@ def apply_keff_structured(
     model: StructuredModel, x: torch.Tensor, stiffness_scale, mass_factor
 ) -> torch.Tensor:
     """K_eff * x in CSG layout: K1 (or K4 + G2 on :func:`slender_route`)
-    on CUDA, the plain forms on CPU; plus the absorbing-face term."""
+    on CUDA, the plain forms on CPU; plus the absorbing-face term.  A
+    shard takes the sharded operator (ghost exchange + K5)."""
+    if model.shard_group is not None:
+        from .structured_sharded import apply_keff_structured_sharded
+
+        return apply_keff_structured_sharded(
+            model, x, stiffness_scale, mass_factor
+        )
     if slender_route(model, x.dtype):
         out = apply_keff_split_structured(model, x, stiffness_scale, mass_factor)
     else:
@@ -530,6 +544,37 @@ class CompactBlockJacobi(NamedTuple):
     table: torch.Tensor  # (6, 3, 3, 3) f32 — [comp, x-class, y-class, z-class]
 
 
+def _class_proxy(model: StructuredModel) -> StructuredModel:
+    """An unsharded grid of min(n, 2) cells per axis with the model's
+    spacing, material and interior mass: it has every boundary class of
+    the model (none but the interior one depends on n), and each class's
+    block is assembled from the same corner terms in the same order, so the
+    class table it yields is the model's bit for bit."""
+    import dataclasses
+
+    cells = tuple(min(n, 2) for n in (model.nx, model.ny, model.nz))
+    dev = model.device
+    weights = [
+        torch.as_tensor(np.where(axis_classes(n + 1, n) == 1, 1.0, 0.5),
+                        dtype=torch.float32, device=dev)
+        for n in cells
+    ]
+    mass = (float(np.float32(model.m8)) * weights[0][:, None, None]
+            * weights[1][None, :, None] * weights[2][None, None, :])
+    nodes = tuple(n + 1 for n in cells)
+    return dataclasses.replace(
+        model,
+        lam_grid=torch.full(cells, model.lam0, dtype=torch.float32, device=dev),
+        mu_grid=torch.full(cells, model.mu0, dtype=torch.float32, device=dev),
+        mass_grid=mass,
+        bc_mask=torch.zeros((3, *nodes), dtype=torch.bool, device=dev),
+        bc_value=torch.zeros((3, *nodes), dtype=torch.float32, device=dev),
+        nx=cells[0], ny=cells[1], nz=cells[2],
+        pad_planes=0, pad_rows=0, shard_group=None, x0=0, y0=0,
+        local_extent=None, bc_ghosts=None,
+    )
+
+
 def build_compact_block_jacobi(
     model: StructuredModel, stiffness_scale, mass_factor
 ) -> CompactBlockJacobi:
@@ -537,7 +582,10 @@ def build_compact_block_jacobi(
     full per-node inverse (built only when dt changes — the stepper hoists
     it) sliced at one representative node per class combination.
     Degenerate extents (n == 1: no interior class) leave the interior
-    entry unused."""
+    entry unused.  A shard builds the table from :func:`_class_proxy` (its
+    own fields are local)."""
+    if model.shard_group is not None:
+        model = _class_proxy(model)
     full = build_block_jacobi_inverse_structured(
         model, stiffness_scale, mass_factor
     )
@@ -554,13 +602,14 @@ def apply_compact_preconditioner_structured_plain(
     """z = M^-1 r from the class table, plain PyTorch (the reference's XLA
     form): the coefficient grids are broadcast products of a per-x-plane
     table gather with one-hot y/z class vectors.  Constrained outputs are
-    +0.0 by select."""
+    +0.0 by select.  A shard's nodes take their classes at their global
+    coordinates (offsets ``x0``/``y0``)."""
     x_planes, ys, zs = model.grid_shape
     dev = residual.device
-    clsx = torch.as_tensor(axis_classes(x_planes, model.nx), device=dev)
+    clsx = torch.as_tensor(axis_classes(x_planes, model.nx, model.x0), device=dev)
     tab_x = table[:, clsx]  # (6, X, 3, 3)
     eye = np.eye(3, dtype=np.float32)
-    wy = eye[:, axis_classes(ys, model.ny)]  # (3, Y)
+    wy = eye[:, axis_classes(ys, model.ny, model.y0)]  # (3, Y)
     wz = eye[:, axis_classes(zs, model.nz)]  # (3, Z)
 
     def coef(m):  # (X, Y, Z) coefficient map
@@ -595,10 +644,12 @@ def apply_compact_preconditioner_structured(
 
 def pc_keff_kernel_eligible(model: StructuredModel, pc, dtype) -> bool:
     """Whether the fused pc+matvec(+dots) kernel K2 runs: class-table
-    preconditioner, f32 vectors, model on a CUDA device, and not the
-    slender route (where the reference's kernel is not profitable)."""
+    preconditioner, f32 vectors, model on a CUDA device, not a shard and
+    not the slender route (where the reference's kernel is not
+    profitable)."""
     return (
-        isinstance(pc, CompactBlockJacobi)
+        model.shard_group is None
+        and isinstance(pc, CompactBlockJacobi)
         and dtype == torch.float32
         and model.device.type == "cuda"
         and not slender_route(model, dtype)
@@ -612,9 +663,9 @@ def apply_pc_keff_structured(
     """(u, w) = (M^-1 r, K_eff u) — the back-to-back pc apply + matvec of
     the Chronopoulos-Gear iteration: one K2 launch on CUDA (the
     composition of the two plain forms on CPU) plus the absorbing term on
-    w; on the slender route the composition of the preconditioner and the
-    operator."""
-    if slender_route(model, residual.dtype):
+    w; on a shard and on the slender route the composition of the
+    preconditioner and the operator."""
+    if model.shard_group is not None or slender_route(model, residual.dtype):
         u = model.apply_preconditioner(pc, residual)
         return u, model.apply_keff(u, stiffness_scale, mass_factor)
     u, w = _k12.apply_pc_keff_fused(
@@ -633,9 +684,11 @@ def apply_pc_keff_dots_structured(
     :func:`~civiwave_tpu_torch.solver.pcg.fused_dots`.
 
     None — the caller composes ``apply_pc_keff`` and ``fused_dots`` — on
-    the slender route and with absorbing faces: the face term is added to
-    w after the kernel, so an in-kernel (w, u) partial would miss it."""
-    if model.absorb_faces or slender_route(model, residual.dtype):
+    a shard, on the slender route and with absorbing faces: the face term
+    is added to w after the kernel, so an in-kernel (w, u) partial would
+    miss it."""
+    if (model.shard_group is not None or model.absorb_faces
+            or slender_route(model, residual.dtype)):
         return None
     return _k12.apply_pc_keff_fused(
         model, pc.table, residual, stiffness_scale, mass_factor,
@@ -670,13 +723,13 @@ def build_fused_pcg_iteration(
     """
     if os.environ.get("CIVIWAVE_MEGA_PCG", "0") != "1":
         return None
-    # the heterogeneous grid and the shard mesh are fields the port's model
-    # does not carry yet (A11); the rules stay so that slice inherits them
+    # the heterogeneous grid is a field the port's model does not carry
+    # yet; the rule stays so that slice inherits it
     if not (
         isinstance(pc, CompactBlockJacobi)
         and not model.absorb_faces
         and getattr(model, "homogeneous", True)
-        and getattr(model, "shard_mesh", None) is None
+        and model.shard_group is None
         and vector_dtype == torch.float32
         and not slender_route(model, vector_dtype)
     ):

@@ -46,19 +46,24 @@ class PcgTelemetry(NamedTuple):
     breakdown: bool  # denominator/rho collapse
 
 
-def dot_f64(a: torch.Tensor, b: torch.Tensor, dtype=torch.float64):
+def dot_f64(a: torch.Tensor, b: torch.Tensor, dtype=torch.float64,
+            psum=None):
     """High-precision reduction over f32 solver vectors — the precision
     contract.  fp64 is chunked as in the reference (pcg.cpp:170-207): the
     f32 product is partially reduced along the minor axis (Z of a
     structured (3, X, Y, Z) vector, the 3 components of an (N*, 3) nodal
     vector) in f32 and only the partials accumulate in ``dtype``.
-    ``dtype=float32`` is the YAML ``precision.reductions: fp32`` opt-out."""
+    ``dtype=float32`` is the YAML ``precision.reductions: fp32`` opt-out.
+    ``psum`` (a shard's ``model.psum``) all-reduces this rank's sum."""
     if dtype == torch.float32:
-        return (a.to(torch.float32) * b.to(torch.float32)).sum()
-    prod = a * b  # f32 vectors stay f32 (chunked); f64 vectors keep f64
-    if prod.ndim >= 2:
-        return prod.sum(dim=-1).to(dtype).sum()
-    return prod.to(dtype).sum()
+        out = (a.to(torch.float32) * b.to(torch.float32)).sum()
+    else:
+        prod = a * b  # f32 vectors stay f32 (chunked); f64 vectors keep f64
+        if prod.ndim >= 2:
+            out = prod.sum(dim=-1).to(dtype).sum()
+        else:
+            out = prod.to(dtype).sum()
+    return out if psum is None else psum(out)
 
 
 def _clamp_dirichlet(model, rhs, x, r):
@@ -77,12 +82,15 @@ def dot_partials(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return prod
 
 
-def fused_dots(pairs, dtype=torch.float64) -> torch.Tensor:
+def fused_dots(pairs, dtype=torch.float64, psum=None) -> torch.Tensor:
     """k dot products reduced in one pass: returns a (k,) tensor of the
-    stacked f32 chunk partials accumulated in ``dtype``."""
+    stacked f32 chunk partials accumulated in ``dtype``; with ``psum`` (a
+    shard's ``model.psum``) this rank's k sums are all-reduced in one
+    call."""
     stacked = torch.stack([dot_partials(a, b) for a, b in pairs])
     axes = tuple(range(1, stacked.ndim))
-    return stacked.to(dtype).sum(dim=axes)
+    sums = stacked.to(dtype).sum(dim=axes)
+    return sums if psum is None else psum(sums)
 
 
 def _flags(*conds: torch.Tensor):
@@ -112,7 +120,11 @@ def solve_pcg(
     (pcg.cpp:830-915); 'fused' the Chronopoulos-Gear single-reduction
     recurrence (:func:`solve_pcg_fused`); 'auto' picks 'fused' where the
     model runs the fused pc+matvec+dots kernel (CUDA, f32) and 'classic'
-    otherwise.  'pipelined' (Ghysels-Vanroose) waits for ROADMAP A9.
+    otherwise, and always on a shard (one all-reduce per iteration instead
+    of two or three, as the reference's pcg.py:181-182).  'pipelined'
+    (Ghysels-Vanroose) waits for ROADMAP A9.  On a shard every reduction
+    goes through ``model.psum``; every rank reads the same flags because
+    the reduced scalars are the same.
     """
     block_inverse = (
         model.build_preconditioner(stiffness_scale, mass_factor)
@@ -124,9 +136,12 @@ def solve_pcg(
         # profits (a fused pc+matvec+dots kernel), classic otherwise and for
         # models with no preference
         prefers = getattr(model, "prefers_fused_pcg", None)
+        sharded = getattr(model, "shard_group", None) is not None
         variant = (
             "fused"
-            if prefers is not None and prefers(block_inverse, vector_dtype)
+            if sharded or (
+                prefers is not None and prefers(block_inverse, vector_dtype)
+            )
             else "classic"
         )
     if variant == "fused":
@@ -145,9 +160,10 @@ def solve_pcg(
     f32 = vector_dtype
     rdt = reduction_dtype
     bc = model.bc_mask
+    psum = getattr(model, "psum", None)
 
     def rdot(a, b):
-        return dot_f64(a, b, rdt)
+        return dot_f64(a, b, rdt, psum)
 
     x = x0 if warm_start else torch.zeros_like(x0)
 
@@ -253,6 +269,7 @@ def solve_pcg_fused(
     f32 = vector_dtype
     rdt = reduction_dtype
     bc = model.bc_mask
+    psum = getattr(model, "psum", None)
 
     block_inverse = (
         model.build_preconditioner(stiffness_scale, mass_factor)
@@ -283,7 +300,7 @@ def solve_pcg_fused(
     u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
     # one fused setup reduction: gamma0, delta0, ||r||^2 and ||rhs||^2
     gamma, delta0, rr0, rhs2 = fused_dots(
-        [(r, u), (w, u), (r, r), (rhs, rhs)], rdt
+        [(r, u), (w, u), (r, r), (rhs, rhs)], rdt, psum
     )
     rhs_norm_true = torch.sqrt(rhs2)
     rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
@@ -320,7 +337,9 @@ def solve_pcg_fused(
             u, w = model.apply_pc_keff(
                 block_inverse, r, stiffness_scale, mass_factor
             )
-            gamma_new, delta, rr = fused_dots([(r, u), (w, u), (r, r)], rdt)
+            gamma_new, delta, rr = fused_dots(
+                [(r, u), (w, u), (r, r)], rdt, psum
+            )
         residual_norm = torch.sqrt(rr)
 
         gamma_small = gamma.abs() < _BREAKDOWN_TOL

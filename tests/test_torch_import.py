@@ -43,7 +43,9 @@ def test_every_module_imports_with_jax_blocked():
         "mesh.renumber", "ops.apply_keff", "ops.block_jacobi",
         "ops.cuda.element_forces", "ops.cuda.assemble_csr", "physics.oracle",
         "ops.cuda.pcg_iteration", "ops.cuda.interior_stencil",
-        "ops.cuda.keff_boundary",
+        "ops.cuda.keff_boundary", "ops.cuda.keff_halo",
+        "ops.structured_sharded", "parallel.sharding", "parallel.collectives",
+        "parallel.launch",
     ):
         assert f"civiwave_tpu_torch.{name}" in modules
     code = (

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: K1-K3
-and K6 (the whole PCG iteration) of the structured route, K4 (interior
+and K6 (the whole PCG iteration) of the structured route, K5 (the shard
+operator, with K3's global offsets) of its sharded form, K4 (interior
 stencil) and G2 (boundary corrections and envelope) of its slender route,
 K7 (element forces, tet and hex) and G1 (CSR assembly) of the general
 gather path.
@@ -15,6 +16,7 @@ Tolerances: operator and preconditioner outputs at 1e-5 * max|ref|, dots
 at rtol 1e-5 (the sums run in another order than the plain version's).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -385,3 +387,133 @@ def test_seismic_column_runs_on_the_card(device):
     assert all(t.pcg_converged for t in tg)
     assert all(abs(a.pcg_iterations - b.pcg_iterations) <= 1 for a, b in zip(tg, tc))
     np.testing.assert_allclose(ug, uc, rtol=0, atol=2.5e-4 * float(np.abs(uc).max()))
+
+
+# --------------------------------------------------------------------------
+# K5 (the shard operator) and K3 with global offsets
+# --------------------------------------------------------------------------
+
+# name -> (cells, (npx, npy), 2-D): the reference's sharded grids
+HALO = {
+    "1d_6x3x3_over_8": ((6, 3, 3), (8, 1), False),
+    "1d_15x4x4_over_4": ((15, 4, 4), (4, 1), False),
+    "2d_9x4x5_on_2x4": ((9, 4, 5), (2, 4), True),
+    "2d_7x7x3_on_2x2": ((7, 7, 3), (2, 2), True),
+    "1d_odd_z300_over_2": ((3, 3, 300), (2, 1), False),
+}
+
+
+def _halo_tiles(device, case):
+    """(whole model, x, [(tile model with its mask ghosts, x block, x
+    ghosts, (x0, y0, Xl, Yl))]) of one grid, cut without a process group."""
+    from civiwave_tpu_torch.ops.structured_sharded import cut_ghosts
+    from civiwave_tpu_torch.parallel import sharding
+
+    cells, shape, two_d = HALO[case]
+    mat = cantilever_config().materials[0]
+    model, _ = build_structured_model(
+        *cells, materials.make_properties(mat), mat.density, device=device,
+        pad_x_multiple=shape[0], pad_y_multiple=shape[1] if two_d else 1,
+    )
+    x = torch.as_tensor(
+        np.random.default_rng(5).standard_normal(model.vector_shape, dtype=np.float32),
+        device=device,
+    )
+    tiles = []
+    for local in sharding.local_tiles(model, shape, two_d):
+        x0, y0, (xl, yl) = local.x0, local.y0, local.local_extent
+        tiles.append((local, sharding.cut_block(x, x0, y0, xl, yl),
+                      cut_ghosts(x, x0, y0, xl, yl, two_d), (x0, y0, xl, yl)))
+    return model, x, tiles
+
+
+@pytest.mark.parametrize("case", sorted(HALO))
+def test_keff_halo_kernel_matches_plain_and_k1(device, case, monkeypatch):
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.ops.structured_sharded import local_keff
+
+    model, x, tiles = _halo_tiles(device, case)
+    gathered = torch.empty_like(x)
+    for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+        before = k5.keff_structured_halo.launches
+        out = k5.keff_structured_halo(local, xt, ghosts, SS, MF)
+        torch.cuda.synchronize()
+        assert k5.keff_structured_halo.launches == before + 1
+        _close(out, k5.keff_structured_halo_plain(local, xt, ghosts, SS, MF))
+        if xl >= 4:  # the overlap split's three launches write the same bits
+            monkeypatch.setenv("CIVIWAVE_HALO_OVERLAP", "1")
+            before = k5.keff_structured_halo.launches
+            assert torch.equal(local_keff(local, xt, ghosts, SS, MF), out)
+            assert k5.keff_structured_halo.launches == before + 3
+        gathered[:, x0:x0 + xl, y0:y0 + yl] = out
+    _close(gathered, k12.apply_keff_fused(model, x, SS, MF))
+
+
+def test_keff_halo_on_one_shard_is_k1(device):
+    """One shard, no ghosts: K1's arithmetic in K1's order, bit for bit."""
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.ops.structured_sharded import Ghosts
+    from civiwave_tpu_torch.parallel import sharding
+
+    model, x = _model(device, "odd_partial_fixes")
+    local = dataclasses.replace(
+        sharding.local_model(model, (1, 1), (0, 0)), bc_ghosts=Ghosts(None, None))
+    out = k5.keff_structured_halo(local, x, Ghosts(None, None), SS, MF)
+    assert torch.equal(out, k12.apply_keff_fused(model, x, SS, MF))
+    with pytest.raises(TypeError):
+        k5.keff_structured_halo(local, x.double(), None, SS, MF)
+    with pytest.raises(ValueError):
+        k5.keff_structured_halo(local, x, None, SS, MF, planes=(0, 10**6))
+
+
+@pytest.mark.parametrize("case", sorted(HALO))
+def test_block_jacobi_kernel_with_offsets(device, case):
+    model, x, tiles = _halo_tiles(device, case)
+    pc = model.build_preconditioner(SS, MF)
+    ref = k3.apply_block_jacobi(model, pc.table, x)
+    gathered = torch.empty_like(x)
+    for local, xt, _, (x0, y0, xl, yl) in tiles:
+        z = k3.apply_block_jacobi(local, pc.table, xt)
+        _close(z, k3.apply_block_jacobi_plain(local, pc.table, xt))
+        gathered[:, x0:x0 + xl, y0:y0 + yl] = z
+    torch.cuda.synchronize()
+    assert torch.equal(gathered, ref)
+
+
+def test_small_cantilever_runs_sharded_on_one_rank(device, monkeypatch):
+    """A one-rank NCCL group: 'auto' is fused, every matvec is K5 (three
+    launches with the overlap split), K1/K2/K6 never run, and the frames
+    match the unsharded fused run on the card."""
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.parallel import collectives, sharding
+    from civiwave_tpu_torch.solver.stepper import NewmarkStepper
+
+    monkeypatch.delenv("CIVIWAVE_HALO_OVERLAP", raising=False)
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120,
+                            mesh={"path": "synthetic://box/12,6,6"})
+    ref = build_simulation(cfg, device=device)
+    tel_ref = ref.run(4)
+    sim = build_simulation(cfg, device=device)
+    group = sharding.make_shard_group(1, device)
+    try:
+        model, state, force = sharding.shard_structured(
+            sim.model, sim.model.zero_state(), sim.stepper.external_force, group)
+        old = sim.stepper
+        sim.stepper = NewmarkStepper(model, state, force, old.rayleigh,
+                                     cfg.solver, cfg.time)
+        before = (k5.keff_structured_halo.launches, k12.apply_keff_fused.launches,
+                  k12.apply_pc_keff_fused.launches)
+        collectives.reset_counts()
+        tel = sim.run(4)
+        torch.cuda.synchronize()
+    finally:
+        sharding.close_shard_group()
+    iters = [t.pcg_iterations for t in tel]
+    matvecs = 3 * len(tel) + sum(iters)
+    assert k5.keff_structured_halo.launches - before[0] == 3 * matvecs
+    assert k12.apply_keff_fused.launches == before[1]
+    assert k12.apply_pc_keff_fused.launches == before[2]
+    assert collectives.psum.shapes[(torch.float64, (3,))] == sum(iters)
+    assert all(abs(a - b.pcg_iterations) <= 1 for a, b in zip(iters, tel_ref))
+    u, u_ref = sim.stepper.state.displacement, ref.stepper.state.displacement
+    assert float((u - u_ref).abs().max()) <= 2.5e-4 * float(u_ref.abs().max())
