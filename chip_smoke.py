@@ -1427,25 +1427,6 @@ def reset_sharded_counts():
     collectives.reset_counts()
 
 
-def sharded_sim(device, cfg, group):
-    """The cantilever as build_simulation builds it, sharded over
-    ``group`` and stepped by a NewmarkStepper over the shard."""
-    from civiwave_tpu_torch.parallel.sharding import shard_structured
-    from civiwave_tpu_torch.runner import build_simulation
-    from civiwave_tpu_torch.solver.stepper import NewmarkStepper
-
-    sim = build_simulation(cfg, device=device)
-    old = sim.stepper
-    model, state, force = shard_structured(
-        sim.model, sim.model.zero_state(), old.external_force, group)
-    sim.model = model
-    sim.stepper = NewmarkStepper(
-        model, state, force, old.rayleigh, cfg.solver, cfg.time,
-        reduction_precision=old.reduction_precision,
-        vector_precision=old.vector_precision)
-    return sim
-
-
 def check_sharded_counts(label, counts, iters, per_matvec, exchanges):
     """Every sharded frame: the Rayleigh, residual and setup matvecs, then
     one per fused iteration; K5 ``per_matvec`` times each, K3 once per
@@ -1466,15 +1447,17 @@ def sharded_main_path_phase(device, split):
         close_shard_group,
         make_shard_group,
         make_shard_group_2d,
+        shard_simulation,
     )
+    from civiwave_tpu_torch.runner import build_simulation
     from civiwave_tpu_torch.utils.synthetic import cantilever_config
 
     cfg = cantilever_config(
         tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
         mesh={"path": "synthetic://box/%d,%d,%d" % FULL},
     )
-    group = make_shard_group(1, device)
-    sim = sharded_sim(device, cfg, group)
+    sim = shard_simulation(build_simulation(cfg, device=device),
+                           make_shard_group(1, device))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_sharded_counts()
@@ -1531,7 +1514,7 @@ def sharded_main_path_phase(device, split):
     ):
         os.environ["CIVIWAVE_HALO_OVERLAP"] = overlap
         try:
-            sim = sharded_sim(device, cfg, make())
+            sim = shard_simulation(build_simulation(cfg, device=device), make())
             reset_sharded_counts()
             tel3 = sim.run(3)
             counts3 = sharded_counts()
@@ -1620,7 +1603,8 @@ def main() -> int:
     # megafused main path for K6, the general main path (a) for K7 tet and
     # G1, the general steps workload (c) for K7 hex
     kernels = [
-        dict(name="keff_structured", route="cuda", source=src + "keff_structured.cu",
+        dict(name="keff_structured", route="cuda",
+             source=src + "keff_structured_halo.cu",
              replaces=pallas + "structured_stencil.py:931",
              launches=launches["keff"], max_abs_err=errs["keff"][0],
              max_rel_err=errs["keff"][1], tol=OP_TOL,

@@ -1,38 +1,54 @@
-// K5 keff_structured_halo: the complete effective-stiffness matvec of one
-// shard of a homogeneous structured hex8 grid,
+// keff_structured_halo: the complete effective-stiffness matvec of a
+// homogeneous structured hex8 grid, or of one shard of it,
 //
 //   out = bc ? x : ss * K(xs) + mf * mass * xs,    xs = bc ? 0 : x,
 //
-// on the shard's (3, Xl, Yl, Z) block, over its local planes [p0, p1).
+// on a (3, Xl, Yl, Z) block, over its local planes [p0, p1).  Two wrappers
+// launch it, each with its own launch count:
+//
+// * K1 (ops/cuda/structured_stencil.apply_keff_fused): a whole grid, no
+//   ghosts, offsets 0.  Replaces the Pallas kernel apply_keff_fused_pallas
+//   (civiwave_tpu/ops/pallas/structured_stencil.py:931, pallas_call at
+//   :1041/:1068).
+// * K5 (ops/cuda/keff_halo.keff_structured_halo): one shard.  Replaces the
+//   same function's sharded forms, apply_keff_fused_pallas_padded (:968,
+//   driven from ops/structured_sharded.py): the exchanged ghost planes
+//   with traced x_lo/x_hi face indices in 1-D, and the ghost_y mode with
+//   y_rows and the oy_lo/oy_hi ownership scalars in 2-D.
+//
+// The Pallas kernel streams X planes through VMEM, rolls (Y, Z) planes in
+// registers and subtracts inclusion-exclusion face/edge/corner corrections,
+// switched per shard by the face indices and ownership scalars.  None of
+// that carries over.  Here one thread computes the 3 components of one
+// node, z fastest: it reads its 27 neighbours, sanitizes them by their
+// constraint masks and applies the node's own per-boundary-class stencil
+// from a (27 classes, 27 offsets, 3, 3) f32 table (ops/structured.py
+// class_stencil_table, 26 KB, read through the read-only cache).  The class
+// is taken at the node's GLOBAL coordinate (x0 + ix against nx, y0 + iy
+// against ny; the dead +X planes and +Y rows land in class 2 and are
+// constrained), so the table already holds each node's exact taps and no
+// correction pass exists.  The lumped mass is m8 * 2^-k from the class;
+// identity rows are written by select.  ss, mf and m8 are launch
+// arguments: a new dt rebuilds nothing.
+//
 // Neighbours outside the block come from ghost buffers exchanged with the
 // neighbouring shards: the X ghost planes (3, Yl + 2 gy, Z) below plane 0
 // and above plane Xl - 1 and, in the 2-D (X, Y) decomposition (gy = 1), the
 // Y ghost rows (3, Xl, Z) below row 0 and above row Yl - 1.  In 2-D the X
 // planes are Y-extended: their rows 0 and Yl + 1 carry the diagonal
 // neighbours' corner values (relayed through the Y exchange).  A missing
-// ghost buffer (null) reads as zero: that is the zero fill a shard at a
-// global end receives.  Each ghost value is sanitized by its own ghost mask
-// (null: free).
+// ghost buffer (null) reads as zero: the zero fill a shard at a global end
+// receives, and the outside of a whole grid.  Each ghost value is sanitized
+// by its own ghost mask (null: free).  The ghosts are read from their own
+// buffers, so no ghost-padded copy of the block is made per matvec.  A
+// neighbour row is looked up once per (dx, dy) and reused over dz.
 //
-// Replaces the Pallas TPU kernel apply_keff_fused_pallas_padded in its
-// sharded forms (civiwave_tpu/ops/pallas/structured_stencil.py:968,
-// pallas_calls at :1041/:1068; driven from ops/structured_sharded.py): the
-// exchanged ghost planes with traced x_lo/x_hi face indices in 1-D, and the
-// ghost_y mode with y_rows and the oy_lo/oy_hi ownership scalars in 2-D.
-// None of that plumbing carries over.  K1's design does
-// (keff_structured.cu): one thread per node, z fastest, the node's taps
-// from the per-boundary-class stencil table, its class taken from GLOBAL
-// coordinates (x0 + ix against nx, y0 + iy against ny; the dead +X planes
-// and +Y rows land in class 2 and are constrained), the mass m8 * 2^-k
-// from the class, identity rows by select.  The class table replaces the
-// face indices and ownership multipliers; no inclusion-exclusion exists.
-// The ghosts are read from their own buffers, so no ghost-padded copy of
-// the block is made per matvec.  On one shard with no ghosts it performs
-// K1's arithmetic in K1's order.
-//
-// Bound on the H100: device memory, as K1 — x (12 B/node), the mask
-// (3 B/node) and out (12 B/node) once, plus the ghost planes and rows
-// (15 B per ghost node).  The 27-fold neighbour reuse is left to L1/L2.
+// Bound on the H100: device memory.  Per matvec the kernel must read x
+// (12 B/node) and the mask (3 B/node) once and write out (12 B/node), plus
+// the ghost planes and rows (15 B per ghost node): ~0.45 GB at 255^3 cells
+// (16.8M nodes), ~0.13 ms at 3.35 TB/s.  The 27-fold neighbour reuse is
+// left to L1/L2 in this first version; shared-memory 2.5-D blocking is
+// later work.
 #include "structured.cuh"
 
 namespace {
@@ -176,4 +192,8 @@ extern "C" int civi_keff_structured_halo(
                                 static_cast<cudaStream_t>(stream)>>>(
       a, stencil, out, ss, mf, m8);
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* civi_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,12 +1,12 @@
-// Device code shared by the structured-grid kernels (K1 keff_structured,
-// K2 pc_keff_structured, K3 block_jacobi_apply, K4 interior_stencil, K5
-// keff_structured_halo, K6 pcg_iteration_structured, G2 keff_boundary).
+// Device code shared by the structured-grid kernels (K1 and K5
+// keff_structured_halo, K2 pc_keff_structured, K3 block_jacobi_apply, K4
+// interior_stencil, K6 pcg_iteration_structured, G2 keff_boundary).
 //
 // Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
 // row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
-// (torch.bool).  K1-K3 and K6 launch one block per (x, y) row of the node
-// grid and let the threads stride over z; K4 and G2 give each thread one
-// node of the flat index.  Either way neighbouring threads touch
+// (torch.bool).  K1/K5, K2, K3 and K6 launch one block per (x, y) row of
+// the node grid and let the threads stride over z; K4 and G2 give each
+// thread one node of the flat index.  Either way neighbouring threads touch
 // neighbouring addresses.  Offsets into the vectors are 64-bit.
 #pragma once
 
@@ -30,7 +30,7 @@ __device__ __forceinline__ float class_weight(int c) {
 }
 
 // a += K v for one neighbour: the 3x3 tap block k (row-major, read through
-// the read-only cache) times its three sanitized components (K1, K5).
+// the read-only cache) times its three sanitized components (K1/K5).
 __device__ __forceinline__ void add_taps(const float* __restrict__ k, float v0,
                                          float v1, float v2, float& a0,
                                          float& a1, float& a2) {

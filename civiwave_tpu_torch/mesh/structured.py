@@ -26,7 +26,7 @@ constrained and massless.  A shard of a multi-device decomposition
 (``parallel.sharding.shard_structured``) is a StructuredModel too: its
 node-grid fields are the shard's local slab or tile, ``grid_shape`` and
 ``vector_shape`` are local, and ``nx``/``ny``/``nz``, the node counts and
-``position0`` stay global.
+``position0`` stay global, as do the vectors of ``to_nodal``/``from_nodal``.
 
 Not ported yet: heterogeneous per-element material grids and the
 multigrid hierarchy (A9).
@@ -167,21 +167,17 @@ class StructuredModel:
         return SimState(z, z, z, z)
 
     def to_nodal(self, vector: torch.Tensor) -> torch.Tensor:
-        """CSG vector -> (node_count, 3) nodal rows (x-major order; the dead
-        +Y rows are stripped first).  A shard's vector is gathered first
-        (``parallel.sharding.gather_structured``, a collective)."""
-        if self.shard_group is not None:
-            from ..parallel.sharding import gather_structured
-
-            vector = gather_structured(vector, self.shard_group)
+        """CSG vector of the global grid -> (node_count, 3) nodal rows
+        (x-major order; the dead +Y rows are stripped first).  On a shard,
+        gather the vector first (``parallel.sharding.gather_structured``)."""
         if self.pad_rows:  # dead Y rows interleave in x-major flat order
             vector = vector[:, :, : self.ny + 1]
         flat = vector.permute(1, 2, 3, 0).reshape(-1, 3)
         return flat[: self.node_count]
 
     def from_nodal(self, rows) -> torch.Tensor:
-        """(node_count, 3) nodal rows -> CSG vector (pad planes and dead
-        rows zeroed); a shard's own block of it on a shard."""
+        """(node_count, 3) nodal rows -> CSG vector of the global grid (pad
+        planes and dead rows zeroed)."""
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
         real = (self.nx + 1 + self.pad_planes, self.ny + 1, self.nz + 1)
         flat = torch.zeros(
@@ -191,9 +187,6 @@ class StructuredModel:
         grid = flat.reshape(*real, 3).permute(3, 0, 1, 2)
         if self.pad_rows:
             grid = torch.nn.functional.pad(grid, (0, 0, 0, self.pad_rows))
-        if self.local_extent is not None:
-            xl, yl = self.local_extent
-            grid = grid[:, self.x0:self.x0 + xl, self.y0:self.y0 + yl]
         return grid.contiguous()
 
     def apply_keff(self, x, stiffness_scale, mass_factor):

@@ -39,10 +39,6 @@ _F = ctypes.c_float
 # C entry points and their argument types (each returns the cudaError_t
 # of its launch as an int)
 _SIGNATURES = {
-    # x, bc, stencil, out, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
-    "civi_keff_structured": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
-    ),
     # pc_table, r, bc, z, X, Y, Z, nx, ny, nz, x0, y0, stream
     "civi_block_jacobi_apply": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
@@ -69,9 +65,9 @@ _SIGNATURES = {
     "civi_keff_boundary": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
-    # x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi, bgy_hi,
-    # stencil, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1, ss, mf,
-    # m8, stream
+    # (K1 and K5) x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi,
+    # bgy_hi, stencil, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1,
+    # ss, mf, m8, stream
     "civi_keff_structured_halo": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,

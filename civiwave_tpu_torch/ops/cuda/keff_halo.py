@@ -21,7 +21,9 @@ no counterpart.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (f32, contiguous, the shard's shapes).
-``keff_structured_halo.launches`` counts launches.
+``keff_structured_halo.launches`` counts launches.  K1
+(``structured_stencil.apply_keff_fused``) launches the same kernel through
+:func:`launch_operator` on a whole grid with no ghosts, and counts its own.
 """
 
 from __future__ import annotations
@@ -103,16 +105,13 @@ def keff_structured_halo_plain(
     return out
 
 
-def keff_structured_halo(
-    model, x, ghosts, stiffness_scale, mass_factor, planes=None, out=None
-):
-    """K5: planes ``[p0, p1)`` (default all) of the shard's K_eff * x into
-    ``out`` (new if None), which is returned; kernel on CUDA, plain version
-    on CPU."""
-    if x.device.type == "cpu":
-        return keff_structured_halo_plain(
-            model, x, ghosts, stiffness_scale, mass_factor, planes, out
-        )
+def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
+                    mass_factor, name):
+    """Check the operands and launch the operator kernel once on planes
+    ``planes`` (None: all) of ``out`` (new if None), which is returned.
+    ``ghosts`` is a shard's (an ``ops.structured_sharded.Ghosts``) or None
+    on a whole grid.  Raises on a launch error; the caller counts the
+    launch."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -148,7 +147,22 @@ def keff_structured_halo(
             float(np.float32(mass_factor)), float(np.float32(model.m8)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-    _build.check_launch(library, "keff_structured_halo", code)
+    _build.check_launch(library, name, code)
+    return out
+
+
+def keff_structured_halo(
+    model, x, ghosts, stiffness_scale, mass_factor, planes=None, out=None
+):
+    """K5: planes ``[p0, p1)`` (default all) of the shard's K_eff * x into
+    ``out`` (new if None), which is returned; kernel on CUDA, plain version
+    on CPU."""
+    if x.device.type == "cpu":
+        return keff_structured_halo_plain(
+            model, x, ghosts, stiffness_scale, mass_factor, planes, out
+        )
+    out = launch_operator(model, x, ghosts, planes, out, stiffness_scale,
+                          mass_factor, "keff_structured_halo")
     keff_structured_halo.launches += 1
     return out
 

@@ -1,10 +1,13 @@
 """Wrappers of the structured-operator kernels K1 and K2, with their plain
 versions.
 
-K1, ``keff_structured`` (``csrc/keff_structured.cu``), replaces the Pallas
-kernel ``apply_keff_fused_pallas`` (civiwave_tpu/ops/pallas/
+K1, ``keff_structured``, replaces the Pallas kernel
+``apply_keff_fused_pallas`` (civiwave_tpu/ops/pallas/
 structured_stencil.py:931, pallas_call at :1041/:1068): the complete
-``bc ? x : ss * K(xs) + mf * mass * xs`` in one pass.
+``bc ? x : ss * K(xs) + mf * mass * xs`` in one pass.  It launches the
+shard operator kernel of ``csrc/keff_structured_halo.cu`` (K5,
+``keff_halo.py``) on the whole grid with no ghosts, as the reference's
+sharded forms call the same Pallas function.
 
 K2, ``pc_keff_structured`` (``csrc/pc_keff_structured.cu``), replaces
 ``apply_pc_keff_fused_pallas`` (structured_stencil.py:820, pallas_call at
@@ -23,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, keff_halo
 
 
 def _launch_args(model, residual_or_x):
@@ -53,18 +56,9 @@ def apply_keff_fused(model, x, stiffness_scale, mass_factor):
     """K1: the complete K_eff * x; kernel on CUDA, plain version on CPU."""
     if x.device.type == "cpu":
         return apply_keff_fused_plain(model, x, stiffness_scale, mass_factor)
-    library, dev, stream = _launch_args(model, x)
-    out = torch.empty_like(x)
-    X, Y, Z = model.grid_shape
-    with torch.cuda.device(dev):
-        code = library.lib.civi_keff_structured(
-            x.data_ptr(), model.bc_mask.data_ptr(),
-            model.stencil_table.data_ptr(), out.data_ptr(),
-            X, Y, Z, model.nx, model.ny, model.nz,
-            float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
-            float(np.float32(model.m8)), stream,
-        )
-    _build.check_launch(library, "keff_structured", code)
+    out = keff_halo.launch_operator(model, x, None, None, None,
+                                    stiffness_scale, mass_factor,
+                                    "keff_structured")
     apply_keff_fused.launches += 1
     return out
 

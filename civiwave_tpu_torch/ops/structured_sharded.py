@@ -52,12 +52,12 @@ class Ghosts(NamedTuple):
 
 
 def _overlap_enabled() -> bool:
-    """The interior/boundary split (the reference's ADR-28):
-    ``CIVIWAVE_HALO_OVERLAP`` 0/1 overrides, default on."""
-    env = os.environ.get("CIVIWAVE_HALO_OVERLAP", "auto")
-    if env in ("0", "1"):
-        return env == "1"
-    return True
+    """The interior/boundary split (the reference's ADR-28): on unless
+    ``CIVIWAVE_HALO_OVERLAP`` is 0.  The default is the reference's; on
+    four H100s at 255^3 the split measured slower than one launch (its
+    two extra launches cost host time), and the default is an open
+    ``perf_opt`` item (ROADMAP A11)."""
+    return os.environ.get("CIVIWAVE_HALO_OVERLAP", "1") != "0"
 
 
 def _split(x_local: int) -> bool:

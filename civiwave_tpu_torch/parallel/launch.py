@@ -1,34 +1,48 @@
-"""Run the sharded structured cantilever over several ranks.
+"""Run a sharded structured simulation over several ranks.
 
 The counterpart of the reference's ``examples/multichip_2d.py`` and of the
 structured cases of its multi-device dry run::
 
     python -m civiwave_tpu_torch.parallel.launch --npx 2 --npy 2 \\
-        --cells 15,7,6 --frames 5 [--device cpu]
+        --cells 15,7,6 --frames 5 [--device cpu] [--against-one-rank]
 
 spawns ``npx * npy`` processes (one rank each; NCCL with one GPU per rank
 on CUDA, the default; gloo with ``--device cpu``).  Each rank builds the
-steel cantilever of ``utils.synthetic.cantilever_config`` on a
-``synthetic://box/<cells>`` grid with ``pad_x_multiple=npx`` and
-``pad_y_multiple=npy``, shards it (``--npy 1``: X-slabs over a 1-D group;
-``--npy`` > 1: (X, Y) tiles over a 2-D group), steps it
-with :class:`~civiwave_tpu_torch.solver.stepper.NewmarkStepper`, and
-rank 0 prints the PCG iterations, ``converged`` and max|u| of each frame.
-``--out FILE.npz`` has rank 0 write each frame's gathered displacement
-and acceleration, the iterations and the collective counts.  The
-processes meet at ``--init-method`` (default ``tcp://localhost:<a free
-port>``) and are killed if they outlast ``--timeout`` seconds.
+scenario with ``runner.build_simulation`` (``--scenario FILE.yaml``, or by
+default the steel cantilever of ``utils.synthetic.cantilever_config`` on a
+``synthetic://box/<cells>`` grid) with ``pad_x_multiple=npx`` and
+``pad_y_multiple=npy``, shards it with ``parallel.sharding.
+shard_simulation`` (``--npy 1``: X-slabs over a 1-D group; ``--npy`` > 1:
+(X, Y) tiles over a 2-D group) and runs it frame by frame, curve loads
+and adaptive dt included.  After each frame every rank gathers the
+displacement and acceleration (a collective).  Rank 0 prints each frame's
+PCG iterations, ``converged``, max|u| and step seconds (the step alone,
+after a device sync), then steps/s and ms per PCG iteration over frames
+2 onwards.  ``CIVIWAVE_HALO_OVERLAP=0`` in the environment turns the
+overlap split off in every rank.
+
+``--out FILE.npz`` has rank 0 write each frame's gathered displacement and
+acceleration, dt, iterations and the collective counts.
+``--against-one-rank`` then runs the same frames on one rank and exits 1
+unless the group's iterations are within 1 of it and u and a within
+2.5e-4 and 3e-3 of its max|.|.  Several processes meet at
+``--init-method`` (default ``tcp://localhost:<a free port>``); a world of
+one needs none.  Ranks that outlast ``--timeout`` seconds are killed.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import socket
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
+
+U_TOL, A_TOL = 2.5e-4, 3e-3
 
 
 def _free_port() -> int:
@@ -37,78 +51,92 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
+def _scenario(args):
+    """The scenario path, or the cantilever of ``--cells`` as a Config."""
+    if args.scenario:
+        return args.scenario
+    from ..utils.synthetic import cantilever_config
+
+    return cantilever_config(
+        tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
+        mesh={"path": "synthetic://box/" + args.cells},
+    )
+
+
 def run_rank(rank: int, args) -> None:
-    """One rank: join the group, build, shard and step the cantilever."""
+    """One rank: join the group, build, shard and step the scenario."""
     import torch.distributed as dist
 
-    from ..mesh.structured_config import try_build_structured
-    from ..physics import materials
-    from ..solver.stepper import NewmarkStepper
-    from ..utils.synthetic import cantilever_config
+    from ..runner import build_simulation
     from . import collectives
     from .sharding import (
         close_shard_group,
         make_shard_group,
         make_shard_group_2d,
-        shard_structured,
+        shard_simulation,
     )
 
     torch.set_num_threads(1)
     world = args.npx * args.npy
     device = torch.device(args.device)
-    dist.init_process_group(
-        "nccl" if device.type == "cuda" else "gloo",
-        init_method=args.init_method, rank=rank, world_size=world,
-    )
+    if world > 1:  # a world of one starts from an in-memory store
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=args.init_method, rank=rank, world_size=world,
+        )
     try:
         if args.npy > 1:
             group = make_shard_group_2d(args.npx, args.npy, device)
         else:
             group = make_shard_group(args.npx, device)
-        cfg = cantilever_config(
-            tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
-            mesh={"path": "synthetic://box/" + args.cells},
+        sim = build_simulation(
+            _scenario(args), device=group.device, pad_x_multiple=args.npx,
+            pad_y_multiple=args.npy,
         )
-        model, schedule = try_build_structured(
-            cfg, pad_x_multiple=args.npx, pad_y_multiple=args.npy,
-            device=group.device,
-        )
-        force = schedule.at_time(cfg.curves, 0.0)
-        s_model, s_state, s_force = shard_structured(
-            model, model.zero_state(), force, group
-        )
-        del model, force, schedule
-        stepper = NewmarkStepper(
-            s_model, s_state, s_force, materials.compute_rayleigh(cfg.damping),
-            cfg.solver, cfg.time,
-            reduction_precision=cfg.precision.reduction_precision,
-            vector_precision=cfg.precision.vector_precision,
-        )
+        sim = shard_simulation(sim, group)
+
+        def sync():
+            if group.device.type == "cuda":
+                torch.cuda.synchronize(group.device)
+
         collectives.reset_counts()
         frames = []
         for frame in range(args.frames):
+            sync()
             t0 = time.perf_counter()
-            tel = stepper.step(stepper.accumulated_time)
-            state = stepper.state
-            u = stepper.model.to_nodal(state.displacement)  # gathers
-            a = stepper.model.to_nodal(state.acceleration)
-            frames.append((tel, u.cpu().numpy(), a.cpu().numpy()))
+            [tel] = sim.run(1)
+            sync()
+            seconds = time.perf_counter() - t0
+            u = sim.stepper.displacement()  # gathers: every rank calls it
+            a = sim.stepper.acceleration()
+            frames.append((tel, seconds, u, a))
             if rank == 0:
                 print(
                     f"frame {frame}: {tel.pcg_iterations} PCG iters, "
                     f"converged={tel.pcg_converged}, "
-                    f"|u|max={float(u.abs().max()):.3e} m, "
-                    f"{time.perf_counter() - t0:.2f}s",
+                    f"|u|max={float(np.abs(u).max()):.3e} m, "
+                    f"step {seconds:.4f} s",
                     flush=True,
                 )
+        iters = [t.pcg_iterations for t, _, _, _ in frames]
+        steady = [s for _, s, _, _ in frames[1:]]
+        if rank == 0 and steady and sum(iters[1:]):
+            print(
+                f"{world} rank(s), {'2-D' if group.two_d else '1-D'}: "
+                f"{len(steady) / sum(steady):.4f} steps/s, "
+                f"{sum(steady) / sum(iters[1:]) * 1e3:.4f} ms per PCG "
+                f"iteration (frames 2-{len(frames)})",
+                flush=True,
+            )
         if rank == 0 and args.out:
             shapes = collectives.psum.shapes
             np.savez(
                 args.out,
-                iterations=np.array([t.pcg_iterations for t, _, _ in frames]),
-                converged=np.array([t.pcg_converged for t, _, _ in frames]),
-                displacement=np.stack([u for _, u, _ in frames]),
-                acceleration=np.stack([a for _, _, a in frames]),
+                iterations=np.array(iters),
+                converged=np.array([t.pcg_converged for t, _, _, _ in frames]),
+                time_step=np.array([t.time_step for t, _, _, _ in frames]),
+                displacement=np.stack([u for _, _, u, _ in frames]),
+                acceleration=np.stack([a for _, _, _, a in frames]),
                 ppermute_calls=collectives.ppermute.calls,
                 psum_calls=collectives.psum.calls,
                 psum_f64_3=shapes[(torch.float64, (3,))],
@@ -118,35 +146,13 @@ def run_rank(rank: int, args) -> None:
         close_shard_group()
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(
-        prog="python -m civiwave_tpu_torch.parallel.launch",
-        description="Step the sharded structured cantilever over npx*npy ranks.",
-    )
-    parser.add_argument("--npx", type=int, default=2)
-    parser.add_argument("--npy", type=int, default=1)
-    parser.add_argument("--cells", default="15,7,6",
-                        help="nx,ny,nz cells of the cantilever box")
-    parser.add_argument("--frames", type=int, default=5)
-    parser.add_argument("--device", default="cuda",
-                        help="cuda (NCCL, one GPU per rank) or cpu (gloo)")
-    parser.add_argument("--init-method", default=None,
-                        help="torch.distributed init method "
-                        "(default tcp://localhost:<a free port>)")
-    parser.add_argument("--timeout", type=float, default=600.0)
-    parser.add_argument("--out", default=None,
-                        help="rank 0 writes the frames to this .npz")
-    args = parser.parse_args(argv)
+def _spawn(args) -> int:
+    """Run every rank of ``args`` in a process of its own; 0 if all
+    exit cleanly."""
     world = args.npx * args.npy
-    if torch.device(args.device).type == "cuda" and (
-        world > torch.cuda.device_count()
-    ):
-        print(f"error: {world} ranks need {world} GPUs, "
-              f"{torch.cuda.device_count()} visible", file=sys.stderr)
-        return 1
-    if args.init_method is None:
-        args.init_method = f"tcp://localhost:{_free_port()}"
-
+    if world > 1 and args.init_method is None:
+        args = argparse.Namespace(**{**vars(args), "init_method":
+                                     f"tcp://localhost:{_free_port()}"})
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=run_rank, args=(rank, args))
              for rank in range(world)]
@@ -172,6 +178,67 @@ def main(argv=None) -> int:
         print(f"error: rank exit codes {codes}", file=sys.stderr)
         return 1
     return 0
+
+
+def compare(got, ref) -> bool:
+    """Print and check the group's frames against the one-rank run's:
+    iterations within 1, u and a within U_TOL and A_TOL of max|ref|."""
+    du, da = (float(np.abs(got[k] - ref[k]).max() / np.abs(ref[k]).max())
+              for k in ("displacement", "acceleration"))
+    ok = bool(np.abs(got["iterations"] - ref["iterations"]).max() <= 1
+              and got["converged"].all() and du <= U_TOL and da <= A_TOL)
+    print(f"against one rank: iterations {got['iterations'].tolist()} (one "
+          f"rank {ref['iterations'].tolist()}); max diff / max|one rank| u "
+          f"{du:.3e} (tol {U_TOL:g}), a {da:.3e} (tol {A_TOL:g}); ghost "
+          f"exchanges {int(got['ppermute_calls'])}, f64 (3,) all-reduces "
+          f"{int(got['psum_f64_3'])}{'' if ok else ' FAIL'}", flush=True)
+    return ok
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        prog="python -m civiwave_tpu_torch.parallel.launch",
+        description="Run a sharded structured simulation over npx*npy ranks.",
+    )
+    parser.add_argument("--npx", type=int, default=2)
+    parser.add_argument("--npy", type=int, default=1)
+    parser.add_argument("--scenario", default=None,
+                        help="scenario YAML on the structured route "
+                        "(default: the cantilever of --cells)")
+    parser.add_argument("--cells", default="15,7,6",
+                        help="nx,ny,nz cells of the cantilever box")
+    parser.add_argument("--frames", type=int, default=5)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (NCCL, one GPU per rank) or cpu (gloo)")
+    parser.add_argument("--init-method", default=None,
+                        help="torch.distributed init method "
+                        "(default tcp://localhost:<a free port>)")
+    parser.add_argument("--timeout", type=float, default=600.0)
+    parser.add_argument("--out", default=None,
+                        help="rank 0 writes the frames to this .npz")
+    parser.add_argument("--against-one-rank", action="store_true",
+                        help="then run one rank and compare the frames")
+    args = parser.parse_args(argv)
+    world = args.npx * args.npy
+    if torch.device(args.device).type == "cuda" and (
+        world > torch.cuda.device_count()
+    ):
+        print(f"error: {world} ranks need {world} GPUs, "
+              f"{torch.cuda.device_count()} visible", file=sys.stderr)
+        return 1
+    if not args.against_one_rank:
+        return _spawn(args)
+    with tempfile.TemporaryDirectory() as tmp:
+        if args.out is None:
+            args.out = os.path.join(tmp, "group.npz")
+        one = argparse.Namespace(**{**vars(args), "npx": 1, "npy": 1,
+                                    "out": os.path.join(tmp, "one.npz")})
+        if _spawn(args):
+            return 1
+        print("== one rank", flush=True)
+        if _spawn(one):
+            return 1
+        return 0 if compare(np.load(args.out), np.load(one.out)) else 1
 
 
 if __name__ == "__main__":

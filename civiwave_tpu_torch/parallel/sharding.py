@@ -19,12 +19,18 @@ planes (and, in 2-D, ghost rows) with its neighbours
   the state and the force, and exchanges the Dirichlet mask's ghosts once
   (the mask is loop-invariant; the reference's compiled program hoists
   that exchange out of its PCG body).
+* :func:`shard_simulation` does the same to a whole
+  ``runner.Simulation`` (its force schedule included) and gives it a
+  stepper over the shard: the one way the launcher, ``chip_smoke.py`` and
+  the tests build a sharded run.
 * :func:`gather_structured` reassembles a global ``(3, X, Y, Z)`` vector
-  for host-facing output.
+  for host-facing output (the stepper's ``displacement()`` and the like
+  call it on a shard).
 
 Ranks are ordered X-major: rank ``px * npy + py`` holds tile ``(px, py)``,
-as the reference's 2-D mesh lays X slowest.  The general path's
-``shard_simulation``/``model_shardings`` are not ported (ROADMAP A11).
+as the reference's 2-D mesh lays X slowest.  The general path's sharding
+(the reference's ``shard_simulation`` of a packed model and its
+``model_shardings``) is not ported (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -247,6 +253,52 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
     fields = (state.displacement, state.velocity, state.acceleration,
               state.warm_x)
     return local, SimState(*(cut(v) for v in fields)), cut(external_force)
+
+
+def shard_simulation(sim, group: ShardGroup):
+    """This rank's shard of ``sim``, a ``runner.Simulation`` on the
+    structured route whose grid divides the group (build it with
+    ``build_simulation(..., pad_x_multiple=npx, pad_y_multiple=npy)``):
+    its model, state and force cut by :func:`shard_structured`, each part
+    of its force schedule cut to the same block, and a new
+    ``NewmarkStepper`` over them with the old one's settings, dt, time and
+    frame.  A collective: every rank of the group calls it."""
+    from ..mesh.structured_config import StructuredForceSchedule
+    from ..solver.stepper import NewmarkStepper
+
+    if sim.force_schedule is None:
+        raise NotImplementedError(
+            "sharding the general gather path is not ported yet (ROADMAP A11)"
+        )
+    old = sim.stepper
+    model, state, force = shard_structured(
+        sim.model, old.state, old.external_force, group
+    )
+    x0, y0, (xl, yl) = model.x0, model.y0, model.local_extent
+
+    def cut(t):
+        return cut_block(t, x0, y0, xl, yl).to(group.device)
+
+    schedule = StructuredForceSchedule(
+        base=cut(sim.force_schedule.base),
+        curve_parts=[(name, cut(part))
+                     for name, part in sim.force_schedule.curve_parts],
+    )
+    stepper = NewmarkStepper(
+        model, state, force, old.rayleigh, old.solver_settings,
+        old.time_settings, adaptive_policy=old.adaptive_policy,
+        newmark_beta=old.newmark_beta, newmark_gamma=old.newmark_gamma,
+        warm_start=old.warm_start_enabled,
+        reduction_precision=old.reduction_precision,
+        vector_precision=old.vector_precision,
+        warm_start_policy=old.warm_start_policy,
+        solver_variant=old.solver_variant,
+    )
+    stepper.current_dt = old.current_dt
+    stepper.accumulated_time = old.accumulated_time
+    stepper.frame_index = old.frame_index
+    return dataclasses.replace(sim, model=model, stepper=stepper,
+                               force_schedule=schedule)
 
 
 def gather_structured(vector: torch.Tensor, group: ShardGroup) -> torch.Tensor:

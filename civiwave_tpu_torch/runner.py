@@ -139,18 +139,24 @@ def _load_mesh(cfg: Config, scenario_path: str) -> Mesh:
 
 
 def build_simulation(
-    scenario: Union[str, Config], device="cuda"
+    scenario: Union[str, Config], device="cuda", *, pad_x_multiple: int = 1,
+    pad_y_multiple: int = 1,
 ) -> Simulation:
     """Wire the structured route or the general gather path from a
     scenario path or a parsed Config, with every tensor on ``device``.
     Relative Gmsh paths of a parsed Config resolve against the working
-    directory."""
+    directory.  On the structured route the pad multiples add dead +X
+    planes and +Y rows so the grid divides an ``(npx, npy)`` shard group
+    (``parallel.sharding.shard_simulation``)."""
     if isinstance(scenario, Config):
         cfg, scenario_path = scenario, ""
     else:
         cfg, scenario_path = load_config_from_file(scenario), scenario
     rayleigh = materials.compute_rayleigh(cfg.damping)
-    routed = try_build_structured(cfg, device=device)
+    routed = try_build_structured(
+        cfg, pad_x_multiple=pad_x_multiple, pad_y_multiple=pad_y_multiple,
+        device=device,
+    )
     mesh = pre = schedule = None
     if routed is not None:
         model, schedule = routed

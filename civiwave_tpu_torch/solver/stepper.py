@@ -358,11 +358,22 @@ class NewmarkStepper:
             telemetry.dt_clamped_max = True
 
     # --- host views of the device state (unpadded nodal rows) ------------
+    # On a shard (a model with a ``shard_group``) each view gathers the
+    # global vector first: a collective, so every rank of the group calls
+    # it, and every rank gets the whole field.
+    def _nodal(self, vector: torch.Tensor) -> np.ndarray:
+        group = getattr(self.model, "shard_group", None)
+        if group is not None:
+            from ..parallel.sharding import gather_structured
+
+            vector = gather_structured(vector, group)
+        return self.model.to_nodal(vector).cpu().numpy()
+
     def displacement(self) -> np.ndarray:
-        return self.model.to_nodal(self.state.displacement).cpu().numpy()
+        return self._nodal(self.state.displacement)
 
     def velocity(self) -> np.ndarray:
-        return self.model.to_nodal(self.state.velocity).cpu().numpy()
+        return self._nodal(self.state.velocity)
 
     def acceleration(self) -> np.ndarray:
-        return self.model.to_nodal(self.state.acceleration).cpu().numpy()
+        return self._nodal(self.state.acceleration)

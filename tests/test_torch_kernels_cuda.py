@@ -450,7 +450,8 @@ def test_keff_halo_kernel_matches_plain_and_k1(device, case, monkeypatch):
 
 
 def test_keff_halo_on_one_shard_is_k1(device):
-    """One shard, no ghosts: K1's arithmetic in K1's order, bit for bit."""
+    """One shard, no ghosts: the launch K1 makes on the whole grid, bit for
+    bit."""
     from civiwave_tpu_torch.ops.cuda import keff_halo as k5
     from civiwave_tpu_torch.ops.structured_sharded import Ghosts
     from civiwave_tpu_torch.parallel import sharding
@@ -486,21 +487,15 @@ def test_small_cantilever_runs_sharded_on_one_rank(device, monkeypatch):
     match the unsharded fused run on the card."""
     from civiwave_tpu_torch.ops.cuda import keff_halo as k5
     from civiwave_tpu_torch.parallel import collectives, sharding
-    from civiwave_tpu_torch.solver.stepper import NewmarkStepper
 
     monkeypatch.delenv("CIVIWAVE_HALO_OVERLAP", raising=False)
     cfg = cantilever_config(tol_runtime=2e-4, max_iters=120,
                             mesh={"path": "synthetic://box/12,6,6"})
     ref = build_simulation(cfg, device=device)
     tel_ref = ref.run(4)
-    sim = build_simulation(cfg, device=device)
-    group = sharding.make_shard_group(1, device)
     try:
-        model, state, force = sharding.shard_structured(
-            sim.model, sim.model.zero_state(), sim.stepper.external_force, group)
-        old = sim.stepper
-        sim.stepper = NewmarkStepper(model, state, force, old.rayleigh,
-                                     cfg.solver, cfg.time)
+        sim = sharding.shard_simulation(build_simulation(cfg, device=device),
+                                        sharding.make_shard_group(1, device))
         before = (k5.keff_structured_halo.launches, k12.apply_keff_fused.launches,
                   k12.apply_pc_keff_fused.launches)
         collectives.reset_counts()

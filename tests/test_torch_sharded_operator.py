@@ -15,11 +15,13 @@ and 2-D grids (tests/test_sharding.py:183-185, :585-586), with
 Also here: K3's plain version with global offsets, the dead +Y rows
 through the builder, ``to_nodal``/``from_nodal`` and ``convert``, the
 shard preconditioner's class table, a one-rank gloo group through the
-normal dispatch, and the ``ShardError`` checks.
+normal dispatch and through ``shard_simulation`` (a scenario with a time
+curve and adaptive dt), and the ``ShardError`` checks.
 """
 
 import dataclasses
 from functools import lru_cache
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -199,7 +201,8 @@ def test_pad_rows_builder_and_nodal_round_trip(cells, npy):
 def test_one_rank_group_runs_the_sharded_dispatch(monkeypatch):
     """A one-rank gloo group (HashStore, no network): shard_structured,
     then apply_keff through the normal dispatch (2 or 4 counted exchanges
-    per matvec) equals the unsharded operator; to_nodal gathers."""
+    per matvec) equals the unsharded operator; gathered, its nodal rows
+    equal the unsharded ones."""
     from civiwave_tpu_torch.parallel import collectives
 
     cells, shape, two_d = (9, 4, 5), (1, 1), False
@@ -219,7 +222,8 @@ def test_one_rank_group_runs_the_sharded_dispatch(monkeypatch):
             out = sm.apply_keff(x, SS, MF)
             assert collectives.ppermute.calls == exchanges
             _assert_close(out, ref)
-            assert torch.equal(sm.to_nodal(out), tm.to_nodal(out))
+            gathered = tsharding.gather_structured(out, group)
+            assert torch.equal(sm.to_nodal(gathered), tm.to_nodal(out))
     finally:
         tsharding.close_shard_group()
 
@@ -244,3 +248,44 @@ def test_shard_errors():
     with pytest.raises(NotImplementedError, match="A11"):
         tsharding.shard_structured(absorbing, absorbing.zero_state(),
                                    absorbing.zero_state().displacement, None)
+
+
+def test_shard_simulation_steps_a_curve_scenario_on_one_rank():
+    """examples/cantilever_box.yaml (a ramped traction, adaptive dt)
+    through build_simulation and shard_simulation over a one-rank gloo
+    group: the sharded run ('auto' = fused on a shard) takes the frames,
+    dt and nodal fields of the unsharded fused run."""
+    from civiwave_tpu_torch.runner import build_simulation
+
+    scenario = str(Path(__file__).resolve().parents[1] / "examples"
+                   / "cantilever_box.yaml")
+    ref = build_simulation(scenario, device=CPU)
+    ref.stepper.solver_variant = "fused"
+    tel_ref = ref.run(5)
+    try:
+        sim = tsharding.shard_simulation(
+            build_simulation(scenario, device=CPU),
+            tsharding.make_shard_group(1, "cpu"),
+        )
+        assert sim.model.shard_group is not None
+        assert sim.force_schedule.curve_parts
+        tel = sim.run(5)
+        u, a = sim.stepper.displacement(), sim.stepper.acceleration()
+    finally:
+        tsharding.close_shard_group()
+    assert [t.pcg_iterations for t in tel] == [t.pcg_iterations for t in tel_ref]
+    assert [t.time_step for t in tel] == [t.time_step for t in tel_ref]
+    u_ref, a_ref = ref.stepper.displacement(), ref.stepper.acceleration()
+    np.testing.assert_allclose(u, u_ref, rtol=0, atol=2.5e-4 * np.abs(u_ref).max())
+    np.testing.assert_allclose(a, a_ref, rtol=0, atol=3e-3 * np.abs(a_ref).max())
+
+
+def test_shard_simulation_refuses_the_general_path():
+    """A simulation without a structured force schedule (the general
+    gather path) is not sharded: NotImplementedError naming A11."""
+    from civiwave_tpu_torch.runner import Simulation
+
+    with pytest.raises(NotImplementedError, match="A11"):
+        tsharding.shard_simulation(
+            Simulation(config=None, model=None, stepper=None), None
+        )

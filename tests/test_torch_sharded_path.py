@@ -16,7 +16,11 @@ under ``tmp_path``, one thread each) and kills them if they outlast
   3e-3 of max|ref|), and the collective budget: one f64 (3,) all-reduce
   per fused PCG iteration, one (4,) per frame's setup, and 2 or 4 ghost
   exchanges per matvec (each frame's Rayleigh, residual and setup
-  matvecs, then one per iteration).
+  matvecs, then one per iteration);
+* the launcher's ``--against-one-rank`` check, and a scenario with a time
+  curve and adaptive dt (``examples/cantilever_box.yaml``) through
+  ``shard_simulation`` on two ranks against the unsharded run.  Every rank
+  gathers its fields through the stepper after each frame.
 
 World sizes 2 and 4 and a 2x2 group.
 """
@@ -161,6 +165,45 @@ def test_launcher_frames_match_reference(name, tmp_path):
     assert int(got["psum_calls"]) == total + FRAMES
     matvecs = 3 * FRAMES + total
     assert int(got["ppermute_calls"]) == (4 if two_d else 2) * matvecs
+
+
+def test_launcher_against_one_rank(tmp_path):
+    """2x2 tiles against one rank through the launcher's own check."""
+    cmd = [sys.executable, "-m", "civiwave_tpu_torch.parallel.launch",
+           "--npx", "2", "--npy", "2", "--cells", "9,4,5", "--frames", "3",
+           "--device", "cpu", "--init-method", f"file://{tmp_path / 'store'}",
+           "--timeout", str(JOIN_TIMEOUT // 2 - 5), "--against-one-rank"]
+    [(rc, log)] = _run_ranks([cmd], tmp_path)
+    assert rc == 0, log
+    assert "against one rank: iterations" in log and "FAIL" not in log, log
+
+
+def test_launcher_steps_a_curve_scenario(tmp_path):
+    """examples/cantilever_box.yaml over two ranks: the force schedule's
+    ramp is cut per shard, and frames, dt and fields follow the unsharded
+    fused run."""
+    import torch
+
+    from civiwave_tpu_torch.runner import build_simulation
+
+    scenario = os.path.join(REPO, "examples", "cantilever_box.yaml")
+    out = tmp_path / "frames.npz"
+    cmd = [sys.executable, "-m", "civiwave_tpu_torch.parallel.launch",
+           "--npx", "2", "--scenario", scenario, "--frames", str(FRAMES + 1),
+           "--device", "cpu", "--init-method", f"file://{tmp_path / 'store'}",
+           "--timeout", str(JOIN_TIMEOUT - 10), "--out", str(out)]
+    [(rc, log)] = _run_ranks([cmd], tmp_path)
+    assert rc == 0, log
+    got = np.load(out)
+    ref = build_simulation(scenario, device=torch.device("cpu"))
+    ref.stepper.solver_variant = "fused"  # 'auto' on a shard
+    for k, tel in enumerate(ref.run(FRAMES + 1)):
+        assert abs(int(got["iterations"][k]) - tel.pcg_iterations) <= 1
+        assert got["time_step"][k] == tel.time_step
+    for field, tol in (("displacement", U_TOL), ("acceleration", A_TOL)):
+        want = getattr(ref.stepper, field)()
+        np.testing.assert_allclose(got[field][-1], want, rtol=0.0,
+                                   atol=tol * np.abs(want).max(), err_msg=field)
 
 
 def test_launcher_needs_a_gpu_per_rank():
