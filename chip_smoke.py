@@ -10,10 +10,13 @@ Phases, each printing its result:
    one nvcc process per source, all at once;
 3. structured route: hold each kernel (K1 keff_structured, K2
    pc_keff_structured with and without dots, K3 block_jacobi_apply, K6
-   pcg_iteration_structured — one whole PCG iteration) against its plain
-   PyTorch version on small grids, an odd grid with fixes on several faces
-   and the full 255^3-cell grid, and time kernel and plain version with
-   CUDA events;
+   pcg_iteration_structured — one whole PCG iteration; K2 and K6 are plane
+   sweeps over 8x32 (y, z) tiles and 32-plane X chunks) against its plain
+   PyTorch version on small grids, two odd grids with fixes on several
+   faces (one ragged against the sweep's tile and chunk on every axis) and
+   the full 255^3-cell grid; at 255^3 also K2's u against K3 and its w
+   against K1(u) (bit-equal or the max error), and time kernel and plain
+   version with CUDA events;
 4. structured main path at full width — ``build_simulation`` on the
    255^3-cell steel cantilever (50,331,648 DOF) — for 8 frames on the
    'auto' (fused) PCG and 2 on 'classic': every frame converged, the state
@@ -193,6 +196,13 @@ def kernel_phase(device):
             ("y1", (False, True, False), (None, None, None)),
             ("z0", (True, False, True), (None, None, None)),
         ])),
+        # 34x20x46 nodes: ragged against the 8x32 (y, z) tile and the
+        # 32-plane X chunk of K2's and K6's sweep, a face in every direction
+        ("33x19x45 fixes x0,y1,z0 partial, ragged", (33, 19, 45), dict(fixes=[
+            ("x0", (True, True, True), (None, None, None)),
+            ("y1", (False, True, False), (None, None, None)),
+            ("z0", (True, False, True), (1e-3, None, None)),
+        ])),
         ("255x255x255", FULL, {}),
     ]
     results = {}
@@ -259,6 +269,20 @@ def kernel_phase(device):
         results[label] = (model, pc, x, errs, carries, k6_args)
 
     model, pc, x, errs, carries, k6_args = results["255x255x255"]
+    # K2 against the kernels it fuses: u = K3(r), w = K1(u)
+    u, w = k12.apply_pc_keff_fused(model, pc.table, x, ss, mf)
+    for name, out, ref in (
+        ("u vs K3", u, k3.apply_block_jacobi(model, pc.table, x)),
+        ("w vs K1(u)", w, k12.apply_keff_fused(model, u, ss, mf)),
+    ):
+        torch.cuda.synchronize()
+        err, rel = check_close(f"K2 {name} 255^3", out, ref, OP_TOL)
+        same = torch.equal(out, ref)
+        print(f"K2 {name} 255^3: " + ("bit-equal" if same else
+              f"max abs err {err:.3e} ({rel:.2e} of max|ref|), "
+              f"{int((out != ref).sum()):,} of {out.numel():,} values differ"),
+              flush=True)
+    del u, w
     work = tuple(c.clone() for c in carries)
     times = {
         "keff": (

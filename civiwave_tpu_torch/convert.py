@@ -17,7 +17,7 @@ import torch
 
 from .mesh.pack import PackedModel, SimState
 from .mesh.structured import StructuredModel, interior_mass
-from .ops.structured import CompactBlockJacobi, class_stencil_table
+from .ops.structured import CompactBlockJacobi, class_stencil_table, sweep_taps
 
 # array fields of a structured model, with their storage dtypes
 STRUCTURED_ARRAYS = {
@@ -59,6 +59,7 @@ def structured_model_from_arrays(
         stencil_table=torch.as_tensor(
             class_stencil_table(spacing, lam0, mu0), device=device
         ),
+        sweep_taps=sweep_taps(spacing, lam0, mu0),
         nx=nx,
         ny=ny,
         nz=nz,

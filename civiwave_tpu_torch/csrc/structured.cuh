@@ -4,10 +4,12 @@
 //
 // Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
 // row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
-// (torch.bool).  K1/K5, K2, K3 and K6 launch one block per (x, y) row of
-// the node grid and let the threads stride over z; K4 and G2 give each
-// thread one node of the flat index.  Either way neighbouring threads touch
-// neighbouring addresses.  Offsets into the vectors are 64-bit.
+// (torch.bool).  K1/K5 and K3 launch one block per (x, y) row of the node
+// grid and let the threads stride over z; K4 and G2 give each thread one
+// node of the flat index; K2 and K6 sweep tiles of (y, z) columns along X
+// through shared memory (the plane sweep below).  Either way neighbouring
+// threads touch neighbouring addresses.  Offsets into the vectors are
+// 64-bit.
 #pragma once
 
 #include <cstdint>
@@ -39,21 +41,34 @@ __device__ __forceinline__ void add_taps(const float* __restrict__ k, float v0,
   a2 += __ldg(k + 6) * v0 + __ldg(k + 7) * v1 + __ldg(k + 8) * v2;
 }
 
-// z = M^-1 r for one node from the (6, 3, 3, 3) block-Jacobi class table
-// [m][x-class][y-class][z-class], packed components m = 00, 11, 22, 01, 02,
-// 12 of the symmetric inverse; cls = (cx * 3 + cy) * 3 + cz.
+// The six packed components 00, 11, 22, 01, 02, 12 of one class's
+// symmetric 3x3 block-Jacobi inverse.
+struct PcBlock {
+  float c00, c11, c22, c01, c02, c12;
+};
+
+// One class of the (6, 3, 3, 3) block-Jacobi class table
+// [m][x-class][y-class][z-class]; cls = (cx * 3 + cy) * 3 + cz.
+__device__ __forceinline__ PcBlock load_pc_block(const float* __restrict__ table,
+                                                 int cls) {
+  return PcBlock{__ldg(table + 0 * 27 + cls), __ldg(table + 1 * 27 + cls),
+                 __ldg(table + 2 * 27 + cls), __ldg(table + 3 * 27 + cls),
+                 __ldg(table + 4 * 27 + cls), __ldg(table + 5 * 27 + cls)};
+}
+
+__device__ __forceinline__ void apply_pc_block(const PcBlock& c, float r0,
+                                               float r1, float r2, float& z0,
+                                               float& z1, float& z2) {
+  z0 = c.c00 * r0 + c.c01 * r1 + c.c02 * r2;
+  z1 = c.c01 * r0 + c.c11 * r1 + c.c12 * r2;
+  z2 = c.c02 * r0 + c.c12 * r1 + c.c22 * r2;
+}
+
+// z = M^-1 r for one node of class cls (K3).
 __device__ __forceinline__ void block_jacobi_node(
     const float* __restrict__ table, int cls, float r0, float r1, float r2,
     float& z0, float& z1, float& z2) {
-  const float c00 = __ldg(table + 0 * 27 + cls);
-  const float c11 = __ldg(table + 1 * 27 + cls);
-  const float c22 = __ldg(table + 2 * 27 + cls);
-  const float c01 = __ldg(table + 3 * 27 + cls);
-  const float c02 = __ldg(table + 4 * 27 + cls);
-  const float c12 = __ldg(table + 5 * 27 + cls);
-  z0 = c00 * r0 + c01 * r1 + c02 * r2;
-  z1 = c01 * r0 + c11 * r1 + c12 * r2;
-  z2 = c02 * r0 + c12 * r1 + c22 * r2;
+  apply_pc_block(load_pc_block(table, cls), r0, r1, r2, z0, z1, z2);
 }
 
 // Threads per row block: Z rounded up to whole warps, at most 256.
@@ -69,12 +84,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Sums three per-thread values over the block (at most 256 threads, whole
-// warps) and has thread 0 write them to partials[k * rows + row], k = 0, 1,
-// 2.  One block owns one row, so the sums need no atomics and are
-// deterministic.  Every thread of the block must call it.
-__device__ __forceinline__ void store_row_sums3(float s0, float s1, float s2,
-                                                float* __restrict__ partials,
-                                                int64_t rows, int row) {
+// warps) and has thread 0 write them to partials[k * count + index], k = 0,
+// 1, 2.  Each block writes its own slots, so the sums need no atomics and
+// are deterministic.  Every thread of the block must call it.
+__device__ __forceinline__ void store_block_sums3(float s0, float s1, float s2,
+                                                  float* __restrict__ partials,
+                                                  int64_t count, int64_t index) {
   __shared__ float sh[3][8];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -94,10 +109,348 @@ __device__ __forceinline__ void store_row_sums3(float s0, float s1, float s2,
       t1 += sh[1][i];
       t2 += sh[2][i];
     }
-    partials[row] = t0;
-    partials[rows + row] = t1;
-    partials[2 * rows + row] = t2;
+    partials[index] = t0;
+    partials[count + index] = t1;
+    partials[2 * count + index] = t2;
   }
 }
 
+// ---------------------------------------------------------------------------
+// The plane sweep of K2 and K6.
+//
+// A block owns a tile of kTileY x kTileZ (y, z) node columns (one warp per
+// y row, one thread per column) over a chunk of X planes, and walks the
+// planes of its chunk plus one halo plane on each side.  For each plane it
+// holds the tile plus a one-node (y, z) halo in shared memory: the raw
+// inputs arrive by cp.async into a ring of kStages staging buffers, the
+// next kStages - 1 planes in flight while one plane is transformed and
+// applied.  The geometry (tile, chunk, grid, shared-memory bytes,
+// partials) is computed in Python (ops/cuda/plane_sweep.py) and checked
+// against these constants at launch.  The copies are cp.async, not TMA: a
+// TMA tensor map wants every stride a multiple of 16 bytes (Z % 4 == 0 for
+// the f32 vectors, Z % 16 for the byte mask) and a driver entry point to
+// encode it, while cp.async takes any Z in one code path (16-byte copies
+// where Z % 4 == 0, 4-byte ones elsewhere).
+
+namespace sweep {
+
+constexpr int kTileY = 8;
+constexpr int kTileZ = 32;
+constexpr int kThreads = kTileY * kTileZ;
+constexpr int kWarps = kThreads / 32;
+constexpr int kHaloY = kTileY + 2;
+constexpr int kHaloZ = kTileZ + 2;
+// bytes per staged mask row: the 4-byte words covering [z0 - 1, z0 + 33)
+constexpr int kMaskWords = 10;
+constexpr int kMaskRow = 4 * kMaskWords;
+// halo-ring nodes of one plane (the tile's own nodes are the rest)
+constexpr int kRing = 2 * kHaloZ + 2 * kTileY;
+// floats of one transformed component plane (rows of kHaloZ)
+constexpr int kPlane = kHaloY * kHaloZ;
+// floats of one staged row: halo column h sits at h + 3, so z0 lands on a
+// 16-byte boundary; and of one staged channel plane
+constexpr int kStageRow = 40;
+constexpr int kStagePlane = kHaloY * kStageRow;
+// staging buffers in the ring
+constexpr int kStages = 3;
+
+// Dynamic shared memory of a sweep over `vectors` staged f32 vectors:
+// kStages staging buffers of 3 * vectors channels and of the 3 mask
+// components, and one transformed plane (3 components) of the tile plus
+// halo.
+__host__ __device__ constexpr int smem_bytes(int vectors) {
+  return 4 * (kStages * 3 * vectors * kStagePlane + 3 * kPlane) +
+         kStages * 3 * kHaloY * kMaskRow;
+}
+
+// Taps passed by value (the constant bank; with compile-time indices the
+// FMAs take them through uniform registers, with no memory instruction):
+// the grid's interior stencil, class (1, 1, 1) of the
+// class table, as [dx+1][dy+1][dz+1][b][c], and the ghost taps (interior
+// minus class) of the z-face classes (1, 1, 0) and (1, 1, 2) at dz = 0,
+// as [side][dx+1][dy+1][b][c] — the only offsets where a z-face node's
+// stencil differs from the interior one at an in-grid neighbour.
+struct Taps {
+  float t[243];
+  float gz[2][81];
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until the oldest of the kStages groups in flight is complete: the
+// kStages - 1 planes behind it stay pending.
+__device__ __forceinline__ void cp_async_wait_oldest() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1) : "memory");
+}
+
+// Where the staged mask row of component c, row jy of plane jx starts: the
+// byte of halo column h is at its row + (mask_shift(...) + h).  The shift
+// is the offset of z0 - 1 within its aligned word, taken mod 2^32 (only
+// the low two bits matter).
+__device__ __forceinline__ int mask_shift(uint32_t comp, int c,
+                                          uint32_t rowoff, int z0) {
+  return static_cast<int>((c * comp + rowoff + z0 - 1) & 3u);
+}
+
+// Issues the cp.async copies of plane jx's tile plus halo, one warp per
+// staged row: channels 3 * v + c of kVectors f32 vectors (s0, s1, s2) into
+// st[ch][row][h + 3], a 4-byte copy per column (lanes 0-31, then 0-1), and
+// the 3 mask components into mst[c][row][...] as whole aligned words, three
+// rows per warp.  Rows and columns outside the grid are not copied (the
+// transform reads them as zero).  The mask's base must be 4-byte aligned;
+// a word that would run past the mask's end is read byte by byte.  The
+// general path, for any Z; VecStager below is the fast one.
+template <int kVectors>
+__device__ __forceinline__ void stage_plane(
+    const float* s0, const float* s1, const float* s2,
+    const uint8_t* __restrict__ bc, float* st, uint8_t* mst, int jx, int y0,
+    int z0, int Y, int Z, int64_t comp) {
+  constexpr int kCh = 3 * kVectors;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t plane = static_cast<int64_t>(jx) * Y * Z;
+  for (int p = warp; p < kCh * kHaloY; p += kWarps) {
+    const int ch = p / kHaloY;
+    const int row = p - ch * kHaloY;
+    const int jy = y0 - 1 + row;
+    if (jy < 0 || jy >= Y) continue;
+    const int v = ch / 3;
+    const float* g = (v == 0 ? s0 : (v == 1 ? s1 : s2)) +
+                     (ch - 3 * v) * comp + plane +
+                     static_cast<int64_t>(jy) * Z + z0 - 1;
+    float* d = st + ch * kStagePlane + row * kStageRow + 3;  // column z0 - 1
+    const int z = z0 - 1 + lane;
+    if (z >= 0 && z < Z) cp_async4(d + lane, g + lane);
+    if (lane < kHaloZ - 32 && z + 32 < Z) cp_async4(d + 32 + lane, g + 32 + lane);
+  }
+  constexpr int kRowsPerWarp = 32 / kMaskWords;
+  const int64_t total = 3 * comp;
+  for (int q0 = warp * kRowsPerWarp; q0 < 3 * kHaloY; q0 += kWarps * kRowsPerWarp) {
+    const int q = q0 + lane / kMaskWords;
+    const int k = lane % kMaskWords;
+    if (lane >= kRowsPerWarp * kMaskWords || q >= 3 * kHaloY) continue;
+    const int c = q / kHaloY;
+    const int row = q - c * kHaloY;
+    const int jy = y0 - 1 + row;
+    if (jy < 0 || jy >= Y) continue;
+    const int64_t first = c * comp + plane + static_cast<int64_t>(jy) * Z + z0 - 1;
+    const int64_t addr = (first & ~int64_t{3}) + 4 * k;
+    uint8_t* d = mst + (c * kHaloY + row) * kMaskRow + 4 * k;
+    if (addr < 0 || addr >= total) continue;
+    if (addr + 4 <= total) {
+      cp_async4(d, bc + addr);
+    } else {
+      for (int b = 0; addr + b < total; ++b) d[b] = bc[addr + b];
+    }
+  }
+}
+
+// The fast staging path, for Z % 4 == 0 and 16-byte aligned vectors: each
+// thread works out once which copies it issues for every plane (they move
+// by the plane stride Y * Z from one plane to the next), so a plane costs
+// it a few adds per copy.  Three staged rows per warp step: lane 10 r + k
+// copies the row's 32 own columns as eight 16-byte chunks (k < 8) and its
+// two halo columns as 4-byte words (k = 8: z0 - 1, k = 9: z0 + 32); the
+// mask's 30 rows go three per warp as aligned words (with Z % 4 == 0 a
+// row's words never straddle the mask's end).
+template <int kVectors>
+struct VecStager {
+  static constexpr int kRows = 3 * kVectors * kHaloY;
+  static constexpr int kTasks = (kRows + 3 * kWarps - 1) / (3 * kWarps);
+  static constexpr int kMaskTasks = (3 * kHaloY + 3 * kWarps - 1) / (3 * kWarps);
+  const float* g[kTasks];  // this lane's source at plane 0, or null
+  int d[kTasks];           // and its float offset in a staging buffer
+  int64_t m[kMaskTasks];   // its mask word's byte index at plane 0
+  int md[kMaskTasks];      // and its byte offset in a mask buffer (-1: none)
+  bool wide;               // 16-byte copies (k < 8) or 4-byte
+
+  __device__ __forceinline__ VecStager(const float* s0, const float* s1,
+                                       const float* s2, int y0, int z0, int Y,
+                                       int Z, int64_t comp) {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int sub = lane / 10;
+    const int k = lane - 10 * sub;
+    wide = k < 8;
+    const int dz = k < 8 ? 4 * k : (k == 8 ? -1 : kTileZ);
+#pragma unroll
+    for (int t = 0; t < kTasks; ++t) {
+      const int p = (t * kWarps + warp) * 3 + sub;
+      const int ch = p / kHaloY;
+      const int row = p - ch * kHaloY;
+      const int jy = y0 - 1 + row;
+      const int v = ch / 3;
+      const bool ok = sub < 3 && p < kRows && jy >= 0 && jy < Y &&
+                      z0 + dz >= 0 && z0 + dz < Z;
+      g[t] = ok ? (v == 0 ? s0 : (v == 1 ? s1 : s2)) + (ch - 3 * v) * comp +
+                      static_cast<int64_t>(jy) * Z + z0 + dz
+                : nullptr;
+      d[t] = ch * kStagePlane + row * kStageRow + 4 + dz;
+    }
+#pragma unroll
+    for (int t = 0; t < kMaskTasks; ++t) {
+      const int q = (t * kWarps + warp) * 3 + sub;
+      const int c = q / kHaloY;
+      const int row = q - c * kHaloY;
+      const int jy = y0 - 1 + row;
+      const bool ok = sub < 3 && q < 3 * kHaloY && jy >= 0 && jy < Y;
+      m[t] = ((c * comp + static_cast<int64_t>(jy) * Z + z0 - 1) &
+              ~int64_t{3}) + 4 * k;
+      md[t] = ok ? (c * kHaloY + row) * kMaskRow + 4 * k : -1;
+    }
+  }
+
+  // The copies of the plane `plane` = jx * Y * Z elements in.
+  __device__ __forceinline__ void issue(float* st, uint8_t* mst,
+                                        const uint8_t* __restrict__ bc,
+                                        int64_t plane, int64_t total) const {
+#pragma unroll
+    for (int t = 0; t < kTasks; ++t) {
+      if (g[t] == nullptr) continue;
+      if (wide) {
+        cp_async16(st + d[t], g[t] + plane);
+      } else {
+        cp_async4(st + d[t], g[t] + plane);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kMaskTasks; ++t) {
+      const int64_t addr = m[t] + plane;
+      if (md[t] >= 0 && addr >= 0 && addr < total) cp_async4(mst + md[t], bc + addr);
+    }
+  }
+};
+
+// The halo-ring node k (0 <= k < kRing) of a plane: rows 0 and kHaloY - 1
+// in full, then columns 0 and kHaloZ - 1 of the rows between.
+__device__ __forceinline__ void ring_node(int k, int& hy, int& hz) {
+  if (k < 2 * kHaloZ) {
+    hy = k < kHaloZ ? 0 : kHaloY - 1;
+    hz = k < kHaloZ ? k : k - kHaloZ;
+  } else {
+    const int e = k - 2 * kHaloZ;
+    hy = 1 + (e < kTileY ? e : e - kTileY);
+    hz = e < kTileY ? 0 : kHaloZ - 1;
+  }
+}
+
+template <bool kConst>
+__device__ __forceinline__ float tap(const float* k, int i) {
+  if constexpr (kConst) {
+    return k[i];
+  } else {
+    return __ldg(k + i);
+  }
+}
+
+// acc += K v for one 3x3 tap block k, one FMA chain per component.
+template <bool kConst>
+__device__ __forceinline__ void fma_block(const float* k, float v0, float v1,
+                                          float v2, float (&a)[3]) {
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    a[b] += tap<kConst>(k, 3 * b) * v0;
+    a[b] += tap<kConst>(k, 3 * b + 1) * v1;
+    a[b] += tap<kConst>(k, 3 * b + 2) * v2;
+  }
+}
+
+// Adds one transformed plane j (ub: [3][kHaloY][kHaloZ]) to the thread's
+// three outputs: acc[n] is the output at x = j - 1 + n, which sees plane j
+// at offset dx = 1 - n, with its 27 x 9 taps at k0, k1, k2.  kConst: all
+// three point at the Taps parameter; else at class rows of the table.
+template <bool kConst>
+__device__ __forceinline__ void add_plane(const float* ub, int ty, int tz,
+                                          const float* k0, const float* k1,
+                                          const float* k2, float (&acc)[3][3]) {
+#pragma unroll
+  for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+    for (int dz = -1; dz <= 1; ++dz) {
+      const int h = (ty + 1 + dy) * kHaloZ + tz + 1 + dz;
+      const float v0 = ub[h];
+      const float v1 = ub[kPlane + h];
+      const float v2 = ub[2 * kPlane + h];
+      const int d = (dy + 1) * 3 + (dz + 1);
+      fma_block<kConst>(k0 + (18 + d) * 9, v0, v1, v2, acc[0]);
+      fma_block<kConst>(k1 + (9 + d) * 9, v0, v1, v2, acc[1]);
+      fma_block<kConst>(k2 + d * 9, v0, v1, v2, acc[2]);
+    }
+  }
+}
+
+// acc -= G v over the three dz = 0 neighbours (dy = -1, 0, 1) of plane j,
+// with g the [dx+1][dy+1][b][c] ghost taps of one z-face class: turns the
+// interior stencil into the face node's own.
+__device__ __forceinline__ void subtract_z_ghosts(const float* ub, int ty,
+                                                  int tz, const float* g,
+                                                  float (&acc)[3][3]) {
+#pragma unroll
+  for (int dy = -1; dy <= 1; ++dy) {
+    const int h = (ty + 1 + dy) * kHaloZ + tz + 1;
+    const float v0 = -ub[h];
+    const float v1 = -ub[kPlane + h];
+    const float v2 = -ub[2 * kPlane + h];
+#pragma unroll
+    for (int n = 0; n < 3; ++n) {
+      fma_block<true>(g + ((2 - n) * 3 + (dy + 1)) * 9, v0, v1, v2, acc[n]);
+    }
+  }
+}
+
+// Adds plane j to the three outputs.  Where the thread's row (y) and the
+// three output planes (x) are of the interior class — every warp but those
+// of a y face and every plane but the two next to an x face — from the
+// constant bank: the interior stencil, then at a z-face column the ghost
+// taps at dz = 0 subtracted.  Elsewhere from the class table.
+__device__ __forceinline__ void apply_plane(const float* ub, int ty, int tz,
+                                            int j, int ocy, int ocz, int nx,
+                                            const Taps& taps,
+                                            const float* __restrict__ stencil,
+                                            float (&acc)[3][3]) {
+  const int cm = node_class(j - 1, nx);
+  const int cc = node_class(j, nx);
+  const int cp = node_class(j + 1, nx);
+  if (ocy == 1 && cm == 1 && cc == 1 && cp == 1) {
+    add_plane<true>(ub, ty, tz, taps.t, taps.t, taps.t, acc);
+    if (ocz == 0) {
+      subtract_z_ghosts(ub, ty, tz, taps.gz[0], acc);
+    } else if (ocz == 2) {
+      subtract_z_ghosts(ub, ty, tz, taps.gz[1], acc);
+    }
+  } else {
+    const int yz = ocy * 3 + ocz;
+    add_plane<false>(ub, ty, tz, stencil + (cm * 9 + yz) * 243,
+                     stencil + (cc * 9 + yz) * 243,
+                     stencil + (cp * 9 + yz) * 243, acc);
+  }
+}
+
+// Output x = j - 1 is complete: shift the window (acc[0] <- acc[1] <-
+// acc[2] <- 0).
+__device__ __forceinline__ void shift_window(float (&acc)[3][3]) {
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    acc[0][b] = acc[1][b];
+    acc[1][b] = acc[2][b];
+    acc[2][b] = 0.0f;
+  }
+}
+
+}  // namespace sweep
 }  // namespace civi

@@ -77,6 +77,10 @@ class StructuredModel:
     # stencil (ops.structured.class_stencil_table) read by the K1/K2
     # kernels; uploaded once per model
     stencil_table: torch.Tensor
+    # host copy of its interior class (1, 1, 1) and the z-face ghost taps
+    # at dz = 0 (ops.structured.sweep_taps): (405,) f32 numpy, passed by
+    # value to K2 and K6 at each launch (no device read)
+    sweep_taps: Optional[np.ndarray] = None
     nx: int = 0
     ny: int = 0
     nz: int = 0
@@ -452,7 +456,7 @@ def build_structured_model(
         [counts * float(cmg[c]) + face * float(a4t[c]) for c in range(3)]
     ).to(f32)
 
-    from ..ops.structured import class_stencil_table
+    from ..ops.structured import class_stencil_table, sweep_taps
 
     table = class_stencil_table((hx, hy, hz), lam0, mu0)
     model = StructuredModel(
@@ -463,6 +467,7 @@ def build_structured_model(
         bc_value=vals,
         position0=pos,
         stencil_table=torch.as_tensor(table, device=device),
+        sweep_taps=sweep_taps((hx, hy, hz), lam0, mu0),
         nx=nx,
         ny=ny,
         nz=nz,

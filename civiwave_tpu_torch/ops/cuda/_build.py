@@ -43,16 +43,22 @@ _SIGNATURES = {
     "civi_block_jacobi_apply": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # pc_table, stencil, r, bc, u, w, partials, X, Y, Z, nx, ny, nz,
-    # ss, mf, m8, stream
+    # (K2 and K6 take their 405 taps in host memory, then after the scalars
+    # the plane-sweep geometry: tile_y, tile_z, chunk, grid_x, grid_y,
+    # grid_z, smem, and vec: 16-byte copies)
+    # pc_table, stencil, taps, r, bc, u, w, partials, X, Y, Z, nx, ny, nz,
+    # ss, mf, m8, geometry, stream
     "civi_pc_keff_structured": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # pc_table, stencil, alpha_beta, x, r, u, w, p, s, bc, r_out, w_out,
-    # s_out, partials, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
+    # pc_table, stencil, taps, alpha_beta, x, r, u, w, p, s, bc, r_out,
+    # w_out, s_out, partials, X, Y, Z, nx, ny, nz, ss, mf, m8, geometry,
+    # stream
     "civi_pcg_iteration_structured": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream
     "civi_element_forces_tet": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),

@@ -28,8 +28,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
-from .structured_stencil import _launch_args
+from . import _build, plane_sweep
+from .structured_stencil import _launch_args, sweep_taps32
 
 
 def pcg_iteration_fused_plain(
@@ -78,27 +78,30 @@ def pcg_iteration_fused(
     for name, v in zip("ruwps", (r, u, w, p, s)):
         _build.check_tensor(v, name, model.vector_shape, torch.float32, dev)
     _build.check_tensor(table, "pc_table", (6, 3, 3, 3), torch.float32, dev)
+    _build.check_aligned(model.bc_mask, "bc_mask", 4)
+    taps = sweep_taps32(model)
     alpha_beta = torch.cat([_scalar32(alpha, dev), _scalar32(beta, dev)])
     X, Y, Z = model.grid_shape
+    geom = plane_sweep.sweep_geometry(model.grid_shape, 3)
     r_new = torch.empty_like(r)
     w_new = torch.empty_like(w)
     s_new = torch.empty_like(s)
-    # rows of (r,u), (r,r), (w,u) partials — each (x, y) row reduced over z
-    # and the 3 components inside one block
-    partials = torch.empty((3, X, Y), dtype=torch.float32, device=dev)
+    # (r,u), (r,r), (w,u) partials, one triple per block
+    partials = torch.empty(geom.partials_shape, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         code = library.lib.civi_pcg_iteration_structured(
-            table.data_ptr(), model.stencil_table.data_ptr(),
+            table.data_ptr(), model.stencil_table.data_ptr(), taps.ctypes.data,
             alpha_beta.data_ptr(), x.data_ptr(), r.data_ptr(), u.data_ptr(),
             w.data_ptr(), p.data_ptr(), s.data_ptr(), model.bc_mask.data_ptr(),
             r_new.data_ptr(), w_new.data_ptr(), s_new.data_ptr(),
             partials.data_ptr(), X, Y, Z, model.nx, model.ny, model.nz,
             float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
-            float(np.float32(model.m8)), stream,
+            float(np.float32(model.m8)), *geom.launch_args(),
+            plane_sweep.vector_copies(Z, r, w, s), stream,
         )
     _build.check_launch(library, "pcg_iteration_structured", code)
     pcg_iteration_fused.launches += 1
-    gamma, rr, delta = partials.to(reduction_dtype).sum(dim=(1, 2))
+    gamma, rr, delta = partials.to(reduction_dtype).sum(dim=1)
     return (x, r_new, u, w_new, p, s_new), (gamma, delta, rr)
 
 

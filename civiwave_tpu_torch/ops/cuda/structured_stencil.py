@@ -12,8 +12,9 @@ sharded forms call the same Pallas function.
 K2, ``pc_keff_structured`` (``csrc/pc_keff_structured.cu``), replaces
 ``apply_pc_keff_fused_pallas`` (structured_stencil.py:820, pallas_call at
 :895): ``u = M^-1 r`` from the (6, 3, 3, 3) class table and ``w = K_eff u``
-in one launch, plus with ``with_dots`` the per-(x, y)-row f32 partials of
-(r, u), (r, r) and (w, u), summed here in the reduction dtype.
+in one launch, a plane sweep whose geometry ``plane_sweep.py`` computes,
+plus with ``with_dots`` each block's f32 partials of (r, u), (r, r) and
+(w, u), summed here in the reduction dtype.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (f32 only, contiguous, shapes of the model).  Each wrapper counts
@@ -26,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build, keff_halo
+from . import _build, keff_halo, plane_sweep
 
 
 def _launch_args(model, residual_or_x):
@@ -42,6 +43,19 @@ def _launch_args(model, residual_or_x):
         dev,
     )
     return _build.load_library(), dev, torch.cuda.current_stream(dev).cuda_stream
+
+
+def sweep_taps32(model) -> np.ndarray:
+    """The model's host copy of the taps K2 and K6 take by value (405 f32:
+    ``ops.structured.sweep_taps``)."""
+    taps = model.sweep_taps
+    if taps is None:
+        raise ValueError("model has no sweep_taps (build it with "
+                         "build_structured_model or convert)")
+    taps = np.ascontiguousarray(taps, dtype=np.float32)
+    if taps.shape != (405,):
+        raise ValueError(f"sweep_taps: shape {taps.shape}, expected (405,)")
+    return taps
 
 
 def apply_keff_fused_plain(model, x, stiffness_scale, mass_factor):
@@ -102,30 +116,33 @@ def apply_pc_keff_fused(
         )
     library, dev, stream = _launch_args(model, residual)
     _build.check_tensor(table, "pc_table", (6, 3, 3, 3), torch.float32, dev)
+    _build.check_aligned(model.bc_mask, "bc_mask", 4)
+    taps = sweep_taps32(model)
     X, Y, Z = model.grid_shape
+    geom = plane_sweep.sweep_geometry(model.grid_shape, 1)
     u = torch.empty_like(residual)
     w = torch.empty_like(residual)
-    # rows of (r,u), (r,r), (w,u) partials — each (x, y) row reduced over z
-    # and the 3 components inside one block
+    # (r,u), (r,r), (w,u) partials, one triple per block
     partials = (
-        torch.empty((3, X, Y), dtype=torch.float32, device=dev)
+        torch.empty(geom.partials_shape, dtype=torch.float32, device=dev)
         if with_dots else None
     )
     with torch.cuda.device(dev):
         code = library.lib.civi_pc_keff_structured(
             table.data_ptr(), model.stencil_table.data_ptr(),
-            residual.data_ptr(), model.bc_mask.data_ptr(),
+            taps.ctypes.data, residual.data_ptr(), model.bc_mask.data_ptr(),
             u.data_ptr(), w.data_ptr(),
             partials.data_ptr() if with_dots else None,
             X, Y, Z, model.nx, model.ny, model.nz,
             float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
-            float(np.float32(model.m8)), stream,
+            float(np.float32(model.m8)), *geom.launch_args(),
+            plane_sweep.vector_copies(Z, residual), stream,
         )
     _build.check_launch(library, "pc_keff_structured", code)
     apply_pc_keff_fused.launches += 1
     if not with_dots:
         return u, w
-    gamma, rr, delta = partials.to(reduction_dtype).sum(dim=(1, 2))
+    gamma, rr, delta = partials.to(reduction_dtype).sum(dim=1)
     return u, w, (gamma, delta, rr)
 
 

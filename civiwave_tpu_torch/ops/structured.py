@@ -201,6 +201,21 @@ def ghost_stencil_table(spacing, lam0: float, mu0: float) -> np.ndarray:
     return np.ascontiguousarray(table.astype(np.float32))
 
 
+def sweep_taps(spacing, lam0: float, mu0: float) -> np.ndarray:
+    """The (405,) f32 taps the plane-sweep kernels K2 and K6 take by value:
+    the interior class (1, 1, 1) row of :func:`class_stencil_table` as
+    [dx+1][dy+1][dz+1][b][c] (243), then the ghost taps
+    (:func:`ghost_stencil_table`) of the z-face classes (1, 1, 0) and
+    (1, 1, 2) at dz = 0 as [side][dx+1][dy+1][b][c] (2 x 81).  A z-face
+    node's stencil differs from the interior one at an in-grid neighbour
+    only at dz = 0, so interior taps minus these give it."""
+    table = class_stencil_table(spacing, lam0, mu0).reshape(27, 3, 3, 3, 3, 3)
+    ghost = ghost_stencil_table(tuple(spacing), lam0, mu0).reshape(
+        27, 3, 3, 3, 3, 3)
+    z_faces = np.stack([ghost[12][:, :, 1], ghost[14][:, :, 1]])
+    return np.concatenate([table[13].reshape(-1), z_faces.reshape(-1)])
+
+
 def axis_classes(size: int, cells: int, offset: int = 0) -> np.ndarray:
     """Boundary class (0 low face / 1 interior / 2 high face and beyond) of
     each of ``size`` node positions along an axis of ``cells`` cells,

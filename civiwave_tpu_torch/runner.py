@@ -212,6 +212,8 @@ _UNPORTED_OPTIONS = {
     "output": "--output (VTU/probe output, ROADMAP A5)",
     "static": "--static (static solve, ROADMAP A8)",
     "checkpoint_dir": "--checkpoint-dir (checkpoints, ROADMAP A10)",
+    "checkpoint_every": "--checkpoint-every (checkpoints, ROADMAP A10)",
+    "resume": "--resume (checkpoints, ROADMAP A10)",
     "profile": "--profile (device tracing, ROADMAP A14)",
 }
 
@@ -240,11 +242,17 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--output", default=None, help=argparse.SUPPRESS)
     parser.add_argument("--static", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
+    # default None, not the reference's 50: any set value is refused below
+    parser.add_argument(
+        "--checkpoint-every", type=int, default=None, help=argparse.SUPPRESS
+    )
+    parser.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--profile", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     for name, what in _UNPORTED_OPTIONS.items():
-        if getattr(args, name):
+        value = getattr(args, name)
+        if value is not None and value is not False:  # set, 0 included
             print(f"error: {what} is not ported yet", file=sys.stderr)
             return 1
     try:

@@ -62,6 +62,24 @@ SHAPES = {
     ])),
     "z_longer_than_a_block": ((2, 3, 300), {}),
 }
+# K2 and K6 sweep tiles of 8 x 32 (y, z) columns over chunks of 32 X planes
+# (ops/cuda/plane_sweep.py): grids whose tiles meet the edges
+SWEEP_SHAPES = {
+    **SHAPES,
+    # Y and Z ragged against the tile, Z % 4 != 0 (4-byte copies)
+    "ragged_yz": ((5, 10, 40), {}),
+    # X over two chunks, Z % 4 == 0 (16-byte copies)
+    "x_over_two_chunks": ((69, 5, 7), {}),
+    # two z tiles, 16-byte copies, Y ragged, X in two chunks
+    "two_z_tiles": ((40, 17, 63), dict(fixed_axis_planes=("x0", "y0"))),
+    # a face in every direction, ragged along all three axes
+    "partial_fixes_33x19x45": ((33, 19, 45), dict(fixes=[
+        ("x0", (True, True, True), (None, None, None)),
+        ("y1", (False, True, False), (None, None, None)),
+        ("z0", (True, False, True), (1e-3, None, None)),
+    ])),
+    "z2": ((4, 3, 1), {}),
+}
 
 
 @pytest.fixture
@@ -72,7 +90,7 @@ def device():
 
 
 def _model(device, case):
-    dims, kw = SHAPES[case]
+    dims, kw = SWEEP_SHAPES[case]
     mat = cantilever_config().materials[0]
     model, _ = build_structured_model(
         *dims, materials.make_properties(mat), mat.density, device=device, **kw
@@ -114,7 +132,7 @@ def test_block_jacobi_kernel_matches_plain(device, case):
     assert not zb.any() and not torch.signbit(zb).any()
 
 
-@pytest.mark.parametrize("case", sorted(SHAPES))
+@pytest.mark.parametrize("case", sorted(SWEEP_SHAPES))
 def test_pc_keff_kernel_matches_plain(device, case):
     model, x = _model(device, case)
     pc = model.build_preconditioner(SS, MF)
@@ -134,7 +152,7 @@ def test_pc_keff_kernel_matches_plain(device, case):
 
 
 @pytest.mark.parametrize("beta", [0.2, 0.0], ids=["beta", "beta0"])
-@pytest.mark.parametrize("case", sorted(SHAPES))
+@pytest.mark.parametrize("case", sorted(SWEEP_SHAPES))
 def test_pcg_iteration_kernel_matches_plain(device, case, beta):
     model, _ = _model(device, case)
     pc = model.build_preconditioner(SS, MF)

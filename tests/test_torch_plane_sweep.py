@@ -1,0 +1,140 @@
+"""The launch geometry of the plane-sweep kernels K2 and K6
+(``ops/cuda/plane_sweep.py``), checked on the CPU: over the grids the
+kernels meet, every node belongs to exactly one block and plane, the
+shared memory fits one H100 block, and the 255^3 cantilever fills the
+card.  Also the interior taps the kernels take by value."""
+
+import numpy as np
+import pytest
+import torch
+
+from civiwave_tpu_torch.convert import structured_model_from_arrays
+from civiwave_tpu_torch.mesh.structured import build_structured_model
+from civiwave_tpu_torch.ops.cuda import plane_sweep
+from civiwave_tpu_torch.ops.cuda.structured_stencil import sweep_taps32
+from civiwave_tpu_torch.ops.structured import (
+    apply_keff_structured_plain,
+    class_stencil_table,
+)
+from civiwave_tpu_torch.physics import materials
+from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+# cells and X padding multiple: the five grids of the CUDA tests' SHAPES,
+# the 255^3 cantilever, and a grid ragged against the tile along Y and Z
+# and against the chunk along X
+GRIDS = {
+    "fixes_x0_z1": ((5, 4, 3), 1),
+    "nx1": ((1, 3, 2), 1),
+    "xpad4": ((6, 5, 4), 4),
+    "odd_partial_fixes": ((17, 9, 33), 1),
+    "z_longer_than_a_block": ((2, 3, 300), 1),
+    "cantilever_255": ((255, 255, 255), 1),
+    "ragged_33x19x45": ((33, 19, 45), 1),
+}
+SM_COUNT = 132  # H100 SXM
+
+
+def _nodes(cells, pad_x):
+    nx, ny, nz = cells
+    return (-(-(nx + 1) // pad_x) * pad_x, ny + 1, nz + 1)
+
+
+@pytest.mark.parametrize("case", sorted(GRIDS))
+def test_sweep_geometry_covers_every_node_once(case):
+    cells, pad_x = GRIDS[case]
+    shape = _nodes(cells, pad_x)
+    assert shape[0] % pad_x == 0
+    for vectors in (1, 3):
+        geom = plane_sweep.sweep_geometry(shape, vectors)
+        owners = np.zeros(shape, dtype=np.uint8)
+        gx, gy, gz = geom.grid
+        for bz in range(gz):
+            for by in range(gy):
+                for bx in range(gx):
+                    (x0, x1), (y0, y1), (z0, z1) = geom.owned((bx, by, bz), shape)
+                    assert x0 < x1 and y0 < y1 and z0 < z1  # no empty block
+                    assert x1 - x0 <= geom.chunk
+                    assert y1 - y0 <= geom.tile[0] and z1 - z0 <= geom.tile[1]
+                    owners[x0:x1, y0:y1, z0:z1] += 1
+        assert owners.min() == 1 and owners.max() == 1
+        assert geom.threads == geom.tile[0] * geom.tile[1] <= 1024
+        assert geom.threads % 32 == 0
+        assert geom.smem_bytes <= plane_sweep.SMEM_LIMIT
+        assert geom.partials_shape == (3, geom.blocks)
+        assert geom.launch_args() == (*geom.tile, geom.chunk, *geom.grid,
+                                      geom.smem_bytes)
+        if case == "cantilever_255":
+            assert geom.blocks > 2 * SM_COUNT
+
+
+def test_sweep_geometry_shared_memory():
+    """K2 stages r (1 vector), K6 r, w and s (3): a ring of staging
+    buffers, each 10 rows x 40 floats per channel and 10 x 40 mask bytes
+    per component, plus one transformed 10 x 34 plane of 3 components."""
+    k2 = plane_sweep.sweep_geometry((256, 256, 256), 1)
+    k6 = plane_sweep.sweep_geometry((256, 256, 256), 3)
+    n = plane_sweep.STAGES
+    assert k2.smem_bytes == 4 * (n * 3 * 400 + 3 * 340) + n * 3 * 400
+    assert k6.smem_bytes == 4 * (n * 9 * 400 + 3 * 340) + n * 3 * 400
+    assert (k2.smem_bytes, k6.smem_bytes) == (22080, 50880)
+    with pytest.raises(ValueError):
+        plane_sweep.sweep_geometry((0, 4, 4), 1)
+
+
+def test_models_carry_the_sweep_taps():
+    """The host copy K2 and K6 pass by value: the class table's interior
+    row, then the z-face ghost taps at dz = 0, on models from the builder
+    and from arrays."""
+    mat = cantilever_config().materials[0]
+    model, _ = build_structured_model(
+        4, 3, 5, materials.make_properties(mat), mat.density, device="cpu"
+    )
+    table = class_stencil_table(model.spacing, model.lam0, model.mu0)
+    taps = sweep_taps32(model)
+    assert taps.shape == (405,) and taps.dtype == np.float32
+    np.testing.assert_array_equal(taps[:243], table[13].reshape(-1))
+    np.testing.assert_array_equal(
+        taps[:243], model.stencil_table[13].numpy().reshape(-1)
+    )
+    arrays = {name: getattr(model, name).numpy() for name in (
+        "lam_grid", "mu_grid", "mass_grid", "bc_mask", "bc_value", "position0")}
+    meta = {name: getattr(model, name) for name in (
+        "nx", "ny", "nz", "node_count", "padded_node_count", "pad_planes",
+        "pad_rows", "spacing", "lam0", "mu0", "absorb_faces", "rho_cp",
+        "rho_cs")}
+    again = structured_model_from_arrays(arrays, meta, "cpu")
+    np.testing.assert_array_equal(again.sweep_taps, model.sweep_taps)
+
+
+@pytest.mark.parametrize("side, z", [(0, 0), (1, -1)], ids=["z0", "z1"])
+def test_sweep_taps_give_the_z_face_stencil(side, z):
+    """What K2 and K6 do at a z-face column of an interior row: the
+    interior taps over all 27 neighbours, minus the face class's ghost taps
+    at the dz = 0 neighbours, equal the plain operator there (the
+    neighbours across the face are outside the grid)."""
+    mat = cantilever_config().materials[0]
+    model, _ = build_structured_model(
+        4, 4, 4, materials.make_properties(mat), mat.density,
+        fixed_axis_planes=(), device="cpu",
+    )
+    rng = np.random.default_rng(5)
+    u = rng.standard_normal(model.vector_shape).astype(np.float64)
+    ref = apply_keff_structured_plain(model, torch.as_tensor(u), 1.0, 0.0).numpy()
+    taps = model.sweep_taps.astype(np.float64)
+    interior = taps[:243].reshape(3, 3, 3, 3, 3)
+    ghost = taps[243:].reshape(2, 3, 3, 3, 3)[side]
+    X, Y, Z = model.grid_shape
+    iz = z % Z
+    for ix, iy in ((2, 2), (1, 3)):
+        out = np.zeros(3)
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    if not 0 <= iz + dz < Z:
+                        continue
+                    v = u[:, ix + dx, iy + dy, iz + dz]
+                    out += interior[dx + 1, dy + 1, dz + 1] @ v
+                    if dz == 0:
+                        out -= ghost[dx + 1, dy + 1] @ v
+        np.testing.assert_allclose(out, ref[:, ix, iy, iz], rtol=1e-5,
+                                   atol=1e-6 * np.abs(ref).max())

@@ -108,9 +108,13 @@ def test_cli_runs_and_writes_telemetry(tmp_path, capsys):
         (["--output", "out"], "A5"),
         (["--static"], "A8"),
         (["--checkpoint-dir", "ck"], "A10"),
+        (["--checkpoint-every", "5"], "A10"),
+        (["--checkpoint-every", "0"], "A10"),
+        (["--resume"], "A10"),
         (["--profile", "tr"], "A14"),
     ],
-    ids=["output", "static", "checkpoint", "profile"],
+    ids=["output", "static", "checkpoint", "checkpoint-every",
+         "checkpoint-every-0", "resume", "profile"],
 )
 def test_cli_unported_options_exit_1(args, item, capsys):
     rc = main([SCENARIO, "--frames", "1", "--device", "cpu", *args])
