@@ -10,13 +10,13 @@ Phases, each printing its result:
    one nvcc process per source, all at once;
 3. structured route: hold each kernel (K1 keff_structured, K2
    pc_keff_structured with and without dots, K3 block_jacobi_apply, K6
-   pcg_iteration_structured — one whole PCG iteration; K2 and K6 are plane
-   sweeps over 8x32 (y, z) tiles and 32-plane X chunks) against its plain
-   PyTorch version on small grids, two odd grids with fixes on several
-   faces (one ragged against the sweep's tile and chunk on every axis) and
-   the full 255^3-cell grid; at 255^3 also K2's u against K3 and its w
-   against K1(u) (bit-equal or the max error), and time kernel and plain
-   version with CUDA events;
+   pcg_iteration_structured — one whole PCG iteration; K1, K2 and K6 are
+   plane sweeps over 8x32 (y, z) tiles and 32-plane X chunks) against its
+   plain PyTorch version on small grids, two odd grids with fixes on
+   several faces (one ragged against the sweep's tile and chunk on every
+   axis) and the full 255^3-cell grid; at 255^3 also K2's u against K3
+   (bit-equal or the max error) and its w against K1(u) (bit-equal, else
+   the run fails), and time kernel and plain version with CUDA events;
 4. structured main path at full width — ``build_simulation`` on the
    255^3-cell steel cantilever (50,331,648 DOF) — for 8 frames on the
    'auto' (fused) PCG and 2 on 'classic': every frame converged, the state
@@ -30,11 +30,12 @@ Phases, each printing its result:
    adaptive dt) for 10 frames on the GPU and on the CPU (plain versions),
    then again with ``CIVIWAVE_MEGA_PCG=1`` on the fused variant;
 6. general gather path: hold K7 element_forces (tet and hex) and G1
-   assemble_csr against their plain versions on a 16^3 hex box, a 9^3 tet
-   box, a mixed tet+hex box, a shuffled 12^3 hex box and both 66^3 boxes,
-   and time them (CUDA events) at the 66^3 shapes;
+   assemble_csr (CSR slices staged through shared memory; bit-equal to
+   plain, else the run fails) against their plain versions on a 16^3 hex
+   box, a 9^3 tet box, a mixed tet+hex box, a shuffled 12^3 hex box and
+   both 66^3 boxes, and time them (CUDA events) at the 66^3 shapes;
 7. general_matvec_throughput's workload: 32 chained matvecs on the 66^3
-   hex box (902,289 DOF), GDOF/s;
+   hex box (902,289 DOF), GDOF/s, and G1's time there (D = 8);
 8. the general main path at full width — ``build_simulation`` on the
    steel cantilever over ``synthetic://box/66,66,66,tet`` (1,724,976 tets,
    902,289 DOF) — for 8 frames: iterations, steps/s, peak memory, launches;
@@ -62,10 +63,12 @@ Phases, each printing its result:
     reference's sharded grids ((6,3,3) over 8 slabs, (15,4,4) over 4,
     (9,4,5) on 2x4 tiles with dead +Y rows, (7,7,3) on 2x2) and 255^3 (4
     slabs, 2x2 tiles, the whole slab) into blocks with their neighbours'
-    ghosts; hold K5 keff_structured_halo against its plain version on
-    every block, the gathered blocks against K1, and the overlap split's
-    three launches against one; time K5 on a 64-plane and the 256-plane
-    slab beside K1 on the same nodes;
+    ghosts; hold K5 keff_structured_halo (K1's plane sweep over a plane
+    range, ghost planes and rows staged from their own buffers) against
+    its plain version on every block, the gathered blocks against K1 and
+    the overlap split's three launches against one (both bit for bit);
+    time K5 on a 64-plane and the 256-plane slab beside K1 on the same
+    nodes;
 15. the sharded main path at full width: the 255^3 cantilever from
     ``build_simulation``, sharded over a one-rank NCCL group
     (``shard_structured``), 8 'auto' (= fused) frames with the overlap
@@ -151,6 +154,28 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device milliseconds per call of the kernels whose names contain
+    ``kernel``, over ``reps`` calls of ``fn`` after one warm-up, from
+    torch.profiler's device events: unlike time_ms, the host's own cost
+    per call (a wrapper's checks) cannot pass for the kernel's time when it
+    is the longer of the two."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU and kernel in e.key)
+    if total <= 0:
+        fail(f"no device time recorded for {kernel}")
+    return total / 1e3 / reps
 
 
 def bound(nbytes: float, flops: float):
@@ -269,7 +294,8 @@ def kernel_phase(device):
         results[label] = (model, pc, x, errs, carries, k6_args)
 
     model, pc, x, errs, carries, k6_args = results["255x255x255"]
-    # K2 against the kernels it fuses: u = K3(r), w = K1(u)
+    # K2 against the kernels it fuses: u = K3(r), w = K1(u); K1 and K2 are
+    # one sweep, so w must equal K1(u) bit for bit
     u, w = k12.apply_pc_keff_fused(model, pc.table, x, ss, mf)
     for name, out, ref in (
         ("u vs K3", u, k3.apply_block_jacobi(model, pc.table, x)),
@@ -282,6 +308,8 @@ def kernel_phase(device):
               f"max abs err {err:.3e} ({rel:.2e} of max|ref|), "
               f"{int((out != ref).sum()):,} of {out.numel():,} values differ"),
               flush=True)
+        if name.startswith("w") and not same:
+            fail("K2's w differs from K1 of its u")
     del u, w
     work = tuple(c.clone() for c in carries)
     times = {
@@ -630,10 +658,11 @@ def check_general_kernels(label, model, x, ss, mf):
             )
     rows = k7.element_force_rows(model, x, ss)
     for name, m in (("assemble_csr", mf), ("assemble_csr mf=0", 0.0)):
-        errs[name] = check_close(
-            f"G1 {label} ({name})", g1.assemble_keff(model, rows, x, m),
-            g1.assemble_keff_plain(model, rows, x, m), OP_TOL,
-        )
+        out = g1.assemble_keff(model, rows, x, m)
+        ref = g1.assemble_keff_plain(model, rows, x, m)
+        errs[name] = check_close(f"G1 {label} ({name})", out, ref, OP_TOL)
+        if not torch.equal(out, ref):  # one thread per node, in slot order
+            fail(f"G1 {label} ({name}): not bit-equal to the plain version")
     errs["apply_keff"] = check_close(
         f"apply_keff {label}", gops.apply_keff(model, x, ss, mf),
         gops.apply_keff_plain(model, x, ss, mf), OP_TOL,
@@ -676,7 +705,7 @@ def time_k7(model, x, ss, block):
 
 
 def time_g1(model, x, mf):
-    """G1: (ms, plain ms, least bytes, least flops, library ms).  The
+    """G1: (device ms, plain ms, least bytes, least flops, library ms).  The
     library call is one CSR sparse-dense product (torch.sparse.mm) over the
     same incidences — the gather-sum only, without mass and identity rows;
     timed as a yardstick, never used by the port."""
@@ -685,7 +714,11 @@ def time_g1(model, x, mf):
     from civiwave_tpu_torch.ops.cuda import element_forces as k7
 
     rows = k7.element_force_rows(model, x, 1.0)
-    ms = time_ms(lambda: g1.assemble_keff(model, rows, x, mf), 20)
+    # the kernel is shorter than the wrapper's host cost at D = 8: time it
+    # by its device events, and print the per-call time beside it
+    ms = device_ms(lambda: g1.assemble_keff(model, rows, x, mf),
+                   "assemble_csr_kernel", 20)
+    call_ms = time_ms(lambda: g1.assemble_keff(model, rows, x, mf), 20)
     plain_ms = time_ms(lambda: g1.assemble_keff_plain(model, rows, x, mf), 3)
     real = model.csr_weight != 0
     nnz = int(real.sum())
@@ -703,7 +736,8 @@ def time_g1(model, x, mf):
     )
     print(f"  G1 library yardstick torch.sparse.mm ({nnz:,} incidences): "
           f"{library_ms:.4f} ms, max abs diff from the plain gather-sum "
-          f"{lib_err:.3e}", flush=True)
+          f"{lib_err:.3e}; G1 kernel {ms:.4f} ms of device time, "
+          f"{call_ms:.4f} ms per wrapper call (CUDA events)", flush=True)
     least = (nbytes(model.csr_idx, model.csr_weight, model.lumped_mass, x,
                     model.bc_mask) + nnz * 12 + nbytes(x))
     flops = 6 * nnz + 7 * model.padded_node_count
@@ -760,6 +794,8 @@ def general_matvec_phase(device, ss, mf):
     x = random_vector(model, device)
     errs = check_general_kernels("hex 66^3", model, x, ss, mf)
     timing = report_time("K7 hex", "hex 66^3", *time_k7(model, x, ss, "hex"))
+    # G1 at D = 8 (its main-path time is the tet box's, D = 24)
+    g1_hex = report_time("G1", "hex 66^3", *time_g1(model, x, mf))
 
     inner = 32
     m_ss, m_mf, rescale = np.float32(1.0), np.float32(4.0e6), np.float32(1.0 / 2.0e11)
@@ -790,7 +826,7 @@ def general_matvec_phase(device, ss, mf):
           flush=True)
     del model, x, y
     torch.cuda.empty_cache()
-    return errs, timing, gdofs
+    return errs, timing, g1_hex, gdofs
 
 
 def profile_window(label, run):
@@ -1398,13 +1434,15 @@ def halo_kernel_phase(device, ss, mf):
                 if not torch.equal(split_keff(local, xt, ghosts, ss, mf), out):
                     fail(f"K5 {label}: the overlap split differs from one launch")
             gathered[:, x0:x0 + xl, y0:y0 + yl] = out
-        k1_err = check_close(f"K5 {label} gathered vs K1", gathered,
-                             k12.apply_keff_fused(model, x, ss, mf), OP_TOL)
+        k1 = k12.apply_keff_fused(model, x, ss, mf)
+        if not torch.equal(gathered, k1):  # one sweep, global classes
+            fail(f"K5 {label}: the gathered tiles differ from K1 "
+                 f"({int((gathered != k1).sum()):,} values)")
+        del k1
         rel = max(r for _, r in errs)
-        worst = max(worst, max(errs, key=lambda e: e[1]), k1_err,
-                    key=lambda e: e[1])
+        worst = max(worst, *errs, key=lambda e: e[1])
         print(f"K5 [{label}]: {len(tiles)} tiles, vs plain max rel err "
-              f"{rel:.2e}, gathered vs K1 {k1_err[1]:.2e}", flush=True)
+              f"{rel:.2e}, gathered vs K1 bit-equal", flush=True)
         if key is not None:
             # an inner slab (both X ghosts real) or the whole grid
             local, xt, ghosts, _ = tiles[min(1, len(tiles) - 1)]
@@ -1602,7 +1640,7 @@ def main() -> int:
     ray = materials.compute_rayleigh(cantilever_config().damping)
     ss, mf = effective_scalars(1.0e-3, ray.alpha, ray.beta)
     general_small_kernel_phase(device, ss, mf)
-    hex_errs, hex_timing, gdofs = general_matvec_phase(device, ss, mf)
+    hex_errs, hex_timing, g1_hex, gdofs = general_matvec_phase(device, ss, mf)
     tet_errs, tet_timings, main_counts = general_main_path_phase(device, ss, mf)
     steps_counts = general_steps_phase(device)
     column_trajectory_phase(device)
@@ -1675,7 +1713,8 @@ def main() -> int:
              launches=main_counts["assemble_csr"],
              max_abs_err=tet_errs["assemble_csr"][0],
              max_rel_err=tet_errs["assemble_csr"][1], tol=OP_TOL,
-             **tet_timings["assemble_csr"]),
+             **tet_timings["assemble_csr"], ms_hex66=g1_hex["ms"],
+             bound_ms_hex66=g1_hex["bound_ms"]),
         # K4 and G2: errors over every grid of phase 11, times at the soil
         # column's grid, launches on its main path (phase 12)
         dict(name="interior_stencil", route="cuda",

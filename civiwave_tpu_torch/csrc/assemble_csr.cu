@@ -17,42 +17,90 @@
 // output equal, bit for bit, to the plain version's unrolled
 // ``out = out + rows[idx[:, d]] * w[:, d]`` on the same rows.
 //
-// Each thread reads its CSR row as int4 / float4 vectors (D is a multiple
-// of 8, so rows are 32-byte aligned) and gathers the 12-byte force rows
-// through L2 (pack sorts elements by min corner node, so a node's incident
-// rows sit close together).  Zero-weight pad slots point at row 0 and add
-// exact zeros.
-//
 // Bound on the H100: device memory.  Least traffic per node: csr_idx and
 // csr_weight 8 D B (192 B at D = 24), mass 4, x 12, mask 3, out 12, plus
-// every force row read once (12 B per incidence).
+// every force row read once (12 B per incidence).  The PR 2 design had each
+// thread read its own CSR row as int4 / float4 loads: a warp's load touched
+// 32 rows 8 D B apart, so the CSR slots (~40 % of the least bytes) arrived
+// uncoalesced, and with 72 scalar row loads per node at D = 24 the kernel
+// was bound by L1 wavefronts and issue (20 % of the bound).  Now a block of
+// T nodes first stages its contiguous slice csr_idx[n0 : n0 + T] and
+// csr_weight[n0 : n0 + T] (2 T D 4 B) into shared memory with coalesced
+// 16-byte cp.async copies, each node's row padded to an odd number S of
+// 16-byte chunks so that eight threads reading chunk q of eight rows hit
+// distinct bank groups; the several blocks resident on an SM overlap one
+// block's staging with another's gathers, and the carveout keeps most of
+// the SM's storage as L1 for the row gathers.  Each thread then reads its slots
+// as int4 / float4 from shared memory and gathers each 12-byte force row as
+// one 8-byte and one 4-byte load (8-byte aligned at 12 r or 12 r + 4 by the
+// parity of r), not three.  Zero-weight pad slots point at row 0 and add
+// exact zeros.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
+constexpr int kMaxThreads = 256;
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+// a += rows[r] * w, one correctly rounded product and sum per component.
+// Row r starts at float 3 r: an even r puts its first two floats on an
+// 8-byte boundary, an odd r its last two.
 __device__ __forceinline__ void add_row(const float* __restrict__ rows, int r,
                                         float w, float& a0, float& a1,
                                         float& a2) {
   const float* p = rows + static_cast<int64_t>(r) * 3;
-  a0 = __fadd_rn(a0, __fmul_rn(__ldg(p + 0), w));
-  a1 = __fadd_rn(a1, __fmul_rn(__ldg(p + 1), w));
-  a2 = __fadd_rn(a2, __fmul_rn(__ldg(p + 2), w));
+  const bool odd = r & 1;
+  const float2 pair = __ldg(reinterpret_cast<const float2*>(p + (odd ? 1 : 0)));
+  const float single = __ldg(p + (odd ? 0 : 2));
+  const float v0 = odd ? single : pair.x;
+  const float v1 = odd ? pair.x : pair.y;
+  const float v2 = odd ? pair.y : single;
+  a0 = __fadd_rn(a0, __fmul_rn(v0, w));
+  a1 = __fadd_rn(a1, __fmul_rn(v1, w));
+  a2 = __fadd_rn(a2, __fmul_rn(v2, w));
 }
 
-__global__ void __launch_bounds__(256) assemble_csr_kernel(
+__global__ void __launch_bounds__(kMaxThreads) assemble_csr_kernel(
     const float* __restrict__ rows, const int* __restrict__ csr_idx,
     const float* __restrict__ csr_weight, const float* __restrict__ mass,
     const float* __restrict__ x, const uint8_t* __restrict__ bc,
-    float* __restrict__ out, int N, int D, float mf) {
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const int4* ip = reinterpret_cast<const int4*>(csr_idx + n * D);
-  const float4* wp = reinterpret_cast<const float4*>(csr_weight + n * D);
+    float* __restrict__ out, int N, int D, int S, float mf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int T = blockDim.x;
+  const int C = D / 4;  // 16-byte chunks of one CSR row
+  int4* sidx = reinterpret_cast<int4*>(smem);
+  float4* sw = reinterpret_cast<float4*>(smem) + T * S;
+  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * T;
+  const int64_t left = N - n0;
+  const int count = left < T ? static_cast<int>(left) : T;
+  // the block's slice: consecutive threads copy consecutive chunks
+  const int4* gi = reinterpret_cast<const int4*>(csr_idx + n0 * D);
+  const float4* gw = reinterpret_cast<const float4*>(csr_weight + n0 * D);
+  for (int i = threadIdx.x; i < count * C; i += T) {
+    const int t = i / C;
+    const int s = t * S + i - t * C;
+    cp_async16(sidx + s, gi + i);
+    cp_async16(sw + s, gw + i);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t >= count) return;
+  const int64_t n = n0 + t;
+  const int4* ip = sidx + t * S;
+  const float4* wp = sw + t * S;
   float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-  for (int q = 0; q < D / 4; ++q) {
-    const int4 i = __ldg(ip + q);
-    const float4 w = __ldg(wp + q);
+#pragma unroll 2
+  for (int q = 0; q < C; ++q) {
+    const int4 i = ip[q];
+    const float4 w = wp[q];
     add_row(rows, i.x, w.x, a0, a1, a2);
     add_row(rows, i.y, w.y, a0, a1, a2);
     add_row(rows, i.z, w.z, a0, a1, a2);
@@ -73,16 +121,54 @@ __global__ void __launch_bounds__(256) assemble_csr_kernel(
 
 }  // namespace
 
+// threads (nodes per block), blocks, row_chunks (S) and smem as computed
+// by ops/cuda/assemble_csr.staging_geometry, refused unless consistent: S
+// is D / 4 made odd, smem = 2 * threads * S * 16 bytes.  csr_idx and
+// csr_weight 16-byte aligned, rows 8-byte aligned.
 extern "C" int civi_assemble_csr(const float* rows, const int* csr_idx,
                                  const float* csr_weight, const float* mass,
                                  const float* x, const unsigned char* bc,
                                  float* out, int N, int D, float mf,
-                                 void* stream) {
+                                 int threads, int blocks, int row_chunks,
+                                 int smem, void* stream) {
   if (N <= 0) return 0;
-  if (D % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256;
-  const unsigned blocks = static_cast<unsigned>((N + threads - 1) / threads);
-  assemble_csr_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rows, csr_idx, csr_weight, mass, x, bc, out, N, D, mf);
+  if (D <= 0 || D % 4 != 0 || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || blocks != (N + threads - 1) / threads ||
+      row_chunks != ((D / 4) | 1) || smem != 2 * threads * row_chunks * 16) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  static int raised = 48 * 1024;  // the dynamic shared memory allowed so far
+  if (smem > raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        assemble_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised = smem;
+  }
+  // Leave most of the SM's unified L1 / shared storage to L1: neighbouring
+  // nodes gather rows that share 32-byte sectors, and those hits are what a
+  // large L1 buys.  Ask for room for two blocks (1 KB reserved each) and at
+  // least a quarter of the SM's shared memory: the 64 KB configuration at
+  // D = 8 and 24 on an H100 (the driver's default takes as much shared
+  // memory as the block count allows).
+  static int carved = -1;  // the carveout set last, in percent
+  int device = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor,
+                               device);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int64_t need = 2 * (static_cast<int64_t>(smem) + 1024);
+  int percent = static_cast<int>((100 * need + per_sm - 1) / per_sm);
+  percent = percent < 25 ? 25 : (percent > 100 ? 100 : percent);
+  if (percent != carved) {
+    e = cudaFuncSetAttribute(assemble_csr_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout, percent);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    carved = percent;
+  }
+  assemble_csr_kernel<<<blocks, threads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      rows, csr_idx, csr_weight, mass, x, bc, out, N, D, row_chunks, mf);
   return static_cast<int>(cudaGetLastError());
 }

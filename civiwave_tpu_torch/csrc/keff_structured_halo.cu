@@ -3,8 +3,8 @@
 //
 //   out = bc ? x : ss * K(xs) + mf * mass * xs,    xs = bc ? 0 : x,
 //
-// on a (3, Xl, Yl, Z) block, over its local planes [p0, p1).  Two wrappers
-// launch it, each with its own launch count:
+// on a (3, Xl, Yl, Z) block, over its local planes [p0, p1), writing only
+// those planes of out.  Two wrappers launch it, each with its own count:
 //
 // * K1 (ops/cuda/structured_stencil.apply_keff_fused): a whole grid, no
 //   ghosts, offsets 0.  Replaces the Pallas kernel apply_keff_fused_pallas
@@ -19,39 +19,58 @@
 // The Pallas kernel streams X planes through VMEM, rolls (Y, Z) planes in
 // registers and subtracts inclusion-exclusion face/edge/corner corrections,
 // switched per shard by the face indices and ownership scalars.  None of
-// that carries over.  Here one thread computes the 3 components of one
-// node, z fastest: it reads its 27 neighbours, sanitizes them by their
-// constraint masks and applies the node's own per-boundary-class stencil
-// from a (27 classes, 27 offsets, 3, 3) f32 table (ops/structured.py
-// class_stencil_table, 26 KB, read through the read-only cache).  The class
-// is taken at the node's GLOBAL coordinate (x0 + ix against nx, y0 + iy
-// against ny; the dead +X planes and +Y rows land in class 2 and are
-// constrained), so the table already holds each node's exact taps and no
-// correction pass exists.  The lumped mass is m8 * 2^-k from the class;
-// identity rows are written by select.  ss, mf and m8 are launch
-// arguments: a new dt rebuilds nothing.
-//
-// Neighbours outside the block come from ghost buffers exchanged with the
-// neighbouring shards: the X ghost planes (3, Yl + 2 gy, Z) below plane 0
-// and above plane Xl - 1 and, in the 2-D (X, Y) decomposition (gy = 1), the
-// Y ghost rows (3, Xl, Z) below row 0 and above row Yl - 1.  In 2-D the X
-// planes are Y-extended: their rows 0 and Yl + 1 carry the diagonal
-// neighbours' corner values (relayed through the Y exchange).  A missing
-// ghost buffer (null) reads as zero: the zero fill a shard at a global end
-// receives, and the outside of a whole grid.  Each ghost value is sanitized
-// by its own ghost mask (null: free).  The ghosts are read from their own
-// buffers, so no ghost-padded copy of the block is made per matvec.  A
-// neighbour row is looked up once per (dx, dy) and reused over dz.
+// that carries over.  A node's taps and mass come from its boundary class at
+// its GLOBAL coordinate (x0 + ix against nx, y0 + iy against ny; the dead
+// +X planes and +Y rows land in class 2 and are constrained), so no
+// correction pass exists.  ss, mf and m8 are launch arguments: a new dt
+// rebuilds nothing.
 //
 // Bound on the H100: device memory.  Per matvec the kernel must read x
-// (12 B/node) and the mask (3 B/node) once and write out (12 B/node), plus
-// the ghost planes and rows (15 B per ghost node): ~0.45 GB at 255^3 cells
-// (16.8M nodes), ~0.13 ms at 3.35 TB/s.  The 27-fold neighbour reuse is
-// left to L1/L2 in this first version; shared-memory 2.5-D blocking is
-// later work.
+// (12 B/node) and the mask (3 B/node) once and write out (12 B/node): 27 B
+// per node, plus 15 B per ghost node read (~0.45 GB at 255^3 cells, 0.135
+// ms at 3.35 TB/s).  The PR 1/PR 5 design gave each thread one node and
+// read its 27 neighbours' 3 values and 3 mask bytes from device memory and
+// each neighbour's 9 taps from the class table: ~405 load instructions per
+// node, the reuse left to L1/L2, 12 % of the bound, limited by issue.
+//
+// Now it is the plane sweep of K2 and K6 (structured.cuh, civi::sweep): a
+// block of 256 threads owns 8 x 32 (y, z) columns over a chunk of 32 planes
+// of [p0, p1).  Each plane's x and mask, tile plus a one-node halo, arrive
+// by cp.async two planes ahead; each node is sanitized once (select) into
+// shared memory, and three register accumulators per thread take the
+// outputs at x = j + 1, j and j - 1.  The interior taps and the z-face
+// ghost taps are a kernel parameter (constant bank); only y-face rows and
+// the planes next to an x face read the class table.  The own x and mask
+// stay in registers from one plane to the next for the mass term and the
+// identity row.  The stencil stays f32 FMA: the tensor cores' TF32 keeps
+// about three digits, far from the 1e-5 of max|ref| the kernel is held to.
+//
+// Ghosts and plane ranges.  A staged row of plane jx, row jy (local) comes
+// from the block (3, Xl, Yl, Z) when both lie inside it; from an X ghost
+// plane (3, Yl + 2 gy, Z), row jy + gy, at jx = -1 or Xl; in the 2-D
+// (X, Y) decomposition (gy = 1) from a Y ghost row (3, Xl, Z), offset
+// jx * Z, at jy = -1 or Yl; else it reads as zero.  The 2-D X ghost planes
+// are Y-extended: their rows 0 and Yl + 1 carry the diagonal corners.  A
+// null ghost buffer reads as zero, a null ghost mask as free.  So the
+// halo planes p0 - 1 and p1 come from the block where they lie inside it
+// (the overlap split's interior launch [1, Xl - 1) reads no X ghost), and a
+// halo plane beyond the block with no ghost buffer is skipped.  Block rows
+// move as VecStager's precomputed 16-byte copies where Z % 4 == 0 (the
+// path of K2 and K6); ghost rows, and every row otherwise, as per-row
+// 4-byte copies (values) and aligned words (mask) found per plane.
+//
+// Bits: each output receives its planes in the order dx = -1, 0, +1 and
+// each plane in apply_plane's (dy, dz) order, with taps chosen by global
+// classes; a zero plane or row adds exact zeros.  So every slab or tile
+// cut, gathered, equals the whole grid, the overlap split's three launches
+// equal one, and K2's w equals this kernel applied to K2's u, bit for bit.
+#include <cstring>
+
 #include "structured.cuh"
 
 namespace {
+
+using namespace civi::sweep;
 
 struct HaloArgs {
   const float* x;
@@ -62,110 +81,293 @@ struct HaloArgs {
   // Y ghost rows below row 0 / above row Yl - 1, (3, Xl, Z); gy = 1 only
   const float *gy_lo, *gy_hi;
   const uint8_t *bgy_lo, *bgy_hi;
-  int Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0;
+  int Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1, chunk;
+  float ss, mf, m8;
 };
 
-// A Z-row of the shard's neighbourhood: component 0 of its z = 0 entry, the
-// stride between components, and its mask (null: free).  False where the
-// row lies outside the grid or its ghost buffer is missing (zero).
-struct Row {
-  const float* x;
-  const uint8_t* b;
+// A staged row's source: component 0 of its z = 0 entry (null: zero), its
+// mask (null: free) and the stride between components.
+struct Src {
+  const float* v;
+  const uint8_t* m;
   int64_t cs;
 };
 
-__device__ __forceinline__ bool find_row(const HaloArgs& a, int jx, int jy,
-                                         Row& r) {
+__device__ __forceinline__ Src row_source(const HaloArgs& a, int jx, int jy) {
   const int gy = a.ghost_y;
   if (jx >= 0 && jx < a.Xl) {
     if (jy >= 0 && jy < a.Yl) {  // the shard's own block
       const int64_t off = (static_cast<int64_t>(jx) * a.Yl + jy) * a.Z;
-      r.x = a.x + off;
-      r.b = a.bc + off;
-      r.cs = static_cast<int64_t>(a.Xl) * a.Yl * a.Z;
-      return true;
+      return {a.x + off, a.bc + off, static_cast<int64_t>(a.Xl) * a.Yl * a.Z};
     }
-    if (!gy || jy < -1 || jy > a.Yl) return false;
+    if (!gy || jy < -1 || jy > a.Yl) return {nullptr, nullptr, 0};
     // a Y ghost row (selects, not an index: no local copy of the params)
     const float* g = jy < 0 ? a.gy_lo : a.gy_hi;
     const uint8_t* bg = jy < 0 ? a.bgy_lo : a.bgy_hi;
-    if (g == nullptr) return false;
+    if (g == nullptr) return {nullptr, nullptr, 0};
     const int64_t off = static_cast<int64_t>(jx) * a.Z;
-    r.x = g + off;
-    r.b = bg == nullptr ? nullptr : bg + off;
-    r.cs = static_cast<int64_t>(a.Xl) * a.Z;
-    return true;
+    return {g + off, bg == nullptr ? nullptr : bg + off,
+            static_cast<int64_t>(a.Xl) * a.Z};
   }
+  if (jx < -1 || jx > a.Xl) return {nullptr, nullptr, 0};
   const float* g = jx < 0 ? a.gx_lo : a.gx_hi;  // an X ghost plane
   const uint8_t* bg = jx < 0 ? a.bgx_lo : a.bgx_hi;
   const int rows = a.Yl + 2 * gy;
   const int ry = jy + gy;
-  if (g == nullptr || ry < 0 || ry >= rows) return false;
+  if (g == nullptr || ry < 0 || ry >= rows) return {nullptr, nullptr, 0};
   const int64_t off = static_cast<int64_t>(ry) * a.Z;
-  r.x = g + off;
-  r.b = bg == nullptr ? nullptr : bg + off;
-  r.cs = static_cast<int64_t>(rows) * a.Z;
-  return true;
+  return {g + off, bg == nullptr ? nullptr : bg + off,
+          static_cast<int64_t>(rows) * a.Z};
 }
 
-__global__ void __launch_bounds__(256) keff_structured_halo_kernel(
-    const HaloArgs a, const float* __restrict__ stencil,
-    float* __restrict__ out, float ss, float mf, float m8) {
-  const int ix = a.p0 + static_cast<int>(blockIdx.x) / a.Yl;
-  const int iy = static_cast<int>(blockIdx.x) % a.Yl;
-  const int64_t comp = static_cast<int64_t>(a.Xl) * a.Yl * a.Z;
-  const int cx = civi::node_class(a.x0 + ix, a.nx);
-  const int cy = civi::node_class(a.y0 + iy, a.ny);
-  for (int iz = threadIdx.x; iz < a.Z; iz += blockDim.x) {
-    const int cz = civi::node_class(iz, a.nz);
-    const float* tab = stencil + ((cx * 3 + cy) * 3 + cz) * 27 * 9;
-    float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f;
-    for (int dx = -1; dx <= 1; ++dx) {
-      for (int dy = -1; dy <= 1; ++dy) {
-        Row r;
-        if (!find_row(a, ix + dx, iy + dy, r)) continue;
-        for (int dz = -1; dz <= 1; ++dz) {
-          const int jz = iz + dz;
-          if (jz < 0 || jz >= a.Z) continue;
-          const float* px = r.x + jz;
-          float v0 = __ldg(px), v1 = __ldg(px + r.cs), v2 = __ldg(px + 2 * r.cs);
-          if (r.b != nullptr) {
-            const uint8_t* pb = r.b + jz;
-            v0 = pb[0] ? 0.0f : v0;
-            v1 = pb[r.cs] ? 0.0f : v1;
-            v2 = pb[2 * r.cs] ? 0.0f : v2;
-          }
-          civi::add_taps(tab + (((dx + 1) * 3 + (dy + 1)) * 3 + (dz + 1)) * 9,
-                         v0, v1, v2, a0, a1, a2);
-        }
+// Byte offset of halo column 0 (z0 - 1) of component c's staged mask row
+// within its aligned first word: the row's address mod 4.
+__device__ __forceinline__ int src_shift(const Src& s, int c, int z0) {
+  return static_cast<int>((reinterpret_cast<uintptr_t>(s.m) +
+                           static_cast<uintptr_t>(c * s.cs) + z0 - 1) & 3u);
+}
+
+// Issues the copies of staged rows [row0, row0 + nrows) of plane jx from
+// their sources, whatever they are: one warp per value row (channel c),
+// 4-byte copies of its in-row columns; three mask rows per warp as aligned
+// words, a word that reaches outside the row copied byte by byte.
+__device__ __forceinline__ void stage_rows(const HaloArgs& a, float* st,
+                                           uint8_t* mst, int jx, int y0,
+                                           int z0, int row0, int nrows) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  for (int p = warp; p < 3 * nrows; p += kWarps) {
+    const int c = p / nrows;
+    const int row = row0 + p - c * nrows;
+    const Src s = row_source(a, jx, y0 - 1 + row);
+    if (s.v == nullptr) continue;
+    const float* g = s.v + c * s.cs + z0 - 1;
+    float* d = st + c * kStagePlane + row * kStageRow + 3;  // column z0 - 1
+    const int z = z0 - 1 + lane;
+    if (z >= 0 && z < a.Z) cp_async4(d + lane, g + lane);
+    if (lane < kHaloZ - 32 && z + 32 < a.Z) cp_async4(d + 32 + lane, g + 32 + lane);
+  }
+  constexpr int kRowsPerWarp = 32 / kMaskWords;
+  for (int q0 = warp * kRowsPerWarp; q0 < 3 * nrows; q0 += kWarps * kRowsPerWarp) {
+    const int q = q0 + lane / kMaskWords;
+    const int k = lane % kMaskWords;
+    if (lane >= kRowsPerWarp * kMaskWords || q >= 3 * nrows) continue;
+    const int c = q / nrows;
+    const int row = row0 + q - c * nrows;
+    const Src s = row_source(a, jx, y0 - 1 + row);
+    if (s.v == nullptr || s.m == nullptr) continue;
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(s.m + c * s.cs);
+    const uintptr_t hi = lo + a.Z;
+    const uintptr_t w = ((lo + z0 - 1) & ~uintptr_t{3}) + 4 * k;
+    uint8_t* d = mst + (c * kHaloY + row) * kMaskRow + 4 * k;
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(w);
+    if (w >= lo && w + 4 <= hi) {
+      cp_async4(d, src);
+    } else {
+      for (int b = 0; b < 4; ++b) {
+        if (w + b >= lo && w + b < hi) d[b] = src[b];
       }
-    }
-    const int64_t n0 = (static_cast<int64_t>(ix) * a.Yl + iy) * a.Z + iz;
-    const float mass = m8 * civi::class_weight(cx) * civi::class_weight(cy) *
-                       civi::class_weight(cz);
-    const float mm = mf * mass;
-    const float acc[3] = {a0, a1, a2};
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      const int64_t nb = n0 + b * comp;
-      const float xb = a.x[nb];
-      // identity row by select: a constrained output is the input itself
-      out[nb] = a.bc[nb] ? xb : ss * acc[b] + mm * xb;
     }
   }
 }
 
+// xs of halo node (hy, hz) of plane jx into ub; returns x and the mask
+// there.  A row with no source reads as x = 0, free.
+template <bool VEC>
+__device__ __forceinline__ void transform(const HaloArgs& a, const float* sp,
+                                          const uint8_t* mp, float* ub,
+                                          int jx, int y0, int z0, int hy,
+                                          int hz, float (&xv)[3],
+                                          bool (&fixed)[3]) {
+  const int jy = y0 - 1 + hy;
+  const int jz = z0 - 1 + hz;
+  float q[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    xv[c] = 0.0f;
+    q[c] = 0.0f;
+    fixed[c] = false;
+  }
+  if (jz >= 0 && jz < a.Z) {
+    // VEC: every row and buffer is word aligned and z0 - 1 = 3 mod 4
+    int shift[3] = {3, 3, 3};
+    bool valid = true, masked = true;
+    if (jx >= 0 && jx < a.Xl && jy >= 0 && jy < a.Yl) {
+      if constexpr (!VEC) {
+        const uint32_t comp = static_cast<uint32_t>(a.Xl) * a.Yl * a.Z;
+        const uint32_t rowoff = (static_cast<uint32_t>(jx) * a.Yl + jy) * a.Z;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) shift[c] = mask_shift(comp, c, rowoff, z0);
+      }
+    } else {
+      const Src s = row_source(a, jx, jy);
+      valid = s.v != nullptr;
+      masked = s.m != nullptr;
+      if constexpr (!VEC) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) shift[c] = src_shift(s, c, z0);
+      }
+    }
+    if (valid) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        xv[c] = sp[c * kStagePlane + hy * kStageRow + 3 + hz];
+        fixed[c] = masked && mp[(c * kHaloY + hy) * kMaskRow + shift[c] + hz] != 0;
+        // select, not multiply: a constrained component is +0.0
+        q[c] = fixed[c] ? 0.0f : xv[c];
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) ub[c * kPlane + hy * kHaloZ + hz] = q[c];
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(kThreads) keff_sweep_kernel(
+    const __grid_constant__ HaloArgs a, const __grid_constant__ Taps taps,
+    const float* __restrict__ stencil, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kStage = 3 * kStagePlane;  // floats per staging buffer
+  constexpr int kMaskStage = 3 * kHaloY * kMaskRow;
+  float* st = reinterpret_cast<float*>(smem);
+  float* ub = st + kStages * kStage;
+  uint8_t* mst = reinterpret_cast<uint8_t*>(ub + 3 * kPlane);
+
+  const int tz = threadIdx.x % kTileZ;
+  const int ty = threadIdx.x / kTileZ;
+  const int z0 = blockIdx.x * kTileZ;
+  const int y0 = blockIdx.y * kTileY;
+  const int x_lo = a.p0 + blockIdx.z * a.chunk;
+  const int x_hi = min(x_lo + a.chunk, a.p1);
+  const int iy = y0 + ty;
+  const int iz = z0 + tz;
+  const bool own = iy < a.Yl && iz < a.Z;
+  const int64_t comp = static_cast<int64_t>(a.Xl) * a.Yl * a.Z;
+  const int ocy = civi::node_class(a.y0 + iy, a.ny);
+  const int ocz = civi::node_class(iz, a.nz);
+
+  float acc[3][3] = {};
+  float px[3] = {0.0f, 0.0f, 0.0f};  // own x and mask of the plane before
+  bool pfix[3] = {false, false, false};
+
+  // the output at local plane xo from acc[0] and the own x, mask there
+  auto emit = [&](int xo) {
+    const float mm =
+        civi::mass_scale(a.mf, a.m8, civi::node_class(a.x0 + xo, a.nx), ocy, ocz);
+    const int64_t n0 = (static_cast<int64_t>(xo) * a.Yl + iy) * a.Z + iz;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      out[n0 + b * comp] = civi::keff_out(pfix[b], px[b], acc[0][b], a.ss, mm);
+    }
+  };
+
+  // the halo planes: in the block, or a ghost plane beyond it where the
+  // caller gave one (none: nothing to add)
+  const int jlo = (x_lo > 0 || a.gx_lo != nullptr) ? x_lo - 1 : x_lo;
+  const int jhi = (x_hi < a.Xl || a.gx_hi != nullptr) ? x_hi : x_hi - 1;
+  // 2-D: the staged rows that are Y ghost rows (-1: none in this tile)
+  const int ghost_row_lo = a.ghost_y && y0 == 0 ? 0 : -1;
+  const int ghost_row_hi =
+      a.ghost_y && a.Yl - y0 + 1 < kHaloY ? a.Yl - y0 + 1 : -1;
+  const VecStager<1> vs(a.x, a.x, a.x, y0, z0, a.Yl, a.Z, comp);
+  // issues the copies of plane jx into staging buffer b
+  auto stage = [&](int jx, int b) {
+    float* sb = st + b * kStage;
+    uint8_t* mb = mst + b * kMaskStage;
+    if (VEC && jx >= 0 && jx < a.Xl) {
+      // block rows by the precomputed copies; rows outside the block are
+      // null there and come from the Y ghost rows
+      vs.issue(sb, mb, a.bc, static_cast<int64_t>(jx) * a.Yl * a.Z, 3 * comp);
+      if (ghost_row_lo >= 0) stage_rows(a, sb, mb, jx, y0, z0, ghost_row_lo, 1);
+      if (ghost_row_hi >= 0) stage_rows(a, sb, mb, jx, y0, z0, ghost_row_hi, 1);
+    } else {
+      stage_rows(a, sb, mb, jx, y0, z0, 0, kHaloY);
+    }
+  };
+  // planes jlo .. jlo + kStages - 2 in flight, one commit group each
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (jlo + k <= jhi) stage(jlo + k, k);
+    cp_async_commit();
+  }
+  for (int j = jlo; j <= jhi; ++j) {
+    const int buf = (j - jlo) % kStages;
+    // the buffer of plane j + kStages - 1 held plane j - 1, which every
+    // thread finished transforming before the last barrier
+    const int ahead = j + kStages - 1;
+    if (ahead <= jhi) stage(ahead, (ahead - jlo) % kStages);
+    cp_async_commit();
+    cp_async_wait_oldest();
+    __syncthreads();
+    const float* sp = st + buf * kStage;
+    const uint8_t* mp = mst + buf * kMaskStage;
+    float cx[3];
+    bool cfix[3];
+    transform<VEC>(a, sp, mp, ub, j, y0, z0, ty + 1, tz + 1, cx, cfix);
+    if (threadIdx.x < kRing) {
+      int hy, hz;
+      ring_node(threadIdx.x, hy, hz);
+      float xv[3];
+      bool fx[3];
+      transform<VEC>(a, sp, mp, ub, j, y0, z0, hy, hz, xv, fx);
+    }
+    __syncthreads();
+    apply_plane(ub, ty, tz, a.x0 + j, ocy, ocz, a.nx, taps, stencil, acc);
+    if (own && j - 1 >= x_lo) emit(j - 1);
+    shift_window(acc);
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      px[b] = cx[b];
+      pfix[b] = cfix[b];
+    }
+  }
+  // the chunk's last plane has no plane after it
+  if (own && jhi == x_hi - 1) emit(jhi);
+}
+
+template <bool VEC>
+int launch(const HaloArgs& a, const Taps& taps, const float* stencil,
+           float* out, dim3 grid, int smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    static bool raised = false;  // once per process
+    if (!raised) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          keff_sweep_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      raised = true;
+    }
+  }
+  keff_sweep_kernel<VEC><<<grid, kThreads, smem, stream>>>(a, taps, stencil, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// taps: the 405 floats of Taps (host memory, copied into the launch's
+// parameters); tile, chunk, grid and smem as computed by
+// ops/cuda/plane_sweep.py for planes [p0, p1), refused unless they match
+// this build; vec: 16-byte copies of the block's rows (Z % 4 == 0, x
+// 16-byte aligned), every mask buffer 4-byte aligned either way
 extern "C" int civi_keff_structured_halo(
     const float* x, const unsigned char* bc, const float* gx_lo,
     const unsigned char* bgx_lo, const float* gx_hi,
     const unsigned char* bgx_hi, const float* gy_lo,
     const unsigned char* bgy_lo, const float* gy_hi,
-    const unsigned char* bgy_hi, const float* stencil, float* out, int Xl,
-    int Yl, int Z, int ghost_y, int x0, int y0, int nx, int ny, int nz,
-    int p0, int p1, float ss, float mf, float m8, void* stream) {
-  if (Xl <= 0 || Yl <= 0 || Z <= 0 || p1 <= p0) return 0;
+    const unsigned char* bgy_hi, const float* stencil, const float* taps,
+    float* out, int Xl, int Yl, int Z, int ghost_y, int x0, int y0, int nx,
+    int ny, int nz, int p0, int p1, float ss, float mf, float m8, int tile_y,
+    int tile_z, int chunk, int grid_x, int grid_y, int grid_z, int smem,
+    int vec, void* stream) {
+  if (Xl <= 0 || Yl <= 0 || Z <= 0 || p0 < 0 || p1 > Xl) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (p1 <= p0) return 0;
+  if (tile_y != kTileY || tile_z != kTileZ || chunk <= 0 ||
+      smem != smem_bytes(1) || grid_x != (Z + kTileZ - 1) / kTileZ ||
+      grid_y != (Yl + kTileY - 1) / kTileY ||
+      grid_z != (p1 - p0 + chunk - 1) / chunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   HaloArgs a;
   a.x = x;
   a.bc = bc;
@@ -187,11 +389,18 @@ extern "C" int civi_keff_structured_halo(
   a.ny = ny;
   a.nz = nz;
   a.p0 = p0;
-  keff_structured_halo_kernel<<<static_cast<unsigned>((p1 - p0) * Yl),
-                                civi::row_threads(Z), 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      a, stencil, out, ss, mf, m8);
-  return static_cast<int>(cudaGetLastError());
+  a.p1 = p1;
+  a.chunk = chunk;
+  a.ss = ss;
+  a.mf = mf;
+  a.m8 = m8;
+  Taps t;
+  static_assert(sizeof(Taps) == 405 * sizeof(float), "Taps is 405 floats");
+  std::memcpy(&t, taps, sizeof(Taps));
+  const dim3 grid(grid_x, grid_y, grid_z);
+  const auto s = static_cast<cudaStream_t>(stream);
+  return vec ? launch<true>(a, t, stencil, out, grid, smem, s)
+             : launch<false>(a, t, stencil, out, grid, smem, s);
 }
 
 extern "C" const char* civi_error_string(int code) {

@@ -159,14 +159,12 @@ __global__ void __launch_bounds__(kThreads) pcg_iteration_sweep_kernel(
 
   // w' at x (class cx) from acc[0] and the own u', mask there
   auto emit = [&](int xo, int cx) {
-    const float mass = a.m8 * civi::class_weight(cx) *
-                       civi::class_weight(ocy) * civi::class_weight(ocz);
-    const float mm = a.mf * mass;
+    const float mm = civi::mass_scale(a.mf, a.m8, cx, ocy, ocz);
     const int64_t n0 = (static_cast<int64_t>(xo) * a.Y + iy) * a.Z + iz;
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
       // identity row: the operator input u' is already +0.0 there
-      const float wb = pfix[b] ? pu[b] : a.ss * acc[0][b] + mm * pu[b];
+      const float wb = civi::keff_out(pfix[b], pu[b], acc[0][b], a.ss, mm);
       w_out[n0 + b * comp] = wb;
       wu += wb * pu[b];
     }

@@ -4,9 +4,9 @@
 //
 // Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
 // row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
-// (torch.bool).  K1/K5 and K3 launch one block per (x, y) row of the node
-// grid and let the threads stride over z; K4 and G2 give each thread one
-// node of the flat index; K2 and K6 sweep tiles of (y, z) columns along X
+// (torch.bool).  K3 launches one block per (x, y) row of the node grid and
+// lets the threads stride over z; K4 and G2 give each thread one node of the
+// flat index; K1/K5, K2 and K6 sweep tiles of (y, z) columns along X
 // through shared memory (the plane sweep below).  Either way neighbouring
 // threads touch neighbouring addresses.  Offsets into the vectors are
 // 64-bit.
@@ -31,14 +31,21 @@ __device__ __forceinline__ float class_weight(int c) {
   return c == 1 ? 1.0f : 0.5f;
 }
 
-// a += K v for one neighbour: the 3x3 tap block k (row-major, read through
-// the read-only cache) times its three sanitized components (K1/K5).
-__device__ __forceinline__ void add_taps(const float* __restrict__ k, float v0,
-                                         float v1, float v2, float& a0,
-                                         float& a1, float& a2) {
-  a0 += __ldg(k + 0) * v0 + __ldg(k + 1) * v1 + __ldg(k + 2) * v2;
-  a1 += __ldg(k + 3) * v0 + __ldg(k + 4) * v1 + __ldg(k + 5) * v2;
-  a2 += __ldg(k + 6) * v0 + __ldg(k + 7) * v1 + __ldg(k + 8) * v2;
+// mf times the lumped mass of a node of axis classes (cx, cy, cz).
+__device__ __forceinline__ float mass_scale(float mf, float m8, int cx, int cy,
+                                            int cz) {
+  return __fmul_rn(mf, m8 * class_weight(cx) * class_weight(cy) *
+                           class_weight(cz));
+}
+
+// One component of the effective-stiffness operator's output from its
+// stencil sum acc: the input itself on a constrained component (identity
+// row, by select), else ss * acc + mm * x as one FMA over one product.
+// Spelled out, not left to contraction, so that K1/K5, K2 and K6 write the
+// same bits for the same sanitized input.
+__device__ __forceinline__ float keff_out(bool fixed, float x, float acc,
+                                          float ss, float mm) {
+  return fixed ? x : __fmaf_rn(ss, acc, __fmul_rn(mm, x));
 }
 
 // The six packed components 00, 11, 22, 01, 02, 12 of one class's
@@ -116,7 +123,7 @@ __device__ __forceinline__ void store_block_sums3(float s0, float s1, float s2,
 }
 
 // ---------------------------------------------------------------------------
-// The plane sweep of K2 and K6.
+// The plane sweep of K1/K5, K2 and K6.
 //
 // A block owns a tile of kTileY x kTileZ (y, z) node columns (one warp per
 // y row, one thread per column) over a chunk of X planes, and walks the
@@ -413,7 +420,9 @@ __device__ __forceinline__ void subtract_z_ghosts(const float* ub, int ty,
   }
 }
 
-// Adds plane j to the three outputs.  Where the thread's row (y) and the
+// Adds plane j to the three outputs.  j is the plane's global x (a shard
+// adds its offset) and ocy its row's global class, so which taps apply
+// depends on global classes only.  Where the thread's row (y) and the
 // three output planes (x) are of the interior class — every warp but those
 // of a y face and every plane but the two next to an x face — from the
 // constant bank: the interior stencil, then at a z-face column the ghost

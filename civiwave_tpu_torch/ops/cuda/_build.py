@@ -63,8 +63,11 @@ _SIGNATURES = {
     # x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream
     "civi_element_forces_tet": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "civi_element_forces_hex": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
-    # rows, csr_idx, csr_weight, mass, x, bc, out, N, D, mf, stream
-    "civi_assemble_csr": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    # rows, csr_idx, csr_weight, mass, x, bc, out, N, D, mf, threads,
+    # blocks, row_chunks, smem, stream
+    "civi_assemble_csr": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P,
+    ),
     # xs, taps (243 host floats), out, X, Y, Z, stream
     "civi_interior_stencil": (_P, _P, _P, _I, _I, _I, _P),
     # interior, x, bc, ghost, out, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
@@ -72,11 +75,12 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
     ),
     # (K1 and K5) x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi,
-    # bgy_hi, stencil, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1,
-    # ss, mf, m8, stream
+    # bgy_hi, stencil, taps, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0,
+    # p1, ss, mf, m8, geometry, vec, stream
     "civi_keff_structured_halo": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
 }
 

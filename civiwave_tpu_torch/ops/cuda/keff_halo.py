@@ -17,7 +17,11 @@ The mask's ghosts are the model's ``bc_ghosts`` (exchanged once, at shard
 time).  A ghost that is None reads as zero and free.  A node's taps and
 mass come from its boundary class at its global coordinate (``x0 + ix``,
 ``y0 + iy``), so the reference's face indices and ownership scalars have
-no counterpart.
+no counterpart.  The kernel is a plane sweep (``plane_sweep.py``) over the
+plane range; the halo planes next to the range come from the block where
+they lie inside it, so the overlap split's interior launch reads no X
+ghost.  Every cut, gathered, equals the whole grid bit for bit, and the
+split's three launches equal one.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises (f32, contiguous, the shard's shapes).
@@ -31,7 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, plane_sweep
 
 
 def _ghost_y(model) -> int:
@@ -110,8 +114,9 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
     """Check the operands and launch the operator kernel once on planes
     ``planes`` (None: all) of ``out`` (new if None), which is returned.
     ``ghosts`` is a shard's (an ``ops.structured_sharded.Ghosts``) or None
-    on a whole grid.  Raises on a launch error; the caller counts the
-    launch."""
+    on a whole grid.  The kernel is the plane sweep of ``plane_sweep.py``
+    over that range; it takes the model's ``sweep_taps`` by value.  Raises
+    on a launch error; the caller counts the launch."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -123,6 +128,9 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
         model.stencil_table, "stencil_table", (27, 27, 3, 3), torch.float32,
         dev,
     )
+    # mask rows are staged as aligned 4-byte words
+    _build.check_aligned(model.bc_mask, "bc_mask", 4)
+    taps = plane_sweep.sweep_taps32(model)
     gy = _ghost_y(model)
     ptrs = []  # each side's values, then its mask; None reads as zero
     for side in ("x_lo", "x_hi") + (("y_lo", "y_hi") if gy else ()):
@@ -131,9 +139,12 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
                          (getattr(model.bc_ghosts, side, None), torch.bool)):
             if g is not None:
                 _build.check_tensor(g, f"ghost {side}", gshape, dtype, dev)
+                if dtype == torch.bool:
+                    _build.check_aligned(g, f"ghost {side} mask", 4)
             ptrs.append(None if g is None else g.data_ptr())
     ptrs += [None] * (8 - len(ptrs))
     p0, p1 = _planes(model, planes)
+    geom = plane_sweep.sweep_geometry(model.grid_shape, 1, (p0, p1))
     if out is None:
         out = torch.empty_like(x)
     _build.check_tensor(out, "out", shape, torch.float32, dev)
@@ -141,10 +152,11 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
     with torch.cuda.device(dev):
         code = library.lib.civi_keff_structured_halo(
             x.data_ptr(), model.bc_mask.data_ptr(), *ptrs,
-            model.stencil_table.data_ptr(), out.data_ptr(),
+            model.stencil_table.data_ptr(), taps.ctypes.data, out.data_ptr(),
             xl, yl, z, gy, model.x0, model.y0, model.nx, model.ny, model.nz,
             p0, p1, float(np.float32(stiffness_scale)),
             float(np.float32(mass_factor)), float(np.float32(model.m8)),
+            *geom.launch_args(), plane_sweep.vector_copies(z, x),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(library, name, code)

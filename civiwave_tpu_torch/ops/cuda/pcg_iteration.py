@@ -29,7 +29,8 @@ import numpy as np
 import torch
 
 from . import _build, plane_sweep
-from .structured_stencil import _launch_args, sweep_taps32
+from .plane_sweep import sweep_taps32
+from .structured_stencil import _launch_args
 
 
 def pcg_iteration_fused_plain(

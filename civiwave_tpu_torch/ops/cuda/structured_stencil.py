@@ -6,8 +6,8 @@ K1, ``keff_structured``, replaces the Pallas kernel
 structured_stencil.py:931, pallas_call at :1041/:1068): the complete
 ``bc ? x : ss * K(xs) + mf * mass * xs`` in one pass.  It launches the
 shard operator kernel of ``csrc/keff_structured_halo.cu`` (K5,
-``keff_halo.py``) on the whole grid with no ghosts, as the reference's
-sharded forms call the same Pallas function.
+``keff_halo.py``), a plane sweep, on the whole grid with no ghosts, as the
+reference's sharded forms call the same Pallas function.
 
 K2, ``pc_keff_structured`` (``csrc/pc_keff_structured.cu``), replaces
 ``apply_pc_keff_fused_pallas`` (structured_stencil.py:820, pallas_call at
@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from . import _build, keff_halo, plane_sweep
+from .plane_sweep import sweep_taps32
 
 
 def _launch_args(model, residual_or_x):
@@ -43,19 +44,6 @@ def _launch_args(model, residual_or_x):
         dev,
     )
     return _build.load_library(), dev, torch.cuda.current_stream(dev).cuda_stream
-
-
-def sweep_taps32(model) -> np.ndarray:
-    """The model's host copy of the taps K2 and K6 take by value (405 f32:
-    ``ops.structured.sweep_taps``)."""
-    taps = model.sweep_taps
-    if taps is None:
-        raise ValueError("model has no sweep_taps (build it with "
-                         "build_structured_model or convert)")
-    taps = np.ascontiguousarray(taps, dtype=np.float32)
-    if taps.shape != (405,):
-        raise ValueError(f"sweep_taps: shape {taps.shape}, expected (405,)")
-    return taps
 
 
 def apply_keff_fused_plain(model, x, stiffness_scale, mass_factor):

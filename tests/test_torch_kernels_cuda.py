@@ -14,6 +14,9 @@ without it:
 
 Tolerances: operator and preconditioner outputs at 1e-5 * max|ref|, dots
 at rtol 1e-5 (the sums run in another order than the plain version's).
+Bit for bit (``torch.equal``): the operator sweep K1/K5 on every slab or
+tile cut against the whole grid, the overlap split against one launch, K2's
+w against K1 of K2's u, and G1 against its plain version.
 """
 
 import dataclasses
@@ -62,8 +65,8 @@ SHAPES = {
     ])),
     "z_longer_than_a_block": ((2, 3, 300), {}),
 }
-# K2 and K6 sweep tiles of 8 x 32 (y, z) columns over chunks of 32 X planes
-# (ops/cuda/plane_sweep.py): grids whose tiles meet the edges
+# K1/K5, K2 and K6 sweep tiles of 8 x 32 (y, z) columns over chunks of 32 X
+# planes (ops/cuda/plane_sweep.py): grids whose tiles meet the edges
 SWEEP_SHAPES = {
     **SHAPES,
     # Y and Z ragged against the tile, Z % 4 != 0 (4-byte copies)
@@ -107,7 +110,7 @@ def _close(out, ref):
     assert err <= OP_TOL * float(ref.abs().max()) + 1e-30
 
 
-@pytest.mark.parametrize("case", sorted(SHAPES))
+@pytest.mark.parametrize("case", sorted(SWEEP_SHAPES))
 def test_keff_kernel_matches_plain(device, case):
     model, x = _model(device, case)
     before = k12.apply_keff_fused.launches
@@ -187,6 +190,16 @@ def test_pcg_iteration_kernel_matches_plain(device, case, beta):
             model, pc.table, tuple(c.double() for c in carries), alpha, beta,
             SS, MF,
         )
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_SHAPES))
+def test_pc_keff_w_is_k1_of_its_u(device, case):
+    """K2 and K1 are one sweep: K2's w equals K1 applied to K2's u, bit for
+    bit."""
+    model, x = _model(device, case)
+    pc = model.build_preconditioner(SS, MF)
+    u, w = k12.apply_pc_keff_fused(model, pc.table, x, SS, MF)
+    assert torch.equal(w, k12.apply_keff_fused(model, u, SS, MF))
 
 
 def test_wrappers_refuse_wrong_dtype_and_layout(device):
@@ -372,7 +385,8 @@ def test_assemble_kernel_matches_plain(device, case, mf):
     out = g1.assemble_keff(model, rows, x, mf)
     torch.cuda.synchronize()
     assert g1.assemble_keff.launches == before + 1
-    _close(out, g1.assemble_keff_plain(model, rows, x, mf))
+    # node counts that are not a multiple of the block; D = 8 (hex) and 24
+    assert torch.equal(out, g1.assemble_keff_plain(model, rows, x, mf))
     assert torch.equal(out[model.bc_mask], x[model.bc_mask])
 
 
@@ -418,6 +432,11 @@ HALO = {
     "2d_9x4x5_on_2x4": ((9, 4, 5), (2, 4), True),
     "2d_7x7x3_on_2x2": ((7, 7, 3), (2, 2), True),
     "1d_odd_z300_over_2": ((3, 3, 300), (2, 1), False),
+    # one 70-plane slab: three X chunks, the split, 16-byte staging
+    "1d_69x5x7_whole": ((69, 5, 7), (1, 1), False),
+    # 2-D tiles of 21 x 9 nodes: two y tiles, the +Y ghost row inside the
+    # second one's halo, two z tiles, 16-byte staging
+    "2d_40x17x63_on_2x2": ((40, 17, 63), (2, 2), True),
 }
 
 
@@ -464,7 +483,27 @@ def test_keff_halo_kernel_matches_plain_and_k1(device, case, monkeypatch):
             assert torch.equal(local_keff(local, xt, ghosts, SS, MF), out)
             assert k5.keff_structured_halo.launches == before + 3
         gathered[:, x0:x0 + xl, y0:y0 + yl] = out
-    _close(gathered, k12.apply_keff_fused(model, x, SS, MF))
+    assert torch.equal(gathered, k12.apply_keff_fused(model, x, SS, MF))
+
+
+@pytest.mark.parametrize("case", sorted(HALO))
+def test_keff_halo_missing_ghosts_read_as_zero(device, case):
+    """A ghost buffer of None (values and mask) at a global end gives the
+    bits of the zero ghost a group delivers there."""
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+
+    model, _, tiles = _halo_tiles(device, case)
+    for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+        ends = {"x_lo": x0 == 0, "x_hi": x0 + xl == model.grid_shape[0],
+                "y_lo": y0 == 0, "y_hi": y0 + yl == model.grid_shape[1]}
+        cut = {k: None for k, end in ends.items()
+               if end and getattr(ghosts, k) is not None}
+        if not cut:
+            continue
+        bare = dataclasses.replace(local, bc_ghosts=local.bc_ghosts._replace(**cut))
+        assert torch.equal(
+            k5.keff_structured_halo(bare, xt, ghosts._replace(**cut), SS, MF),
+            k5.keff_structured_halo(local, xt, ghosts, SS, MF))
 
 
 def test_keff_halo_on_one_shard_is_k1(device):
