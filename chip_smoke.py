@@ -45,11 +45,16 @@ Phases, each printing its result:
    25.0);
 10. examples/seismic_column_tet.yaml (tet Gmsh mesh, two materials, curve
     traction) for 10 frames on the GPU and on the CPU;
-11. slender route: hold K4 interior_stencil and G2 keff_boundary against
-    their plain versions, and the split operator (sanitize + K4 + G2)
-    against K1, on small and odd grids, the soil column's grid and 255^3;
-    time K4 (beside one cuDNN conv3d in full f32, the yardstick), G2 and
-    the split operator against K1;
+11. slender route: hold K4 interior_stencil (a plane sweep whose (y, z)
+    tile and chunk follow the grid's shape) and G2 keff_boundary (envelope
+    blocks and face-owned boundary nodes in one launch; constrained
+    outputs exactly x) against their plain versions, and the split
+    operator (sanitize + K4 + G2) against K1, on small and odd grids, a
+    column-shaped grid, the soil column's grid and 255^3; print the ptxas
+    registers and spills of both kernels and K4's geometry; time K4 (CUDA
+    events per call and device events; every tile and chunk K4 is built
+    for; one cuDNN conv3d in full f32, the yardstick), G2 (both timings)
+    and the split operator against K1;
 12. the slender main path at full width — ``build_simulation`` on
     ``soil_column_config()`` (1023x47x47 cells, 7,077,888 DOF, absorbing
     base) — for 8 frames on 'auto' (= classic there): every frame
@@ -1063,15 +1068,17 @@ def column_model(device):
 
 
 def g2_least(model):
-    """G2's (least bytes, least f32 operations) on ``model``'s grid."""
+    """G2's (least bytes, least f32 operations) on ``model``'s grid: the
+    nonzero ghost taps at the neighbours on the model, per class."""
     from civiwave_tpu_torch.ops import structured as tops
+    from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
 
     X, Y, Z = model.grid_shape
-    ghost = tops.ghost_stencil_table(model.spacing, model.lam0, model.mu0)
+    _, rows = g2.ghost_tap_rows(model.spacing, model.lam0, model.mu0)
     per_axis = [np.bincount(tops.axis_classes(n, c), minlength=3)
                 for n, c in zip((X, Y, Z), (model.nx, model.ny, model.nz))]
     nodes = np.einsum("i,j,k->ijk", *per_axis).reshape(27)
-    taps = np.count_nonzero(ghost.reshape(27, -1), axis=1)
+    taps = np.count_nonzero(rows.reshape(27, -1), axis=1)
     ghost_flops = 2 * int((nodes * taps).sum())  # the interior class has none
     total = X * Y * Z
     return G2_BYTES_PER_NODE * total, G2_FLOPS_PER_NODE * total + ghost_flops
@@ -1089,30 +1096,106 @@ def conv3d_yardstick(xs, taps):
     return lambda: F.conv3d(xs[None], weight, padding=1)[0]
 
 
+def ptxas_report(log, names):
+    """The ptxas lines (entry, registers, spills) of the kernels whose
+    mangled names contain one of ``names``."""
+    lines, wanted = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            wanted = any(n in line for n in names)
+        if wanted and ("Compiling entry" in line or "registers" in line
+                       or "spill" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def sass_mix(path, names, top=6):
+    """{kernel: [(opcode, count), ...]}: the commonest SASS instructions of
+    each kernel in the built library whose mangled name contains one of
+    ``names`` (cuobjdump beside nvcc; {} where the toolkit has none)."""
+    import re
+    from collections import Counter
+
+    from civiwave_tpu_torch.ops.cuda import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120).stdout
+    mix, current = {}, None
+    for line in text.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            current = name if any(n in name for n in names) else None
+            if current:
+                mix[current] = Counter()
+            continue
+        op = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if current and op:
+            mix[current][op.group(1)] += 1
+    return {name: counts.most_common(top) for name, counts in mix.items()}
+
+
+def k4_candidates(xs, taps, label):
+    """Device ms of K4 with every tile and chunk it is built for, beside
+    the one its geometry function picks for this grid."""
+    from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
+    from civiwave_tpu_torch.ops.cuda import plane_sweep
+
+    chosen = plane_sweep.stencil_geometry(xs.shape[1:])
+    found = {}
+    for tile in plane_sweep.STENCIL_TILES:
+        for chunk in plane_sweep.STENCIL_CHUNKS:
+            geom = plane_sweep.stencil_geometry(xs.shape[1:], tile, chunk)
+            found[(tile, chunk)] = device_ms(lambda: k4.launch(xs, taps, geom),
+                                             "interior_sweep_kernel", 20)
+    best = min(found, key=found.get)
+    print(f"  K4 geometries [{label}] (device ms): " + ", ".join(
+        f"{t[0]}x{t[1]}/{c} {ms:.4f}" for (t, c), ms in found.items())
+        + f"; chosen {chosen.tile[0]}x{chosen.tile[1]}/{chosen.chunk}, "
+        f"fastest {best[0][0]}x{best[0][1]}/{best[1]}", flush=True)
+    return found
+
+
 def slender_kernel_phase(device, ss, mf):
     """Phase 11: K4, G2 and the split operator against their plain versions
     and K1; times at the soil column's grid and at 255^3."""
     from civiwave_tpu_torch.mesh.structured import build_structured_model
     from civiwave_tpu_torch.ops import structured as tops
+    from civiwave_tpu_torch.ops.cuda import _build, plane_sweep
     from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
     from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
     from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
     from civiwave_tpu_torch.physics import materials
     from civiwave_tpu_torch.utils.synthetic import cantilever_config
 
+    lib = _build.load_library()
+    for line in ptxas_report(lib.log, ("interior_sweep_kernel",
+                                       "keff_boundary_kernel")):
+        print(f"  ptxas K4/G2: {line}", flush=True)
+    # every variant holds all of its plane-window cases (K4: six)
+    for name, counts in sass_mix(lib.path, ("interior_sweep_kernel",
+                                            "keff_boundary_kernel")).items():
+        print(f"  SASS K4/G2 {name[-40:]}: " + ", ".join(
+            f"{op} {n}" for op, n in counts), flush=True)
     cfg = cantilever_config()
     mat = materials.make_properties(cfg.materials[0])
     rho = cfg.materials[0].density
     cases = [
         ("5x4x3 fixes x0,z1", (5, 4, 3), dict(fixed_axis_planes=("x0", "z1"))),
         ("1x3x2", (1, 3, 2), {}),
+        ("3x1x1 fixes x0,x1", (3, 1, 1), dict(fixed_axis_planes=("x0", "x1"))),
         ("6x5x4 pad_x4", (6, 5, 4), dict(pad_x_multiple=4)),
+        ("5x5x3 pad_y4", (5, 5, 3), dict(pad_y_multiple=4)),
         ("37x23x11 fixes x0,y1,z0 partial", (37, 23, 11), dict(fixes=[
             ("x0", (True, True, True), (None, None, None)),
             ("y1", (False, True, False), (None, None, None)),
             ("z0", (True, False, True), (None, None, None)),
         ])),
         ("2x3x300", (2, 3, 300), {}),
+        ("39x47x47 column piece", (39, 47, 47), dict(fixed_axis_planes=())),
         ("soil column", None, None),
         ("255x255x255", FULL, {}),
     ]
@@ -1129,27 +1212,33 @@ def slender_kernel_phase(device, ss, mf):
         xs = x.masked_fill(model.bc_mask, 0.0)
         taps = tops.interior_taps(model)
         interior = k4.interior_stencil_plain(xs, taps)
+        out_g2 = g2.keff_boundary(model, interior, x, m_ss, m_mf)
         found = {
             "k4": check_close(f"K4 {label}", k4.interior_stencil(xs, taps),
                               interior, OP_TOL),
             "g2": check_close(
-                f"G2 {label}", g2.keff_boundary(model, interior, x, m_ss, m_mf),
+                f"G2 {label}", out_g2,
                 g2.keff_boundary_plain(model, interior, x, m_ss, m_mf), OP_TOL),
             "split": check_close(
                 f"split vs K1 {label}",
                 tops.apply_keff_split_structured(model, x, m_ss, m_mf),
                 k12.apply_keff_fused(model, x, m_ss, m_mf), OP_TOL),
         }
+        if not torch.equal(out_g2[model.bc_mask], x[model.bc_mask]):
+            fail(f"G2 {label}: a constrained output is not x")
         torch.cuda.synchronize()
         for key, (a, r) in found.items():
             errs[key] = (max(errs[key][0], a), max(errs[key][1], r))
-        print(f"slender kernels vs plain [{label}, grid {model.grid_shape}] "
-              "abs/rel err: " + ", ".join(
+        geom = plane_sweep.stencil_geometry(model.grid_shape)
+        print(f"slender kernels vs plain [{label}, grid {model.grid_shape}, K4 "
+              f"tile {geom.tile[0]}x{geom.tile[1]} chunk {geom.chunk}, "
+              f"{geom.blocks} blocks] abs/rel err: " + ", ".join(
                   f"{k}={a:.3e}/{r:.2e}" for k, (a, r) in found.items()),
               flush=True)
         if label not in ("soil column", "255x255x255"):
             continue
         nodes = int(np.prod(model.grid_shape))
+        k4_candidates(xs, taps, label)
         conv = conv3d_yardstick(xs, taps)
         tf32 = torch.backends.cudnn.allow_tf32
         torch.backends.cudnn.allow_tf32 = False
@@ -1161,28 +1250,47 @@ def slender_kernel_phase(device, ss, mf):
             torch.backends.cudnn.allow_tf32 = tf32
         k4_flops = 2 * int(np.count_nonzero(taps)) * nodes
         g2_bytes, g2_flops = g2_least(model)
+        # the kernels are about as short as their wrappers' host cost: time
+        # them by their device events, with the per-call time beside
+        k4_call = time_ms(lambda: k4.interior_stencil(xs, taps), 50)
+        g2_call = time_ms(
+            lambda: g2.keff_boundary(model, interior, x, m_ss, m_mf), 50)
         timing[label] = {
             "k4": report_time(
                 "K4 interior_stencil", label,
-                time_ms(lambda: k4.interior_stencil(xs, taps), 50),
+                device_ms(lambda: k4.interior_stencil(xs, taps),
+                          "interior_sweep_kernel", 20),
                 time_ms(lambda: k4.interior_stencil_plain(xs, taps), 3),
                 K4_BYTES_PER_NODE * nodes, k4_flops, conv_ms),
             "g2": report_time(
                 "G2 keff_boundary", label,
-                time_ms(lambda: g2.keff_boundary(model, interior, x, m_ss, m_mf), 50),
+                device_ms(lambda: g2.keff_boundary(model, interior, x, m_ss, m_mf),
+                          "keff_boundary_kernel", 20),
                 time_ms(lambda: g2.keff_boundary_plain(
                     model, interior, x, m_ss, m_mf), 3),
                 g2_bytes, g2_flops),
         }
+        timing[label]["k4"]["call_ms"] = k4_call
+        timing[label]["g2"]["call_ms"] = g2_call
         split_ms = time_ms(
             lambda: tops.apply_keff_split_structured(model, x, m_ss, m_mf), 50)
         k1_ms = time_ms(lambda: k12.apply_keff_fused(model, x, m_ss, m_mf), 50)
+        # every kernel of the split (sanitize, K4, G2) by device events
+        split_dev = device_ms(
+            lambda: tops.apply_keff_split_structured(model, x, m_ss, m_mf), "", 20)
+        k1_dev = device_ms(lambda: k12.apply_keff_fused(model, x, m_ss, m_mf),
+                           "keff_sweep_kernel", 20)
+        print(f"  K4 per wrapper call {k4_call:.4f} ms, G2 {g2_call:.4f} ms "
+              "(CUDA events)", flush=True)
         print(f"  K4 library yardstick conv3d (cuDNN, TF32 off): {conv_ms:.4f} ms, "
               f"max abs diff from the plain K4 {conv_err:.3e} of max|plain|", flush=True)
         print(f"time split operator [{label}]: sanitize + K4 + G2 {split_ms:.4f} ms "
-              f"against K1 {k1_ms:.4f} ms on the same model", flush=True)
+              f"per call ({split_dev:.4f} ms of device time) against K1 "
+              f"{k1_ms:.4f} ms ({k1_dev:.4f}) on the same model", flush=True)
         timing[label]["split_ms"], timing[label]["k1_ms"] = split_ms, k1_ms
-        del model, x, xs, interior
+        timing[label]["split_device_ms"] = split_dev
+        timing[label]["k1_device_ms"] = k1_dev
+        del model, x, xs, interior, out_g2
         torch.cuda.empty_cache()
     return errs, timing
 
@@ -1715,19 +1823,24 @@ def main() -> int:
              max_rel_err=tet_errs["assemble_csr"][1], tol=OP_TOL,
              **tet_timings["assemble_csr"], ms_hex66=g1_hex["ms"],
              bound_ms_hex66=g1_hex["bound_ms"]),
-        # K4 and G2: errors over every grid of phase 11, times at the soil
-        # column's grid, launches on its main path (phase 12)
+        # K4 and G2: errors over every grid of phase 11, device times at the
+        # soil column's grid (and at 255^3), launches on its main path
+        # (phase 12)
         dict(name="interior_stencil", route="cuda",
              source=src + "interior_stencil.cu",
              replaces=pallas + "structured_stencil.py:110",
              launches=column_counts["k4"], max_abs_err=slender_errs["k4"][0],
              max_rel_err=slender_errs["k4"][1], tol=OP_TOL,
-             **slender_times["soil column"]["k4"]),
+             **slender_times["soil column"]["k4"],
+             ms_255=slender_times["255x255x255"]["k4"]["ms"],
+             bound_ms_255=slender_times["255x255x255"]["k4"]["bound_ms"]),
         dict(name="keff_boundary", route="cuda", source=src + "keff_boundary.cu",
              replaces="civiwave_tpu/ops/structured.py:449",
              launches=column_counts["g2"], max_abs_err=slender_errs["g2"][0],
              max_rel_err=slender_errs["g2"][1], tol=OP_TOL,
-             **slender_times["soil column"]["g2"]),
+             **slender_times["soil column"]["g2"],
+             ms_255=slender_times["255x255x255"]["g2"]["ms"],
+             bound_ms_255=slender_times["255x255x255"]["g2"]["bound_ms"]),
         # K5: errors over every grid of phase 14, the time of one launch on
         # the 256-plane slab of the main path (and on a 64-plane slab),
         # launches on the sharded main path (phase 15)

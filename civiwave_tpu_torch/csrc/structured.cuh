@@ -5,11 +5,11 @@
 // Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
 // row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
 // (torch.bool).  K3 launches one block per (x, y) row of the node grid and
-// lets the threads stride over z; K4 and G2 give each thread one node of the
-// flat index; K1/K5, K2 and K6 sweep tiles of (y, z) columns along X
-// through shared memory (the plane sweep below).  Either way neighbouring
-// threads touch neighbouring addresses.  Offsets into the vectors are
-// 64-bit.
+// lets the threads stride over z; K1/K5, K2 and K6 sweep tiles of (y, z)
+// columns along X through shared memory (the plane sweep below), K4 a
+// sweep of its own with a tile chosen by the grid's shape; G2 streams the
+// nodes along z and stages tiles of its z faces.  Neighbouring threads
+// touch neighbouring addresses.  Offsets into the vectors are 64-bit.
 #pragma once
 
 #include <cstdint>

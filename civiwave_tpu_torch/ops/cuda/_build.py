@@ -68,11 +68,17 @@ _SIGNATURES = {
     "civi_assemble_csr": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P,
     ),
-    # xs, taps (243 host floats), out, X, Y, Z, stream
-    "civi_interior_stencil": (_P, _P, _P, _I, _I, _I, _P),
-    # interior, x, bc, ghost, out, X, Y, Z, nx, ny, nz, ss, mf, m8, stream
+    # xs, taps (243 host floats), out, X, Y, Z, geometry (tile_y, tile_z,
+    # chunk, grid_x, grid_y, grid_z, smem), vec, stream
+    "civi_interior_stencil": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    # interior, x, bc, codes, rows, ztaps (162 host floats), out, X, Y, Z,
+    # nx, ny, nz, ss, mf, m8, geometry (x_planes, y_rows, xy_nodes,
+    # xy_blocks, slabs, slab_envelope, slab_z, vec), stream
     "civi_keff_boundary": (
-        _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # (K1 and K5) x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi,
     # bgy_hi, stencil, taps, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0,

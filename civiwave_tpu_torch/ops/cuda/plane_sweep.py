@@ -1,6 +1,7 @@
 """Launch geometry of the plane-sweep kernels K1/K5
-(``keff_structured_halo``), K2 (``pc_keff_structured``) and K6
-(``pcg_iteration_structured``), and the taps they take by value.
+(``keff_structured_halo``), K2 (``pc_keff_structured``), K6
+(``pcg_iteration_structured``) and K4 (``interior_stencil``), and the taps
+K1/K5, K2 and K6 take by value.
 
 A block owns ``TILE_Y x TILE_Z`` (y, z) node columns (one warp per y row,
 one thread per column) over ``CHUNK_X`` planes along X, and sweeps them
@@ -14,11 +15,20 @@ not match the constants they were built with.
 
 A chunk of 32 planes re-reads 2 halo planes (6 %) and cuts the 256^3-node
 grid into 2,048 blocks, several waves over the H100's 132 SMs.
+
+K4 stages one sanitized vector and nothing else, and its tile and chunk
+follow the grid's shape (:func:`stencil_geometry`): the tile of
+``STENCIL_TILES`` that leaves the fewest idle lanes on the (Y, Z) plane
+(8 x 32 on a 256^3 grid, 16 x 16 on the soil column's 48 x 48 planes, where
+8 x 32 idles a quarter of its lanes), then the longest chunk of
+``STENCIL_CHUNKS`` that still gives every SM ``STENCIL_BLOCKS_PER_SM``
+blocks, so that the last wave is a small share of the run.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
@@ -32,6 +42,17 @@ STAGES = 3
 STAGE_ROW, MASK_ROW = 40, 40
 # the most dynamic shared memory one H100 block may take
 SMEM_LIMIT = 232_448
+SM_COUNT = 132  # H100 SXM
+# K4's (y, z) tiles, each with the floats of one staged row (the halo
+# column h at h + 3; a 16-wide tile puts two rows in a warp, and a stride
+# of 16 mod 32 floats puts them in different banks), the chunks it may
+# take, longest first, and the blocks per SM a chunk must leave.  On an
+# H100 the rule picks the fastest of the six on both main-path grids: the
+# soil column 16 x 16 / 8 planes (0.0444 ms; 16 x 16 / 16 0.0471, 8 x 32 /
+# 32 0.0555), 255^3 8 x 32 / 32 (0.2747 ms; 8 x 32 / 8 0.2930)
+STENCIL_TILES = {(8, 32): 40, (16, 16): 48}
+STENCIL_CHUNKS = (32, 16, 8)
+STENCIL_BLOCKS_PER_SM = 8
 
 
 @dataclass(frozen=True)
@@ -41,13 +62,18 @@ class SweepGeometry:
     grid: Tuple[int, int, int]  # CUDA (x, y, z) = (z tiles, y tiles, x chunks)
     threads: int
     smem_bytes: int
-    partials_shape: Tuple[int, int]  # (3, blocks)
     planes: Tuple[int, int]  # the X planes [p0, p1) the blocks write
 
     @property
     def blocks(self) -> int:
         gx, gy, gz = self.grid
         return gx * gy * gz
+
+    @property
+    def partials_shape(self) -> Tuple[int, int]:
+        """(3, blocks): the dot partials K2 and K6 write, one f32 triple
+        per block."""
+        return (3, self.blocks)
 
     def owned(self, block, grid_shape):
         """The ``[lo, hi)`` node ranges along (x, y, z) that CUDA block
@@ -89,8 +115,45 @@ def sweep_geometry(grid_shape, vectors: int,
     grid = (-(-Z // TILE_Z), -(-Y // TILE_Y), -(-(p1 - p0) // CHUNK_X))
     return SweepGeometry(
         tile=(TILE_Y, TILE_Z), chunk=CHUNK_X, grid=grid,
-        threads=TILE_Y * TILE_Z, smem_bytes=smem,
-        partials_shape=(3, grid[0] * grid[1] * grid[2]), planes=(p0, p1),
+        threads=TILE_Y * TILE_Z, smem_bytes=smem, planes=(p0, p1),
+    )
+
+
+def _idle_lanes(tile, Y: int, Z: int) -> int:
+    ty, tz = tile
+    return -(-Y // ty) * ty * -(-Z // tz) * tz - Y * Z
+
+
+@lru_cache(maxsize=64)
+def stencil_geometry(grid_shape, tile=None, chunk=None) -> SweepGeometry:
+    """K4's sweep over every plane of the node grid ``grid_shape`` (X, Y,
+    Z): the (y, z) tile of ``STENCIL_TILES`` with the fewest idle lanes
+    (8 x 32 on a tie), then the longest chunk of ``STENCIL_CHUNKS`` that
+    gives ``STENCIL_BLOCKS_PER_SM`` blocks per SM (else the shortest).
+    ``tile`` and ``chunk`` override the choice (a measurement's
+    candidates); the C entry point refuses a tile it was not built for."""
+    X, Y, Z = (int(n) for n in grid_shape)
+    if min(X, Y, Z) <= 0:
+        raise ValueError(f"grid {grid_shape}: every extent must be positive")
+    if tile is None:
+        tile = min(STENCIL_TILES,
+                   key=lambda t: (_idle_lanes(t, Y, Z), t != (TILE_Y, TILE_Z)))
+    tile = tuple(tile)
+    if tile not in STENCIL_TILES:
+        raise ValueError(f"tile {tile}: K4 is built for {sorted(STENCIL_TILES)}")
+    ty, tz = tile
+    plane_tiles = -(-Z // tz) * -(-Y // ty)
+    if chunk is None:
+        enough = STENCIL_BLOCKS_PER_SM * SM_COUNT
+        chunk = next((c for c in STENCIL_CHUNKS
+                      if plane_tiles * -(-X // c) >= enough), STENCIL_CHUNKS[-1])
+    if chunk <= 0:
+        raise ValueError(f"chunk {chunk}: must be positive")
+    # a ring of STAGES buffers of the 3 components, tile plus halo
+    smem = 4 * STAGES * 3 * (ty + 2) * STENCIL_TILES[tile]
+    return SweepGeometry(
+        tile=tile, chunk=int(chunk), grid=(-(-Z // tz), -(-Y // ty), -(-X // chunk)),
+        threads=ty * tz, smem_bytes=smem, planes=(0, X),
     )
 
 

@@ -16,7 +16,10 @@ Tolerances: operator and preconditioner outputs at 1e-5 * max|ref|, dots
 at rtol 1e-5 (the sums run in another order than the plain version's).
 Bit for bit (``torch.equal``): the operator sweep K1/K5 on every slab or
 tile cut against the whole grid, the overlap split against one launch, K2's
-w against K1 of K2's u, and G1 against its plain version.
+w against K1 of K2's u, G1 against its plain version, and G2's constrained
+outputs against x.  K4 and G2 run on ``SLENDER_SHAPES``: the grids above
+plus a column-shaped one (40 x 48 x 48 nodes, K4's 16 x 16 tiles), with
+K4 at every tile and several chunks.
 """
 
 import dataclasses
@@ -36,6 +39,7 @@ from civiwave_tpu_torch.ops.cuda import element_forces as k7
 from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
 from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
 from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
+from civiwave_tpu_torch.ops.cuda import plane_sweep
 from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 from civiwave_tpu_torch.physics import materials
 from civiwave_tpu_torch.runner import build_simulation
@@ -85,6 +89,21 @@ SWEEP_SHAPES = {
 }
 
 
+# the slender route's kernels K4 and G2: the grids of SHAPES (Z % 4 != 0,
+# +X pad planes, an n = 1 axis) and column-shaped and thin ones
+SLENDER_SHAPES = {
+    **SHAPES,
+    "column_40x48x48": ((39, 47, 47), dict(fixed_axis_planes=())),
+    "column_partial_fixes": ((39, 47, 47), dict(fixes=[
+        ("x0", (True, True, True), (None, None, None)),
+        ("y1", (False, True, False), (None, None, None)),
+        ("z0", (True, False, True), (1e-3, None, None)),
+    ])),
+    "ny1_nz1": ((3, 1, 1), dict(fixed_axis_planes=("x0", "x1"))),
+    "ypad4": ((5, 5, 3), dict(pad_y_multiple=4)),
+}
+
+
 @pytest.fixture
 def device():
     if not torch.cuda.is_available():
@@ -93,7 +112,7 @@ def device():
 
 
 def _model(device, case):
-    dims, kw = SWEEP_SHAPES[case]
+    dims, kw = {**SWEEP_SHAPES, **SLENDER_SHAPES}[case]
     mat = cantilever_config().materials[0]
     model, _ = build_structured_model(
         *dims, materials.make_properties(mat), mat.density, device=device, **kw
@@ -262,7 +281,7 @@ def test_small_cantilever_runs_megafused_on_the_card(device, monkeypatch):
 # --- slender route: K4 and G2 --------------------------------------------
 
 
-@pytest.mark.parametrize("case", sorted(SHAPES))
+@pytest.mark.parametrize("case", sorted(SLENDER_SHAPES))
 def test_interior_stencil_kernel_matches_plain(device, case):
     model, x = _model(device, case)
     xs = x.masked_fill(model.bc_mask, 0.0)
@@ -274,7 +293,7 @@ def test_interior_stencil_kernel_matches_plain(device, case):
     _close(out, k4.interior_stencil_plain(xs, taps))
 
 
-@pytest.mark.parametrize("case", sorted(SHAPES))
+@pytest.mark.parametrize("case", sorted(SLENDER_SHAPES))
 def test_keff_boundary_kernel_matches_plain(device, case):
     model, x = _model(device, case)
     interior = k4.interior_stencil_plain(
@@ -289,11 +308,49 @@ def test_keff_boundary_kernel_matches_plain(device, case):
     assert torch.equal(out[bc], x[bc])
 
 
-@pytest.mark.parametrize("case", sorted(SHAPES))
+@pytest.mark.parametrize("case", sorted(SLENDER_SHAPES))
 def test_split_route_matches_k1(device, case):
     model, x = _model(device, case)
     _close(tops.apply_keff_split_structured(model, x, SS, MF),
            k12.apply_keff_fused(model, x, SS, MF))
+
+
+@pytest.mark.parametrize("case", ["column_40x48x48", "z_longer_than_a_block",
+                                  "xpad4", "nx1"])
+def test_interior_stencil_every_geometry(device, case):
+    """K4 with each tile it is built for and chunks from one plane to more
+    than the grid, both staging paths (16-byte copies on the column, 4-byte
+    ones at Z = 301 and on a misaligned view)."""
+    model, x = _model(device, case)
+    xs = x.masked_fill(model.bc_mask, 0.0)
+    taps = tops.interior_taps(model)
+    ref = k4.interior_stencil_plain(xs, taps)
+    buf = torch.zeros(xs.numel() + 1, device=device)
+    shifted = buf[1:].view(xs.shape)
+    shifted.copy_(xs)
+    for tile in plane_sweep.STENCIL_TILES:
+        for chunk in (1, 3, 16, 32, 2048):
+            geom = plane_sweep.stencil_geometry(model.grid_shape, tile, chunk)
+            for v in (xs, shifted):
+                _close(k4.launch(v, taps, geom), ref)
+    torch.cuda.synchronize()
+
+
+def test_keff_boundary_scalar_envelope(device):
+    """G2 on a misaligned x (a view one float in): the one-node envelope,
+    the same outputs as the float4 one."""
+    model, x = _model(device, "column_partial_fixes")
+    interior = k4.interior_stencil_plain(
+        x.masked_fill(model.bc_mask, 0.0), tops.interior_taps(model))
+    buf = torch.zeros(x.numel() + 1, device=device)
+    shifted = buf[1:].view(x.shape)
+    shifted.copy_(x)
+    ref = g2.keff_boundary_plain(model, interior, x, SS, MF)
+    for v in (x, shifted):
+        out = g2.keff_boundary(model, interior, v, SS, MF)
+        torch.cuda.synchronize()
+        _close(out, ref)
+        assert torch.equal(out[model.bc_mask], x[model.bc_mask])
 
 
 def test_slender_wrappers_refuse_wrong_dtype_and_layout(device):
