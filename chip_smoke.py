@@ -84,9 +84,40 @@ Phases, each printing its result:
     with the split and one without, K3 once per iteration and setup, K1,
     K2 and K6 never, one f64 (3,) all-reduce per PCG iteration, 2 or 4
     ghost exchanges per matvec; steps/s, ms per iteration, peak memory
-    and the busy share of one profiled frame.
+    and the busy share of one profiled frame;
+16. static mode: examples/static_cantilever.yaml through the CLI
+    (``--static --output --telemetry-json``) on the GPU ('auto' = fused)
+    and the CPU (classic): converged, u of the two VTU files within 2.5e-4
+    of max|u| (the other arrays at 3e-3) and against a direct f64 solve of
+    the dense oracle's system, the tip within 10 % of beam theory; the same
+    beam meshed with tets through ``run_static`` on both (K7 tet and G1);
+    then the 255^3 cantilever (50,331,648 DOF) solved statically through
+    ``build_simulation`` and ``run_static`` on 'auto' (fused, K2), 'classic'
+    (K1 + K3) and the K6 loop (``CIVIWAVE_MEGA_PCG=1`` for that run): every
+    solve converged within 6,000 iterations, K6 once per megafused
+    iteration; classic's u within 2.5e-4 of max|u| of its own u refined
+    twice in f64 (mixed-precision iterative refinement), fused and
+    megafused within 2.5e-4 of each other, every variant's error against
+    the refined solution, its iterations against classic's and its true
+    f64 residual printed; the first writes VTU frame
+    0, read back (header, displacement block max = max|u|) and removed;
+17. output: examples/cantilever_box.yaml ``--output`` for 10 frames on the
+    GPU and the CPU (the same VTU frames, arrays and probe rows within the
+    BASELINE tolerances); the 255^3 cantilever stepped 8 frames with the
+    structured output manager (probes on the loaded face's corners and at
+    mid-span, VTU frame 0 written on the writer thread while frames 1-7
+    step): iterations within +-1 of phase 4's, the probe rows against the
+    device node fields at 1e-5 of max|.|, steps/s beside phase 4's, the
+    derived fields' device time, the probe cost per frame, the VTU's size
+    and write time; examples/seismic_basin.yaml meshed with tets (the
+    general path with five absorbing faces) for 10 frames with output on
+    the GPU and the CPU at 24x24x12, then 8 frames at 80x80x40 (1,536,000
+    tets, 807,003 DOF): one dashpot term per step matvec, its device
+    kernels, steps/s, ms per iteration and peak memory.
 
-Any failed check exits non-zero.  The last two lines of stdout are a JSON
+Output files of phases 16-17 go to a fresh directory under
+``civiwave_tpu_torch/_build/`` (ignored by git) and are removed.  Any
+failed check exits non-zero.  The last two lines of stdout are a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.
 """
 
@@ -1711,6 +1742,655 @@ def sharded_main_path_phase(device, split):
     return summary
 
 
+# --- static mode and output (phases 16-17) -----------------------------------
+
+STATIC_YAML = "examples/static_cantilever.yaml"
+BOX_YAML = "examples/cantilever_box.yaml"
+# Euler-Bernoulli + Timoshenko tip deflection of the static example (a copy
+# of tests/test_validation_analytic.py's formula): 3 x 1 x 1 m steel beam,
+# -1e6 Pa end traction
+BEAM = dict(length=3.0, width=1.0, depth=1.0, e_mod=2.0e11, nu=0.3, traction=-1.0e6)
+TET_BASIN = (80, 80, 40)  # 1,536,000 tets, 269,001 nodes, 807,003 DOF
+# PCG cap of the 255^3 static solves: classic needs ~2,800 iterations to
+# 1e-8 there, the fused and megafused recurrences ~4,100 and ~4,400
+STATIC_MAX_ITERS = 6000
+
+
+def beam_theory_deflection(length, width, depth, e_mod, nu, traction):
+    area = width * depth
+    load = traction * area
+    inertia = width * depth ** 3 / 12.0
+    g_mod = e_mod / (2.0 * (1.0 + nu))
+    k_shear = 10.0 * (1.0 + nu) / (12.0 + 11.0 * nu)
+    return (load * length ** 3 / (3.0 * e_mod * inertia)
+            + load * length / (k_shear * g_mod * area))
+
+
+def scratch_dir(label):
+    """A fresh directory under the port's build directory (ignored by git),
+    for output files that are read back and removed."""
+    import tempfile
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "civiwave_tpu_torch", "_build")
+    os.makedirs(root, exist_ok=True)
+    return tempfile.mkdtemp(prefix=f"smoke_{label}_", dir=root)
+
+
+def read_vtu(path, names=None):
+    """(header text, {name: f32 array}) of a VTU's appended Float32 point and
+    cell arrays (``names``: only these), reading each block by seeking to
+    its offset."""
+    import re
+
+    with open(path, "rb") as f:
+        head = b""
+        while b'<AppendedData encoding="raw">\n_' not in head:
+            chunk = f.read(1 << 16)
+            if not chunk:
+                fail(f"{path}: no appended data")
+            head += chunk
+        start = head.index(b'<AppendedData encoding="raw">\n_') + len(
+            b'<AppendedData encoding="raw">\n_')
+        header = head[:start].decode("ascii")
+        arrays = {}
+        for m in re.finditer(r'type="Float32" Name="(\w+)"[^>]*offset="(\d+)"',
+                             header):
+            if names is not None and m.group(1) not in names:
+                continue
+            f.seek(start + int(m.group(2)))
+            size = int(np.frombuffer(f.read(4), np.uint32)[0])
+            arrays[m.group(1)] = np.frombuffer(f.read(size), np.float32)
+    return header, arrays
+
+
+def direct_static_solution(sim):
+    """The static example's exact f64 solution on the host: the dense
+    oracle's assembly and Dirichlet rows (physics/oracle.py) solved by a
+    sparse direct solve (the oracle's own diagonal CG does not reach its
+    tolerance on this slender 11k-DOF beam within 20,000 iterations)."""
+    import scipy.sparse
+    import scipy.sparse.linalg
+
+    from civiwave_tpu_torch.physics import loads, materials, oracle
+
+    sim.ensure_host_mesh()
+    mats = [materials.make_properties(m) for m in sim.config.materials]
+    assembly = oracle.assemble_linear_system(sim.mesh, sim.preprocess, mats)
+    f = loads.assemble_load_vector(sim.mesh, sim.config, sim.preprocess,
+                                   0.0).reshape(-1).astype(np.float64)
+    k = assembly.stiffness.copy()
+    oracle.apply_dirichlet(k, f, oracle.build_dirichlet_conditions(
+        sim.mesh, sim.config), None)
+    return scipy.sparse.linalg.spsolve(scipy.sparse.csr_matrix(k), f).reshape(-1, 3)
+
+
+def check_rows(label, got, ref, tol):
+    """max|got - ref| <= tol * max|ref| on host arrays; returns the ratio."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max())
+    if not math.isfinite(err) or err > tol * scale + 1e-30:
+        fail(f"{label}: max abs err {err:.3e} > {tol:g} * max|ref| {scale:.3e}")
+    return err / max(scale, 1e-300)
+
+
+def static_example_phase(device):
+    """Phase 16a-b: examples/static_cantilever.yaml through the CLI with
+    --static --output on the GPU and the CPU (structured route), then the
+    same beam meshed with tets through run_static (general path)."""
+    import shutil
+
+    from civiwave_tpu_torch.config.loader import load_config_from_file
+    from civiwave_tpu_torch.runner import build_simulation, main as cli, run_static
+    from civiwave_tpu_torch.solver.static import true_relative_residual
+
+    tmp = scratch_dir("static_example")
+    runs = {}
+    try:
+        for side, dev in (("gpu", device), ("cpu", torch.device("cpu"))):
+            out = os.path.join(tmp, side)
+            tel = os.path.join(tmp, f"{side}.json")
+            reset_structured_counts()
+            t0 = time.perf_counter()
+            rc = cli([STATIC_YAML, "--static", "--output", out, "--quiet",
+                      "--telemetry-json", tel, "--device", str(dev)])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"static example on {dev}: exit code {rc}")
+            with open(tel, encoding="utf-8") as f:
+                payload = json.load(f)
+            _, arrays = read_vtu(os.path.join(out, "vtu", "frame_00000.vtu"))
+            runs[side] = (payload, arrays, seconds, structured_counts())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (pg, ag, sg, counts), (pc, ac, sc, _) = runs["gpu"], runs["cpu"]
+    if not (pg["converged"] and pc["converged"]):
+        fail("static example: not converged")
+    if counts["pc"] <= 0 or counts["keff"] <= 0:
+        fail(f"static example on the GPU: fused kernels not launched {counts}")
+    if sorted(ag) != sorted(ac):
+        fail(f"static example: VTU arrays differ {sorted(ag)} vs {sorted(ac)}")
+    vtu_err = {name: check_rows(f"static example VTU {name}", ag[name], ac[name],
+                                U_TOL if name == "displacement" else A_TOL)
+               for name in ag}
+    ug = ag["displacement"].reshape(-1, 3)
+    uc = ac["displacement"].reshape(-1, 3)
+    sim = build_simulation(STATIC_YAML, device=device)
+    exact = direct_static_solution(sim)
+    oracle_err = {k: check_rows(f"static example {k} vs the direct f64 solve",
+                                u, exact, U_TOL)
+                  for k, u in (("gpu", ug), ("cpu", uc))}
+    tip = float(ug.reshape(31, 11, 11, 3)[30, :, :, 2].mean())
+    analytic = beam_theory_deflection(**BEAM)
+    if abs(tip - analytic) > 0.10 * abs(analytic):
+        fail(f"static example: tip {tip:.6e} not within 10 % of beam theory "
+             f"{analytic:.6e}")
+    res = true_relative_residual(sim.model, sim.stepper.external_force,
+                                 sim.model.from_nodal(ug))
+    print(f"static example (30x10x10 hex, 11,253 DOF): iterations gpu {pg['iterations']} "
+          f"(auto = fused) cpu {pc['iterations']} (classic); CLI seconds gpu "
+          f"{sg:.3f} cpu {sc:.3f}, solve seconds gpu {pg['elapsed_seconds']:.4f} "
+          f"cpu {pc['elapsed_seconds']:.4f}; true relative residual (f64) gpu "
+          f"{res:.3e}; gpu launches {counts}", flush=True)
+    print(f"static example: u gpu vs cpu (VTU) {vtu_err['displacement']:.3e} of "
+          f"max|u|, worst other array {max(vtu_err.values()):.3e}; vs the direct "
+          f"f64 solve gpu {oracle_err['gpu']:.3e} cpu {oracle_err['cpu']:.3e} (tol "
+          f"{U_TOL:g}); tip u_z {tip:.6e} m, beam theory {analytic:.6e} m "
+          f"({(tip - analytic) / analytic:+.4f})", flush=True)
+    del sim
+
+    cfg = dataclasses.replace(load_config_from_file(STATIC_YAML),
+                              mesh_path="synthetic://box/30,10,10,tet,0.1")
+    gen = {}
+    for side, dev in (("gpu", device), ("cpu", torch.device("cpu"))):
+        sim = build_simulation(cfg, device=dev)
+        reset_general_counts()
+        t0 = time.perf_counter()
+        u, payload = run_static(sim)
+        seconds = time.perf_counter() - t0
+        gen[side] = (sim.stepper.displacement(), payload, seconds,
+                         general_counts(),
+                         true_relative_residual(sim.model, sim.stepper.external_force, u))
+        del sim
+    (ug, pg, sg, counts, rg), (uc, pc, sc, _, rc_) = gen["gpu"], gen["cpu"]
+    if not (pg["converged"] and pc["converged"]):
+        fail("static tet beam: not converged")
+    if counts["element_forces_tet"] <= 0 or counts["assemble_csr"] <= 0:
+        fail(f"static tet beam: K7 tet / G1 not launched {counts}")
+    err = check_rows("static tet beam u gpu vs cpu", ug, uc, U_TOL)
+    print(f"static tet beam (general path, {ug.shape[0] * 3:,} DOF): iterations gpu "
+          f"{pg['iterations']} cpu {pc['iterations']} (classic both); seconds gpu "
+          f"{sg:.3f} cpu {sc:.3f}; true relative residual gpu {rg:.3e} cpu "
+          f"{rc_:.3e}; u gpu vs cpu {err:.3e} of max|u|; gpu launches {counts}",
+          flush=True)
+    return counts
+
+
+def static_full_width_phase(device):
+    """Phase 16c: the 255^3 steel cantilever (50,331,648 DOF) solved
+    statically three times through build_simulation and run_static: 'auto'
+    (fused, K2; writes VTU frame 0), 'classic' (K1 + K3) and the K6 loop
+    (CIVIWAVE_MEGA_PCG=1 for that run only).  The cap is STATIC_MAX_ITERS,
+    not the example's 4000: the Chronopoulos-Gear recurrences need more
+    iterations than classic PCG to reach 1e-8 in f32 vectors (PERF.md §6),
+    and the check is that each converges."""
+    import shutil
+
+    from civiwave_tpu_torch.runner import build_simulation, run_static
+    from civiwave_tpu_torch.solver.static import true_relative_residual
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cfg = cantilever_config(max_iters=STATIC_MAX_ITERS,
+                            mesh={"path": "synthetic://box/%d,%d,%d" % FULL})
+    tmp = scratch_dir("static_255")
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        sim = build_simulation(cfg, device=device, output_root=tmp)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        model = sim.model
+        for label, variant, mega in (("fused", "auto", False),
+                                     ("classic", "classic", False),
+                                     ("megafused", "fused", True)):
+            if mega:
+                os.environ[MEGA] = "1"
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                reset_structured_counts()
+                t0 = time.perf_counter()
+                u, payload = run_static(sim, variant=variant)
+                torch.cuda.synchronize()
+                total = time.perf_counter() - t0
+                counts = structured_counts()
+                peak = torch.cuda.max_memory_allocated()
+            finally:
+                os.environ.pop(MEGA, None)
+            if not payload["converged"]:
+                fail(f"static 255^3 {label}: not converged in "
+                     f"{payload['iterations']} iterations (residual "
+                     f"{payload['residual_norm']:.3e}, rhs {payload['rhs_norm']:.3e})")
+            if not bool(torch.isfinite(u).all()):
+                fail(f"static 255^3 {label}: non-finite u")
+            res = true_relative_residual(model, sim.stepper.external_force, u)
+            results[label] = dict(u=u.clone(), payload=payload, total=total,
+                                  counts=counts, peak=peak, res=res)
+            if sim.output is not None:  # frame 0 of the first run only
+                vtu_s = total - payload["elapsed_seconds"]
+                sim.output = None
+            print(f"static 255^3 {label}: {payload['iterations']} iterations in "
+                  f"{payload['elapsed_seconds']:.4f} s ({payload['elapsed_seconds'] / max(payload['iterations'], 1) * 1e3:.4f} "
+                  f"ms per iteration), recurred residual {payload['residual_norm']:.3e} "
+                  f"of rhs {payload['rhs_norm']:.3e}, true relative residual (f64) "
+                  f"{res:.3e}, peak device memory {peak / 2**30:.3f} GiB, launches "
+                  f"{counts}", flush=True)
+        fused, classic, megaf = (results[k] for k in ("fused", "classic", "megafused"))
+        if fused["counts"]["pc"] <= 0 or fused["counts"]["k6"] or \
+                classic["counts"]["bj"] <= 0 or classic["counts"]["pc"] or \
+                megaf["counts"]["k6"] != megaf["payload"]["iterations"]:
+            fail("static 255^3: wrong kernels " + str(
+                {k: r["counts"] for k, r in results.items()}))
+        # the exact solution to f64 accuracy: classic's u refined twice
+        t0 = time.perf_counter()
+        exact, steps = refined_static_solution(sim, classic["u"])
+        refine_s = time.perf_counter() - t0
+        umax = float(exact.abs().max())
+        for r in results.values():
+            r["err"] = float((r["u"].double() - exact).abs().max()) / umax
+        if not classic["err"] <= U_TOL:
+            fail(f"static 255^3 classic: u differs from the refined f64 solution "
+                 f"by {classic['err']:.3e} > {U_TOL:g} of max|u|")
+        # fused and megafused run one recurrence: they must agree
+        rec = float((fused["u"] - megaf["u"]).abs().max()) / umax
+        if not rec <= U_TOL:
+            fail(f"static 255^3: fused and megafused u differ by {rec:.3e} > "
+                 f"{U_TOL:g} of max|u|")
+        it = {k: r["payload"]["iterations"] for k, r in results.items()}
+        print(f"static 255^3: iterations {it}; fused / classic "
+              f"{it['fused'] / it['classic']:.4f}, megafused / classic "
+              f"{it['megafused'] / it['classic']:.4f}", flush=True)
+        print(f"static 255^3: u against classic's u refined twice in f64 (" +
+              ", ".join(f"{s_:.3e}" for s_ in steps) + f" relative f64 residual "
+              f"before each step, {refine_s:.3f} s): classic {classic['err']:.3e}, "
+              f"fused {fused['err']:.3e}, megafused {megaf['err']:.3e} of max|u| "
+              f"{umax:.6e} m (tol {U_TOL:g}; the Chronopoulos-Gear recurrences "
+              f"stop on a recurred residual of 1e-8 while their u is off by the "
+              f"residual gap, PERF.md §6); fused vs megafused {rec:.3e}",
+              flush=True)
+
+        path = os.path.join(tmp, "vtu", "frame_00000.vtu")
+        size = os.path.getsize(path)
+        header, arrays = read_vtu(path, names=("displacement",))
+        n = model.node_count
+        if f'NumberOfPoints="{n}"' not in header or \
+                f'NumberOfCells="{model.nx * model.ny * model.nz}"' not in header:
+            fail("static 255^3 VTU: wrong piece counts")
+        disp = arrays["displacement"]
+        u_max = float(model.to_nodal(fused["u"]).abs().max())
+        if disp.size != 3 * n or float(np.abs(disp).max()) != u_max:
+            fail(f"static 255^3 VTU: displacement block max {np.abs(disp).max()} "
+                 f"!= max|u| {u_max}")
+        print(f"static 255^3 VTU frame 0: {size:,} bytes, {vtu_s:.3f} s for the "
+              f"derived fields, host transfers and the write (writer "
+              f"{'native' if native_writer() else 'numpy'}); displacement block "
+              f"max {float(np.abs(disp).max()):.6e} = max|u|; model build "
+              f"{build_s:.3f} s", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    summary = {k: dict(iterations=r["payload"]["iterations"],
+                       seconds=r["payload"]["elapsed_seconds"], counts=r["counts"],
+                       res=r["res"]) for k, r in results.items()}
+    summary["vtu"] = dict(bytes=size, seconds=vtu_s)
+    del sim, model, results, fused, classic, megaf
+    torch.cuda.empty_cache()
+    return summary
+
+
+def refined_static_solution(sim, u, steps=2):
+    """The static solution to f64 accuracy by mixed-precision iterative
+    refinement of ``u``: the residual f - K x in f64 (the plain operator),
+    a classic f32 PCG solve of K d = r (K1 + K3, to 1e-8 of |r|), x += d,
+    ``steps`` times.  Returns (x in f64, the relative f64 residual before
+    each step)."""
+    from civiwave_tpu_torch.ops.structured import apply_keff_structured_plain
+    from civiwave_tpu_torch.solver.pcg import solve_pcg
+
+    model, force = sim.model, sim.stepper.external_force
+    f64 = torch.float64
+    rhs = torch.where(model.bc_mask, model.bc_value.to(f64), force.to(f64))
+    one, zero = np.float32(1.0), np.float32(0.0)
+    pc = model.build_preconditioner(one, zero)
+    x = u.to(f64)
+    rel = []
+    for _ in range(steps):
+        r = torch.where(model.bc_mask, 0.0,
+                        rhs - apply_keff_structured_plain(model, x, 1.0, 0.0))
+        rel.append(float(r.norm() / rhs.norm()))
+        d, _ = solve_pcg(model, r.float(), one, zero, 1e-8,
+                         sim.config.solver.max_iterations, torch.zeros_like(u),
+                         warm_start=False, preconditioner=pc, variant="classic")
+        x += d.to(f64)
+    return x, rel
+
+
+def native_writer() -> bool:
+    from civiwave_tpu_torch.post import native_vtu
+
+    return native_vtu.available()
+
+
+def probe_table(path):
+    with open(path, encoding="ascii") as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    return rows[0], np.array(rows[1:], dtype=np.float64)
+
+
+def check_probe_tables(label, got, ref):
+    """Probe CSV rows: frame/time/node equal, u at U_TOL and v, a, strain,
+    stress and von Mises at A_TOL of each group's max|ref|."""
+    if got[0] != ref[0] or got[1].shape != ref[1].shape:
+        fail(f"{label}: probe tables differ in shape {got[1].shape} vs {ref[1].shape}")
+    g, r = got[1], ref[1]
+    if not np.array_equal(g[:, [0, 2]], r[:, [0, 2]]) or not np.allclose(
+            g[:, 1], r[:, 1], rtol=1e-12, atol=0):
+        fail(f"{label}: probe frame/time/node columns differ")
+    return max(check_rows(f"{label} probes u", g[:, 3:6], r[:, 3:6], U_TOL),
+               check_rows(f"{label} probes v, a, strain, stress",
+                          g[:, 6:], r[:, 6:], A_TOL))
+
+
+def box_output_phase(device):
+    """Phase 17a: examples/cantilever_box.yaml --output for 10 frames
+    through the CLI on the GPU and the CPU."""
+    import shutil
+
+    from civiwave_tpu_torch.runner import main as cli
+
+    tmp = scratch_dir("box_output")
+    out = {}
+    try:
+        for side, dev in (("gpu", device), ("cpu", torch.device("cpu"))):
+            root = os.path.join(tmp, side)
+            if cli([BOX_YAML, "--frames", "10", "--quiet", "--device", str(dev),
+                    "--output", root]) != 0:
+                fail(f"cantilever_box --output on {dev}: non-zero exit")
+            frames = sorted(os.listdir(os.path.join(root, "vtu")))
+            out[side] = (
+                frames, probe_table(os.path.join(root, "probes", "probes.csv")),
+                {f: read_vtu(os.path.join(root, "vtu", f))[1] for f in frames})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (fg, tg, vg), (fc, tc, vc) = out["gpu"], out["cpu"]
+    if fg != fc or fg != ["frame_00000.vtu", "frame_00005.vtu"]:
+        fail(f"cantilever_box --output: VTU frames gpu {fg} cpu {fc}")
+    probe_err = check_probe_tables("cantilever_box --output", tg, tc)
+    worst = 0.0
+    for frame in fg:
+        for name in vg[frame]:
+            tol = U_TOL if name == "displacement" else A_TOL
+            worst = max(worst, check_rows(f"cantilever_box {frame} {name}",
+                                          vg[frame][name], vc[frame][name], tol))
+    print(f"cantilever_box --output 10 frames: VTU frames {fg} on both; probe rows "
+          f"max err / max|cpu| {probe_err:.3e}; VTU arrays worst {worst:.3e} (u at "
+          f"{U_TOL:g}, the rest at {A_TOL:g})", flush=True)
+
+
+def output_full_width_phase(device, split):
+    """Phase 17b: the 255^3 cantilever stepped for 8 frames with the
+    structured output manager (probes on the loaded face and at mid-span,
+    VTU frame 0 written on the writer thread while frames 1-7 step),
+    against phase 4's fused frames without output."""
+    import shutil
+
+    from civiwave_tpu_torch.post.structured_fields import (
+        compute_structured_derived,
+        probe_derived_host,
+        probe_samples,
+    )
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    nx, ny, nz = FULL
+    ys, zs = ny + 1, nz + 1
+
+    def node(i, j, k):
+        return (i * ys + j) * zs + k
+
+    probes = [node(nx, 0, 0), node(nx, ny, 0), node(nx, 0, nz), node(nx, ny, nz),
+              node(nx // 2, ny // 2, nz // 2)]
+    cfg = cantilever_config(
+        tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
+        mesh={"path": "synthetic://box/%d,%d,%d" % FULL},
+        output={"vtu_stride": 8, "probes": probes},
+    )
+    tmp = scratch_dir("output_255")
+    try:
+        sim = build_simulation(cfg, device=device, output_root=tmp)
+        model = sim.model
+        writer = sim.output._writer
+        plain_submit, write_s = writer.submit, []
+
+        def timed_submit(fn, *args):
+            def timed(*a):
+                t = time.perf_counter()
+                fn(*a)
+                write_s.append(time.perf_counter() - t)
+            plain_submit(timed, *args)
+
+        writer.submit = timed_submit
+        # one frame per run() call for per-frame times, without run()'s
+        # flush of the writer, so frame 0's file is written while frames
+        # 1-7 step; the flush is waited for after frame 8
+        manager_flush, sim.output.flush = sim.output.flush, lambda: None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_structured_counts()
+        frame_s, tel = [], []
+        for _ in range(8):
+            t0 = time.perf_counter()
+            tel += sim.run(1)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        manager_flush()
+        flush_s = time.perf_counter() - t0
+        run_s = sum(frame_s) + flush_s
+        peak = torch.cuda.max_memory_allocated()
+        iters = [t.pcg_iterations for t in tel]
+        if not all(t.pcg_converged for t in tel):
+            fail(f"output 255^3: not every frame converged: {iters}")
+        if any(abs(a - b) > 1 for a, b in zip(iters, split["iters"])):
+            fail(f"output 255^3: iterations {iters} not within 1 of phase 4's "
+                 f"fused frames {split['iters']}")
+        if not bool(torch.isfinite(sim.stepper.state.displacement).all()):
+            fail("output 255^3: non-finite displacement")
+        frames = sorted(os.listdir(os.path.join(tmp, "vtu")))
+        if frames != ["frame_00000.vtu"] or len(write_s) != 1:
+            fail(f"output 255^3: VTU frames {frames}, writes {len(write_s)}")
+        vtu_bytes = os.path.getsize(os.path.join(tmp, "vtu", frames[0]))
+        header, table = probe_table(os.path.join(tmp, "probes", "probes.csv"))
+        if table.shape != (8 * len(probes), 25):
+            fail(f"output 255^3: probe table {table.shape}")
+
+        # probe rows against the device node fields at those nodes
+        state = sim.stepper.state
+        kin, windows = probe_samples(model, state, probes)
+        rows = probe_derived_host(model, probes, windows)
+        fields = compute_structured_derived(model, state.displacement)
+        node_stress = fields[4].permute(1, 2, 3, 0).reshape(-1, 6)
+        node_strain = fields[3].permute(1, 2, 3, 0).reshape(-1, 6)
+        smax = float(node_stress.abs().max())
+        emax = float(node_strain.abs().max())
+        idx = torch.as_tensor(probes, device=device)
+        dev_stress = node_stress[idx].double().cpu().numpy()
+        dev_strain = node_strain[idx].double().cpu().numpy()
+        dev_vm = fields[5].reshape(-1)[idx].double().cpu().numpy()
+        del fields, node_stress, node_strain
+        worst = 0.0
+        for p, (strain, stress, vm), ds, de, dv in zip(
+                probes, rows, dev_stress, dev_strain, dev_vm):
+            errs = (np.abs(stress - ds).max() / smax, np.abs(strain - de).max() / emax,
+                    abs(vm - dv) / smax)
+            if max(errs) > 1e-5:
+                fail(f"output 255^3: probe {p} derived row differs from the device "
+                     f"node fields by {max(errs):.3e} of max|.|")
+            worst = max(worst, *errs)
+        u_nodal = model.to_nodal(state.displacement)
+        if not np.array_equal(kin[:, 0], u_nodal[idx].cpu().numpy()):
+            fail("output 255^3: probe u rows differ from the state")
+
+        # the derived fields' device time and the probe cost per frame
+        derived_ms = time_ms(lambda: compute_structured_derived(model, state.displacement), 5)
+        t0 = time.perf_counter()
+        reps = 20
+        for _ in range(reps):
+            k_, w_ = probe_samples(model, state, probes)
+            probe_derived_host(model, probes, w_)
+        probe_ms = (time.perf_counter() - t0) / reps * 1e3
+        steady = frame_s[1:]
+        steps = len(steady) / sum(steady)
+        print(f"output 255^3: frame seconds " + ", ".join(
+            f"{t:.4f}" for t in frame_s) + f", then {flush_s:.4f} s waiting for "
+              f"the writer; steps/s {steps:.4f} over frames 2-8 while frame 0's "
+              f"VTU is written (phase 4 without output {split['steps_per_s']:.4f}), "
+              f"{8 / run_s:.4f} over all 8 with the wait; iterations {iters} "
+              f"(phase 4 {split['iters']})", flush=True)
+        print(f"output 255^3: derived fields {derived_ms:.4f} ms device time (CUDA "
+              f"events, 13 element + 13 node grids); probes {probe_ms:.4f} ms per "
+              f"frame ({len(probes)} probes, one transfer); VTU frame 0 "
+              f"{vtu_bytes:,} bytes written in {write_s[0]:.3f} s on the writer "
+              f"thread (writer {'native' if native_writer() else 'numpy'}); probe "
+              f"rows vs device node fields worst {worst:.3e} of max|.|; peak device "
+              f"memory {peak / 2**30:.3f} GiB ({peak} bytes)", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del sim, model, state
+    torch.cuda.empty_cache()
+    return dict(steps_per_s=steps, derived_ms=derived_ms, probe_ms=probe_ms,
+                vtu_bytes=vtu_bytes, vtu_write_s=write_s[0])
+
+
+def dashpot_device_kernels(model, x):
+    """Device kernels one application of the general dashpot term
+    launches, counted by torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from civiwave_tpu_torch.ops import apply_keff as gops
+
+    damped = dataclasses.replace(model, damp_factor=1.0)
+    out = torch.zeros_like(x)
+    gops.add_dashpot_term(damped, out, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        gops.add_dashpot_term(damped, out, x)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def tet_basin_phase(device):
+    """Phase 17c: examples/seismic_basin.yaml meshed with tets (the general
+    path with five absorbing faces): 10 frames with --output on the GPU and
+    the CPU at 24x24x12, then 8 frames at 80x80x40 (807,003 DOF) on the
+    GPU."""
+    import shutil
+
+    from civiwave_tpu_torch.config.loader import load_config_from_file
+    from civiwave_tpu_torch.ops import apply_keff as gops
+    from civiwave_tpu_torch.runner import build_simulation
+
+    base = load_config_from_file(BASIN)
+    cfg = dataclasses.replace(base, mesh_path="synthetic://box/24,24,12,tet")
+    tmp = scratch_dir("tet_basin")
+    runs = {}
+    try:
+        for side, dev in (("gpu", device), ("cpu", torch.device("cpu"))):
+            root = os.path.join(tmp, side)
+            sim = build_simulation(cfg, device=dev, output_root=root)
+            if not sim.model.has_damping:
+                fail("tet basin: no dashpots on the general path")
+            reset_general_counts()
+            tel = sim.run(10)
+            runs[side] = (tel, sim.stepper.displacement(),
+                              sim.stepper.acceleration(), general_counts(),
+                              probe_table(os.path.join(root, "probes", "probes.csv")),
+                              sorted(os.listdir(os.path.join(root, "vtu"))))
+            del sim
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    (tg, ug, ag, counts, pg, fg), (tc, uc, ac, _, pc, fc) = runs["gpu"], runs["cpu"]
+    it_g = [t.pcg_iterations for t in tg]
+    it_c = [t.pcg_iterations for t in tc]
+    if any(abs(a - b) > 1 for a, b in zip(it_g, it_c)) or not all(
+            t.pcg_converged for t in tg):
+        fail(f"tet basin: iterations gpu {it_g} cpu {it_c}")
+    if counts["element_forces_tet"] <= 0 or counts["assemble_csr"] <= 0:
+        fail(f"tet basin: K7 tet / G1 not launched {counts}")
+    if fg != fc:
+        fail(f"tet basin: VTU frames gpu {fg} cpu {fc}")
+    eu = check_rows("tet basin u", ug, uc, U_TOL)
+    ea = check_rows("tet basin a", ag, ac, A_TOL)
+    ep = check_probe_tables("tet basin", pg, pc)
+    print(f"tet basin 24x24x12 (41,472 tets, general path, five absorbing faces) "
+          f"10 frames with output: iterations gpu {it_g} cpu {it_c}; max err / "
+          f"max|cpu| u {eu:.3e} a {ea:.3e} probes {ep:.3e}; VTU frames {fg}; gpu "
+          f"launches {counts}", flush=True)
+
+    n = TET_BASIN
+    cfg = dataclasses.replace(base, mesh_path="synthetic://box/%d,%d,%d,tet" % n)
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg, device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    model = sim.model
+    if model.tet_count != 6 * int(np.prod(n)) or model.dof_count != 3 * int(
+            np.prod([c + 1 for c in n])):
+        fail(f"tet basin full width: {model.tet_count:,} tets, {model.dof_count:,} DOF")
+    torch.cuda.reset_peak_memory_stats()
+    reset_general_counts()
+    dash0 = gops.add_dashpot_term.calls
+    frame_s, tel = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        tel += sim.run(1)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    counts = general_counts()
+    dash = gops.add_dashpot_term.calls - dash0
+    peak = torch.cuda.max_memory_allocated()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel) or sum(iters) <= 0:
+        fail(f"tet basin full width: frames {iters}")
+    if not bool(torch.isfinite(sim.stepper.state.displacement).all()):
+        fail("tet basin full width: non-finite displacement")
+    # matvecs with the term: one initial residual per frame plus one per
+    # iteration (the Rayleigh-beta matvec runs outside the step's model)
+    matvecs = len(tel) + sum(iters)
+    if dash != matvecs or counts["element_forces_tet"] != matvecs + len(tel):
+        fail(f"tet basin full width: {dash} dashpot terms and {counts} launches "
+             f"for {matvecs} step matvecs")
+    kernels_per_term = dashpot_device_kernels(
+        model, torch.randn(model.vector_shape, device=device))
+    steady = frame_s[1:]
+    print(f"tet basin full width ({model.tet_count:,} tets, {model.node_count:,} "
+          f"nodes, {model.dof_count:,} DOF, D {model.csr_degree}): build "
+          f"{build_s:.3f} s; iterations {iters}; frame seconds " + ", ".join(
+              f"{t:.4f}" for t in frame_s) + f"; steps/s {len(steady) / sum(steady):.4f} "
+          f"(frames 2-8), {sum(steady) / sum(iters[1:]) * 1e3:.4f} ms per iteration; "
+          f"peak device memory {peak / 2**30:.3f} GiB ({peak} bytes)", flush=True)
+    print(f"tet basin full width: launches {counts} (K7 tet and G1 per frame "
+          f"{counts['element_forces_tet'] / len(tel):.2f}); dashpot term {dash} "
+          f"applications = one per step matvec, {kernels_per_term} device kernels "
+          f"each", flush=True)
+    profile_window("tet basin full width frame 9", lambda: sim.run(1))
+    del sim, model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -1757,10 +2437,20 @@ def main() -> int:
     basin_phase(device)
     halo_worst, halo_times = halo_kernel_phase(device, ss, mf)
     sharded = sharded_main_path_phase(device, split)
+    static_tet_counts = static_example_phase(device)
+    static = static_full_width_phase(device)
+    box_output_phase(device)
+    output = output_full_width_phase(device, split)
+    basin_counts = tet_basin_phase(device)
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
     nodes = int(np.prod([n + 1 for n in FULL]))
+
+    def static_launches(key):
+        """Launches of one kernel over phase 16c's three 255^3 static solves
+        (fused, classic, megafused)."""
+        return sum(static[v]["counts"][key] for v in ("fused", "classic", "megafused"))
 
     def structured_bound(key):
         ms, by = bound(KERNEL_BYTES_PER_NODE[key] * nodes,
@@ -1779,7 +2469,8 @@ def main() -> int:
              launches=launches["keff"], max_abs_err=errs["keff"][0],
              max_rel_err=errs["keff"][1], tol=OP_TOL,
              ms=times["keff"][0], plain_ms=times["keff"][1],
-             **structured_bound("keff")),
+             **structured_bound("keff"),
+             launches_static=static_launches("keff")),
         dict(name="pc_keff_structured", route="cuda",
              source=src + "pc_keff_structured.cu",
              replaces=pallas + "structured_stencil.py:820",
@@ -1787,21 +2478,24 @@ def main() -> int:
              max_abs_err=max(errs["pc_u"][0], errs["pc_w"][0]),
              max_rel_err=max(errs["pc_u"][1], errs["pc_w"][1]), tol=OP_TOL,
              ms=times["pc"][0], plain_ms=times["pc"][1],
-             **structured_bound("pc")),
+             **structured_bound("pc"),
+             launches_static=static_launches("pc")),
         dict(name="block_jacobi_apply", route="cuda",
              source=src + "block_jacobi_apply.cu",
              replaces=pallas + "block_jacobi_apply.py:144",
              launches=launches["bj"], max_abs_err=errs["bj"][0],
              max_rel_err=errs["bj"][1], tol=OP_TOL,
              ms=times["bj"][0], plain_ms=times["bj"][1],
-             **structured_bound("bj")),
+             **structured_bound("bj"),
+             launches_static=static_launches("bj")),
         dict(name="pcg_iteration_structured", route="cuda",
              source=src + "pcg_iteration_structured.cu",
              replaces=pallas + "structured_stencil.py:1226",
              launches=mega_launches["k6"], max_abs_err=errs["k6"][0],
              max_rel_err=errs["k6"][1], tol=OP_TOL,
              ms=times["k6"][0], plain_ms=times["k6"][1],
-             **structured_bound("k6")),
+             **structured_bound("k6"),
+             launches_static=static_launches("k6")),
         dict(name="element_forces_hex", route="cuda",
              source=src + "element_forces.cu",
              replaces=pallas + "element_forces.py:125",
@@ -1815,14 +2509,18 @@ def main() -> int:
              launches=main_counts["element_forces_tet"],
              max_abs_err=tet_errs["element_forces_tet"][0],
              max_rel_err=tet_errs["element_forces_tet"][1], tol=OP_TOL,
-             **tet_timings["element_forces_tet"]),
+             **tet_timings["element_forces_tet"],
+             launches_static=static_tet_counts["element_forces_tet"],
+             launches_tet_basin=basin_counts["element_forces_tet"]),
         dict(name="assemble_csr", route="cuda", source=src + "assemble_csr.cu",
              replaces="civiwave_tpu/ops/apply_keff.py:283",
              launches=main_counts["assemble_csr"],
              max_abs_err=tet_errs["assemble_csr"][0],
              max_rel_err=tet_errs["assemble_csr"][1], tol=OP_TOL,
              **tet_timings["assemble_csr"], ms_hex66=g1_hex["ms"],
-             bound_ms_hex66=g1_hex["bound_ms"]),
+             bound_ms_hex66=g1_hex["bound_ms"],
+             launches_static=static_tet_counts["assemble_csr"],
+             launches_tet_basin=basin_counts["assemble_csr"]),
         # K4 and G2: errors over every grid of phase 11, device times at the
         # soil column's grid (and at 255^3), launches on its main path
         # (phase 12)
@@ -1858,6 +2556,11 @@ def main() -> int:
              bound_ms_slab64=halo_times["slab64"]["bound_ms"]),
     ]
     print(f"general_matvec_throughput {gdofs:.4f} GDOF/s", flush=True)
+    print("static 255^3 " + "; ".join(
+        f"{v}: {static[v]['iterations']} iterations, {static[v]['seconds']:.4f} s"
+        for v in ("fused", "classic", "megafused")) + f"; output 255^3 "
+        f"{output['steps_per_s']:.4f} steps/s with output vs "
+        f"{split['steps_per_s']:.4f} without", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

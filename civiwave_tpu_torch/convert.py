@@ -122,17 +122,23 @@ PACKED_ARRAYS = {
     "mu": np.float32,
     "stiffness_6x6": np.float32,
 }
-# optional arrays (None = identity numbering)
-PACKED_PERMS = ("perm_new_of_old", "perm_old_of_new")
+# optional arrays: the RCM permutation (None = identity numbering) and the
+# absorbing dashpots (None = no absorbing faces; ``meta["has_damping"]``,
+# where given, must agree)
+PACKED_OPTIONAL = {
+    "perm_new_of_old": np.int64,
+    "perm_old_of_new": np.int64,
+    "damp_blocks": np.float32,
+}
 PACKED_META = (
     "node_count", "padded_node_count", "tet_count", "padded_tet_count",
     "hex_count", "padded_hex_count", "element_count", "csr_degree",
 )
-# fields of the JAX model that are not ported: absorbing dashpots on the
-# general path (A7-general) and the multi-device halo tables (A11)
+# fields of the JAX model that are not ported: the multi-device halo
+# tables (A11)
 UNPORTED_PACKED = (
-    "damp_blocks", "halo_conn", "halo_grads", "halo_vol", "halo_lam",
-    "halo_mu", "halo_csr_idx", "halo_csr_weight",
+    "halo_conn", "halo_grads", "halo_vol", "halo_lam", "halo_mu",
+    "halo_csr_idx", "halo_csr_weight",
 )
 
 
@@ -140,25 +146,30 @@ def packed_model_from_arrays(
     arrays: Mapping[str, np.ndarray], meta: Mapping[str, object], device
 ) -> PackedModel:
     """A :class:`PackedModel` on ``device`` from its array fields (as
-    numpy: ``PACKED_ARRAYS`` plus the optional ``PACKED_PERMS``) and its
-    scalar fields (``PACKED_META``).  Absorbing-dashpot or halo fields
-    that are not None, or ``meta["has_damping"]``, raise
-    NotImplementedError."""
+    numpy: ``PACKED_ARRAYS`` plus the optional ``PACKED_OPTIONAL``) and its
+    scalar fields (``PACKED_META``).  Halo fields that are not None raise
+    NotImplementedError; ``meta["has_damping"]`` without ``damp_blocks``
+    (or the reverse) raises ValueError."""
     present = [k for k in UNPORTED_PACKED if arrays.get(k) is not None]
-    if present or meta.get("has_damping", False):
+    if present:
         raise NotImplementedError(
-            f"packed-model fields {present or ['has_damping']} are not ported "
-            "(absorbing faces on the general path: ROADMAP A7-general; "
-            "halo exchange: A11)"
+            f"packed-model fields {present} are not ported (halo exchange: "
+            "ROADMAP A11)"
+        )
+    has_blocks = arrays.get("damp_blocks") is not None
+    if "has_damping" in meta and bool(meta["has_damping"]) != has_blocks:
+        raise ValueError(
+            f"has_damping={meta['has_damping']} but damp_blocks is "
+            f"{'given' if has_blocks else 'None'}"
         )
     fields = {
         name: torch.as_tensor(np.array(arrays[name], dtype), device=device)
         for name, dtype in PACKED_ARRAYS.items()
     }
-    for name in PACKED_PERMS:
-        perm = arrays.get(name)
+    for name, dtype in PACKED_OPTIONAL.items():
+        value = arrays.get(name)
         fields[name] = (
-            None if perm is None
-            else torch.as_tensor(np.array(perm, np.int64), device=device)
+            None if value is None
+            else torch.as_tensor(np.array(value, dtype), device=device)
         )
     return PackedModel(**fields, **{k: int(meta[k]) for k in PACKED_META})

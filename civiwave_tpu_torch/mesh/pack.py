@@ -27,8 +27,9 @@ spans (``mesh/renumber.py``); ``to_nodal``/``from_nodal`` translate.
 Left out, as TPU-only: the BLOCK_ELEMS = 4096 element padding (only the
 ``pad_elems`` rounding stays), the banded gather windows and oct plans
 (ROADMAP "Do not port") and the halo fields of the multi-device path
-(A11).  Absorbing dashpots raise ``NotImplementedError`` (A7-general; the
-structured route has them).
+(A11).  Lysmer-Kuhlemeyer absorbing dashpots ride on the model as (N*, 6)
+sym-packed node blocks (``physics/absorbing.py``); the stepper sets
+``damp_factor`` (Newmark a1) on a copy of the model per step.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from ..config.schema import Config
+from ..physics import absorbing as absorbing_mod
 from ..physics import loads as loads_mod
 from ..physics import oracle
 from ..physics.materials import ElasticProperties, material_tables
@@ -131,6 +133,11 @@ class PackedModel:
     lam: torch.Tensor  # (M,) f32
     mu: torch.Tensor  # (M,) f32
     stiffness_6x6: torch.Tensor  # (M, 6, 6) f32
+    # Lysmer-Kuhlemeyer absorbing dashpots: (N*, 6) sym-packed per-node C
+    # (None without boundaries.absorbing groups); damp_factor is the Newmark
+    # a1 the stepper sets per step (K_eff += a1 C; None outside a step)
+    damp_blocks: Optional[torch.Tensor] = None
+    damp_factor: Optional[float] = None
     # RCM node renumbering (None = identity): perm_new_of_old[old] = new,
     # perm_old_of_new inverts it; both padded to N* with an identity tail
     perm_new_of_old: Optional[torch.Tensor] = None  # (N*,) int64
@@ -143,6 +150,10 @@ class PackedModel:
     padded_hex_count: int = 0
     element_count: int = 0
     csr_degree: int = 8
+
+    @property
+    def has_damping(self) -> bool:
+        return self.damp_blocks is not None
 
     @property
     def device(self) -> torch.device:
@@ -224,6 +235,15 @@ class PackedModel:
         reference."""
         return False
 
+    def absorbing_force(self, v: torch.Tensor) -> torch.Tensor:
+        """C v from the dashpots, zeroed on constrained axes (zeros without
+        absorbing faces): the Newmark right-hand side's damping force."""
+        if not self.has_damping:
+            return torch.zeros_like(v)
+        from ..physics.absorbing import sym_apply
+
+        return torch.where(self.bc_mask, 0.0, sym_apply(self.damp_blocks, v))
+
 
 def _build_dual_csr(
     conn_tet: np.ndarray,
@@ -301,12 +321,6 @@ def build_packed_model(
     """
     if pad_nodes < 1 or pad_elems < 1:
         raise PackError("padding multiples must be >= 1", ["PackingParameters"])
-    if cfg.absorbing:
-        raise NotImplementedError(
-            "absorbing boundaries on the general path are not ported yet "
-            "(ROADMAP A7-general); a synthetic://box hex scenario with one "
-            "material takes the structured route, which has them"
-        )
 
     n = mesh.node_count
     if n != preprocess.lumped_mass.shape[0]:
@@ -343,6 +357,13 @@ def build_packed_model(
     bc_mask[n:] = True  # padded nodes are fully constrained no-ops
     bc_value = np.zeros((n_pad, 3), dtype=np.float32)
     bc_value[:n] = _pnode(clamp_to_f32(dirichlet.targets.reshape(n, 3)))
+
+    # Lysmer-Kuhlemeyer absorbing dashpots (None without absorbing groups)
+    damp_np = absorbing_mod.assemble_dashpots(mesh, preprocess, cfg, materials)
+    damp_blocks = None
+    if damp_np is not None:
+        damp_blocks = np.zeros((n_pad, 6), dtype=np.float32)
+        damp_blocks[:n] = _pnode(clamp_to_f32(damp_np))
 
     load = loads_mod.assemble_load_vector(mesh, cfg, preprocess, 0.0)
     external_force = np.zeros((n_pad, 3), dtype=np.float32)
@@ -446,6 +467,7 @@ def build_packed_model(
         lam=dev(clamp_to_f32(lam_np)),
         mu=dev(clamp_to_f32(mu_np)),
         stiffness_6x6=dev(clamp_to_f32(d_np)),
+        damp_blocks=None if damp_blocks is None else dev(damp_blocks),
         perm_new_of_old=perm_new_of_old,
         perm_old_of_new=perm_old_of_new,
         node_count=n,

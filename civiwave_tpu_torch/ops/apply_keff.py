@@ -24,7 +24,10 @@ assembly contract, docs/spec.md:35):
 Semantics (pcg.cpp:530-686): constrained input components read as zero;
 element forces scale by ``volume * stiffness_scale``; ``+ mass_factor *
 lumped_mass * x_sanitized`` adds the mass term; constrained rows are
-identity (output = raw input).
+identity (output = raw input).  A model with absorbing dashpots and a
+``damp_factor`` (set by the stepper per step) adds ``damp_factor * C xs``
+on free rows (:func:`add_dashpot_term`, the reference's XLA term after its
+assembly): torch ops on either device, after G1 on the card.
 
 :func:`apply_keff` dispatches by device: a CPU tensor takes the plain
 versions, a CUDA tensor launches K7 and G1 or raises.
@@ -152,10 +155,28 @@ def finish_keff(model: PackedModel, assembled, x, mass_factor):
     return torch.where(model.bc_mask, x, out)
 
 
+def add_dashpot_term(model: PackedModel, out, x):
+    """``out + where(bc, 0, damp_factor * C xs)``: the Lysmer-Kuhlemeyer
+    dashpots enter K_eff as + a1 C, masked on both sides (xs is sanitized)
+    so the operator stays symmetric for CG; ``out`` unchanged without
+    dashpots or outside a step (``damp_factor`` None)."""
+    if not model.has_damping or model.damp_factor is None:
+        return out
+    from ..physics.absorbing import sym_apply
+
+    add_dashpot_term.calls += 1
+    term = model.damp_factor * sym_apply(model.damp_blocks, sanitize(model, x))
+    return out + torch.where(model.bc_mask, 0.0, term)
+
+
+add_dashpot_term.calls = 0  # applications of the term (torch ops, no kernel)
+
+
 def apply_keff_plain(model: PackedModel, x, stiffness_scale, mass_factor):
     """Plain PyTorch K_eff * x with Dirichlet identity rows."""
     rows = element_force_rows(model, sanitize(model, x), stiffness_scale)
-    return finish_keff(model, assemble(model, rows), x, mass_factor)
+    out = finish_keff(model, assemble(model, rows), x, mass_factor)
+    return add_dashpot_term(model, out, x)
 
 
 def apply_keff(
@@ -167,9 +188,10 @@ def apply_keff(
     (they change with adaptive dt, newmark_stepper.cpp:1322-1326); the
     Rayleigh-beta RHS term passes ``mass_factor = 0``.  A CPU tensor takes
     the plain version; a CUDA f32 tensor launches K7 (tet and/or hex) and
-    G1, or raises.
+    G1, or raises; the dashpot term follows either.
     """
     if x.device.type == "cpu":
         return apply_keff_plain(model, x, stiffness_scale, mass_factor)
     rows = element_forces.element_force_rows(model, x, stiffness_scale)
-    return assemble_csr.assemble_keff(model, rows, x, mass_factor)
+    out = assemble_csr.assemble_keff(model, rows, x, mass_factor)
+    return add_dashpot_term(model, out, x)

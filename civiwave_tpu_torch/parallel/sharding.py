@@ -262,13 +262,18 @@ def shard_simulation(sim, group: ShardGroup):
     its model, state and force cut by :func:`shard_structured`, each part
     of its force schedule cut to the same block, and a new
     ``NewmarkStepper`` over them with the old one's settings, dt, time and
-    frame.  A collective: every rank of the group calls it."""
+    frame.  A collective: every rank of the group calls it.  A simulation
+    built with an output root raises NotImplementedError (ROADMAP A11)."""
     from ..mesh.structured_config import StructuredForceSchedule
     from ..solver.stepper import NewmarkStepper
 
     if sim.force_schedule is None:
         raise NotImplementedError(
             "sharding the general gather path is not ported yet (ROADMAP A11)"
+        )
+    if sim.output is not None:
+        raise NotImplementedError(
+            "output of a sharded simulation is not ported yet (ROADMAP A11)"
         )
     old = sim.stepper
     model, state, force = shard_structured(

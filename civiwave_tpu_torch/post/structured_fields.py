@@ -1,0 +1,321 @@
+"""Derived fields on the device and O(1) probe sampling for structured grids.
+
+Port of :mod:`civiwave_tpu.post.structured_fields`.  On the uniform grid the
+host derived-field math (``post/derived.py``) collapses: every Gauss point
+carries the volume V/8, so the volume-weighted element average is the
+strain of the MEAN gradient table, and the node average is the uniform
+mean over incident cells (a corner scatter, the pattern of the mass
+assembly).  :func:`compute_structured_derived` runs it in torch on the
+model's device in CSG layout (the reference runs it in XLA, with no Pallas
+kernel, so torch ops are its counterpart); the corner scatter is eight
+in-place slice adds into preallocated accumulators, and the incident-cell
+count is one grid built once per grid shape.  The host sees (E, 6)/(N, 6)
+rows only on VTU frames (:func:`derived_to_host`).
+
+Probe logging must not pull whole fields at 50M DOF: probes are fixed node
+ids, so :func:`probe_samples` gathers each probe's u/v/a and the 3x3x3
+displacement window around it into one small tensor and moves it to the
+host in one transfer per frame; :func:`probe_derived_host` evaluates the
+<= 8 incident-cell strains from the window on the host, the same incident-
+cell mean the full node average computes.
+
+The port's structured model is homogeneous (heterogeneous grids wait for
+ROADMAP A1), so the probe formula reads the material from ``lam0``/``mu0``,
+which equal every live cell of ``lam_grid``/``mu_grid``.  Dead +Y rows
+(``pad_rows``) are stripped before the node rows are flattened, as
+``to_nodal`` does.  A shard's fields are not supported (ROADMAP A11).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..mesh.structured import CORNERS, StructuredModel
+from ..ops.structured import _element_tables
+from ..utils.errors import ProbeError
+from .derived import DerivedFieldSet
+
+
+@lru_cache(maxsize=32)
+def _mean_grads(spacing: Tuple[float, float, float]) -> np.ndarray:
+    """Volume-weighted mean Gauss gradient table (8 corners, 3): the
+    element's volume-averaged strain is the strain of this table."""
+    grads, gp_vol = _element_tables(spacing)
+    return np.einsum("g,gla->la", gp_vol, grads) / gp_vol.sum()
+
+
+def _corner_views(model: StructuredModel, grid: torch.Tensor):
+    """The eight (..., nx, ny, nz) corner views of a node grid, in CORNERS
+    order."""
+    nx, ny, nz = model.nx, model.ny, model.nz
+    return [
+        grid[..., di : di + nx, dj : dj + ny, dk : dk + nz]
+        for (di, dj, dk) in CORNERS
+    ]
+
+
+def _von_mises_into(out: torch.Tensor, s) -> torch.Tensor:
+    """sqrt(max(0.5 sum (s_i - s_j)^2 + 3 sum tau^2, 0)) written into
+    ``out``."""
+    energy = (s[0] - s[1]).square_()
+    energy += (s[1] - s[2]).square_()
+    energy += (s[2] - s[0]).square_()
+    energy *= 0.5
+    shear = s[3].square() + s[4].square() + s[5].square()
+    energy += 3.0 * shear
+    return torch.sqrt(energy.clamp_(min=0.0), out=out)
+
+
+@lru_cache(maxsize=2)
+def _incident_cells(shape, cells, device: str) -> torch.Tensor:
+    """(X, Y, Z) f32 count of cells incident to each node, at least 1 (dead
+    pad nodes and rows have none), for one grid shape; built once."""
+    nx, ny, nz = cells
+    count = torch.zeros(shape, dtype=torch.float32, device=device)
+    for (di, dj, dk) in CORNERS:
+        count[di : di + nx, dj : dj + ny, dk : dk + nz] += 1.0
+    return count.clamp_(min=1.0)
+
+
+def compute_structured_derived(model: StructuredModel, u_csg: torch.Tensor):
+    """Element and node derived fields on the model's device.
+
+    Returns (elem_strain, elem_stress, elem_vm, node_strain, node_stress,
+    node_vm): element grids (6, nx, ny, nz)/(nx, ny, nz), node grids (6, X,
+    Y, Z)/(X, Y, Z) in CSG layout, f32.  Strain is Voigt with engineering
+    shear [xx, yy, zz, xy, yz, xz]; stress the isotropic D . eps.
+    """
+    if model.shard_group is not None:
+        raise NotImplementedError(
+            "derived fields of a shard are not ported yet (ROADMAP A11)"
+        )
+    nx, ny, nz = model.nx, model.ny, model.nz
+    mg = _mean_grads(tuple(model.spacing))
+    views = _corner_views(model, u_csg)
+    f32 = torch.float32
+    dev = u_csg.device
+
+    # g[a][b] = du_b/dx_a from the mean gradient table, f32 scale per term
+    g = [[None] * 3 for _ in range(3)]
+    for a in range(3):
+        for b in range(3):
+            acc = None
+            for l in range(8):
+                w = float(np.float32(mg[l, a]))
+                if w == 0.0:
+                    continue
+                if acc is None:
+                    acc = views[l][b] * w
+                else:
+                    acc += views[l][b] * w
+            g[a][b] = acc if acc is not None else torch.zeros(
+                (nx, ny, nz), dtype=f32, device=dev
+            )
+    elem_strain = torch.empty((6, nx, ny, nz), dtype=f32, device=dev)
+    elem_strain[0], elem_strain[1], elem_strain[2] = g[0][0], g[1][1], g[2][2]
+    torch.add(g[1][0], g[0][1], out=elem_strain[3])
+    torch.add(g[2][1], g[1][2], out=elem_strain[4])
+    torch.add(g[2][0], g[0][2], out=elem_strain[5])
+    del g
+
+    # isotropic stress: normal = lam tr + 2 mu eps, shear = mu gamma
+    lam, mu = model.lam_cells, model.mu_cells
+    tr = elem_strain[0] + elem_strain[1] + elem_strain[2]
+    lam_tr = lam * tr
+    two_mu = 2.0 * mu
+    elem_stress = torch.empty_like(elem_strain)
+    for i in range(3):
+        torch.add(lam_tr, two_mu * elem_strain[i], out=elem_stress[i])
+    for i in range(3, 6):
+        torch.mul(mu, elem_strain[i], out=elem_stress[i])
+    del tr, lam_tr, two_mu
+    elem_vm = _von_mises_into(
+        torch.empty((nx, ny, nz), dtype=f32, device=dev), elem_stress
+    )
+
+    # node average: the uniform mean over incident cells
+    count = _incident_cells(
+        tuple(model.grid_shape), (nx, ny, nz), str(dev)
+    )
+    node_strain = torch.zeros((6,) + tuple(model.grid_shape), dtype=f32, device=dev)
+    node_stress = torch.zeros_like(node_strain)
+    for acc, elem in ((node_strain, elem_strain), (node_stress, elem_stress)):
+        for view in _corner_views(model, acc):
+            view += elem
+        acc /= count
+    node_vm = _von_mises_into(
+        torch.empty(tuple(model.grid_shape), dtype=f32, device=dev), node_stress
+    )
+    return elem_strain, elem_stress, elem_vm, node_strain, node_stress, node_vm
+
+
+def derived_to_host(model: StructuredModel, device_fields) -> DerivedFieldSet:
+    """The device grids as the host (E, 6)/(N, 6) rows of the VTU writer and
+    the probe logger (x-major element and node order).  The node grids lose
+    their dead +Y rows before flattening and their +X pad planes after, as
+    ``to_nodal`` does; the reference keeps the first N rows of the padded
+    flattening, which interleaves dead rows when ``pad_rows > 0``."""
+    elem_strain, elem_stress, elem_vm, node_strain, node_stress, node_vm = (
+        device_fields
+    )
+    n = model.node_count
+    ys = model.ny + 1
+
+    def rows6(a):
+        return a.permute(1, 2, 3, 0).reshape(-1, 6).cpu().numpy()
+
+    return DerivedFieldSet(
+        element_strain=rows6(elem_strain),
+        element_stress=rows6(elem_stress),
+        element_von_mises=elem_vm.reshape(-1).cpu().numpy(),
+        node_strain=rows6(node_strain[:, :, :ys])[:n],
+        node_stress=rows6(node_stress[:, :, :ys])[:n],
+        node_von_mises=node_vm[:, :ys].reshape(-1)[:n].cpu().numpy(),
+    )
+
+
+# ---------------------------------------------------------------------------
+# O(1) probe sampling
+# ---------------------------------------------------------------------------
+
+
+def _probe_coords(cells, probe: int) -> Tuple[int, int, int]:
+    """(i, j, k) of a node id in the x-major order of the real grid of
+    ``cells`` = (nx, ny, nz)."""
+    ys, zs = cells[1] + 1, cells[2] + 1
+    return probe // (ys * zs), (probe // zs) % ys, probe % zs
+
+
+def _window_bounds(cells, i: int, j: int, k: int):
+    """The 3x3x3 node window around (i, j, k), clipped at the real grid of
+    ``cells`` = (nx, ny, nz)."""
+    extents = tuple(c + 1 for c in cells)
+    lo = tuple(max(c - 1, 0) for c in (i, j, k))
+    hi = tuple(min(c + 2, e) for c, e in zip((i, j, k), extents))
+    return lo, hi
+
+
+@lru_cache(maxsize=8)
+def _probe_plan(grid_shape, cells, probes: Tuple[int, ...], device: str):
+    """Flat indices into a CSG vector of ``grid_shape``: every probe's node
+    components (u, v and a read these), then the probes' windows (u only),
+    with the window shapes; the index tensors live on ``device``."""
+    X, Y, Z = grid_shape
+    plane = X * Y * Z
+    comps = np.arange(3, dtype=np.int64)[:, None, None, None] * plane
+    node_idx, window_idx, shapes = [], [], []
+    for p in probes:
+        i, j, k = _probe_coords(cells, p)
+        node_idx.append(comps.reshape(3) + (i * Y + j) * Z + k)
+        lo, hi = _window_bounds(cells, i, j, k)
+        ii, jj, kk = np.meshgrid(
+            *(np.arange(a, b, dtype=np.int64) for a, b in zip(lo, hi)),
+            indexing="ij",
+        )
+        window_idx.append((comps + ((ii * Y + jj) * Z + kk)[None]).reshape(-1))
+        shapes.append((3,) + tuple(b - a for a, b in zip(lo, hi)))
+    node = torch.as_tensor(np.concatenate(node_idx), device=device)
+    window = torch.as_tensor(np.concatenate(window_idx), device=device)
+    return node, torch.cat([node, window]), shapes
+
+
+def probe_samples(model: StructuredModel, state, probes: Sequence[int]):
+    """Per probe: its (u, v, a) rows and the 3x3x3 displacement window
+    around its node (clipped at the grid's edges), gathered on the device
+    into one small tensor and moved to the host in one transfer.
+
+    Returns (kinematics (P, 3 kin, 3 comp) f32 numpy, [window (3, wx, wy,
+    wz) f32 numpy per probe]).  A probe id outside the mesh raises
+    ProbeError before anything is read."""
+    probes = tuple(int(p) for p in probes)
+    if not probes:
+        return np.zeros((0, 3, 3), np.float32), []
+    if model.shard_group is not None:
+        raise NotImplementedError(
+            "probes of a shard are not ported yet (ROADMAP A11)"
+        )
+    for p in probes:
+        if not 0 <= p < model.node_count:
+            raise ProbeError("probe index out of range", [str(p)])
+    node, u_idx, shapes = _probe_plan(
+        tuple(model.grid_shape), (model.nx, model.ny, model.nz), probes,
+        str(model.device),
+    )
+    host = torch.cat([
+        state.displacement.reshape(-1)[u_idx],
+        state.velocity.reshape(-1)[node],
+        state.acceleration.reshape(-1)[node],
+    ]).cpu().numpy()
+    n_p = len(probes)
+    u_node, rest = host[: 3 * n_p], host[3 * n_p:]
+    windows_flat, v_node, a_node = (
+        rest[: -6 * n_p], rest[-6 * n_p: -3 * n_p], rest[-3 * n_p:]
+    )
+    kin = np.stack(
+        [u_node.reshape(n_p, 3), v_node.reshape(n_p, 3), a_node.reshape(n_p, 3)],
+        axis=1,
+    )
+    windows, start = [], 0
+    for shape in shapes:
+        size = int(np.prod(shape))
+        windows.append(windows_flat[start : start + size].reshape(shape))
+        start += size
+    return kin, windows
+
+
+def probe_derived_host(
+    model: StructuredModel, probes: Sequence[int], windows
+) -> List[Tuple[np.ndarray, np.ndarray, float]]:
+    """(strain6, stress6, von_mises) per probe from its displacement window
+    (f64 on the host): the mean over the probe's incident cells, the value
+    of the full node average at that node."""
+    mg = _mean_grads(tuple(model.spacing))
+    # the homogeneous grid's material: every live cell of lam_grid/mu_grid
+    lam, mu = float(np.float32(model.lam0)), float(np.float32(model.mu0))
+    nx, ny, nz = model.nx, model.ny, model.nz
+    out = []
+    for p, w in zip(probes, windows):
+        i, j, k = _probe_coords((nx, ny, nz), int(p))
+        lo, _ = _window_bounds((nx, ny, nz), i, j, k)
+        w = np.asarray(w, np.float64)  # (3, wx, wy, wz)
+        strain_sum = np.zeros(6)
+        stress_sum = np.zeros(6)
+        n_cells = 0
+        for ci in (i - 1, i):
+            for cj in (j - 1, j):
+                for ck in (k - 1, k):
+                    if not (0 <= ci < nx and 0 <= cj < ny and 0 <= ck < nz):
+                        continue
+                    oi, oj, ok = ci - lo[0], cj - lo[1], ck - lo[2]
+                    g = np.zeros((3, 3))
+                    for l, (di, dj, dk) in enumerate(CORNERS):
+                        ul = w[:, oi + di, oj + dj, ok + dk]
+                        g += np.outer(mg[l], ul)  # g[a, b] = du_b/dx_a
+                    strain = np.array([
+                        g[0, 0], g[1, 1], g[2, 2],
+                        g[1, 0] + g[0, 1], g[2, 1] + g[1, 2],
+                        g[2, 0] + g[0, 2],
+                    ])
+                    tr = strain[:3].sum()
+                    stress = np.concatenate([
+                        lam * tr + 2.0 * mu * strain[:3],
+                        mu * strain[3:],
+                    ])
+                    strain_sum += strain
+                    stress_sum += stress
+                    n_cells += 1
+        inv = 1.0 / max(n_cells, 1)
+        s = stress_sum * inv
+        vm = float(np.sqrt(max(
+            0.5 * ((s[0] - s[1]) ** 2 + (s[1] - s[2]) ** 2
+                   + (s[2] - s[0]) ** 2)
+            + 3.0 * (s[3] ** 2 + s[4] ** 2 + s[5] ** 2), 0.0,
+        )))
+        out.append((
+            (strain_sum * inv).astype(np.float32), s.astype(np.float32), vm
+        ))
+    return out

@@ -14,14 +14,17 @@ Port of :mod:`civiwave_tpu.runner`.  Two routes, as in the reference:
       -> NewmarkStepper -> per-frame step (curve loads re-assembled)
 
 ``build_simulation`` takes a scenario YAML path or an already-parsed
-:class:`~civiwave_tpu_torch.config.schema.Config` (which needs no pyyaml)
-and the torch device to run on.  Absorbing faces run on the structured
-route; on the general path they raise ``NotImplementedError`` naming
-ROADMAP A7-general.
+:class:`~civiwave_tpu_torch.config.schema.Config` (which needs no pyyaml),
+the torch device to run on and an optional output root (VTU frames and the
+probe CSV, written every frame by ``Simulation.run``).  Absorbing faces run
+on both routes.  :func:`run_static` is the static mode (BASELINE config
+#1): one PCG solve of K u = f to the scenario's pause tolerance, exposed
+through the stepper's state and written as VTU frame 0.
 
 Usage::
 
-    python -m civiwave_tpu_torch.runner scenario.yaml --frames 100
+    python -m civiwave_tpu_torch.runner scenario.yaml --frames 100 --output out/
+    python -m civiwave_tpu_torch.runner scenario.yaml --static --output out/
     civiwave-tpu-torch scenario.yaml --frames 100 --device cuda
 """
 
@@ -33,7 +36,7 @@ import os
 import sys
 import time
 from dataclasses import asdict, dataclass
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -61,7 +64,9 @@ class Simulation:
     ``model`` is a :class:`~civiwave_tpu_torch.mesh.structured.
     StructuredModel` (with its ``force_schedule``) or a general
     :class:`~civiwave_tpu_torch.mesh.pack.PackedModel` (with the host
-    ``mesh`` and ``preprocess`` its curve loads are assembled from).
+    ``mesh`` and ``preprocess`` its curve loads are assembled from; the
+    structured route builds them only on demand, :meth:`ensure_host_mesh`).
+    ``output`` is a ``post.output`` manager or None.
     """
 
     config: Config
@@ -70,12 +75,28 @@ class Simulation:
     force_schedule: Optional[StructuredForceSchedule] = None
     mesh: Optional[Mesh] = None
     preprocess: Optional[preprocess.PreprocessOutputs] = None
+    output: Optional[object] = None
+    _scenario_path: str = ""
+
+    @property
+    def structured(self) -> bool:
+        """Whether the scenario runs on the structured route."""
+        return self.force_schedule is not None
+
+    def ensure_host_mesh(self) -> None:
+        """Build the host mesh and preprocess on demand (the structured
+        route skips them unless a consumer asks)."""
+        if self.mesh is None:
+            self.mesh = _load_mesh(self.config, self._scenario_path)
+        if self.preprocess is None:
+            self.preprocess = preprocess.run(self.mesh, self.config)
 
     def run(
         self, frames: int, paused_mode: bool = False, verbose: bool = False
     ) -> List[StepTelemetry]:
-        """Advance ``frames`` steps, re-evaluating time-curve loads per
-        frame."""
+        """Advance ``frames`` steps, re-evaluating time-curve loads and
+        writing outputs per frame (the VTU writer is drained at the
+        end)."""
         loads = self.config.loads
         has_curves = any(t.scale_curve for t in loads.tractions) or any(
             p.scale_curve for p in loads.points
@@ -89,6 +110,10 @@ class Simulation:
             telemetry = self.stepper.step(t, paused_mode=paused_mode)
             telemetries.append(telemetry)
             t = self.stepper.accumulated_time
+            if self.output is not None:
+                self.output.handle_from_stepper(
+                    telemetry.simulation_time, frame, self.stepper
+                )
             if verbose:
                 print(
                     f"frame {frame:5d} t={telemetry.simulation_time:.6f}s "
@@ -97,6 +122,8 @@ class Simulation:
                     f"res={telemetry.pcg_residual_norm:.3e} "
                     f"conv={telemetry.pcg_converged}"
                 )
+        if self.output is not None:
+            self.output.flush()
         return telemetries
 
     def _force_at(self, t: float) -> torch.Tensor:
@@ -139,15 +166,19 @@ def _load_mesh(cfg: Config, scenario_path: str) -> Mesh:
 
 
 def build_simulation(
-    scenario: Union[str, Config], device="cuda", *, pad_x_multiple: int = 1,
+    scenario: Union[str, Config], device="cuda",
+    output_root: Optional[str] = None, *, pad_x_multiple: int = 1,
     pad_y_multiple: int = 1,
 ) -> Simulation:
     """Wire the structured route or the general gather path from a
     scenario path or a parsed Config, with every tensor on ``device``.
     Relative Gmsh paths of a parsed Config resolve against the working
-    directory.  On the structured route the pad multiples add dead +X
-    planes and +Y rows so the grid divides an ``(npx, npy)`` shard group
-    (``parallel.sharding.shard_simulation``)."""
+    directory.  With ``output_root`` the simulation writes VTU frames and
+    probe rows there (the structured route on the device, the general path
+    from the host mesh).  On the structured route the pad multiples add
+    dead +X planes and +Y rows so the grid divides an ``(npx, npy)`` shard
+    group (``parallel.sharding.shard_simulation``, which refuses a
+    simulation with output: ROADMAP A11)."""
     if isinstance(scenario, Config):
         cfg, scenario_path = scenario, ""
     else:
@@ -201,16 +232,75 @@ def build_simulation(
         reduction_precision=cfg.precision.reduction_precision,
         vector_precision=cfg.precision.vector_precision,
     )
-    return Simulation(
+    sim = Simulation(
         config=cfg, model=model, stepper=stepper, force_schedule=schedule,
-        mesh=mesh, preprocess=pre,
+        mesh=mesh, preprocess=pre, _scenario_path=scenario_path,
     )
+    if output_root is not None:
+        from .post import output as output_mod
+
+        if sim.structured:
+            # derived fields on the device and O(1) probes: no host mesh
+            sim.output = output_mod.StructuredOutputManager(
+                output_root, cfg.output, model
+            )
+        else:
+            _, _, d_all = materials.material_tables(mats)
+            sim.output = output_mod.OutputManager(
+                output_root, cfg.output, sim.mesh, sim.preprocess, d_all
+            )
+    return sim
+
+
+def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, dict]:
+    """Static mode (BASELINE config #1): one PCG solve of K u = f to the
+    scenario's pause tolerance from a cold start.  The solution becomes the
+    stepper's state (u, zero v and a, ``warm_x = u``) and, with output,
+    VTU frame 0 and probe rows.  Returns (u in the model's vector layout,
+    the telemetry payload of ``--telemetry-json``: mode, iterations,
+    residual_norm, rhs_norm, converged, tolerance, max_displacement,
+    elapsed_seconds).  ``variant`` is the PCG variant; 'auto' is what the
+    CLI runs, as the reference does."""
+    from .mesh.pack import SimState
+    from .solver.static import solve_static
+
+    cfg = sim.config
+    tolerance = cfg.solver.pause_tolerance
+    start = time.perf_counter()
+    u, pcg = solve_static(
+        sim.model,
+        sim.stepper.external_force,
+        tolerance=tolerance,
+        max_iterations=cfg.solver.max_iterations,
+        reduction_precision=cfg.precision.reduction_precision,
+        vector_precision=cfg.precision.vector_precision,
+        variant=variant,
+    )
+    residual, rhs_norm = torch.stack([pcg.residual_norm, pcg.rhs_norm]).tolist()
+    elapsed = time.perf_counter() - start
+
+    # the solution through the stepper, so both output managers read it
+    zero = torch.zeros_like(u)
+    sim.stepper.state = SimState(
+        displacement=u, velocity=zero, acceleration=zero, warm_x=u
+    )
+    if sim.output is not None:
+        sim.output.handle_from_stepper(0.0, 0, sim.stepper)
+        sim.output.flush()
+    return u, {
+        "mode": "static",
+        "iterations": int(pcg.iterations),
+        "residual_norm": residual,
+        "rhs_norm": rhs_norm,
+        "converged": bool(pcg.converged),
+        "tolerance": tolerance,
+        "max_displacement": float(sim.model.to_nodal(u).abs().max()),
+        "elapsed_seconds": elapsed,
+    }
 
 
 # CLI options of the reference runner whose subsystems are not ported yet
 _UNPORTED_OPTIONS = {
-    "output": "--output (VTU/probe output, ROADMAP A5)",
-    "static": "--static (static solve, ROADMAP A8)",
     "checkpoint_dir": "--checkpoint-dir (checkpoints, ROADMAP A10)",
     "checkpoint_every": "--checkpoint-every (checkpoints, ROADMAP A10)",
     "resume": "--resume (checkpoints, ROADMAP A10)",
@@ -231,7 +321,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         "PyTorch versions of the kernels)",
     )
     parser.add_argument(
+        "--output", default=None, help="output root for VTU/probe files"
+    )
+    parser.add_argument(
         "--paused", action="store_true", help="use the pause-mode tolerance"
+    )
+    parser.add_argument(
+        "--static",
+        action="store_true",
+        help="solve static equilibrium K u = f instead of time stepping "
+        "(one PCG solve to the pause tolerance; writes VTU frame 0)",
     )
     parser.add_argument("--quiet", action="store_true")
     parser.add_argument(
@@ -239,8 +338,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         default=None,
         help="write per-frame telemetry to this JSON file",
     )
-    parser.add_argument("--output", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--static", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
     # default None, not the reference's 50: any set value is refused below
     parser.add_argument(
@@ -264,7 +361,11 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 
 def _run_cli(args) -> int:
-    sim = build_simulation(args.scenario, device=args.device)
+    sim = build_simulation(
+        args.scenario, device=args.device, output_root=args.output
+    )
+    if args.static:
+        return _run_static_cli(sim, args)
     start = time.perf_counter()
     telemetries = sim.run(
         args.frames, paused_mode=args.paused, verbose=not args.quiet
@@ -281,6 +382,23 @@ def _run_cli(args) -> int:
         with open(args.telemetry_json, "w", encoding="utf-8") as f:
             json.dump([asdict(t) for t in telemetries], f, indent=2)
     return 0
+
+
+def _run_static_cli(sim: Simulation, args) -> int:
+    """``--static``: :func:`run_static`, its line on stdout and its payload
+    in ``--telemetry-json``; exit 1 when the solve did not converge."""
+    _, payload = run_static(sim)
+    print(
+        f"static solve: {payload['iterations']} PCG iterations to "
+        f"tol {payload['tolerance']:g} in {payload['elapsed_seconds']:.3f}s, "
+        f"residual {payload['residual_norm']:.3e}, "
+        f"converged={payload['converged']}, "
+        f"max |u| = {payload['max_displacement']:.6e} m"
+    )
+    if args.telemetry_json:
+        with open(args.telemetry_json, "w", encoding="utf-8") as f:
+            json.dump(payload, f, indent=2)
+    return 0 if payload["converged"] else 1
 
 
 if __name__ == "__main__":

@@ -162,8 +162,9 @@ def newmark_step(
         rhs = rhs + s(rayleigh_beta) * damping_output
     # Lysmer-Kuhlemeyer dashpots: a damping matrix C enters as rhs += C
     # (a1 u + a4 v + a5 a) and K_eff += a1 C, the algebra of the Rayleigh
-    # terms; the preconditioner stays free of C, as in the reference
-    if getattr(model, "absorb_faces", ()):
+    # terms; the preconditioner stays free of C, as in the reference.  The
+    # structured route tags faces, the general path packs node blocks
+    if getattr(model, "absorb_faces", ()) or getattr(model, "has_damping", False):
         rhs = rhs + model.absorbing_force(damping_rhs)
         model = dataclasses.replace(model, damp_factor=s(a1))
 

@@ -149,9 +149,10 @@ def test_convert_carries_the_absorbing_fields():
     x = _x(jm.vector_shape, seed=2)
     _assert_close(td.apply_keff(torch.from_numpy(x), SS, MF).numpy(),
                   np.asarray(jd.apply_keff(jnp.asarray(x), SS, MF)))
-    # the packed-model guard still refuses the general path's dashpots
-    with pytest.raises(NotImplementedError, match="A7-general"):
-        convert.packed_model_from_arrays({"damp_blocks": np.zeros((4, 6))}, {}, "cpu")
+    # the packed-model converter refuses only the halo tables now (A11);
+    # the general path's dashpots are carried (test_torch_general_absorbing)
+    with pytest.raises(NotImplementedError, match="A11"):
+        convert.packed_model_from_arrays({"halo_conn": np.zeros((4, 4))}, {}, "cpu")
 
 
 def test_fused_loop_composes_when_dots_decline(monkeypatch):

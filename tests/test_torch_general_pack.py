@@ -4,7 +4,7 @@
   reference's in nodal order; the dual CSR covers exactly the real
   incidences; padded elements and nodes are exact no-ops; ``to_nodal`` /
   ``from_nodal`` invert each other across the RCM permutation; absorbing
-  faces raise (ROADMAP A7);
+  faces pack their dashpots (ROADMAP A7-general, ported since);
 * K7's plain version (``tet_forces`` / ``hex_forces``) against the
   reference's stream math (``CIVIWAVE_ELEMENT_KERNEL=xla``) and its Pallas
   tet kernel in interpret mode, on a model carried across through
@@ -209,6 +209,8 @@ def test_padding_is_an_exact_no_op():
 
 
 def test_absorbing_faces_raise_a7():
+    """Absorbing faces used to raise here (ROADMAP A7-general); the general
+    path now packs their dashpots, zero on padded nodes."""
     cfg, _ = configs(
         mesh={"path": "synthetic://box/3,3,3,tet"},
         boundaries={"absorbing": ["SIDE_X1"]},
@@ -217,11 +219,15 @@ def test_absorbing_faces_raise_a7():
 
     mesh = box_mesh(3, 3, 3, side_groups=True)
     pre = preprocess.run(mesh, cfg)
-    with pytest.raises(NotImplementedError, match="A7"):
-        pack.build_packed_model(
-            mesh, pre, cfg, [materials.make_properties(m) for m in cfg.materials],
-            device="cpu",
-        )
+    model, _, _ = pack.build_packed_model(
+        mesh, pre, cfg, [materials.make_properties(m) for m in cfg.materials],
+        device="cpu",
+    )
+    assert model.has_damping and model.damp_blocks.shape == (model.padded_node_count, 6)
+    x1 = np.isclose(mesh.node_positions[:, 0], 3.0)
+    rows = model.damp_blocks[model.perm_new_of_old] if model.renumbered else model.damp_blocks
+    assert rows[: mesh.node_count][torch.from_numpy(x1)].abs().sum(1).gt(0).all()
+    assert not rows[: mesh.node_count][torch.from_numpy(~x1)].any()
 
 
 def test_convert_refuses_unported_fields():
@@ -230,11 +236,11 @@ def test_convert_refuses_unported_fields():
     assert tm.padded_tet_count == jm.padded_tet_count
     arrays = {name: np.asarray(getattr(jm, name)) for name in convert.PACKED_ARRAYS}
     meta = {name: getattr(jm, name) for name in convert.PACKED_META}
-    with pytest.raises(NotImplementedError, match="A7"):
-        convert.packed_model_from_arrays(
-            {**arrays, "damp_blocks": np.zeros((jm.padded_node_count, 6))},
-            meta, "cpu",
-        )
+    damped = convert.packed_model_from_arrays(
+        {**arrays, "damp_blocks": np.ones((jm.padded_node_count, 6))},
+        meta, "cpu",
+    )
+    assert damped.has_damping and not tm.has_damping
     with pytest.raises(NotImplementedError, match="A11"):
         convert.packed_model_from_arrays(
             {**arrays, "halo_conn": np.zeros((8, 4), np.int32)}, meta, "cpu"

@@ -3,7 +3,8 @@ and K6 (the whole PCG iteration) of the structured route, K5 (the shard
 operator, with K3's global offsets) of its sharded form, K4 (interior
 stencil) and G2 (boundary corrections and envelope) of its slender route,
 K7 (element forces, tet and hex) and G1 (CSR assembly) of the general
-gather path.
+gather path; K1-K3 at the static mass factor 0, static solves on the card
+against the CPU, and the general path's dashpot term after G1.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -626,3 +627,80 @@ def test_small_cantilever_runs_sharded_on_one_rank(device, monkeypatch):
     assert all(abs(a - b.pcg_iterations) <= 1 for a, b in zip(iters, tel_ref))
     u, u_ref = sim.stepper.state.displacement, ref.stepper.state.displacement
     assert float((u - u_ref).abs().max()) <= 2.5e-4 * float(u_ref.abs().max())
+
+
+# --- static mode (mass factor 0) and the general path's dashpot term --------
+
+ONE, ZERO = np.float32(1.0), np.float32(0.0)
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_SHAPES))
+def test_keff_and_pc_keff_kernels_at_mass_factor_0(device, case):
+    """The static operator (ss 1, mf 0): K1 and K2 against their plain
+    versions with the stiffness-only class table; constrained rows stay
+    identity rows and nothing is divided by the mass term."""
+    model, x = _model(device, case)
+    pc = model.build_preconditioner(ONE, ZERO)
+    assert bool(torch.isfinite(pc.table).all())
+    out = k12.apply_keff_fused(model, x, ONE, ZERO)
+    _close(out, k12.apply_keff_fused_plain(model, x, ONE, ZERO))
+    assert torch.equal(out[model.bc_mask], x[model.bc_mask])
+    u, w, dots = k12.apply_pc_keff_fused(model, pc.table, x, ONE, ZERO, with_dots=True)
+    u_ref, w_ref, dots_ref = k12.apply_pc_keff_fused_plain(
+        model, pc.table, x, ONE, ZERO, with_dots=True)
+    _close(u, u_ref)
+    _close(w, w_ref)
+    _close(k3.apply_block_jacobi(model, pc.table, x),
+           k3.apply_block_jacobi_plain(model, pc.table, x))
+    for ours, ref in zip(dots, dots_ref):
+        assert float(ours) == pytest.approx(float(ref), rel=DOT_RTOL)
+
+
+@pytest.mark.parametrize("variant", ["auto", "classic", "mega"])
+def test_static_solve_16_cubed_matches_the_cpu(device, variant, monkeypatch):
+    """solve_static on the 16^3 steel cantilever on the card ('auto' =
+    fused with K2, classic with K1 and K3, the K6 loop) against the CPU's
+    classic solve: converged, u within 2.5e-4 of max|u|."""
+    from civiwave_tpu_torch.solver.static import solve_static
+
+    mat = cantilever_config().materials[0]
+    runs = {}
+    for dev in (device, "cpu"):
+        model, force = build_structured_model(
+            16, 16, 16, materials.make_properties(mat), mat.density,
+            traction=(0.0, 0.0, -1.0e6), device=dev)
+        on_card = dev != "cpu"
+        if on_card and variant == "mega":
+            monkeypatch.setenv("CIVIWAVE_MEGA_PCG", "1")
+        chosen = ("fused" if variant == "mega" else variant) if on_card else "classic"
+        before = k6.pcg_iteration_fused.launches
+        runs[str(dev)] = solve_static(model, force, tolerance=1e-8, variant=chosen)
+        k6_launches = k6.pcg_iteration_fused.launches - before
+        monkeypatch.delenv("CIVIWAVE_MEGA_PCG", raising=False)
+        if on_card:
+            assert (k6_launches > 0) == (variant == "mega")
+    (ug, tg), (uc, tc) = runs[str(device)], runs["cpu"]
+    assert tg.converged and tc.converged
+    np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), rtol=0,
+                               atol=2.5e-4 * float(uc.abs().max()))
+
+
+def test_dashpot_term_on_the_card_matches_plain(device):
+    """The general operator with absorbing dashpots (damp_factor set) on
+    CUDA: K7, G1 and the dashpot term against the plain operator."""
+    cfg = cantilever_config(mesh={"path": "synthetic://box/6,6,3,tet"},
+                            boundaries={"absorbing": ["SIDE_X1", "SIDE_Z0"]})
+    mesh = box_mesh(6, 6, 3, side_groups=True)
+    pre = preprocess.run(mesh, cfg)
+    mats = [materials.make_properties(m) for m in cfg.materials]
+    model, _, _ = pack.build_packed_model(mesh, pre, cfg, mats, device=device)
+    assert model.has_damping
+    damped = dataclasses.replace(model, damp_factor=1000.0)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        model.vector_shape, dtype=np.float32), device=device)
+    before = gops.add_dashpot_term.calls
+    out = gops.apply_keff(damped, x, SS, MF)
+    assert gops.add_dashpot_term.calls == before + 1
+    ref = gops.apply_keff_plain(damped, x, SS, MF)
+    _close(out, ref)
+    assert float((ref - gops.apply_keff_plain(model, x, SS, MF)).abs().max()) > 0
