@@ -10,14 +10,20 @@ element order and node numbering) and state.
 
 from __future__ import annotations
 
-from typing import Mapping
+import dataclasses
+from typing import Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .mesh.pack import PackedModel, SimState
 from .mesh.structured import StructuredModel, interior_mass
-from .ops.structured import CompactBlockJacobi, class_stencil_table, sweep_taps
+from .ops.structured import (
+    CompactBlockJacobi,
+    class_stencil_table,
+    mass_correction,
+    sweep_taps,
+)
 
 # array fields of a structured model, with their storage dtypes
 STRUCTURED_ARRAYS = {
@@ -38,11 +44,16 @@ STRUCTURED_META = (
 
 
 def structured_model_from_arrays(
-    arrays: Mapping[str, np.ndarray], meta: Mapping[str, object], device
+    arrays: Mapping[str, np.ndarray], meta: Mapping[str, object], device,
+    levels: Sequence[Tuple[Mapping[str, np.ndarray], Mapping[str, object]]] = (),
 ) -> StructuredModel:
     """A :class:`StructuredModel` on ``device`` from its array fields (as
     numpy) and its scalar fields (``pad_rows`` defaults to 0).  ``meta``
-    may also carry ``homogeneous``; False raises NotImplementedError."""
+    may also carry ``homogeneous`` (False raises NotImplementedError) and
+    a multigrid hierarchy's ``preconditioner`` and ``mg_omegas``, whose
+    coarse levels are ``levels``: one ``(arrays, meta)`` pair per level,
+    finest first, each carried with the mass correction its kernels need
+    (``ops.structured.mass_correction``)."""
     if not meta.get("homogeneous", True):
         raise NotImplementedError(
             "heterogeneous structured grids are not ported yet"
@@ -54,6 +65,12 @@ def structured_model_from_arrays(
     spacing = tuple(float(s) for s in meta["spacing"])
     lam0, mu0 = float(meta["lam0"]), float(meta["mu0"])
     nx, ny, nz = (int(meta[k]) for k in ("nx", "ny", "nz"))
+    mg_levels = []
+    for level_arrays, level_meta in levels:
+        level = structured_model_from_arrays(level_arrays, level_meta, device)
+        mg_levels.append(dataclasses.replace(
+            level, mass_correction=mass_correction(level)
+        ))
     return StructuredModel(
         **fields,
         stencil_table=torch.as_tensor(
@@ -74,6 +91,9 @@ def structured_model_from_arrays(
         absorb_faces=tuple(meta["absorb_faces"]),
         rho_cp=float(meta["rho_cp"]),
         rho_cs=float(meta["rho_cs"]),
+        preconditioner=str(meta.get("preconditioner", "block_jacobi")),
+        mg_levels=tuple(mg_levels),
+        mg_omegas=tuple(float(w) for w in meta.get("mg_omegas", ())),
     )
 
 

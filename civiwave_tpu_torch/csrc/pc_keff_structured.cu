@@ -193,8 +193,10 @@ __global__ void __launch_bounds__(kThreads) pc_keff_sweep_kernel(
       pfix[b] = cfix[b];
     }
   }
-  // the grid's last plane has no plane after it
-  if (own && jhi == a.X - 1 && jhi >= x_lo) emit(jhi, civi::node_class(jhi, a.nx));
+  // the grid's last plane has no plane after it; only the chunk that owns
+  // it emits it (the chunk before also sweeps it when it is the last
+  // chunk's only plane, and would count its (w, u) partial twice)
+  if (own && jhi == x_hi - 1) emit(jhi, civi::node_class(jhi, a.nx));
 
   if (partials == nullptr) return;  // uniform across the block
   const int64_t blocks =

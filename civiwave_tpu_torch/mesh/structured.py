@@ -28,8 +28,12 @@ node-grid fields are the shard's local slab or tile, ``grid_shape`` and
 ``vector_shape`` are local, and ``nx``/``ny``/``nz``, the node counts and
 ``position0`` stay global, as do the vectors of ``to_nodal``/``from_nodal``.
 
-Not ported yet: heterogeneous per-element material grids and the
-multigrid hierarchy (A9).
+A multigrid model (``preconditioner == "multigrid"``, from
+``ops.multigrid.attach_multigrid``) carries its coarse levels; its
+preconditioner is the V-cycle and its PCG is classic ('auto') or
+pipelined, composing the V-cycle with the operator.
+
+Not ported yet: heterogeneous per-element material grids.
 """
 
 from __future__ import annotations
@@ -93,9 +97,10 @@ class StructuredModel:
     spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     lam0: float = 0.0
     mu0: float = 0.0
-    # interior lumped mass rho*V_cell; every stored mass is m8 times 0.5
-    # per boundary axis, bit for bit, so the kernels synthesize the mass
-    # instead of streaming the grid (see interior_mass)
+    # interior lumped mass rho*V_cell; every built grid's stored mass is m8
+    # times 0.5 per boundary axis, bit for bit, so the kernels synthesize
+    # the mass instead of streaming the grid (see interior_mass); a
+    # multigrid coarse level's is not, and carries mass_correction
     m8: float = 0.0
     # Lysmer-Kuhlemeyer absorbing axis planes ("x0".."z1") with viscous
     # dashpots of per-unit-area normal/tangential impedances rho*c_p /
@@ -115,6 +120,17 @@ class StructuredModel:
     y0: int = 0
     local_extent: Optional[Tuple[int, int]] = None
     bc_ghosts: Optional[object] = None
+    # geometric multigrid (ops.multigrid.attach_multigrid): the
+    # preconditioner ("block_jacobi" or "multigrid"), the coarse levels
+    # (StructuredModels of doubled spacing, finest first) and one smoother
+    # damping per level, this one first; empty without a hierarchy
+    preconditioner: str = "block_jacobi"
+    mg_levels: Tuple["StructuredModel", ...] = ()
+    mg_omegas: Tuple[float, ...] = ()
+    # where mass_grid differs from the kernels' synthesized m8 masses (a
+    # coarse level's P^T m_f): an ops.structured.MassCorrection the
+    # operator adds after the kernels on CUDA; None on every built grid
+    mass_correction: Optional[object] = None
 
     @property
     def device(self) -> torch.device:
@@ -205,17 +221,32 @@ class StructuredModel:
             self, stiffness_scale, mass_factor
         )
 
+    @property
+    def multigrid(self) -> bool:
+        """Whether the V-cycle preconditions this model."""
+        return self.preconditioner == "multigrid" and bool(self.mg_levels)
+
     def build_preconditioner(self, stiffness_scale, mass_factor):
-        """Class-table block-Jacobi (the homogeneous grid's only form)."""
+        """The V-cycle's per-level inverses on a multigrid model, else the
+        class-table block-Jacobi."""
         from ..ops import structured as _ops
 
+        if self.multigrid:
+            from ..ops import multigrid as _mg
+
+            return _mg.build_mg_preconditioner(
+                self, stiffness_scale, mass_factor
+            )
         return _ops.build_compact_block_jacobi(self, stiffness_scale, mass_factor)
 
     def prefers_fused_pcg(self, block_inverse, vector_dtype) -> bool:
         """'auto' variant probe: Chronopoulos-Gear wherever the fused
-        pc+matvec+dots kernel runs (CUDA, f32), classic elsewhere."""
+        pc+matvec+dots kernel runs (CUDA, f32), classic elsewhere and
+        under multigrid."""
         from ..ops import structured as _ops
 
+        if self.multigrid:
+            return False
         return _ops.pc_keff_kernel_eligible(self, block_inverse, vector_dtype)
 
     def build_fused_pcg_iteration(self, block_inverse, stiffness_scale,
@@ -225,6 +256,8 @@ class StructuredModel:
         CUDA), or None when ineligible — see ops.structured."""
         from ..ops import structured as _ops
 
+        if self.multigrid:
+            return None
         return _ops.build_fused_pcg_iteration(
             self, block_inverse, stiffness_scale, mass_factor,
             reduction_dtype, vector_dtype,
@@ -232,9 +265,13 @@ class StructuredModel:
 
     def apply_pc_keff(self, block_inverse, residual, stiffness_scale,
                       mass_factor):
-        """(u, w) = (M^-1 r, K_eff u) — one kernel launch on CUDA."""
+        """(u, w) = (M^-1 r, K_eff u) — one kernel launch on CUDA; under
+        multigrid the V-cycle, then the operator."""
         from ..ops import structured as _ops
 
+        if self.multigrid:
+            u = self.apply_preconditioner(block_inverse, residual)
+            return u, self.apply_keff(u, stiffness_scale, mass_factor)
         return _ops.apply_pc_keff_structured(
             self, block_inverse, residual, stiffness_scale, mass_factor
         )
@@ -242,17 +279,25 @@ class StructuredModel:
     def apply_pc_keff_dots(self, block_inverse, residual, stiffness_scale,
                            mass_factor, reduction_dtype):
         """(u, w, (gamma, delta, rr)) with the three iteration dots
-        reduced in the same kernel pass on CUDA."""
+        reduced in the same kernel pass on CUDA; None under multigrid
+        (the PCG loop composes)."""
         from ..ops import structured as _ops
 
+        if self.multigrid:
+            return None
         return _ops.apply_pc_keff_dots_structured(
             self, block_inverse, residual, stiffness_scale, mass_factor,
             reduction_dtype,
         )
 
     def apply_preconditioner(self, block_inverse, residual):
+        """z = M^-1 r: the V-cycle on a multigrid model, else K3."""
         from ..ops import structured as _ops
 
+        if self.multigrid:
+            from ..ops import multigrid as _mg
+
+            return _mg.apply_mg_preconditioner(self, block_inverse, residual)
         return _ops.apply_compact_preconditioner_structured(
             self, block_inverse, residual
         )

@@ -11,10 +11,11 @@ a separate device tensor: the per-frame force is
 ``base + sum_i curve_i(t) * part_i``.
 
 Absorbing groups (``boundaries.absorbing``) on the box's axis planes become
-the model's Lysmer-Kuhlemeyer faces.  Scenario features not ported yet
-raise ``NotImplementedError`` naming their ROADMAP item instead of running
-a half-port: geometric multigrid (A9) and fp64 solver vectors on CUDA
-(A13).
+the model's Lysmer-Kuhlemeyer faces.  ``solver.preconditioner: multigrid``
+attaches the geometric multigrid hierarchy (``ops/multigrid.py``).  fp64
+solver vectors on CUDA are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item (A13) instead of running
+a half-port.
 """
 
 from __future__ import annotations
@@ -88,10 +89,6 @@ def try_build_structured(
         return None
     if any(g not in _PLANE_OF_GROUP for g in cfg.absorbing):
         return None
-    if cfg.solver.preconditioner == "multigrid":
-        raise NotImplementedError(
-            "solver.preconditioner 'multigrid' is not ported yet (ROADMAP A9)"
-        )
     if cfg.precision.vector_precision == "fp64" and torch.device(device).type == "cuda":
         raise NotImplementedError(
             "precision.vectors 'fp64' has no CUDA kernels yet (ROADMAP A13); "
@@ -123,4 +120,8 @@ def try_build_structured(
             curve_parts.append((t.scale_curve, part))
         else:
             base = base + part
+    if cfg.solver.preconditioner == "multigrid":
+        from ..ops.multigrid import attach_multigrid
+
+        model = attach_multigrid(model)
     return model, StructuredForceSchedule(base=base, curve_parts=curve_parts)

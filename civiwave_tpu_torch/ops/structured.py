@@ -40,6 +40,15 @@ version.  The grid's shape picks the form, as in the reference:
 Lysmer-Kuhlemeyer absorbing faces add ``damp_factor * C x`` on their face
 planes after the identity rows, on both forms.
 
+The kernels synthesize the lumped mass as ``m8`` times 0.5 per boundary
+axis instead of reading ``mass_grid``.  A multigrid coarse level stores
+P^T m_f, which differs on a few planes, so it carries a
+:class:`MassCorrection` that :func:`apply_keff_structured` adds after the
+kernels on CUDA; the plain forms read ``mass_grid`` and need none.  The
+multigrid smoother's per-node block-Jacobi apply
+(:func:`apply_preconditioner_structured`) is torch ops, as it is XLA in
+the reference.
+
 A shard of a multi-device decomposition (a model carrying a
 ``shard_group``) takes the sharded operator instead
 (``ops/structured_sharded.py``: ghost exchange + K5), whatever its shape;
@@ -429,7 +438,68 @@ def apply_keff_structured(
         out = apply_keff_split_structured(model, x, stiffness_scale, mass_factor)
     else:
         out = _k12.apply_keff_fused(model, x, stiffness_scale, mass_factor)
+    if model.mass_correction is not None and x.device.type == "cuda":
+        out = correct_synthesized_mass(model, out, x, mass_factor)
     return add_absorbing_operator_term(model, out, x)
+
+
+# --------------------------------------------------------------------------
+# stored mass against the kernels' synthesized mass (multigrid coarse levels)
+# --------------------------------------------------------------------------
+
+
+class MassCorrection(NamedTuple):
+    """The nodes where a model's stored ``mass_grid`` differs from the
+    mass the kernels synthesize (``m8`` times 0.5 per boundary axis), as
+    flat node indices into (X*Y*Z,) and ``mass_grid - synthesized`` there
+    (f32)."""
+
+    index: torch.Tensor  # (n,) int64
+    delta: torch.Tensor  # (n,) f32
+
+
+def synthesized_mass(model: StructuredModel) -> torch.Tensor:
+    """(X, Y, Z) f32: the lumped mass K1, K2, K6 and G2 use in place of
+    ``mass_grid`` — ``m8 * wx * wy * wz`` with w = 0.5 on a boundary class
+    and 1 inside, multiplied in the kernels' order."""
+    dev = model.device
+    w = [
+        torch.as_tensor(np.where(axis_classes(n, cells) == 1, 1.0, 0.5),
+                        dtype=torch.float32, device=dev)
+        for n, cells in zip(model.grid_shape, (model.nx, model.ny, model.nz))
+    ]
+    m8 = torch.tensor(model.m8, dtype=torch.float32, device=dev)
+    return (m8 * w[0])[:, None, None] * w[1][None, :, None] * w[2][None, None, :]
+
+
+def mass_correction(model: StructuredModel):
+    """The :class:`MassCorrection` of an unsharded model, or None where the
+    stored mass is the synthesized one bit for bit (every grid that
+    ``build_structured_model`` makes).  A multigrid coarse level's mass is P^T m_f: along an axis of
+    even fine node count its high-face node carries 0.875 of the interior
+    value, not 0.5, so the kernels alone would apply another operator
+    there."""
+    delta = (model.mass_grid - synthesized_mass(model)).reshape(-1)
+    index = torch.nonzero(delta).reshape(-1)
+    if index.numel() == 0:
+        return None
+    return MassCorrection(index=index, delta=delta[index].contiguous())
+
+
+def correct_synthesized_mass(model: StructuredModel, out, x, mass_factor):
+    """``out`` (the kernels' K_eff x with synthesized mass) with
+    ``mf * (mass_grid - synthesized) * xs`` added on the corrected nodes'
+    free components; constrained outputs keep x.  In place."""
+    corr = model.mass_correction
+    flat_out = out.view(3, -1)
+    xs = x.reshape(3, -1)[:, corr.index]
+    bc = model.bc_mask.reshape(3, -1)[:, corr.index]
+    mf = float(np.float32(mass_factor))
+    add = (corr.delta * mf)[None] * xs.masked_fill(bc, 0.0)
+    flat_out[:, corr.index] = torch.where(
+        bc, flat_out[:, corr.index], flat_out[:, corr.index] + add
+    )
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -544,6 +614,25 @@ def build_block_jacobi_inverse_structured(
             inverse[1, 2],
         ]
     )
+
+
+def apply_preconditioner_structured(
+    model: StructuredModel, block_inverse: torch.Tensor, residual: torch.Tensor
+) -> torch.Tensor:
+    """z = M^-1 r from the per-node symmetric-packed inverse
+    ``block_inverse`` (6, X, Y, Z), constrained outputs +0.0 by select
+    (pcg.cpp:410-456).  The reference computes it in XLA with no Pallas
+    kernel; these torch ops are its counterpart on every device."""
+    c00, c11, c22, c01, c02, c12 = block_inverse
+    r0, r1, r2 = residual
+    z = torch.stack(
+        [
+            c00 * r0 + c01 * r1 + c02 * r2,
+            c01 * r0 + c11 * r1 + c12 * r2,
+            c02 * r0 + c12 * r1 + c22 * r2,
+        ]
+    )
+    return z.masked_fill(model.bc_mask, 0.0)
 
 
 class CompactBlockJacobi(NamedTuple):

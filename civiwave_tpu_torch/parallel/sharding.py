@@ -229,7 +229,9 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
     """This rank's shard of a StructuredModel simulation: ``(model, state,
     force)`` cut to its slab (1-D group) or tile (2-D group) on the group's
     device, the model carrying the group, its offsets and the mask's ghost
-    planes and rows.  A collective: every rank of the group calls it."""
+    planes and rows.  A multigrid model's shard falls back to block-Jacobi
+    with a note on stderr.  A collective: every rank of the group calls
+    it."""
     from ..ops.structured_sharded import exchange_ghosts
 
     if model.absorb_faces:
@@ -239,6 +241,10 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
         )
     if model.shard_group is not None:
         raise ShardError("the model is already a shard")
+    if model.preconditioner == "multigrid":
+        from ..ops.multigrid import SHARD_REASON, fall_back_to_block_jacobi
+
+        model = fall_back_to_block_jacobi(model, SHARD_REASON)
     shape = (group.npx, group.npy)
     x0, y0, xl, yl = shard_layout(model, shape, group.coords)
 
@@ -299,6 +305,7 @@ def shard_simulation(sim, group: ShardGroup):
         warm_start_policy=old.warm_start_policy,
         solver_variant=old.solver_variant,
     )
+    stepper.solver_replace_every = old.solver_replace_every
     stepper.current_dt = old.current_dt
     stepper.accumulated_time = old.accumulated_time
     stepper.frame_index = old.frame_index

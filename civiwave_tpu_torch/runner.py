@@ -260,7 +260,8 @@ def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, di
     the telemetry payload of ``--telemetry-json``: mode, iterations,
     residual_norm, rhs_norm, converged, tolerance, max_displacement,
     elapsed_seconds).  ``variant`` is the PCG variant; 'auto' is what the
-    CLI runs, as the reference does."""
+    CLI runs, as the reference does; 'pipelined' replaces its residual
+    every ``solver.replace_every`` iterations of the scenario."""
     from .mesh.pack import SimState
     from .solver.static import solve_static
 
@@ -275,6 +276,7 @@ def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, di
         reduction_precision=cfg.precision.reduction_precision,
         vector_precision=cfg.precision.vector_precision,
         variant=variant,
+        replace_every=cfg.solver.replace_every,
     )
     residual, rhs_norm = torch.stack([pcg.residual_norm, pcg.rhs_norm]).tolist()
     elapsed = time.perf_counter() - start

@@ -20,6 +20,10 @@ Dirichlet semantics at all five touchpoints (pcg.cpp:458-475, 530-546,
 x=rhs / r=0 after the initial residual, and p zeroed on constrained axes.
 Degenerate denominators (|p.Ap| or |rho| < 1e-18) set ``breakdown`` and stop
 the loop with converged=False.
+
+Variants: classic, fused (Chronopoulos-Gear, one reduction per iteration;
+with ``CIVIWAVE_MEGA_PCG=1`` the whole-iteration K6 loop) and pipelined
+(Ghysels-Vanroose with periodic residual replacement).
 """
 
 from __future__ import annotations
@@ -111,6 +115,7 @@ def solve_pcg(
     vector_dtype=torch.float32,
     preconditioner=None,
     variant: str = "classic",
+    replace_every: int = 10,
 ):
     """PCG solve; returns (solution, PcgTelemetry).
 
@@ -118,13 +123,18 @@ def solve_pcg(
     reuse across solves (the stepper hoists it and rebuilds on dt changes
     only).  ``variant``: 'classic' is the reference's 3-dot loop
     (pcg.cpp:830-915); 'fused' the Chronopoulos-Gear single-reduction
-    recurrence (:func:`solve_pcg_fused`); 'auto' picks 'fused' where the
-    model runs the fused pc+matvec+dots kernel (CUDA, f32) and 'classic'
-    otherwise, and always on a shard (one all-reduce per iteration instead
-    of two or three, as the reference's pcg.py:181-182).  'pipelined'
-    (Ghysels-Vanroose) waits for ROADMAP A9.  On a shard every reduction
-    goes through ``model.psum``; every rank reads the same flags because
-    the reduced scalars are the same.
+    recurrence (:func:`solve_pcg_fused`); 'pipelined' the Ghysels-Vanroose
+    recurrence (:func:`solve_pcg_pipelined`); 'auto' picks 'fused' where
+    the model runs the fused pc+matvec+dots kernel (CUDA, f32, not under
+    multigrid) and 'classic' otherwise, and always on a shard (one
+    all-reduce per iteration instead of two or three, as the reference's
+    pcg.py:181-182).  On a shard every reduction goes through
+    ``model.psum``; every rank reads the same flags because the reduced
+    scalars are the same.
+
+    ``replace_every``: the pipelined variant's residual-replacement period
+    (the YAML ``solver.replace_every``); 0 disables replacement.  The other
+    variants ignore it.
     """
     block_inverse = (
         model.build_preconditioner(stiffness_scale, mass_factor)
@@ -152,8 +162,11 @@ def solve_pcg(
             preconditioner=block_inverse,
         )
     if variant == "pipelined":
-        raise NotImplementedError(
-            "solver.variant 'pipelined' is not ported yet (ROADMAP A9)"
+        return solve_pcg_pipelined(
+            model, rhs, stiffness_scale, mass_factor, relative_tolerance,
+            max_iterations, x0, warm_start=warm_start,
+            reduction_dtype=reduction_dtype, vector_dtype=vector_dtype,
+            preconditioner=block_inverse, replace_every=replace_every,
         )
     if variant != "classic":
         raise ValueError(f"unknown PCG variant {variant!r}")
@@ -362,6 +375,148 @@ def solve_pcg_fused(
             p = (u + beta32 * p).masked_fill(bc, 0.0)
             s = (w + beta32 * s).to(f32).masked_fill(bc, 0.0)
             gamma, alpha, beta_last = gamma_new, alpha_new, beta
+
+    telemetry = PcgTelemetry(
+        iterations=iteration,
+        residual_norm=residual_norm,
+        rhs_norm=rhs_norm_true,
+        alpha_last=alpha_last,
+        beta_last=beta_last,
+        converged=converged,
+        breakdown=breakdown,
+    )
+    return x, telemetry
+
+
+def solve_pcg_pipelined(
+    model,
+    rhs: torch.Tensor,
+    stiffness_scale,
+    mass_factor,
+    relative_tolerance,
+    max_iterations,
+    x0: torch.Tensor,
+    warm_start: bool = True,
+    reduction_dtype=torch.float64,
+    vector_dtype=torch.float32,
+    preconditioner=None,
+    replace_every: int = 10,
+):
+    """Ghysels-Vanroose pipelined PCG: the one reduction per iteration sits
+    BEFORE the preconditioner apply and matvec, whose result it does not
+    need (the reference's order, which lets XLA overlap its all-reduce
+    with them; here a shard's all-reduce runs before them, in stream
+    order).
+
+    Port of the reference's ``solve_pcg_pipelined`` (pcg.py:551-806):
+
+        gamma' = (r,u); delta = (w,u); rr = (r,r)    <- one reduction
+        m = M^-1 w ; n = K_eff m                        (apply_pc_keff)
+        beta  = gamma'/gamma ; alpha = gamma'/(delta - beta gamma'/alpha)
+        z = n + beta z ; q = m + beta q ; p = u + beta p ; s = w + beta s
+        x += alpha p ; r -= alpha s ; u -= alpha q ; w -= alpha z
+
+    The same iterates as classic CG in exact arithmetic, with two more
+    recurrence vectors (q, z), 8 axpys and one trailing pc+matvec per
+    solve (the convergence check sees the residual one iteration late).
+    The recurred u and w accumulate an absolute f32 error, so every
+    ``replace_every`` iterations (``(iteration + 1) % replace_every ==
+    0``, whatever the tolerance; 0 never) they are recomputed from the
+    recurred r by one more ``apply_pc_keff`` — the Ghysels-Vanroose
+    residual replacement (the reference's ADR-25).
+
+    ``model.apply_pc_keff`` is K2 without dots on a CUDA f32 structured
+    grid, the V-cycle then the operator under multigrid, and the
+    composition elsewhere (the general path, a shard: K3 and K5).  The
+    three dots are one :func:`fused_dots` with ``model.psum``: one
+    all-reduce per iteration on a shard.  One host read of the flags per
+    iteration; the pc+matvec is queued before it.  On a stop the carries
+    keep their old values and the count does not advance, as the
+    reference's ``where(stop, old, new)``.
+    """
+    f32 = vector_dtype
+    rdt = reduction_dtype
+    bc = model.bc_mask
+    psum = getattr(model, "psum", None)
+
+    block_inverse = (
+        model.build_preconditioner(stiffness_scale, mass_factor)
+        if preconditioner is None
+        else preconditioner
+    )
+
+    x = x0 if warm_start else torch.zeros_like(x0)
+    ax = model.apply_keff(x, stiffness_scale, mass_factor)
+    r = (rhs - ax).to(f32)
+    x, r = _clamp_dirichlet(model, rhs, x, r)
+
+    def pc_keff(v):
+        a, b = model.apply_pc_keff(block_inverse, v, stiffness_scale,
+                                   mass_factor)
+        return a.to(f32), b.to(f32)
+
+    def pc_keff_masked(v):  # the setup and each replacement, as the reference
+        a, b = pc_keff(v)
+        return a.masked_fill(bc, 0.0), b.masked_fill(bc, 0.0)
+
+    u, w = pc_keff_masked(r)
+    rhs2, rr0 = fused_dots([(rhs, rhs), (r, r)], rdt, psum)
+    rhs_norm_true = torch.sqrt(rhs2)
+    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
+    tolerance = relative_tolerance * rhs_norm
+
+    # pre-loop check: an already-converged x0 (or max_iterations = 0)
+    # reports the true initial residual and skips the loop
+    residual_norm = torch.sqrt(rr0)
+    (converged,) = _flags(residual_norm <= tolerance)
+    breakdown = False
+
+    p = torch.zeros_like(r)
+    s, q, z = torch.zeros_like(r), torch.zeros_like(r), torch.zeros_like(r)
+    gamma = torch.ones((), dtype=rdt, device=rhs.device)
+    alpha = torch.ones((), dtype=rdt, device=rhs.device)
+    alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
+    beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
+
+    iteration = 0
+    while iteration < max_iterations and not converged and not breakdown:
+        gamma_new, delta, rr = fused_dots([(r, u), (w, u), (r, r)], rdt, psum)
+        m, n = pc_keff(w)
+        residual_norm = torch.sqrt(rr)
+
+        first = iteration == 0
+        gamma_small = (gamma.abs() < _BREAKDOWN_TOL) & (not first)
+        beta = (
+            torch.zeros((), dtype=rdt, device=rhs.device) if first
+            else gamma_new / torch.where(gamma_small, 1.0, gamma)
+        )
+        alpha_denom = delta - beta * gamma_new / torch.where(
+            alpha.abs() < _BREAKDOWN_TOL, 1.0, alpha
+        )
+        denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
+        alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
+
+        conv, g_bd, d_bd = _flags(
+            residual_norm <= tolerance, gamma_small, denom_small
+        )
+        converged = conv
+        breakdown = (not conv) and (g_bd or d_bd)
+        if converged or breakdown:
+            break
+        beta32, alpha32 = beta.to(f32), alpha_new.to(f32)
+        z = n + beta32 * z
+        q = m + beta32 * q
+        p = u + beta32 * p
+        s = w + beta32 * s
+        x = x + alpha32 * p
+        r = r - alpha32 * s
+        u = u - alpha32 * q
+        w = w - alpha32 * z
+        if replace_every and (iteration + 1) % replace_every == 0:
+            u, w = pc_keff_masked(r)
+        gamma, alpha = gamma_new, alpha_new
+        alpha_last, beta_last = alpha_new, beta
+        iteration += 1
 
     telemetry = PcgTelemetry(
         iterations=iteration,

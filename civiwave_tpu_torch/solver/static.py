@@ -36,6 +36,7 @@ def solve_static(
     vector_precision: str = "fp32",
     preconditioner=None,
     variant: str = "auto",
+    replace_every: int = 10,
 ) -> Tuple[torch.Tensor, PcgTelemetry]:
     """Solve K u = f_ext (+ Dirichlet targets) to ``tolerance`` from a cold
     start (x0 = 0).
@@ -45,8 +46,9 @@ def solve_static(
     preconditioner is built at (ss, mf) = (1, 0) when not supplied.
     ``variant`` 'auto' is what the reference runs: fused (K2, or K6 under
     ``CIVIWAVE_MEGA_PCG=1``) on a structured model on CUDA in f32, classic
-    on the CPU and on the general path.  A shard of a sharded model raises
-    NotImplementedError (ROADMAP A11).
+    on the CPU, on the general path and under multigrid.  ``replace_every``
+    is the pipelined variant's residual-replacement period.  A shard of a
+    sharded model raises NotImplementedError (ROADMAP A11).
     """
     if getattr(model, "shard_group", None) is not None:
         raise NotImplementedError(
@@ -76,6 +78,7 @@ def solve_static(
         vector_dtype=vdt,
         preconditioner=preconditioner,
         variant=variant,
+        replace_every=replace_every,
     )
 
 

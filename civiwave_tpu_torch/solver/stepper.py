@@ -105,6 +105,7 @@ def newmark_step(
     warm_start: bool = True,
     warm_start_policy: str = "predictor",
     solver_variant: str = "auto",
+    solver_replace_every: int = 10,
     reduction_precision: str = "fp64",
     vector_precision: str = "fp32",
     preconditioner=None,
@@ -113,7 +114,8 @@ def newmark_step(
 
     ``vector_precision`` is the YAML ``precision.vectors`` knob: "fp32" is
     the production contract, "fp64" the accuracy/debug mode (CPU only in
-    this port; the CUDA kernels are f32).
+    this port; the CUDA kernels are f32).  ``solver_replace_every`` is the
+    pipelined variant's residual-replacement period (``solver.replace_every``).
     """
     vdt = torch.float64 if vector_precision == "fp64" else torch.float32
     sc = np.float64 if vector_precision == "fp64" else np.float32
@@ -196,6 +198,7 @@ def newmark_step(
         vector_dtype=vdt,
         preconditioner=preconditioner,
         variant=solver_variant,
+        replace_every=solver_replace_every,
     )
 
     # state update (newmark_stepper.cpp:1288-1314) with delta = x - u_pred
@@ -260,6 +263,9 @@ class NewmarkStepper:
             solver_variant if solver_variant is not None
             else solver_settings.variant
         )
+        # pipelined-variant residual-replacement period (YAML
+        # solver.replace_every; 0 disables)
+        self.solver_replace_every = solver_settings.replace_every
         # preconditioner hoisting: the build depends on dt only (through
         # the K_eff scalars), so it is reused across frames and rebuilt when
         # dt changes (the reference's ADR-17)
@@ -310,6 +316,7 @@ class NewmarkStepper:
             warm_start=self.warm_start_enabled,
             warm_start_policy=self.warm_start_policy,
             solver_variant=self.solver_variant,
+            solver_replace_every=self.solver_replace_every,
             reduction_precision=self.reduction_precision,
             vector_precision=self.vector_precision,
             preconditioner=self._precond,

@@ -4,7 +4,9 @@ operator, with K3's global offsets) of its sharded form, K4 (interior
 stencil) and G2 (boundary corrections and envelope) of its slender route,
 K7 (element forces, tet and hex) and G1 (CSR assembly) of the general
 gather path; K1-K3 at the static mass factor 0, static solves on the card
-against the CPU, and the general path's dashpot term after G1.
+against the CPU, the general path's dashpot term after G1; K1 with the
+mass correction on multigrid coarse levels, and the V-cycle, multigrid
+and pipelined solves on the card against the CPU.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -78,6 +80,9 @@ SWEEP_SHAPES = {
     "ragged_yz": ((5, 10, 40), {}),
     # X over two chunks, Z % 4 == 0 (16-byte copies)
     "x_over_two_chunks": ((69, 5, 7), {}),
+    # X = 65 nodes: the last chunk holds one plane, which the chunk before
+    # also sweeps (it must not emit it)
+    "x_last_chunk_one_plane": ((64, 5, 7), {}),
     # two z tiles, 16-byte copies, Y ragged, X in two chunks
     "two_z_tiles": ((40, 17, 63), dict(fixed_axis_planes=("x0", "y0"))),
     # a face in every direction, ragged along all three axes
@@ -704,3 +709,82 @@ def test_dashpot_term_on_the_card_matches_plain(device):
     ref = gops.apply_keff_plain(damped, x, SS, MF)
     _close(out, ref)
     assert float((ref - gops.apply_keff_plain(model, x, SS, MF)).abs().max()) > 0
+
+
+# multigrid coarse levels: (cells, build_structured_model kwargs) of the
+# fine grid; every level below it takes K1 with its mass correction
+COARSE = {
+    "even_15": ((15, 15, 15), {}),
+    "xpad4": ((10, 6, 6), dict(pad_x_multiple=4)),
+    "mixed_31x17x9": ((31, 17, 9), dict(fixed_axis_planes=("x0", "z1"))),
+}
+
+
+@pytest.mark.parametrize("case", sorted(COARSE))
+def test_keff_on_coarse_levels_matches_plain(device, case):
+    """K1 plus the mass correction on every multigrid level equals the
+    plain operator (which reads the stored P^T m_f mass); where a level has
+    a correction, K1 alone does not."""
+    from civiwave_tpu_torch.ops.multigrid import attach_multigrid
+
+    dims, kw = COARSE[case]
+    mat = cantilever_config().materials[0]
+    model, _ = build_structured_model(
+        *dims, materials.make_properties(mat), mat.density, device=device, **kw
+    )
+    mg = attach_multigrid(model)
+    assert mg.multigrid
+    for lvl in mg.mg_levels:
+        x = torch.as_tensor(np.random.default_rng(5).standard_normal(
+            lvl.vector_shape, dtype=np.float32), device=device)
+        before = k12.apply_keff_fused.launches
+        out = tops.apply_keff_structured(lvl, x, SS, MF)
+        torch.cuda.synchronize()
+        assert k12.apply_keff_fused.launches == before + 1
+        ref = tops.apply_keff_structured_plain(lvl, x, SS, MF)
+        _close(out, ref)
+        assert torch.equal(out[lvl.bc_mask], x[lvl.bc_mask])
+        if lvl.mass_correction is not None:
+            raw = k12.apply_keff_fused(lvl, x, SS, MF)
+            assert float((raw - ref).abs().max()) > OP_TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("variant", ["mg_auto", "mg_pipelined", "pipelined"])
+def test_opt_in_solvers_16_cubed_match_the_cpu(device, variant):
+    """On the 16^3 cantilever's Newmark system: the multigrid V-cycle (K1
+    on every level) against the CPU's, and PCG with multigrid ('auto' =
+    classic, and pipelined) and block-Jacobi pipelined (K2 without dots)
+    against the CPU's same solve: converged, iterations within 1, u within
+    2.5e-4 of max|u|."""
+    from civiwave_tpu_torch.ops.multigrid import attach_multigrid
+    from civiwave_tpu_torch.solver.pcg import solve_pcg
+
+    mat = cantilever_config().materials[0]
+    runs = {}
+    for dev in (device, "cpu"):
+        model, force = build_structured_model(
+            16, 16, 16, materials.make_properties(mat), mat.density,
+            traction=(0.0, 0.0, -1.0e6), device=dev)
+        if variant.startswith("mg"):
+            model = attach_multigrid(model)
+            r = torch.as_tensor(np.random.default_rng(1).standard_normal(
+                model.vector_shape, dtype=np.float32), device=dev)
+            r = r.masked_fill(model.bc_mask, 0.0)
+            z = model.apply_preconditioner(model.build_preconditioner(SS, MF), r)
+            runs[f"z_{dev}"] = z.cpu()
+        rhs = torch.where(model.bc_mask, model.bc_value, force)
+        before = (k12.apply_pc_keff_fused.launches, k12.apply_keff_fused.launches)
+        runs[str(dev)] = solve_pcg(
+            model, rhs, SS, MF, 1e-7, 400, torch.zeros_like(rhs),
+            variant="auto" if variant == "mg_auto" else "pipelined")
+        if dev != "cpu":
+            pc = k12.apply_pc_keff_fused.launches - before[0]
+            k1 = k12.apply_keff_fused.launches - before[1]
+            assert (pc > 0) == (variant == "pipelined") and k1 > 0
+    (ug, tg), (uc, tc) = runs[str(device)], runs["cpu"]
+    assert tg.converged and tc.converged
+    assert abs(tg.iterations - tc.iterations) <= 1
+    np.testing.assert_allclose(ug.cpu().numpy(), uc.numpy(), rtol=0,
+                               atol=2.5e-4 * float(uc.abs().max()))
+    if variant.startswith("mg"):
+        _close(runs[f"z_{device}"], runs["z_cpu"])

@@ -1,5 +1,6 @@
 """PCG of the port against the JAX reference on structured models: the
-classic and the Chronopoulos-Gear (fused) loops, the 'auto' policy on the
+classic and the Chronopoulos-Gear (fused) loops (the pipelined loop:
+tests/test_torch_pipelined.py), the 'auto' policy on the
 CPU, a zero right-hand side, max_iterations = 0 and the telemetry fields.
 Tolerances: iterations within +-1 (equality expected), solution at
 1e-4 * max|ref| (tests/test_pcg.py:313), dots at rtol 1e-6 (f32 chunk
@@ -143,11 +144,18 @@ def test_max_iterations_caps_and_reduction_dtype(variant, rdt):
 
 
 def test_pipelined_variant_raises_until_ported():
+    """Ported since: 'pipelined' solves (tests/test_torch_pipelined.py holds
+    it to the reference) and an unknown variant still raises."""
     _, tm, rhs, x0 = _problem()
-    with pytest.raises(NotImplementedError, match="A9"):
+    x, tel = tpcg.solve_pcg(
+        tm, torch.from_numpy(rhs), SS, MF, 1e-6, 200, torch.from_numpy(x0),
+        variant="pipelined",
+    )
+    assert tel.converged and not tel.breakdown and tel.iterations > 3
+    with pytest.raises(ValueError, match="unknown PCG variant"):
         tpcg.solve_pcg(
             tm, torch.from_numpy(rhs), SS, MF, 1e-6, 10, torch.from_numpy(x0),
-            variant="pipelined",
+            variant="pipelinedd",
         )
 
 

@@ -248,9 +248,10 @@ def test_try_build_structured_matches_reference():
 @pytest.mark.parametrize(
     "node, device, item",
     [
+        # multigrid is ported since: the scenario builds with its hierarchy
         (dict(solver={"type": "pcg", "preconditioner": "multigrid",
-                      "tol_runtime": 1e-4, "tol_pause": 1e-5, "max_iters": 10}),
-         "cpu", "A9"),
+                      "tol_runtime": 1e-4, "tol_pause": 1e-5, "max_iters": 10},
+              mesh={"path": "synthetic://box/8,4,4"}), "cpu", None),
         # absorbing faces on a tet box take the general path, which has
         # ported them: no item, the build succeeds with the dashpots packed
         (dict(boundaries={"absorbing": ["SIDE_X1"]},
@@ -264,7 +265,11 @@ def test_unported_scenarios_raise(node, device, item):
 
     cfg = cantilever_config(**{"mesh": {"path": "synthetic://box/3,2,2"}, **node})
     if item is None:  # ported since: the scenario builds
-        assert build_simulation(cfg, device=device).model.has_damping
+        model = build_simulation(cfg, device=device).model
+        if cfg.solver.preconditioner == "multigrid":
+            assert model.multigrid and len(model.mg_levels) == 1
+        else:
+            assert model.has_damping
         return
     with pytest.raises(NotImplementedError, match=item):
         build_simulation(cfg, device=device)
