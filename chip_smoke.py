@@ -139,9 +139,33 @@ Phases, each printing its result:
     cantilever (K7 + G1) against phase
     8's classic frames, and 3 frames of the 255^3 grid on a one-rank NCCL
     shard (K3 + K5; one f64 (3,) all-reduce per loop body, 2 ghost
-    exchanges per matvec) against the unsharded pipelined frame 3.
+    exchanges per matvec) against the unsharded pipelined frame 3;
+20. the f64 instances (``precision.vectors: fp64``): K1 f64 at 255^3, on
+    the soil column's grid and a ragged grid, K5 f64 on the 64-plane slabs
+    of 255^3 with their ghosts (gathered against K1 f64 bit for bit), K3
+    f64 at 255^3, K7 f64 and G1 f64 on the 66^3 tet and hex boxes, each
+    against its plain version in f64 at 1e-12 of max|ref| (G1 bit-equal),
+    timed beside the f32 instance, with its bound at the f64 rate and the
+    ptxas lines of the four double instances;
+21. fp64 through build_simulation on every path: cantilever_box at tol
+    1e-10, 10 frames GPU vs CPU (iterations +-1, u 1e-8, a 1e-6 of max);
+    the 255^3 cantilever, 8 frames ('auto' = classic: K1 f64 + K3 f64 once
+    per matvec and pc apply, no f32 kernel) against 8 f32 classic frames at
+    the BASELINE tolerances, steps/s, ms per iteration, peak memory and a
+    profiled frame; its static solve (classic, tol 1e-8) against phase
+    16's refined u; the 66^3 tet cantilever (K7 tet + G1 f64) and the soil
+    column (K1 f64, not K4 + G2) against their f32 frames; 3 steps of the
+    shuffled 34^3 hex box (K7 hex f64); multigrid against block-Jacobi at
+    96x56x56, tol 1e-10, 3 frames (u within 1e-8 of max); a one-rank shard
+    (classic, K5 f64 + K3 f64) against the unsharded frame 3;
+22. checkpoints at 255^3: 6 'auto' frames saving every 3, a fresh
+    build_simulation restores frame 3's checkpoint and runs to the same
+    end: u, v, a and the warm start bit for bit; bytes, save and restore
+    seconds;
+23. ``--profile`` through ``runner.main`` on cantilever_box on the card:
+    the trace names the reference's ranges and holds K1/K2 device events.
 
-Output files of phases 16-17 go to a fresh directory under
+Output files of phases 16-17 and 22-23 go to a fresh directory under
 ``civiwave_tpu_torch/_build/`` (ignored by git) and are removed.  Any
 failed check exits non-zero.  The last two lines of stdout are a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.
@@ -219,38 +243,45 @@ def time_ms(fn, reps: int) -> float:
 
 
 def device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device milliseconds per call of the kernels whose names contain
-    ``kernel``, over ``reps`` calls of ``fn`` after one warm-up, from
-    torch.profiler's device events: unlike time_ms, the host's own cost
-    per call (a wrapper's checks) cannot pass for the kernel's time when it
-    is the longer of the two."""
+    """Mean device milliseconds per launch of the kernels whose names
+    contain ``kernel`` (one per call), over ``reps`` calls of ``fn`` after
+    one warm-up, from torch.profiler's device events: unlike time_ms, the
+    host's own cost per call (a wrapper's checks) cannot pass for the
+    kernel's time when it is the longer of the two."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # on the H100 machine the profiler now and then records no device
-    # event for a window (one window in a run, another kernel each time):
-    # such a window is taken again, at most 3 times
+    # on the H100 machine the profiler records only some of a window's
+    # device events now and then (17-18 of 20, or none): each call of fn
+    # launches one such kernel, so the mean is taken over the events
+    # recorded, and a window with none is taken again, at most 3 times
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type != DeviceType.CPU and kernel in e.key)
+        rows = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU and kernel in e.key]
+        total = sum(e.self_device_time_total for e in rows)
+        events = sum(e.count for e in rows)
         if total > 0:
-            return total / 1e3 / reps
+            if events < reps:
+                print(f"  {events} of {reps} device events recorded for "
+                      f"{kernel}: the mean is over those", flush=True)
+            return total / 1e3 / events
         print(f"  no device time recorded for {kernel}; profiling again",
               flush=True)
     fail(f"no device time recorded for {kernel} in 3 profiler windows")
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, tflops: float = F32_TFLOPS):
     """(least ms, "bytes" | "operations"): the larger of the bytes over
-    the card's memory rate and the operations over its f32 rate."""
+    the card's memory rate and the operations over its rate for their type
+    (f32 unless ``tflops`` says otherwise)."""
     t_bytes = nbytes / (HBM_TBPS * 1e12) * 1e3
-    t_ops = flops / (F32_TFLOPS * 1e12) * 1e3
+    t_ops = flops / (tflops * 1e12) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -752,9 +783,7 @@ def time_k7(model, x, ss, block):
     from civiwave_tpu_torch.ops.cuda import element_forces as k7
 
     wrapper = k7.tet_element_forces if block == "tet" else k7.hex_element_forces
-    out = torch.empty(
-        (model.force_row_count, 3), dtype=torch.float32, device=x.device
-    )
+    out = torch.empty((model.force_row_count, 3), dtype=x.dtype, device=x.device)
     if block == "tet":
         tables = (model.conn_tet, model.grads_tet, model.vol_tet,
                   model.lam_tet, model.mu_tet)
@@ -785,7 +814,7 @@ def time_g1(model, x, mf):
     # the kernel is shorter than the wrapper's host cost at D = 8: time it
     # by its device events, and print the per-call time beside it
     ms = device_ms(lambda: g1.assemble_keff(model, rows, x, mf),
-                   "assemble_csr_kernel", 20)
+                   "assemble_csr_kernel", 20)  # either instance's name
     call_ms = time_ms(lambda: g1.assemble_keff(model, rows, x, mf), 20)
     plain_ms = time_ms(lambda: g1.assemble_keff_plain(model, rows, x, mf), 3)
     real = model.csr_weight != 0
@@ -794,7 +823,7 @@ def time_g1(model, x, mf):
                        device=x.device)
     crow[1:] = torch.cumsum(real.sum(dim=1), 0)
     incidence = torch.sparse_csr_tensor(
-        crow, model.csr_idx[real].long(), model.csr_weight[real],
+        crow, model.csr_idx[real].long(), model.csr_weight[real].to(rows.dtype),
         size=(model.padded_node_count, model.force_row_count),
         check_invariants=True,
     )
@@ -807,13 +836,14 @@ def time_g1(model, x, mf):
           f"{lib_err:.3e}; G1 kernel {ms:.4f} ms of device time, "
           f"{call_ms:.4f} ms per wrapper call (CUDA events)", flush=True)
     least = (nbytes(model.csr_idx, model.csr_weight, model.lumped_mass, x,
-                    model.bc_mask) + nnz * 12 + nbytes(x))
+                    model.bc_mask) + nnz * 3 * rows.element_size() + nbytes(x))
     flops = 6 * nnz + 7 * model.padded_node_count
     return ms, plain_ms, least, flops, library_ms
 
 
-def report_time(name, shape, ms, plain_ms, least, flops, library_ms=None):
-    bound_ms, bound_by = bound(least, flops)
+def report_time(name, shape, ms, plain_ms, least, flops, library_ms=None,
+                tflops=F32_TFLOPS):
+    bound_ms, bound_by = bound(least, flops, tflops)
     lib = "" if library_ms is None else f", library {library_ms:.4f} ms"
     print(f"time {name} [{shape}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
           f"{lib} ({least / 1e9:.4f} GB computed least traffic -> "
@@ -974,7 +1004,7 @@ def general_main_path_phase(device, ss, mf):
     for key in ("element_forces_tet", "assemble_csr"):
         if counts[key] <= 0:
             fail(f"general main path never launched {key}")
-    u = sim.stepper.displacement()
+    u, a = sim.stepper.displacement(), sim.stepper.acceleration()
     tip = float(u[np.isclose(sim.mesh.node_positions[:, 0], n), 2].min())
     if not tip < 0.0:
         fail(f"general main path: the loaded face did not deflect (min u_z {tip})")
@@ -992,8 +1022,9 @@ def general_main_path_phase(device, ss, mf):
     profile_window("general main path frame 9", lambda: sim.run(1))
     del sim, model, state
     torch.cuda.empty_cache()
-    # the 8 classic frames' result, for phase 19's pipelined frames
-    return errs, timings, counts, dict(iters=iters, u=u)
+    # the 8 classic frames' result, for phase 19's pipelined frames and
+    # phase 21's fp64 frames
+    return errs, timings, counts, dict(iters=iters, u=u, a=a)
 
 
 def general_steps_phase(device):
@@ -1412,7 +1443,8 @@ def column_main_path_phase(device):
     print("soil column: frame seconds " + ", ".join(f"{t:.4f}" for t in frame_s),
           flush=True)
     summary = dict(iters=iters, steps_per_s=len(steady) / sum(steady),
-                   ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3, peak=peak)
+                   ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3, peak=peak,
+                   u=state.displacement.cpu(), a=state.acceleration.cpu())
     print(f"soil column: steps/s {summary['steps_per_s']:.4f} (frames 2-8), "
           f"{summary['ms_per_iter']:.4f} ms per iteration (host clock)", flush=True)
     print(f"soil column: peak device memory {peak / 2**30:.3f} GiB ({peak} bytes)",
@@ -2075,7 +2107,7 @@ def static_full_width_phase(device):
         shutil.rmtree(tmp, ignore_errors=True)
     summary = {k: dict(iterations=r["payload"]["iterations"],
                        seconds=r["payload"]["elapsed_seconds"], counts=r["counts"],
-                       res=r["res"]) for k, r in results.items()}
+                       res=r["res"], err=r["err"]) for k, r in results.items()}
     summary["vtu"] = dict(bytes=size, seconds=vtu_s)
     summary["exact"] = exact  # f64 on the card, for phases 18 and 19
     del sim, model, results, fused, classic, megaf
@@ -2861,6 +2893,558 @@ def pipelined_phase(device, split, static, tet_classic):
     return result
 
 
+# --- fp64 vectors on the card, checkpoints and --profile (phases 20-23) ------
+
+F64_TOL = 1e-12  # f64 instances against their plain versions, of max|ref|
+F64_TFLOPS = 34.0  # H100 SXM published f64 rate outside the tensor cores
+# least bytes per node of K1's and K3's f64 instances: x (24 B) and the mask
+# (3 B) read once, out (24 B) written once; a K5 ghost node's 3 f64 values
+# and 3 mask bytes
+F64_BYTES_PER_NODE, K5_GHOST_BYTES_F64 = 51, 27
+BOX_F64_TOL = (1e-8, 1e-6)  # u, a of max: cantilever_box fp64 GPU vs CPU
+MG_F64_TOL = 1e-8  # multigrid vs block-Jacobi fp64 at tol 1e-10, of max|u|
+FP64 = {"vectors": "fp64", "reductions": "fp64"}
+# the f64 instances' mangled names (template argument double)
+F64_KERNELS = ("keff_sweep_kernelId", "block_jacobi_apply_kernelId",
+               "element_forces_kernelId", "assemble_csr_kernelId")
+
+
+def f64_counts():
+    """Launches of the f64 instances, by short name."""
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+
+    return {"keff_f64": k12.apply_keff_fused.launches_f64,
+            "k5_f64": k5.keff_structured_halo.launches_f64,
+            "bj_f64": k3.apply_block_jacobi.launches_f64,
+            "tet_f64": k7.tet_element_forces.launches_f64,
+            "hex_f64": k7.hex_element_forces.launches_f64,
+            "g1_f64": g1.assemble_keff.launches_f64}
+
+
+def reset_f64_counts():
+    """Every launch counter to 0: the f64 instances' and the f32 ones'."""
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+
+    for wrapper in (k12.apply_keff_fused, k5.keff_structured_halo,
+                    k3.apply_block_jacobi, k7.tet_element_forces,
+                    k7.hex_element_forces, g1.assemble_keff):
+        wrapper.launches_f64 = 0
+    reset_all_counts()
+    reset_general_counts()
+
+
+def fp64_path_counts():
+    """Every counter after an fp64 path: the f64 instances', then the f32
+    kernels' (all of which must stay 0 there)."""
+    return {**f64_counts(), **all_counts(), **general_counts()}
+
+
+def check_fp64_counts(label, counts, want):
+    """The f64 instances of ``want`` launched, every f32 kernel never."""
+    f32 = {k: v for k, v in counts.items() if not k.endswith("_f64") and v}
+    missing = [k for k in want if counts[k] <= 0]
+    if f32 or missing:
+        fail(f"{label}: f32 kernels launched {f32}, f64 instances never "
+             f"launched {missing}; counts {counts}")
+
+
+def f64_kernel_phase(device, times32, hex32, tet32):
+    """Phase 20: the f64 instances against their plain versions in f64 at
+    F64_TOL — K1 at 255^3, on the soil column's grid and a ragged grid, K5
+    on the 64-plane slabs of 255^3 with their ghosts (gathered against K1
+    bit for bit), K3 at 255^3, K7 and G1 on the 66^3 tet and hex boxes —
+    timed beside the f32 instances' times of phases 3 and 6-8."""
+    from civiwave_tpu_torch.mesh.structured import build_structured_model
+    from civiwave_tpu_torch.ops.cuda import _build
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.solver.stepper import effective_scalars
+    from civiwave_tpu_torch.utils.synthetic import box_mesh, cantilever_config
+
+    for line in ptxas_report(_build.load_library().log, F64_KERNELS):
+        print(f"  ptxas f64: {line}", flush=True)
+    cfg = cantilever_config()
+    mat = materials.make_properties(cfg.materials[0])
+    rho = cfg.materials[0].density
+    ray = materials.compute_rayleigh(cfg.damping)
+    ss, mf = effective_scalars(1.0e-3, ray.alpha, ray.beta, vector_precision="fp64")
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+
+    def rand64(model):
+        return torch.randn(model.vector_shape, generator=gen, device=device,
+                           dtype=torch.float64)
+
+    errs, out = {}, {}
+    column, _ = column_model(device)
+    for label, model in (
+        ("33x19x45 fixes x0,y1,z0 partial", build_structured_model(
+            33, 19, 45, mat, rho, device=device, fixes=[
+                ("x0", (True, True, True), (None, None, None)),
+                ("y1", (False, True, False), (None, None, None)),
+                ("z0", (True, False, True), (1e-3, None, None))])[0]),
+        ("soil column 1024x48x48", column),
+        ("255x255x255", build_structured_model(*FULL, mat, rho, device=device)[0]),
+    ):
+        x = rand64(model)
+        e = check_close(f"K1 f64 {label}", k12.apply_keff_fused(model, x, ss, mf),
+                        k12.apply_keff_fused_plain(model, x, ss, mf), F64_TOL)
+        errs["keff"] = max(errs.get("keff", e), e, key=lambda v: v[1])
+        print(f"K1 f64 vs plain [{label}]: max abs err {e[0]:.3e}, "
+              f"{e[1]:.2e} of max|ref| (tol {F64_TOL:g})", flush=True)
+    del column
+    nodes = int(np.prod(model.grid_shape))
+    pc = model.build_preconditioner(ss, mf)
+    errs["bj"] = check_close("K3 f64 255^3", k3.apply_block_jacobi(model, pc.table, x),
+                             k3.apply_block_jacobi_plain(model, pc.table, x), F64_TOL)
+    least = F64_BYTES_PER_NODE * nodes
+    out["keff"] = report_time(
+        "K1 f64", "255^3",
+        time_ms(lambda: k12.apply_keff_fused(model, x, ss, mf), 20),
+        time_ms(lambda: k12.apply_keff_fused_plain(model, x, ss, mf), 3),
+        least, KERNEL_FLOPS_PER_NODE["keff"] * nodes, tflops=F64_TFLOPS)
+    out["bj"] = report_time(
+        "K3 f64", "255^3",
+        time_ms(lambda: k3.apply_block_jacobi(model, pc.table, x), 20),
+        time_ms(lambda: k3.apply_block_jacobi_plain(model, pc.table, x), 3),
+        least, KERNEL_FLOPS_PER_NODE["bj"] * nodes, tflops=F64_TFLOPS)
+    print(f"f64 vs f32 at 255^3: K1 {out['keff']['ms']:.4f} vs {times32['keff'][0]:.4f} "
+          f"ms, K3 {out['bj']['ms']:.4f} vs {times32['bj'][0]:.4f} ms; K3 f64 vs plain "
+          f"{errs['bj'][1]:.2e} of max|ref|", flush=True)
+    del model, x, pc
+    torch.cuda.empty_cache()
+
+    # K5: 255^3 over 4 slabs of 64 planes, ghosts cut from the global x
+    model, _ = build_structured_model(*FULL, mat, rho, device=device,
+                                      pad_x_multiple=4)
+    x = rand64(model)
+    gathered = torch.empty_like(x)
+    tiles = halo_tiles(model, x, (4, 1), False)
+    for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+        o = k5.keff_structured_halo(local, xt, ghosts, ss, mf)
+        e = check_close(f"K5 f64 slab {x0}", o, k5.keff_structured_halo_plain(
+            local, xt, ghosts, ss, mf), F64_TOL)
+        errs["k5"] = max(errs.get("k5", e), e, key=lambda v: v[1])
+        gathered[:, x0:x0 + xl, y0:y0 + yl] = o
+    if not torch.equal(gathered, k12.apply_keff_fused(model, x, ss, mf)):
+        fail("K5 f64: the gathered slabs differ from K1 f64")
+    local, xt, ghosts, _ = tiles[1]
+    least = (F64_BYTES_PER_NODE * int(np.prod(local.grid_shape))
+             + K5_GHOST_BYTES_F64 * 2 * local.grid_shape[1] * local.grid_shape[2])
+    out["k5"] = report_time(
+        "K5 f64", f"slab {tuple(local.grid_shape)}",
+        time_ms(lambda: k5.keff_structured_halo(local, xt, ghosts, ss, mf), 20),
+        time_ms(lambda: k5.keff_structured_halo_plain(local, xt, ghosts, ss, mf), 3),
+        least, KERNEL_FLOPS_PER_NODE["keff"] * int(np.prod(local.grid_shape)),
+        tflops=F64_TFLOPS)
+    print(f"K5 f64: 4 slabs vs plain max {errs['k5'][1]:.2e} of max|ref|, gathered "
+          f"= K1 f64 bit for bit", flush=True)
+    del model, x, gathered, tiles, local, xt, ghosts
+    torch.cuda.empty_cache()
+
+    # K7 and G1 on the 66^3 boxes
+    n = GENERAL_N
+    for block, f32 in (("tet", tet32), ("hex", hex32)):
+        model, _, build_s = packed_model(
+            box_mesh(n, n, n, hex_elements=block == "hex"), cfg, device)
+        x = rand64(model)
+        wrapper = k7.tet_element_forces if block == "tet" else k7.hex_element_forces
+        errs[block] = check_close(f"K7 {block} f64 66^3", wrapper(model, x, ss),
+                                  k7.element_forces_plain(model, x, ss, block),
+                                  F64_TOL)
+        rows = k7.element_force_rows(model, x, ss)
+        g = g1.assemble_keff(model, rows, x, mf)
+        ref = g1.assemble_keff_plain(model, rows, x, mf)
+        e = check_close(f"G1 f64 {block} 66^3", g, ref, F64_TOL)
+        if not torch.equal(g, ref):
+            fail(f"G1 f64 {block} 66^3: not bit-equal to the plain version")
+        errs[f"g1_{block}"] = e
+        del rows, g, ref
+        out[block] = report_time(f"K7 {block} f64", f"{block} 66^3",
+                                 *time_k7(model, x, ss, block), tflops=F64_TFLOPS)
+        out[f"g1_{block}"] = report_time(f"G1 f64", f"{block} 66^3",
+                                         *time_g1(model, x, mf), tflops=F64_TFLOPS)
+        print(f"f64 vs f32 [{block} 66^3, pack {build_s:.3f} s]: K7 "
+              f"{out[block]['ms']:.4f} vs {f32['k7']:.4f} ms, G1 "
+              f"{out[f'g1_{block}']['ms']:.4f} vs {f32['g1']:.4f} ms; K7 vs plain "
+              f"{errs[block][1]:.2e}, G1 bit-equal", flush=True)
+        del model, x
+        torch.cuda.empty_cache()
+    return errs, out
+
+
+def fp64_paths_phase(device, static, tet_classic, column):
+    """Phase 21: precision.vectors fp64 through build_simulation on every
+    path of the port, each held to its bar: cantilever_box GPU vs CPU at tol
+    1e-10; the 255^3 cantilever (K1 f64 + K3 f64, 'auto' = classic) against
+    8 f32 classic frames; its static solve against phase 16's refined u;
+    the 66^3 tet cantilever (K7 + G1 f64) and the soil column (K1 f64, not
+    K4 + G2) against their f32 frames; 3 steps of the shuffled 34^3 hex box
+    (K7 hex f64); multigrid against block-Jacobi at 96x56x56, tol 1e-10;
+    and a one-rank shard (K5 + K3 f64) against the unsharded frames."""
+    from civiwave_tpu_torch.config.loader import load_config_from_file
+    from civiwave_tpu_torch.parallel.sharding import (
+        close_shard_group, make_shard_group, shard_simulation)
+    from civiwave_tpu_torch.runner import build_simulation, run_static
+    from civiwave_tpu_torch.solver.static import true_relative_residual
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config, soil_column_config
+
+    result = {}
+
+    # a. cantilever_box, fp64, tol 1e-10: GPU against CPU
+    box_cfg = load_config_from_file(BOX_YAML)
+    box_cfg = dataclasses.replace(
+        box_cfg,
+        precision=dataclasses.replace(box_cfg.precision, vector_precision="fp64"),
+        solver=dataclasses.replace(box_cfg.solver, runtime_tolerance=1e-10))
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        reset_f64_counts()
+        sim = build_simulation(box_cfg, device=dev)
+        tel = sim.run(10)
+        runs.append((tel, sim.stepper.state, fp64_path_counts()))
+    (tg, sg, cg), (tc, sc, _) = runs
+    check_fp64_counts("fp64 cantilever_box", cg, ("keff_f64", "bj_f64"))
+    it_g, it_c = [t.pcg_iterations for t in tg], [t.pcg_iterations for t in tc]
+    if any(abs(a - b) > 1 for a, b in zip(it_g, it_c)):
+        fail(f"fp64 cantilever_box: iterations {it_g} vs CPU {it_c}")
+    box_errs = {}
+    for name, tol in zip(("displacement", "acceleration"), BOX_F64_TOL):
+        _, box_errs[name] = check_close(f"fp64 cantilever_box {name}",
+                                        getattr(sg, name).cpu(), getattr(sc, name), tol)
+    print(f"fp64 cantilever_box, tol 1e-10, 10 frames GPU vs CPU: iterations {it_g} "
+          f"vs {it_c}; converged {[t.pcg_converged for t in tg]}, breakdown "
+          f"{[t.pcg_breakdown for t in tg]} (CPU {[t.pcg_breakdown for t in tc]}); "
+          f"max abs err / max|CPU| u {box_errs['displacement']:.3e} (tol "
+          f"{BOX_F64_TOL[0]:g}), a {box_errs['acceleration']:.3e} (tol "
+          f"{BOX_F64_TOL[1]:g}); launches {cg}", flush=True)
+    del runs, sg, sc
+
+    # b. the 255^3 cantilever: 8 f32 classic frames, then 8 fp64 frames
+    full = dict(tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
+                mesh={"path": "synthetic://box/%d,%d,%d" % FULL})
+    sim = build_simulation(cantilever_config(**full), device=device)
+    sim.stepper.solver_variant = "classic"
+    tel32, _ = run_frames(sim, 8)
+    ref32 = dict(u=sim.stepper.state.displacement.cpu(),
+                 a=sim.stepper.state.acceleration.cpu(),
+                 iters=[t.pcg_iterations for t in tel32])
+    del sim
+    torch.cuda.empty_cache()
+    sim = build_simulation(cantilever_config(precision=dict(FP64), **full), device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_f64_counts()
+    tel, secs = [], []
+    for k in range(8):
+        t0 = time.perf_counter()
+        tel += sim.run(1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if k == 2:
+            third = dict(u=sim.stepper.state.displacement.cpu(),
+                         a=sim.stepper.state.acceleration.cpu())
+    counts = fp64_path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel):
+        fail(f"fp64 255^3: not every frame converged: {iters}")
+    if sim.stepper.state.displacement.dtype != torch.float64:
+        fail("fp64 255^3: the state is not f64")
+    check_fp64_counts("fp64 255^3", counts, ("keff_f64", "bj_f64"))
+    # classic: each frame's Rayleigh and residual matvecs, one per iteration
+    if counts["keff_f64"] != sum(iters) + 2 * len(iters) or \
+            counts["bj_f64"] != sum(iters) + len(iters):
+        fail(f"fp64 255^3: {counts} for iterations {iters}")
+    if any(abs(a - b) > 1 for a, b in zip(iters, ref32["iters"])):
+        fail(f"fp64 255^3: iterations {iters} vs f32 classic {ref32['iters']}")
+    e = check_state("fp64 255^3 vs f32 classic", sim.stepper.state, ref32)
+    steady = secs[1:]
+    full64 = dict(iters=iters, counts=counts, peak=peak,
+                  steps_per_s=len(steady) / sum(steady),
+                  ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3)
+    print(f"fp64 255^3: iterations {iters} (f32 classic {ref32['iters']}); max abs "
+          f"err / max|f32| u {e['u']:.3e} (tol {U_TOL:g}), a {e['a']:.3e} (tol "
+          f"{A_TOL:g})", flush=True)
+    print(f"fp64 255^3: {full64['steps_per_s']:.4f} steps/s, {full64['ms_per_iter']:.4f} "
+          f"ms per iteration (frames 2-8, host clock); peak device memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes); launches {counts}", flush=True)
+    profile_window("fp64 255^3 frame 9", lambda: sim.run(1))
+    result["full"] = full64
+    del sim, ref32
+    torch.cuda.empty_cache()
+
+    # c. the static 255^3 solve in fp64 ('auto' = classic), against phase
+    # 16's refined u
+    sim = build_simulation(cantilever_config(
+        max_iters=STATIC_MAX_ITERS, precision=dict(FP64),
+        mesh={"path": "synthetic://box/%d,%d,%d" % FULL}), device=device)
+    reset_f64_counts()
+    t0 = time.perf_counter()
+    u, payload = run_static(sim)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    counts = fp64_path_counts()
+    if not payload["converged"] or u.dtype != torch.float64:
+        fail(f"fp64 static 255^3: converged {payload['converged']} in "
+             f"{payload['iterations']} iterations, dtype {u.dtype}")
+    check_fp64_counts("fp64 static 255^3", counts, ("keff_f64", "bj_f64"))
+    exact = static["exact"]
+    dist = float((u - exact).abs().max()) / float(exact.abs().max())
+    res = true_relative_residual(sim.model, sim.stepper.external_force, u)
+    result["static"] = dict(iterations=payload["iterations"],
+                            seconds=payload["elapsed_seconds"], dist=dist, res=res,
+                            counts=counts)
+    print(f"fp64 static 255^3 (classic): {payload['iterations']} iterations in "
+          f"{payload['elapsed_seconds']:.4f} s ({payload['elapsed_seconds'] / payload['iterations'] * 1e3:.4f} "
+          f"ms per iteration; f32 classic {static['classic']['iterations']} in "
+          f"{static['classic']['seconds']:.4f} s), recurred residual "
+          f"{payload['residual_norm']:.3e} of rhs {payload['rhs_norm']:.3e}, true "
+          f"relative residual (f64) {res:.3e}; u against classic's u refined twice "
+          f"in f64 (phase 16): {dist:.3e} of max|u| (f32 classic "
+          f"{static['classic']['err']:.3e}); {total:.3f} s in all; launches "
+          f"{counts}", flush=True)
+    del sim, u
+    torch.cuda.empty_cache()
+
+    # d. the 66^3 tet cantilever (general path) against its f32 frames
+    n = GENERAL_N
+    sim = build_simulation(cantilever_config(
+        mesh={"path": f"synthetic://box/{n},{n},{n},tet"}, dt=1e-3, adaptive=False,
+        tol_runtime=2e-4, max_iters=300, precision=dict(FP64)), device=device)
+    torch.cuda.synchronize()
+    reset_f64_counts()
+    tel, secs = run_frames(sim, 8)
+    counts = fp64_path_counts()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel) or any(
+            abs(a - b) > 1 for a, b in zip(iters, tet_classic["iters"])):
+        fail(f"fp64 tet 66^3: iterations {iters} vs f32 {tet_classic['iters']}")
+    check_fp64_counts("fp64 tet 66^3", counts, ("tet_f64", "g1_f64"))
+    te = {}
+    for key, tol, got in (("u", U_TOL, sim.stepper.displacement()),
+                          ("a", A_TOL, sim.stepper.acceleration())):
+        _, te[key] = check_close(f"fp64 tet 66^3 {key}", torch.as_tensor(got),
+                                 torch.as_tensor(tet_classic[key]), tol)
+    steady = secs[1:]
+    result["tet"] = dict(iters=iters, counts=counts,
+                         steps_per_s=len(steady) / sum(steady),
+                         ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3)
+    print(f"fp64 tet 66^3: iterations {iters} (f32 {tet_classic['iters']}); u "
+          f"{te['u']:.3e}, a {te['a']:.3e} of max|f32|; {result['tet']['steps_per_s']:.4f} "
+          f"steps/s, {result['tet']['ms_per_iter']:.4f} ms per iteration (frames "
+          f"2-8); launches {counts}", flush=True)
+    profile_window("fp64 tet 66^3 frame 9", lambda: sim.run(1))
+    del sim
+    torch.cuda.empty_cache()
+
+    # e. the soil column: the slender route is f32 only, so fp64 takes K1
+    sim = build_simulation(soil_column_config(cells=COLUMN, precision=dict(FP64)),
+                           device=device)
+    reset_f64_counts()
+    tel, secs = run_frames(sim, 8)
+    counts = fp64_path_counts()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel) or any(
+            abs(a - b) > 1 for a, b in zip(iters, column["iters"])):
+        fail(f"fp64 soil column: iterations {iters} vs f32 {column['iters']}")
+    check_fp64_counts("fp64 soil column", counts, ("keff_f64", "bj_f64"))
+    ce = check_state("fp64 soil column vs f32 (K4 + G2)", sim.stepper.state, column)
+    steady = secs[1:]
+    result["column"] = dict(iters=iters, steps_per_s=len(steady) / sum(steady),
+                            ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3)
+    print(f"fp64 soil column: iterations {iters} (f32 {column['iters']}); u "
+          f"{ce['u']:.3e}, a {ce['a']:.3e} of max|f32|; {result['column']['steps_per_s']:.4f} "
+          f"steps/s (f32 {column['steps_per_s']:.4f}), {result['column']['ms_per_iter']:.4f} "
+          f"ms per iteration; launches {counts}", flush=True)
+    del sim
+    torch.cuda.empty_cache()
+
+    # f. 3 steps of the shuffled 34^3 hex box (general_steps_per_s's
+    # workload) in fp64: K7 hex f64
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.solver.stepper import effective_scalars, newmark_step
+    from civiwave_tpu_torch.utils.synthetic import box_mesh, shuffle_mesh_nodes
+
+    hcfg = cantilever_config()
+    model, force, _ = packed_model(
+        shuffle_mesh_nodes(box_mesh(34, 34, 34, hex_elements=True), seed=5),
+        hcfg, device, pad_nodes=1024, pad_elems=1024)
+    ray = materials.compute_rayleigh(hcfg.damping)
+    pc = model.build_preconditioner(*effective_scalars(
+        1.0e-3, ray.alpha, ray.beta, vector_precision="fp64"))
+    reset_f64_counts()
+    state, hiters = model.zero_state(), []
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step = newmark_step(model, state, force, 1.0e-3, 2.0e-4, 120,
+                            rayleigh_alpha=ray.alpha, rayleigh_beta=ray.beta,
+                            preconditioner=pc, vector_precision="fp64")
+        state = step.state
+        if not step.pcg.converged:
+            fail(f"fp64 hex 34^3: a step did not converge ({step.pcg})")
+        hiters.append(step.pcg.iterations)
+    torch.cuda.synchronize()
+    hex_s = time.perf_counter() - t0
+    counts = fp64_path_counts()
+    check_fp64_counts("fp64 hex 34^3", counts, ("hex_f64", "g1_f64"))
+    check_state("fp64 hex 34^3", state)
+    result["hex"] = dict(iters=hiters, counts=counts)
+    print(f"fp64 shuffled hex 34^3: 3 steps, iterations {hiters}, "
+          f"{3 / hex_s:.4f} steps/s (first step included); launches {counts}",
+          flush=True)
+    del model, force, pc, state
+    torch.cuda.empty_cache()
+
+    # g. multigrid against block-Jacobi at 96x56x56, tol 1e-10, 3 frames
+    ab = {}
+    for label, pre in (("multigrid", "multigrid"), ("block-Jacobi", "block_jacobi")):
+        sim = build_simulation(cantilever_config(
+            dt=1e-3, adaptive=False, precision=dict(FP64),
+            mesh={"path": "synthetic://box/%d,%d,%d" % MG_AB},
+            solver=solver_node(preconditioner=pre, tol_runtime=1e-10)), device=device)
+        reset_f64_counts()
+        tel, secs = run_frames(sim, 3)
+        counts = fp64_path_counts()
+        check_fp64_counts(f"fp64 {label} 96x56x56", counts, ("keff_f64",))
+        ab[label] = (tel, sim.stepper.state.displacement.cpu(), counts, sum(secs))
+        del sim
+    (tm, um, cm, sm), (tb, ub, cb, sb) = ab["multigrid"], ab["block-Jacobi"]
+    if cb["bj_f64"] <= 0 or cm["bj_f64"]:
+        fail(f"fp64 multigrid A/B: K3 f64 launches {cm['bj_f64']} / {cb['bj_f64']}")
+    _, mg_err = check_close("fp64 multigrid vs block-Jacobi u", um, ub, MG_F64_TOL)
+    result["mg"] = dict(iters=[t.pcg_iterations for t in tm],
+                        bj_iters=[t.pcg_iterations for t in tb], err=mg_err)
+    print(f"fp64 multigrid vs block-Jacobi, 96x56x56, tol 1e-10, 3 frames: "
+          f"iterations {result['mg']['iters']} vs {result['mg']['bj_iters']}, "
+          f"{sm:.3f} vs {sb:.3f} s; converged {[t.pcg_converged for t in tm]} / "
+          f"{[t.pcg_converged for t in tb]}; u {mg_err:.3e} of max|u| (tol "
+          f"{MG_F64_TOL:g}); multigrid K1 f64 {cm['keff_f64']}", flush=True)
+    del ab, um, ub
+
+    # h. a one-rank shard, fp64, classic: 3 frames against the unsharded
+    # fp64 frames of b (classic too)
+    sim = shard_simulation(build_simulation(cantilever_config(
+        precision=dict(FP64), **full), device=device), make_shard_group(1, device))
+    sim.stepper.solver_variant = "classic"
+    reset_f64_counts()
+    tel = sim.run(3)
+    counts = fp64_path_counts()
+    iters = [t.pcg_iterations for t in tel]
+    check_fp64_counts("fp64 shard", counts, ("k5_f64", "bj_f64"))
+    if any(abs(a - b) > 1 for a, b in zip(iters, full64["iters"])):
+        fail(f"fp64 shard: iterations {iters} vs unsharded {full64['iters'][:3]}")
+    se = check_state("fp64 shard vs unsharded", sim.stepper.state, third)
+    result["shard"] = dict(iters=iters, counts=counts)
+    print(f"fp64 one-rank shard (classic, overlap split): iterations {iters} "
+          f"(unsharded {full64['iters'][:3]}); u {se['u']:.3e}, a {se['a']:.3e} of "
+          f"max|unsharded|; launches {counts}", flush=True)
+    del sim
+    close_shard_group()
+    torch.cuda.empty_cache()
+    return result
+
+
+def checkpoint_phase(device):
+    """Phase 22: checkpoint and resume at 255^3 ('auto' = fused, f32): 6
+    frames saving every 3, then a fresh build_simulation restores the
+    checkpoint of frame 3 and runs to the same end; u, v, a and the warm
+    start bit for bit, dt, clock and frame equal.  The files are removed."""
+    import shutil
+
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.checkpoint import CheckpointManager
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
+                            mesh={"path": "synthetic://box/%d,%d,%d" % FULL})
+    tmp = scratch_dir("checkpoint")
+    try:
+        manager = CheckpointManager(tmp)
+        unbroken = build_simulation(cfg, device=device)
+        tel = unbroken.run(6, checkpoint_manager=manager, checkpoint_every=3)
+        manager.wait()
+        if manager.steps() != [4]:
+            fail(f"checkpoint 255^3: saved steps {manager.steps()}, expected [4]")
+        size = os.path.getsize(manager.path(4))
+        # one synchronous save of the end state, timed on the host clock
+        # (the device-to-host copies and the write)
+        t0 = time.perf_counter()
+        unbroken.stepper.save_checkpoint(manager, wait=True)
+        save_s = time.perf_counter() - t0
+        resumed = build_simulation(cfg, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = resumed.stepper.restore_checkpoint(manager, 4)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        rest = resumed.run(2)
+        a, b = unbroken.stepper, resumed.stepper
+        same = {name: torch.equal(getattr(a.state, name), getattr(b.state, name))
+                for name in ("displacement", "velocity", "acceleration", "warm_x")}
+        if frame != 4 or not all(same.values()) or (
+                a.current_dt, a.accumulated_time, a.frame_index) != (
+                b.current_dt, b.accumulated_time, b.frame_index):
+            fail(f"checkpoint 255^3: the resumed run differs: {same}, frames "
+                 f"{a.frame_index}/{b.frame_index}")
+        print(f"checkpoint 255^3: 6 fused frames {[t.pcg_iterations for t in tel]}, "
+              f"resumed at frame 4 for {[t.pcg_iterations for t in rest]}: u, v, a "
+              f"and warm_x bit-equal, dt/clock/frame equal; a checkpoint {size:,} "
+              f"bytes, save {save_s:.3f} s (wait), restore {restore_s:.3f} s",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del unbroken, resumed
+    torch.cuda.empty_cache()
+    return dict(bytes=size, save_s=save_s, restore_s=restore_s)
+
+
+def profile_cli_phase():
+    """Phase 23: ``--profile DIR`` through runner.main on cantilever_box on
+    the card: the Chrome trace names the reference's ranges and holds K2's
+    or K1's device events.  The trace is removed."""
+    import shutil
+
+    from civiwave_tpu_torch.runner import main as runner_main
+
+    tmp = scratch_dir("profile")
+    try:
+        rc = runner_main([BOX_YAML, "--frames", "3", "--quiet", "--profile", tmp])
+        traces = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        if rc != 0 or len(traces) != 1:
+            fail(f"--profile: rc {rc}, traces {traces}")
+        with open(traces[0], encoding="utf-8") as f:
+            events = json.load(f)["traceEvents"]
+        names = {}
+        for e in events:
+            names[e.get("name", "")] = names.get(e.get("name", ""), 0) + 1
+        ranges = {n: names.get(n, 0) for n in (
+            "newmark_predictor", "effective_rhs", "pcg_solve", "newmark_update",
+            "pcg_pc_matvec", "pcg_pc_matvec_dots", "pcg_matvec")}
+        kernels = sum(1 for e in events if e.get("cat") == "kernel"
+                      and "sweep_kernel" in e.get("name", ""))
+        if not all(ranges[n] for n in ("newmark_predictor", "effective_rhs",
+                                        "pcg_solve", "newmark_update",
+                                        "pcg_pc_matvec_dots")) or not kernels:
+            fail(f"--profile: ranges {ranges}, K1/K2 device events {kernels}")
+        print(f"--profile (cantilever_box, 3 frames on the card): "
+              f"{os.path.getsize(traces[0]):,} bytes, {len(events):,} events; "
+              f"ranges {ranges}; K1/K2 device events {kernels}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -2904,7 +3488,7 @@ def main() -> int:
     steps_counts = general_steps_phase(device)
     column_trajectory_phase(device)
     slender_errs, slender_times = slender_kernel_phase(device, ss, mf)
-    column_counts, _ = column_main_path_phase(device)
+    column_counts, column = column_main_path_phase(device)
     basin_phase(device)
     halo_worst, halo_times = halo_kernel_phase(device, ss, mf)
     sharded = sharded_main_path_phase(device, split)
@@ -2915,7 +3499,14 @@ def main() -> int:
     basin_counts = tet_basin_phase(device)
     mg = multigrid_phase(device, split, static)
     pipelined = pipelined_phase(device, split, static, tet_classic)
+    f64_errs, f64_times = f64_kernel_phase(
+        device, times, hex32=dict(k7=hex_timing["ms"], g1=g1_hex["ms"]),
+        tet32=dict(k7=tet_timings["element_forces_tet"]["ms"],
+                   g1=tet_timings["assemble_csr"]["ms"]))
+    fp64 = fp64_paths_phase(device, static, tet_classic, column)
     del static["exact"]
+    ckpt = checkpoint_phase(device)
+    profile_cli_phase()
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
@@ -3038,6 +3629,53 @@ def main() -> int:
              ms_slab64=halo_times["slab64"]["ms"],
              bound_ms_slab64=halo_times["slab64"]["bound_ms"],
              launches_pipelined_shard=pipelined["shard"]["counts"]["k5"]),
+        # the f64 instances (phases 20-21): errors against the plain
+        # versions in f64 (tol F64_TOL), times at the main-path shapes with
+        # the f32 instance's beside them, bounds at the f64 rate, launches
+        # on their fp64 paths: the 255^3 cantilever (K1, K3), the one-rank
+        # shard (K5), the 66^3 tet cantilever (K7 tet, G1) and the shuffled
+        # 34^3 hex box (K7 hex)
+        dict(name="keff_structured_f64", route="cuda",
+             source=src + "keff_structured_halo.cu",
+             replaces=pallas + "structured_stencil.py:931",
+             launches=fp64["full"]["counts"]["keff_f64"],
+             max_abs_err=f64_errs["keff"][0], max_rel_err=f64_errs["keff"][1],
+             tol=F64_TOL, **f64_times["keff"], ms_f32=times["keff"][0],
+             launches_static=fp64["static"]["counts"]["keff_f64"]),
+        dict(name="keff_structured_halo_f64", route="cuda",
+             source=src + "keff_structured_halo.cu",
+             replaces=pallas + "structured_stencil.py:968",
+             launches=fp64["shard"]["counts"]["k5_f64"],
+             max_abs_err=f64_errs["k5"][0], max_rel_err=f64_errs["k5"][1],
+             tol=F64_TOL, **f64_times["k5"], ms_f32=halo_times["slab64"]["ms"]),
+        dict(name="block_jacobi_apply_f64", route="cuda",
+             source=src + "block_jacobi_apply.cu",
+             replaces=pallas + "block_jacobi_apply.py:144",
+             launches=fp64["full"]["counts"]["bj_f64"],
+             max_abs_err=f64_errs["bj"][0], max_rel_err=f64_errs["bj"][1],
+             tol=F64_TOL, **f64_times["bj"], ms_f32=times["bj"][0]),
+        dict(name="element_forces_tet_f64", route="cuda",
+             source=src + "element_forces.cu",
+             replaces=pallas + "element_forces.py:130",
+             launches=fp64["tet"]["counts"]["tet_f64"],
+             max_abs_err=f64_errs["tet"][0], max_rel_err=f64_errs["tet"][1],
+             tol=F64_TOL, **f64_times["tet"],
+             ms_f32=tet_timings["element_forces_tet"]["ms"]),
+        dict(name="element_forces_hex_f64", route="cuda",
+             source=src + "element_forces.cu",
+             replaces=pallas + "element_forces.py:125",
+             launches=fp64["hex"]["counts"]["hex_f64"],
+             max_abs_err=f64_errs["hex"][0], max_rel_err=f64_errs["hex"][1],
+             tol=F64_TOL, **f64_times["hex"], ms_f32=hex_timing["ms"]),
+        dict(name="assemble_csr_f64", route="cuda", source=src + "assemble_csr.cu",
+             replaces="civiwave_tpu/ops/apply_keff.py:283",
+             launches=fp64["tet"]["counts"]["g1_f64"],
+             max_abs_err=max(f64_errs["g1_tet"][0], f64_errs["g1_hex"][0]),
+             max_rel_err=max(f64_errs["g1_tet"][1], f64_errs["g1_hex"][1]),
+             tol=F64_TOL, **f64_times["g1_tet"],
+             ms_f32=tet_timings["assemble_csr"]["ms"],
+             ms_hex66=f64_times["g1_hex"]["ms"],
+             launches_hex=fp64["hex"]["counts"]["g1_f64"]),
     ]
     print(f"general_matvec_throughput {gdofs:.4f} GDOF/s", flush=True)
     print("static 255^3 " + "; ".join(
@@ -3053,6 +3691,13 @@ def main() -> int:
           f"ms per iteration; static {pipelined['static']['iterations']} "
           f"iterations (converged {pipelined['static']['converged']}), "
           f"{pipelined['static']['seconds']:.4f} s", flush=True)
+    print(f"fp64 255^3: {fp64['full']['steps_per_s']:.4f} steps/s, "
+          f"{fp64['full']['ms_per_iter']:.4f} ms per iteration; fp64 static 255^3: "
+          f"{fp64['static']['iterations']} iterations, {fp64['static']['seconds']:.4f} "
+          f"s, {fp64['static']['dist']:.3e} of max|u| from the refined u; fp64 tet "
+          f"66^3: {fp64['tet']['steps_per_s']:.4f} steps/s; resume at 255^3 bit-equal "
+          f"(checkpoint {ckpt['bytes']:,} bytes, save {ckpt['save_s']:.3f} s, restore "
+          f"{ckpt['restore_s']:.3f} s)", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,6 +36,15 @@
 // vol 32, lam+mu 8, conn 32, out 96 = 936 B, plus 15 B per node (x and the
 // mask, each read once); per tet: 48 + 4 + 8 + 16 + 48 = 124 B.  About
 // 2.6 kFLOP per hex and 0.2 kFLOP per tet, far below the f32 rate.
+//
+// f64 instances (civi_element_forces_{tet,hex}_f64, precision.vectors:
+// fp64, where the reference runs its XLA form): x, u, G, S, f and the force
+// rows double, stored as double2s (96 B per tet, 192 B per hex); the packed
+// streams stay the f32 that pack builds and are widened, and V ss is the
+// f64 product of the widened volume and an f64 ss, as the plain form (and
+// the reference's f32 tables times its f64 scalars) forms it.  Least
+// traffic per hex: 936 - 96 + 192 = 1,032 B plus 27 B per node; per tet
+// 124 - 48 + 96 = 172 B.  ~2.6 kFLOP per hex stays below the f64 rate too.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -55,39 +64,67 @@ __device__ __forceinline__ void load_conn(const int* __restrict__ conn,
   }
 }
 
-template <int NL, int NGP>
+// Stores the NL * 3 forces of element e: float4s (48 / 96 B per element)
+// or double2s (96 / 192 B); 16-byte aligned, as the wrapper checks the base.
+template <int NL>
+__device__ __forceinline__ void store_rows(float* rows, int64_t e,
+                                           const float (&f)[NL][3]) {
+  float4* out = reinterpret_cast<float4*>(rows + e * (NL * 3));
+#pragma unroll
+  for (int q = 0; q < NL * 3 / 4; ++q) {
+    const int i = 4 * q;
+    out[q] = make_float4(f[(i + 0) / 3][(i + 0) % 3], f[(i + 1) / 3][(i + 1) % 3],
+                         f[(i + 2) / 3][(i + 2) % 3], f[(i + 3) / 3][(i + 3) % 3]);
+  }
+}
+
+template <int NL>
+__device__ __forceinline__ void store_rows(double* rows, int64_t e,
+                                           const double (&f)[NL][3]) {
+  double2* out = reinterpret_cast<double2*>(rows + e * (NL * 3));
+#pragma unroll
+  for (int q = 0; q < NL * 3 / 2; ++q) {
+    const int i = 2 * q;
+    out[q] = make_double2(f[i / 3][i % 3], f[(i + 1) / 3][(i + 1) % 3]);
+  }
+}
+
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+
+template <typename T, int NL, int NGP>
 __global__ void __launch_bounds__(128) element_forces_kernel(
-    const float* __restrict__ x, const uint8_t* __restrict__ bc,
+    const T* __restrict__ x, const uint8_t* __restrict__ bc,
     const int* __restrict__ conn, const float* __restrict__ grads,
     const float* __restrict__ vol, const float* __restrict__ lam,
-    const float* __restrict__ mu, float* __restrict__ rows, int E, float ss) {
+    const float* __restrict__ mu, T* __restrict__ rows, int E, T ss) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (e >= E) return;
 
   int node[NL];
   load_conn<NL>(conn, e, node);
-  float u[NL][3];
+  T u[NL][3];
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
     const int64_t k = static_cast<int64_t>(node[l]) * 3;
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
-      u[l][b] = __ldg(bc + k + b) ? 0.0f : __ldg(x + k + b);
+      u[l][b] = __ldg(bc + k + b) ? T(0) : __ldg(x + k + b);
     }
   }
-  const float lm = __ldg(lam + e);
-  const float m = __ldg(mu + e);
+  const T lm = __ldg(lam + e);
+  const T m = __ldg(mu + e);
 
-  float f[NL][3];
+  T f[NL][3];
 #pragma unroll
   for (int l = 0; l < NL; ++l) {
 #pragma unroll
-    for (int b = 0; b < 3; ++b) f[l][b] = 0.0f;
+    for (int b = 0; b < 3; ++b) f[l][b] = T(0);
   }
 
 #pragma unroll 1
   for (int g = 0; g < NGP; ++g) {
-    float gr[NL][3];
+    T gr[NL][3];
 #pragma unroll
     for (int l = 0; l < NL; ++l) {
 #pragma unroll
@@ -95,25 +132,27 @@ __global__ void __launch_bounds__(128) element_forces_kernel(
         gr[l][a] = __ldg(grads + (static_cast<int64_t>((g * NL + l) * 3 + a)) * E + e);
       }
     }
-    const float vs = __ldg(vol + static_cast<int64_t>(g) * E + e) * ss;
-    float G[3][3];
+    // V ss in the vectors' type
+    const T vs =
+        mul_rn(static_cast<T>(__ldg(vol + static_cast<int64_t>(g) * E + e)), ss);
+    T G[3][3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
-        float s = gr[0][a] * u[0][b];
+        T s = gr[0][a] * u[0][b];
 #pragma unroll
         for (int l = 1; l < NL; ++l) s += gr[l][a] * u[l][b];
         G[a][b] = s;
       }
     }
-    const float tr = G[0][0] + G[1][1] + G[2][2];
-    float S[3][3];
+    const T tr = G[0][0] + G[1][1] + G[2][2];
+    T S[3][3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
-        const float diag = (a == b) ? lm * tr : 0.0f;
+        const T diag = (a == b) ? lm * tr : T(0);
         S[a][b] = vs * (m * (G[a][b] + G[b][a]) + diag);
       }
     }
@@ -126,25 +165,17 @@ __global__ void __launch_bounds__(128) element_forces_kernel(
     }
   }
 
-  // NL * 3 floats = NL * 3 / 4 float4 stores (16-byte aligned: the wrapper
-  // checks the base, and 48 / 96 B per element keep the alignment)
-  float4* out = reinterpret_cast<float4*>(rows + e * (NL * 3));
-#pragma unroll
-  for (int q = 0; q < NL * 3 / 4; ++q) {
-    const int i = 4 * q;
-    out[q] = make_float4(f[(i + 0) / 3][(i + 0) % 3], f[(i + 1) / 3][(i + 1) % 3],
-                         f[(i + 2) / 3][(i + 2) % 3], f[(i + 3) / 3][(i + 3) % 3]);
-  }
+  store_rows<NL>(rows, e, f);
 }
 
-template <int NL, int NGP>
-int launch(const float* x, const unsigned char* bc, const int* conn,
+template <int NL, int NGP, typename T>
+int launch(const T* x, const unsigned char* bc, const int* conn,
            const float* grads, const float* vol, const float* lam,
-           const float* mu, float* rows, int E, float ss, void* stream) {
+           const float* mu, T* rows, int E, T ss, void* stream) {
   if (E <= 0) return 0;
   const int threads = 128;
   const unsigned blocks = static_cast<unsigned>((E + threads - 1) / threads);
-  element_forces_kernel<NL, NGP>
+  element_forces_kernel<T, NL, NGP>
       <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
           x, bc, conn, grads, vol, lam, mu, rows, E, ss);
   return static_cast<int>(cudaGetLastError());
@@ -165,5 +196,19 @@ extern "C" int civi_element_forces_hex(const float* x, const unsigned char* bc,
                                        const float* vol, const float* lam,
                                        const float* mu, float* rows, int E,
                                        float ss, void* stream) {
+  return launch<8, 8>(x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream);
+}
+
+extern "C" int civi_element_forces_tet_f64(
+    const double* x, const unsigned char* bc, const int* conn,
+    const float* grads, const float* vol, const float* lam, const float* mu,
+    double* rows, int E, double ss, void* stream) {
+  return launch<4, 1>(x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream);
+}
+
+extern "C" int civi_element_forces_hex_f64(
+    const double* x, const unsigned char* bc, const int* conn,
+    const float* grads, const float* vol, const float* lam, const float* mu,
+    double* rows, int E, double ss, void* stream) {
   return launch<8, 8>(x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream);
 }

@@ -64,6 +64,21 @@
 // classes; a zero plane or row adds exact zeros.  So every slab or tile
 // cut, gathered, equals the whole grid, the overlap split's three launches
 // equal one, and K2's w equals this kernel applied to K2's u, bit for bit.
+//
+// f64 instance (civi_keff_structured_halo_f64, precision.vectors: fp64;
+// the reference sends f64 to its XLA forms, which its Pallas kernel
+// declines).  The same sweep templated on the element type T: x, the
+// ghosts, out, the staged planes, the transformed plane and the three
+// accumulators are double; the taps, the class table and m8 stay the f32
+// values the plain form reads, widened (the 405 by-value taps on the
+// host, so the DFMAs take them from the constant bank; the z-face ghost
+// taps are the exact f64 differences of the f32 interior and class rows);
+// ss and mf are f64 launch arguments, as the plain form's host scalars.
+// Staged rows are 8-byte elements, 16-byte copies of two where Z % 4 == 0;
+// the ring takes 40,560 bytes of shared memory (f32: 22,080).  Bound at
+// 255^3: ~0.86 GB (x and out 8 B per value, the mask) ~0.26 ms at 3.35
+// TB/s, and 243 DFMA per node, ~0.24 ms at the published 34 TFLOP/s f64
+// rate outside the tensor cores.
 #include <cstring>
 
 #include "structured.cuh"
@@ -72,28 +87,33 @@ namespace {
 
 using namespace civi::sweep;
 
+template <typename T>
 struct HaloArgs {
-  const float* x;
+  const T* x;
   const uint8_t* bc;
   // X ghost planes below plane 0 / above plane Xl - 1, (3, Yl + 2 gy, Z)
-  const float *gx_lo, *gx_hi;
+  const T *gx_lo, *gx_hi;
   const uint8_t *bgx_lo, *bgx_hi;
   // Y ghost rows below row 0 / above row Yl - 1, (3, Xl, Z); gy = 1 only
-  const float *gy_lo, *gy_hi;
+  const T *gy_lo, *gy_hi;
   const uint8_t *bgy_lo, *bgy_hi;
   int Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1, chunk;
-  float ss, mf, m8;
+  T ss, mf;
+  float m8;
 };
 
 // A staged row's source: component 0 of its z = 0 entry (null: zero), its
 // mask (null: free) and the stride between components.
+template <typename T>
 struct Src {
-  const float* v;
+  const T* v;
   const uint8_t* m;
   int64_t cs;
 };
 
-__device__ __forceinline__ Src row_source(const HaloArgs& a, int jx, int jy) {
+template <typename T>
+__device__ __forceinline__ Src<T> row_source(const HaloArgs<T>& a, int jx,
+                                             int jy) {
   const int gy = a.ghost_y;
   if (jx >= 0 && jx < a.Xl) {
     if (jy >= 0 && jy < a.Yl) {  // the shard's own block
@@ -102,7 +122,7 @@ __device__ __forceinline__ Src row_source(const HaloArgs& a, int jx, int jy) {
     }
     if (!gy || jy < -1 || jy > a.Yl) return {nullptr, nullptr, 0};
     // a Y ghost row (selects, not an index: no local copy of the params)
-    const float* g = jy < 0 ? a.gy_lo : a.gy_hi;
+    const T* g = jy < 0 ? a.gy_lo : a.gy_hi;
     const uint8_t* bg = jy < 0 ? a.bgy_lo : a.bgy_hi;
     if (g == nullptr) return {nullptr, nullptr, 0};
     const int64_t off = static_cast<int64_t>(jx) * a.Z;
@@ -110,7 +130,7 @@ __device__ __forceinline__ Src row_source(const HaloArgs& a, int jx, int jy) {
             static_cast<int64_t>(a.Xl) * a.Z};
   }
   if (jx < -1 || jx > a.Xl) return {nullptr, nullptr, 0};
-  const float* g = jx < 0 ? a.gx_lo : a.gx_hi;  // an X ghost plane
+  const T* g = jx < 0 ? a.gx_lo : a.gx_hi;  // an X ghost plane
   const uint8_t* bg = jx < 0 ? a.bgx_lo : a.bgx_hi;
   const int rows = a.Yl + 2 * gy;
   const int ry = jy + gy;
@@ -122,16 +142,18 @@ __device__ __forceinline__ Src row_source(const HaloArgs& a, int jx, int jy) {
 
 // Byte offset of halo column 0 (z0 - 1) of component c's staged mask row
 // within its aligned first word: the row's address mod 4.
-__device__ __forceinline__ int src_shift(const Src& s, int c, int z0) {
+template <typename T>
+__device__ __forceinline__ int src_shift(const Src<T>& s, int c, int z0) {
   return static_cast<int>((reinterpret_cast<uintptr_t>(s.m) +
                            static_cast<uintptr_t>(c * s.cs) + z0 - 1) & 3u);
 }
 
 // Issues the copies of staged rows [row0, row0 + nrows) of plane jx from
 // their sources, whatever they are: one warp per value row (channel c),
-// 4-byte copies of its in-row columns; three mask rows per warp as aligned
-// words, a word that reaches outside the row copied byte by byte.
-__device__ __forceinline__ void stage_rows(const HaloArgs& a, float* st,
+// one copy per in-row element; three mask rows per warp as aligned words,
+// a word that reaches outside the row copied byte by byte.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const HaloArgs<T>& a, T* st,
                                            uint8_t* mst, int jx, int y0,
                                            int z0, int row0, int nrows) {
   const int lane = threadIdx.x & 31;
@@ -139,13 +161,15 @@ __device__ __forceinline__ void stage_rows(const HaloArgs& a, float* st,
   for (int p = warp; p < 3 * nrows; p += kWarps) {
     const int c = p / nrows;
     const int row = row0 + p - c * nrows;
-    const Src s = row_source(a, jx, y0 - 1 + row);
+    const Src<T> s = row_source(a, jx, y0 - 1 + row);
     if (s.v == nullptr) continue;
-    const float* g = s.v + c * s.cs + z0 - 1;
-    float* d = st + c * kStagePlane + row * kStageRow + 3;  // column z0 - 1
+    const T* g = s.v + c * s.cs + z0 - 1;
+    T* d = st + c * kStagePlane + row * kStageRow + 3;  // column z0 - 1
     const int z = z0 - 1 + lane;
-    if (z >= 0 && z < a.Z) cp_async4(d + lane, g + lane);
-    if (lane < kHaloZ - 32 && z + 32 < a.Z) cp_async4(d + 32 + lane, g + 32 + lane);
+    if (z >= 0 && z < a.Z) cp_async_elem(d + lane, g + lane);
+    if (lane < kHaloZ - 32 && z + 32 < a.Z) {
+      cp_async_elem(d + 32 + lane, g + 32 + lane);
+    }
   }
   constexpr int kRowsPerWarp = 32 / kMaskWords;
   for (int q0 = warp * kRowsPerWarp; q0 < 3 * nrows; q0 += kWarps * kRowsPerWarp) {
@@ -154,7 +178,7 @@ __device__ __forceinline__ void stage_rows(const HaloArgs& a, float* st,
     if (lane >= kRowsPerWarp * kMaskWords || q >= 3 * nrows) continue;
     const int c = q / nrows;
     const int row = row0 + q - c * nrows;
-    const Src s = row_source(a, jx, y0 - 1 + row);
+    const Src<T> s = row_source(a, jx, y0 - 1 + row);
     if (s.v == nullptr || s.m == nullptr) continue;
     const uintptr_t lo = reinterpret_cast<uintptr_t>(s.m + c * s.cs);
     const uintptr_t hi = lo + a.Z;
@@ -173,19 +197,18 @@ __device__ __forceinline__ void stage_rows(const HaloArgs& a, float* st,
 
 // xs of halo node (hy, hz) of plane jx into ub; returns x and the mask
 // there.  A row with no source reads as x = 0, free.
-template <bool VEC>
-__device__ __forceinline__ void transform(const HaloArgs& a, const float* sp,
-                                          const uint8_t* mp, float* ub,
-                                          int jx, int y0, int z0, int hy,
-                                          int hz, float (&xv)[3],
-                                          bool (&fixed)[3]) {
+template <bool VEC, typename T>
+__device__ __forceinline__ void transform(const HaloArgs<T>& a, const T* sp,
+                                          const uint8_t* mp, T* ub, int jx,
+                                          int y0, int z0, int hy, int hz,
+                                          T (&xv)[3], bool (&fixed)[3]) {
   const int jy = y0 - 1 + hy;
   const int jz = z0 - 1 + hz;
-  float q[3];
+  T q[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) {
-    xv[c] = 0.0f;
-    q[c] = 0.0f;
+    xv[c] = T(0);
+    q[c] = T(0);
     fixed[c] = false;
   }
   if (jz >= 0 && jz < a.Z) {
@@ -200,7 +223,7 @@ __device__ __forceinline__ void transform(const HaloArgs& a, const float* sp,
         for (int c = 0; c < 3; ++c) shift[c] = mask_shift(comp, c, rowoff, z0);
       }
     } else {
-      const Src s = row_source(a, jx, jy);
+      const Src<T> s = row_source(a, jx, jy);
       valid = s.v != nullptr;
       masked = s.m != nullptr;
       if constexpr (!VEC) {
@@ -214,7 +237,7 @@ __device__ __forceinline__ void transform(const HaloArgs& a, const float* sp,
         xv[c] = sp[c * kStagePlane + hy * kStageRow + 3 + hz];
         fixed[c] = masked && mp[(c * kHaloY + hy) * kMaskRow + shift[c] + hz] != 0;
         // select, not multiply: a constrained component is +0.0
-        q[c] = fixed[c] ? 0.0f : xv[c];
+        q[c] = fixed[c] ? T(0) : xv[c];
       }
     }
   }
@@ -222,15 +245,16 @@ __device__ __forceinline__ void transform(const HaloArgs& a, const float* sp,
   for (int c = 0; c < 3; ++c) ub[c * kPlane + hy * kHaloZ + hz] = q[c];
 }
 
-template <bool VEC>
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads) keff_sweep_kernel(
-    const __grid_constant__ HaloArgs a, const __grid_constant__ Taps taps,
-    const float* __restrict__ stencil, float* __restrict__ out) {
+    const __grid_constant__ HaloArgs<T> a,
+    const __grid_constant__ TapsT<T> taps, const float* __restrict__ stencil,
+    T* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  constexpr int kStage = 3 * kStagePlane;  // floats per staging buffer
+  constexpr int kStage = 3 * kStagePlane;  // elements per staging buffer
   constexpr int kMaskStage = 3 * kHaloY * kMaskRow;
-  float* st = reinterpret_cast<float*>(smem);
-  float* ub = st + kStages * kStage;
+  T* st = reinterpret_cast<T*>(smem);
+  T* ub = st + kStages * kStage;
   uint8_t* mst = reinterpret_cast<uint8_t*>(ub + 3 * kPlane);
 
   const int tz = threadIdx.x % kTileZ;
@@ -246,13 +270,13 @@ __global__ void __launch_bounds__(kThreads) keff_sweep_kernel(
   const int ocy = civi::node_class(a.y0 + iy, a.ny);
   const int ocz = civi::node_class(iz, a.nz);
 
-  float acc[3][3] = {};
-  float px[3] = {0.0f, 0.0f, 0.0f};  // own x and mask of the plane before
+  T acc[3][3] = {};
+  T px[3] = {T(0), T(0), T(0)};  // own x and mask of the plane before
   bool pfix[3] = {false, false, false};
 
   // the output at local plane xo from acc[0] and the own x, mask there
   auto emit = [&](int xo) {
-    const float mm =
+    const T mm =
         civi::mass_scale(a.mf, a.m8, civi::node_class(a.x0 + xo, a.nx), ocy, ocz);
     const int64_t n0 = (static_cast<int64_t>(xo) * a.Yl + iy) * a.Z + iz;
 #pragma unroll
@@ -269,10 +293,10 @@ __global__ void __launch_bounds__(kThreads) keff_sweep_kernel(
   const int ghost_row_lo = a.ghost_y && y0 == 0 ? 0 : -1;
   const int ghost_row_hi =
       a.ghost_y && a.Yl - y0 + 1 < kHaloY ? a.Yl - y0 + 1 : -1;
-  const VecStager<1> vs(a.x, a.x, a.x, y0, z0, a.Yl, a.Z, comp);
+  const VecStager<1, T> vs(a.x, a.x, a.x, y0, z0, a.Yl, a.Z, comp);
   // issues the copies of plane jx into staging buffer b
   auto stage = [&](int jx, int b) {
-    float* sb = st + b * kStage;
+    T* sb = st + b * kStage;
     uint8_t* mb = mst + b * kMaskStage;
     if (VEC && jx >= 0 && jx < a.Xl) {
       // block rows by the precomputed copies; rows outside the block are
@@ -298,15 +322,15 @@ __global__ void __launch_bounds__(kThreads) keff_sweep_kernel(
     cp_async_commit();
     cp_async_wait_oldest();
     __syncthreads();
-    const float* sp = st + buf * kStage;
+    const T* sp = st + buf * kStage;
     const uint8_t* mp = mst + buf * kMaskStage;
-    float cx[3];
+    T cx[3];
     bool cfix[3];
     transform<VEC>(a, sp, mp, ub, j, y0, z0, ty + 1, tz + 1, cx, cfix);
     if (threadIdx.x < kRing) {
       int hy, hz;
       ring_node(threadIdx.x, hy, hz);
-      float xv[3];
+      T xv[3];
       bool fx[3];
       transform<VEC>(a, sp, mp, ub, j, y0, z0, hy, hz, xv, fx);
     }
@@ -324,51 +348,48 @@ __global__ void __launch_bounds__(kThreads) keff_sweep_kernel(
   if (own && jhi == x_hi - 1) emit(jhi);
 }
 
-template <bool VEC>
-int launch(const HaloArgs& a, const Taps& taps, const float* stencil,
-           float* out, dim3 grid, int smem, cudaStream_t stream) {
+template <typename T, bool VEC>
+int launch(const HaloArgs<T>& a, const TapsT<T>& taps, const float* stencil,
+           T* out, dim3 grid, int smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
-    static bool raised = false;  // once per process
+    static bool raised = false;  // once per process and instance
     if (!raised) {
       const cudaError_t e = cudaFuncSetAttribute(
-          keff_sweep_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
+          keff_sweep_kernel<T, VEC>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
       raised = true;
     }
   }
-  keff_sweep_kernel<VEC><<<grid, kThreads, smem, stream>>>(a, taps, stencil, out);
+  keff_sweep_kernel<T, VEC>
+      <<<grid, kThreads, smem, stream>>>(a, taps, stencil, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// taps: the 405 floats of Taps (host memory, copied into the launch's
-// parameters); tile, chunk, grid and smem as computed by
-// ops/cuda/plane_sweep.py for planes [p0, p1), refused unless they match
-// this build; vec: 16-byte copies of the block's rows (Z % 4 == 0, x
-// 16-byte aligned), every mask buffer 4-byte aligned either way
-extern "C" int civi_keff_structured_halo(
-    const float* x, const unsigned char* bc, const float* gx_lo,
-    const unsigned char* bgx_lo, const float* gx_hi,
-    const unsigned char* bgx_hi, const float* gy_lo,
-    const unsigned char* bgy_lo, const float* gy_hi,
-    const unsigned char* bgy_hi, const float* stencil, const float* taps,
-    float* out, int Xl, int Yl, int Z, int ghost_y, int x0, int y0, int nx,
-    int ny, int nz, int p0, int p1, float ss, float mf, float m8, int tile_y,
-    int tile_z, int chunk, int grid_x, int grid_y, int grid_z, int smem,
-    int vec, void* stream) {
+// Checks the geometry against this build and launches the instance of T.
+template <typename T>
+int launch_checked(const T* x, const unsigned char* bc, const T* gx_lo,
+                   const unsigned char* bgx_lo, const T* gx_hi,
+                   const unsigned char* bgx_hi, const T* gy_lo,
+                   const unsigned char* bgy_lo, const T* gy_hi,
+                   const unsigned char* bgy_hi, const float* stencil,
+                   const T* taps, T* out, int Xl, int Yl, int Z, int ghost_y,
+                   int x0, int y0, int nx, int ny, int nz, int p0, int p1,
+                   T ss, T mf, float m8, int tile_y, int tile_z, int chunk,
+                   int grid_x, int grid_y, int grid_z, int smem, int vec,
+                   void* stream) {
   if (Xl <= 0 || Yl <= 0 || Z <= 0 || p0 < 0 || p1 > Xl) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (p1 <= p0) return 0;
   if (tile_y != kTileY || tile_z != kTileZ || chunk <= 0 ||
-      smem != smem_bytes(1) || grid_x != (Z + kTileZ - 1) / kTileZ ||
+      smem != smem_bytes(1, static_cast<int>(sizeof(T))) ||
+      grid_x != (Z + kTileZ - 1) / kTileZ ||
       grid_y != (Yl + kTileY - 1) / kTileY ||
       grid_z != (p1 - p0 + chunk - 1) / chunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  HaloArgs a;
+  HaloArgs<T> a;
   a.x = x;
   a.bc = bc;
   a.gx_lo = gx_lo;
@@ -394,13 +415,56 @@ extern "C" int civi_keff_structured_halo(
   a.ss = ss;
   a.mf = mf;
   a.m8 = m8;
-  Taps t;
-  static_assert(sizeof(Taps) == 405 * sizeof(float), "Taps is 405 floats");
-  std::memcpy(&t, taps, sizeof(Taps));
+  TapsT<T> t;
+  static_assert(sizeof(TapsT<T>) == 405 * sizeof(T), "Taps is 405 values");
+  std::memcpy(&t, taps, sizeof(TapsT<T>));
   const dim3 grid(grid_x, grid_y, grid_z);
   const auto s = static_cast<cudaStream_t>(stream);
-  return vec ? launch<true>(a, t, stencil, out, grid, smem, s)
-             : launch<false>(a, t, stencil, out, grid, smem, s);
+  return vec ? launch<T, true>(a, t, stencil, out, grid, smem, s)
+             : launch<T, false>(a, t, stencil, out, grid, smem, s);
+}
+
+}  // namespace
+
+// taps: the 405 floats of Taps (host memory, copied into the launch's
+// parameters); tile, chunk, grid and smem as computed by
+// ops/cuda/plane_sweep.py for planes [p0, p1), refused unless they match
+// this build; vec: 16-byte copies of the block's rows (Z % 4 == 0, x
+// 16-byte aligned), every mask buffer 4-byte aligned either way
+extern "C" int civi_keff_structured_halo(
+    const float* x, const unsigned char* bc, const float* gx_lo,
+    const unsigned char* bgx_lo, const float* gx_hi,
+    const unsigned char* bgx_hi, const float* gy_lo,
+    const unsigned char* bgy_lo, const float* gy_hi,
+    const unsigned char* bgy_hi, const float* stencil, const float* taps,
+    float* out, int Xl, int Yl, int Z, int ghost_y, int x0, int y0, int nx,
+    int ny, int nz, int p0, int p1, float ss, float mf, float m8, int tile_y,
+    int tile_z, int chunk, int grid_x, int grid_y, int grid_z, int smem,
+    int vec, void* stream) {
+  return launch_checked<float>(
+      x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi, bgy_hi,
+      stencil, taps, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1, ss,
+      mf, m8, tile_y, tile_z, chunk, grid_x, grid_y, grid_z, smem, vec, stream);
+}
+
+// The f64 instance: x, the ghosts and out double, taps the 405 doubles of
+// TapsT<double> (ops.cuda.plane_sweep.sweep_taps64), ss and mf double, the
+// class table f32; smem as sweep_geometry computes it for 8-byte elements;
+// vec: 16-byte copies (Z % 4 == 0, x 16-byte aligned).
+extern "C" int civi_keff_structured_halo_f64(
+    const double* x, const unsigned char* bc, const double* gx_lo,
+    const unsigned char* bgx_lo, const double* gx_hi,
+    const unsigned char* bgx_hi, const double* gy_lo,
+    const unsigned char* bgy_lo, const double* gy_hi,
+    const unsigned char* bgy_hi, const float* stencil, const double* taps,
+    double* out, int Xl, int Yl, int Z, int ghost_y, int x0, int y0, int nx,
+    int ny, int nz, int p0, int p1, double ss, double mf, float m8,
+    int tile_y, int tile_z, int chunk, int grid_x, int grid_y, int grid_z,
+    int smem, int vec, void* stream) {
+  return launch_checked<double>(
+      x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi, bgy_hi,
+      stencil, taps, out, Xl, Yl, Z, ghost_y, x0, y0, nx, ny, nz, p0, p1, ss,
+      mf, m8, tile_y, tile_z, chunk, grid_x, grid_y, grid_z, smem, vec, stream);
 }
 
 extern "C" const char* civi_error_string(int code) {

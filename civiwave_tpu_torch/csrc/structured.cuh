@@ -2,8 +2,8 @@
 // keff_structured_halo, K2 pc_keff_structured, K3 block_jacobi_apply, K4
 // interior_stencil, K6 pcg_iteration_structured, G2 keff_boundary).
 //
-// Layout: every solver vector is component-separated, (3, X, Y, Z) f32,
-// row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
+// Layout: every solver vector is component-separated, (3, X, Y, Z) f32
+// (K1/K5 and K3 also have f64 instances), row-major with Z contiguous; the Dirichlet mask is (3, X, Y, Z) bytes
 // (torch.bool).  K3 launches one block per (x, y) row of the node grid and
 // lets the threads stride over z; K1/K5, K2 and K6 sweep tiles of (y, z)
 // columns along X through shared memory (the plane sweep below), K4 a
@@ -31,11 +31,19 @@ __device__ __forceinline__ float class_weight(int c) {
   return c == 1 ? 1.0f : 0.5f;
 }
 
-// mf times the lumped mass of a node of axis classes (cx, cy, cz).
+// mf times the lumped mass of a node of axis classes (cx, cy, cz).  The
+// mass is the f32 grid value (exact: m8 times powers of 2); the f64
+// instances widen it and multiply by an f64 mf, as the plain form does.
 __device__ __forceinline__ float mass_scale(float mf, float m8, int cx, int cy,
                                             int cz) {
   return __fmul_rn(mf, m8 * class_weight(cx) * class_weight(cy) *
                            class_weight(cz));
+}
+
+__device__ __forceinline__ double mass_scale(double mf, float m8, int cx,
+                                             int cy, int cz) {
+  return __dmul_rn(mf, static_cast<double>(m8 * class_weight(cx) *
+                                           class_weight(cy) * class_weight(cz)));
 }
 
 // One component of the effective-stiffness operator's output from its
@@ -46,6 +54,11 @@ __device__ __forceinline__ float mass_scale(float mf, float m8, int cx, int cy,
 __device__ __forceinline__ float keff_out(bool fixed, float x, float acc,
                                           float ss, float mm) {
   return fixed ? x : __fmaf_rn(ss, acc, __fmul_rn(mm, x));
+}
+
+__device__ __forceinline__ double keff_out(bool fixed, double x, double acc,
+                                           double ss, double mm) {
+  return fixed ? x : __fma_rn(ss, acc, __dmul_rn(mm, x));
 }
 
 // The six packed components 00, 11, 22, 01, 02, 12 of one class's
@@ -63,18 +76,22 @@ __device__ __forceinline__ PcBlock load_pc_block(const float* __restrict__ table
                  __ldg(table + 4 * 27 + cls), __ldg(table + 5 * 27 + cls)};
 }
 
-__device__ __forceinline__ void apply_pc_block(const PcBlock& c, float r0,
-                                               float r1, float r2, float& z0,
-                                               float& z1, float& z2) {
-  z0 = c.c00 * r0 + c.c01 * r1 + c.c02 * r2;
-  z1 = c.c01 * r0 + c.c11 * r1 + c.c12 * r2;
-  z2 = c.c02 * r0 + c.c12 * r1 + c.c22 * r2;
+// T = double (K3's f64 instance) widens the f32 coefficients.
+template <typename T>
+__device__ __forceinline__ void apply_pc_block(const PcBlock& c, T r0, T r1,
+                                               T r2, T& z0, T& z1, T& z2) {
+  const T c00 = c.c00, c11 = c.c11, c22 = c.c22;
+  const T c01 = c.c01, c02 = c.c02, c12 = c.c12;
+  z0 = c00 * r0 + c01 * r1 + c02 * r2;
+  z1 = c01 * r0 + c11 * r1 + c12 * r2;
+  z2 = c02 * r0 + c12 * r1 + c22 * r2;
 }
 
 // z = M^-1 r for one node of class cls (K3).
+template <typename T>
 __device__ __forceinline__ void block_jacobi_node(
-    const float* __restrict__ table, int cls, float r0, float r1, float r2,
-    float& z0, float& z1, float& z2) {
+    const float* __restrict__ table, int cls, T r0, T r1, T r2, T& z0, T& z1,
+    T& z2) {
   apply_pc_block(load_pc_block(table, cls), r0, r1, r2, z0, z1, z2);
 }
 
@@ -137,7 +154,9 @@ __device__ __forceinline__ void store_block_sums3(float s0, float s1, float s2,
 // TMA tensor map wants every stride a multiple of 16 bytes (Z % 4 == 0 for
 // the f32 vectors, Z % 16 for the byte mask) and a driver entry point to
 // encode it, while cp.async takes any Z in one code path (16-byte copies
-// where Z % 4 == 0, 4-byte ones elsewhere).
+// where Z % 4 == 0, one copy per element elsewhere).  K1/K5's f64 instance
+// stages double rows in the same layout: every count below is in
+// elements, and only the bytes double (smem_bytes' elem).
 
 namespace sweep {
 
@@ -152,21 +171,21 @@ constexpr int kMaskWords = 10;
 constexpr int kMaskRow = 4 * kMaskWords;
 // halo-ring nodes of one plane (the tile's own nodes are the rest)
 constexpr int kRing = 2 * kHaloZ + 2 * kTileY;
-// floats of one transformed component plane (rows of kHaloZ)
+// elements of one transformed component plane (rows of kHaloZ)
 constexpr int kPlane = kHaloY * kHaloZ;
-// floats of one staged row: halo column h sits at h + 3, so z0 lands on a
-// 16-byte boundary; and of one staged channel plane
+// elements of one staged row: halo column h sits at h + 3, so z0 lands on
+// a 16-byte boundary; and of one staged channel plane
 constexpr int kStageRow = 40;
 constexpr int kStagePlane = kHaloY * kStageRow;
 // staging buffers in the ring
 constexpr int kStages = 3;
 
-// Dynamic shared memory of a sweep over `vectors` staged f32 vectors:
-// kStages staging buffers of 3 * vectors channels and of the 3 mask
-// components, and one transformed plane (3 components) of the tile plus
-// halo.
-__host__ __device__ constexpr int smem_bytes(int vectors) {
-  return 4 * (kStages * 3 * vectors * kStagePlane + 3 * kPlane) +
+// Dynamic shared memory of a sweep over `vectors` staged vectors of
+// `elem`-byte elements (4: f32, 8: f64): kStages staging buffers of
+// 3 * vectors channels and of the 3 mask components, and one transformed
+// plane (3 components) of the tile plus halo.
+__host__ __device__ constexpr int smem_bytes(int vectors, int elem = 4) {
+  return elem * (kStages * 3 * vectors * kStagePlane + 3 * kPlane) +
          kStages * 3 * kHaloY * kMaskRow;
 }
 
@@ -176,15 +195,27 @@ __host__ __device__ constexpr int smem_bytes(int vectors) {
 // class table, as [dx+1][dy+1][dz+1][b][c], and the ghost taps (interior
 // minus class) of the z-face classes (1, 1, 0) and (1, 1, 2) at dz = 0,
 // as [side][dx+1][dy+1][b][c] — the only offsets where a z-face node's
-// stencil differs from the interior one at an in-grid neighbour.
-struct Taps {
-  float t[243];
-  float gz[2][81];
+// stencil differs from the interior one at an in-grid neighbour.  The f64
+// instance of K1/K5 takes TapsT<double>: the same f32 interior taps
+// widened, and ghost taps that are the exact f64 differences between them
+// and the f32 z-face class rows, so that interior minus ghost is the class
+// table's f32 tap at every z-face node, as the plain version reads it.
+template <typename T>
+struct TapsT {
+  T t[243];
+  T gz[2][81];
 };
+using Taps = TapsT<float>;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src)
                : "memory");
 }
 
@@ -193,6 +224,17 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                "l"(src)
                : "memory");
+}
+
+// One element (4 or 8 bytes) from global to shared memory.
+template <typename T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "f32 or f64 elements");
+  if constexpr (sizeof(T) == 4) {
+    cp_async4(dst, src);
+  } else {
+    cp_async8(dst, src);
+  }
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -270,60 +312,68 @@ __device__ __forceinline__ void stage_plane(
 // The fast staging path, for Z % 4 == 0 and 16-byte aligned vectors: each
 // thread works out once which copies it issues for every plane (they move
 // by the plane stride Y * Z from one plane to the next), so a plane costs
-// it a few adds per copy.  Three staged rows per warp step: lane 10 r + k
-// copies the row's 32 own columns as eight 16-byte chunks (k < 8) and its
-// two halo columns as 4-byte words (k = 8: z0 - 1, k = 9: z0 + 32); the
-// mask's 30 rows go three per warp as aligned words (with Z % 4 == 0 a
-// row's words never straddle the mask's end).
-template <int kVectors>
+// it a few adds per copy.  A staged row's 32 own columns move as kWide
+// 16-byte chunks (8 of f32, 16 of f64) and its two halo columns as single
+// elements, on kLanes lanes (10 or 18): lane kLanes r + k copies chunk k
+// (k < kWide), halo column z0 - 1 (k = kWide) or z0 + 32, kSub (3 or 1)
+// staged rows per warp step.  The mask's 30 rows go three per warp as
+// aligned words (with Z % 4 == 0 a row's words never straddle the mask's
+// end), whatever the element type.
+template <int kVectors, typename T = float>
 struct VecStager {
+  static constexpr int kPerChunk = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kWide = kTileZ / kPerChunk;
+  static constexpr int kLanes = kWide + 2;
+  static constexpr int kSub = 32 / kLanes;
   static constexpr int kRows = 3 * kVectors * kHaloY;
-  static constexpr int kTasks = (kRows + 3 * kWarps - 1) / (3 * kWarps);
+  static constexpr int kTasks = (kRows + kSub * kWarps - 1) / (kSub * kWarps);
   static constexpr int kMaskTasks = (3 * kHaloY + 3 * kWarps - 1) / (3 * kWarps);
-  const float* g[kTasks];  // this lane's source at plane 0, or null
-  int d[kTasks];           // and its float offset in a staging buffer
+  const T* g[kTasks];      // this lane's source at plane 0, or null
+  int d[kTasks];           // and its element offset in a staging buffer
   int64_t m[kMaskTasks];   // its mask word's byte index at plane 0
   int md[kMaskTasks];      // and its byte offset in a mask buffer (-1: none)
-  bool wide;               // 16-byte copies (k < 8) or 4-byte
+  bool wide;               // 16-byte copies (k < kWide) or single elements
 
-  __device__ __forceinline__ VecStager(const float* s0, const float* s1,
-                                       const float* s2, int y0, int z0, int Y,
-                                       int Z, int64_t comp) {
+  __device__ __forceinline__ VecStager(const T* s0, const T* s1, const T* s2,
+                                       int y0, int z0, int Y, int Z,
+                                       int64_t comp) {
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
-    const int sub = lane / 10;
-    const int k = lane - 10 * sub;
-    wide = k < 8;
-    const int dz = k < 8 ? 4 * k : (k == 8 ? -1 : kTileZ);
+    const int sub = lane / kLanes;
+    const int k = lane - kLanes * sub;
+    wide = k < kWide;
+    const int dz = k < kWide ? kPerChunk * k : (k == kWide ? -1 : kTileZ);
 #pragma unroll
     for (int t = 0; t < kTasks; ++t) {
-      const int p = (t * kWarps + warp) * 3 + sub;
+      const int p = (t * kWarps + warp) * kSub + sub;
       const int ch = p / kHaloY;
       const int row = p - ch * kHaloY;
       const int jy = y0 - 1 + row;
       const int v = ch / 3;
-      const bool ok = sub < 3 && p < kRows && jy >= 0 && jy < Y &&
+      const bool ok = sub < kSub && p < kRows && jy >= 0 && jy < Y &&
                       z0 + dz >= 0 && z0 + dz < Z;
       g[t] = ok ? (v == 0 ? s0 : (v == 1 ? s1 : s2)) + (ch - 3 * v) * comp +
                       static_cast<int64_t>(jy) * Z + z0 + dz
                 : nullptr;
       d[t] = ch * kStagePlane + row * kStageRow + 4 + dz;
     }
+    const int msub = lane / kMaskWords;
+    const int mk = lane - kMaskWords * msub;
 #pragma unroll
     for (int t = 0; t < kMaskTasks; ++t) {
-      const int q = (t * kWarps + warp) * 3 + sub;
+      const int q = (t * kWarps + warp) * 3 + msub;
       const int c = q / kHaloY;
       const int row = q - c * kHaloY;
       const int jy = y0 - 1 + row;
-      const bool ok = sub < 3 && q < 3 * kHaloY && jy >= 0 && jy < Y;
+      const bool ok = msub < 3 && q < 3 * kHaloY && jy >= 0 && jy < Y;
       m[t] = ((c * comp + static_cast<int64_t>(jy) * Z + z0 - 1) &
-              ~int64_t{3}) + 4 * k;
-      md[t] = ok ? (c * kHaloY + row) * kMaskRow + 4 * k : -1;
+              ~int64_t{3}) + 4 * mk;
+      md[t] = ok ? (c * kHaloY + row) * kMaskRow + 4 * mk : -1;
     }
   }
 
   // The copies of the plane `plane` = jx * Y * Z elements in.
-  __device__ __forceinline__ void issue(float* st, uint8_t* mst,
+  __device__ __forceinline__ void issue(T* st, uint8_t* mst,
                                         const uint8_t* __restrict__ bc,
                                         int64_t plane, int64_t total) const {
 #pragma unroll
@@ -332,7 +382,7 @@ struct VecStager {
       if (wide) {
         cp_async16(st + d[t], g[t] + plane);
       } else {
-        cp_async4(st + d[t], g[t] + plane);
+        cp_async_elem(st + d[t], g[t] + plane);
       }
     }
 #pragma unroll
@@ -356,24 +406,27 @@ __device__ __forceinline__ void ring_node(int k, int& hy, int& hz) {
   }
 }
 
-template <bool kConst>
-__device__ __forceinline__ float tap(const float* k, int i) {
+// Tap i of k as the accumulator's type: a constant-bank tap (kConst, of
+// the accumulator's type already) or a class-table row (f32, read through
+// the read-only cache and widened for the f64 instance).
+template <bool kConst, typename T, typename K>
+__device__ __forceinline__ T tap(const K* k, int i) {
   if constexpr (kConst) {
     return k[i];
   } else {
-    return __ldg(k + i);
+    return static_cast<T>(__ldg(k + i));
   }
 }
 
 // acc += K v for one 3x3 tap block k, one FMA chain per component.
-template <bool kConst>
-__device__ __forceinline__ void fma_block(const float* k, float v0, float v1,
-                                          float v2, float (&a)[3]) {
+template <bool kConst, typename T, typename K>
+__device__ __forceinline__ void fma_block(const K* k, T v0, T v1, T v2,
+                                          T (&a)[3]) {
 #pragma unroll
   for (int b = 0; b < 3; ++b) {
-    a[b] += tap<kConst>(k, 3 * b) * v0;
-    a[b] += tap<kConst>(k, 3 * b + 1) * v1;
-    a[b] += tap<kConst>(k, 3 * b + 2) * v2;
+    a[b] += tap<kConst, T>(k, 3 * b) * v0;
+    a[b] += tap<kConst, T>(k, 3 * b + 1) * v1;
+    a[b] += tap<kConst, T>(k, 3 * b + 2) * v2;
   }
 }
 
@@ -381,18 +434,18 @@ __device__ __forceinline__ void fma_block(const float* k, float v0, float v1,
 // three outputs: acc[n] is the output at x = j - 1 + n, which sees plane j
 // at offset dx = 1 - n, with its 27 x 9 taps at k0, k1, k2.  kConst: all
 // three point at the Taps parameter; else at class rows of the table.
-template <bool kConst>
-__device__ __forceinline__ void add_plane(const float* ub, int ty, int tz,
-                                          const float* k0, const float* k1,
-                                          const float* k2, float (&acc)[3][3]) {
+template <bool kConst, typename T, typename K>
+__device__ __forceinline__ void add_plane(const T* ub, int ty, int tz,
+                                          const K* k0, const K* k1,
+                                          const K* k2, T (&acc)[3][3]) {
 #pragma unroll
   for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
     for (int dz = -1; dz <= 1; ++dz) {
       const int h = (ty + 1 + dy) * kHaloZ + tz + 1 + dz;
-      const float v0 = ub[h];
-      const float v1 = ub[kPlane + h];
-      const float v2 = ub[2 * kPlane + h];
+      const T v0 = ub[h];
+      const T v1 = ub[kPlane + h];
+      const T v2 = ub[2 * kPlane + h];
       const int d = (dy + 1) * 3 + (dz + 1);
       fma_block<kConst>(k0 + (18 + d) * 9, v0, v1, v2, acc[0]);
       fma_block<kConst>(k1 + (9 + d) * 9, v0, v1, v2, acc[1]);
@@ -404,15 +457,15 @@ __device__ __forceinline__ void add_plane(const float* ub, int ty, int tz,
 // acc -= G v over the three dz = 0 neighbours (dy = -1, 0, 1) of plane j,
 // with g the [dx+1][dy+1][b][c] ghost taps of one z-face class: turns the
 // interior stencil into the face node's own.
-__device__ __forceinline__ void subtract_z_ghosts(const float* ub, int ty,
-                                                  int tz, const float* g,
-                                                  float (&acc)[3][3]) {
+template <typename T>
+__device__ __forceinline__ void subtract_z_ghosts(const T* ub, int ty, int tz,
+                                                  const T* g, T (&acc)[3][3]) {
 #pragma unroll
   for (int dy = -1; dy <= 1; ++dy) {
     const int h = (ty + 1 + dy) * kHaloZ + tz + 1;
-    const float v0 = -ub[h];
-    const float v1 = -ub[kPlane + h];
-    const float v2 = -ub[2 * kPlane + h];
+    const T v0 = -ub[h];
+    const T v1 = -ub[kPlane + h];
+    const T v2 = -ub[2 * kPlane + h];
 #pragma unroll
     for (int n = 0; n < 3; ++n) {
       fma_block<true>(g + ((2 - n) * 3 + (dy + 1)) * 9, v0, v1, v2, acc[n]);
@@ -427,11 +480,12 @@ __device__ __forceinline__ void subtract_z_ghosts(const float* ub, int ty,
 // of a y face and every plane but the two next to an x face — from the
 // constant bank: the interior stencil, then at a z-face column the ghost
 // taps at dz = 0 subtracted.  Elsewhere from the class table.
-__device__ __forceinline__ void apply_plane(const float* ub, int ty, int tz,
+template <typename T>
+__device__ __forceinline__ void apply_plane(const T* ub, int ty, int tz,
                                             int j, int ocy, int ocz, int nx,
-                                            const Taps& taps,
+                                            const TapsT<T>& taps,
                                             const float* __restrict__ stencil,
-                                            float (&acc)[3][3]) {
+                                            T (&acc)[3][3]) {
   const int cm = node_class(j - 1, nx);
   const int cc = node_class(j, nx);
   const int cp = node_class(j + 1, nx);
@@ -452,12 +506,13 @@ __device__ __forceinline__ void apply_plane(const float* ub, int ty, int tz,
 
 // Output x = j - 1 is complete: shift the window (acc[0] <- acc[1] <-
 // acc[2] <- 0).
-__device__ __forceinline__ void shift_window(float (&acc)[3][3]) {
+template <typename T>
+__device__ __forceinline__ void shift_window(T (&acc)[3][3]) {
 #pragma unroll
   for (int b = 0; b < 3; ++b) {
     acc[0][b] = acc[1][b];
     acc[1][b] = acc[2][b];
-    acc[2][b] = 0.0f;
+    acc[2][b] = T(0);
   }
 }
 

@@ -13,9 +13,8 @@ a separate device tensor: the per-frame force is
 Absorbing groups (``boundaries.absorbing``) on the box's axis planes become
 the model's Lysmer-Kuhlemeyer faces.  ``solver.preconditioner: multigrid``
 attaches the geometric multigrid hierarchy (``ops/multigrid.py``).  fp64
-solver vectors on CUDA are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item (A13) instead of running
-a half-port.
+solver vectors run on either device: on CUDA through the f64 instances of
+K1/K5 and K3.
 """
 
 from __future__ import annotations
@@ -89,12 +88,6 @@ def try_build_structured(
         return None
     if any(g not in _PLANE_OF_GROUP for g in cfg.absorbing):
         return None
-    if cfg.precision.vector_precision == "fp64" and torch.device(device).type == "cuda":
-        raise NotImplementedError(
-            "precision.vectors 'fp64' has no CUDA kernels yet (ROADMAP A13); "
-            "run it on the CPU"
-        )
-
     props = materials.make_properties(cfg.materials[0])
     fixes = [
         (_PLANE_OF_GROUP[f.group], f.constrain_axis, f.value)

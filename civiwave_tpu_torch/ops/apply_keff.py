@@ -93,9 +93,16 @@ def _u_streams(xs: torch.Tensor, conn: torch.Tensor) -> torch.Tensor:
     return xs[conn.reshape(-1).long()].reshape(e_pad, n_local * 3).T
 
 
+def _widened(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """An f32 table as the vectors' dtype: f64 vectors scale by f64
+    products (``V * ss``, ``mf * m``), as the reference's f32 tables times
+    its f64 scalars; f32 vectors keep the f32 products."""
+    return table if table.dtype == x.dtype else table.to(x.dtype)
+
+
 def tet_forces(model: PackedModel, x_sanitized: torch.Tensor, stiffness_scale):
     """(T* * 4, 3) local node force rows for the tet block."""
-    vs = model.vol_tet * float(stiffness_scale)
+    vs = _widened(model.vol_tet, x_sanitized) * float(stiffness_scale)
     f = _stream_math(
         _u_streams(x_sanitized, model.conn_tet),
         lambda g, l, a: model.grads_tet[l, a],
@@ -110,7 +117,7 @@ def tet_forces(model: PackedModel, x_sanitized: torch.Tensor, stiffness_scale):
 
 def hex_forces(model: PackedModel, x_sanitized: torch.Tensor, stiffness_scale):
     """(H* * 8, 3) gp-reduced local node force rows for the hex block."""
-    volss = model.vol_hex * float(stiffness_scale)
+    volss = _widened(model.vol_hex, x_sanitized) * float(stiffness_scale)
     f = _stream_math(
         _u_streams(x_sanitized, model.conn_hex),
         lambda g, l, a: model.grads_hex[g, l, a],
@@ -151,7 +158,8 @@ def assemble(model: PackedModel, rows: torch.Tensor) -> torch.Tensor:
 def finish_keff(model: PackedModel, assembled, x, mass_factor):
     """Mass term and identity rows: ``bc ? x : assembled + mf m xs``."""
     xs = sanitize(model, x)
-    out = assembled + (float(mass_factor) * model.lumped_mass)[:, None] * xs
+    mm = float(mass_factor) * _widened(model.lumped_mass, x)
+    out = assembled + mm[:, None] * xs
     return torch.where(model.bc_mask, x, out)
 
 
@@ -187,8 +195,9 @@ def apply_keff(
     x: (N*, 3).  ``stiffness_scale`` / ``mass_factor`` are host scalars
     (they change with adaptive dt, newmark_stepper.cpp:1322-1326); the
     Rayleigh-beta RHS term passes ``mass_factor = 0``.  A CPU tensor takes
-    the plain version; a CUDA f32 tensor launches K7 (tet and/or hex) and
-    G1, or raises; the dashpot term follows either.
+    the plain version; a CUDA f32 or f64 tensor launches K7 (tet and/or
+    hex) and G1 (their f64 instances for f64, ``precision.vectors: fp64``),
+    or raises; the dashpot term follows either.
     """
     if x.device.type == "cpu":
         return apply_keff_plain(model, x, stiffness_scale, mass_factor)

@@ -22,6 +22,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+import numpy as np
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -35,12 +37,18 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 # C entry points and their argument types (each returns the cudaError_t
-# of its launch as an int)
+# of its launch as an int).  An ``_f64`` entry is the f64 instance of the
+# kernel above it: the same arguments with f64 vectors, ss and mf as
+# doubles (K1/K5 also takes its taps as 405 host doubles)
 _SIGNATURES = {
     # pc_table, r, bc, z, X, Y, Z, nx, ny, nz, x0, y0, stream
     "civi_block_jacobi_apply": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "civi_block_jacobi_apply_f64": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     # (K2 and K6 take their 405 taps in host memory, then after the scalars
@@ -63,10 +71,15 @@ _SIGNATURES = {
     # x, bc, conn, grads, vol, lam, mu, rows, E, ss, stream
     "civi_element_forces_tet": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
     "civi_element_forces_hex": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _P),
+    "civi_element_forces_tet_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P),
+    "civi_element_forces_hex_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _D, _P),
     # rows, csr_idx, csr_weight, mass, x, bc, out, N, D, mf, threads,
     # blocks, row_chunks, smem, stream
     "civi_assemble_csr": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _P,
+    ),
+    "civi_assemble_csr_f64": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _I, _I, _I, _I, _P,
     ),
     # xs, taps (243 host floats), out, X, Y, Z, geometry (tile_y, tile_z,
     # chunk, grid_x, grid_y, grid_z, smem), vec, stream
@@ -86,6 +99,11 @@ _SIGNATURES = {
     "civi_keff_structured_halo": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ),
+    "civi_keff_structured_halo_f64": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _F,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
 }
@@ -168,6 +186,39 @@ def load_library() -> KernelLibrary:
     lib.civi_error_string.argtypes = [ctypes.c_int]
     lib.civi_error_string.restype = ctypes.c_char_p
     return KernelLibrary(lib=lib, path=so, build_seconds=build_seconds, log=log)
+
+
+def instance(name: str, dtype) -> str:
+    """The C entry point of kernel ``name``'s instance for vectors of
+    ``dtype``: ``name`` for torch.float32, ``name + "_f64"`` for
+    torch.float64 (the four kernels with a double instance); any other
+    dtype raises TypeError."""
+    import torch
+
+    if dtype == torch.float32:
+        return name
+    if dtype == torch.float64:
+        return name + "_f64"
+    raise TypeError(f"{name}: no kernel for dtype {dtype} (f32 or f64)")
+
+
+def scalar(value, dtype) -> float:
+    """A host scalar as the instance for ``dtype`` takes it: rounded to f32
+    for f32 vectors, kept in f64 for f64 ones (the plain forms' rule)."""
+    import torch
+
+    return float(np.float32(value)) if dtype == torch.float32 else float(value)
+
+
+def count_launch(wrapper, dtype) -> None:
+    """One launch of ``wrapper``'s kernel: ``.launches`` for its f32
+    instance, ``.launches_f64`` for its f64 one."""
+    import torch
+
+    if dtype == torch.float64:
+        wrapper.launches_f64 += 1
+    else:
+        wrapper.launches += 1
 
 
 def check_launch(library: KernelLibrary, name: str, code: int) -> None:

@@ -13,7 +13,10 @@ into shared memory with coalesced 16-byte copies before the gathers
 (:func:`staging_geometry`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``assemble_keff.launches`` counts launches.
+raises.  f64 rows and x (``precision.vectors: fp64``) launch the f64
+instance (weights and mass f32, widened; the staging is the same).
+``assemble_keff.launches`` counts the f32 launches, ``.launches_f64`` the
+f64 ones.
 """
 
 from __future__ import annotations
@@ -71,33 +74,35 @@ def assemble_keff(model, rows, x, mass_factor):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    dtype = x.dtype
+    entry = _build.instance("civi_assemble_csr", dtype)
     shape = model.vector_shape
     n, d = model.padded_node_count, model.csr_degree
-    _build.check_tensor(x, "x", shape, torch.float32, dev)
+    _build.check_tensor(x, "x", shape, dtype, dev)
     _build.check_tensor(model.bc_mask, "bc_mask", shape, torch.bool, dev)
-    _build.check_tensor(
-        rows, "rows", (model.force_row_count, 3), torch.float32, dev
-    )
+    _build.check_tensor(rows, "rows", (model.force_row_count, 3), dtype, dev)
     _build.check_tensor(model.csr_idx, "csr_idx", (n, d), torch.int32, dev)
     _build.check_tensor(model.csr_weight, "csr_weight", (n, d), torch.float32, dev)
     _build.check_tensor(model.lumped_mass, "lumped_mass", (n,), torch.float32, dev)
     geom = staging_geometry(n, d)
-    # CSR slices move as 16-byte copies; force rows as 8 + 4 bytes
+    # CSR slices move as 16-byte copies; force rows as 8 + 4 bytes (f64:
+    # 16 + 8)
     _build.check_aligned(model.csr_idx, "csr_idx", 16)
     _build.check_aligned(model.csr_weight, "csr_weight", 16)
-    _build.check_aligned(rows, "rows", 8)
+    _build.check_aligned(rows, "rows", 2 * rows.element_size())
     library = _build.load_library()
     out = torch.empty_like(x)
     with torch.cuda.device(dev):
-        code = library.lib.civi_assemble_csr(
+        code = getattr(library.lib, entry)(
             rows.data_ptr(), model.csr_idx.data_ptr(),
             model.csr_weight.data_ptr(), model.lumped_mass.data_ptr(),
             x.data_ptr(), model.bc_mask.data_ptr(), out.data_ptr(), n, d,
             float(mass_factor), *geom, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(library, "assemble_csr", code)
-    assemble_keff.launches += 1
+    _build.count_launch(assemble_keff, dtype)
     return out
 
 
 assemble_keff.launches = 0
+assemble_keff.launches_f64 = 0

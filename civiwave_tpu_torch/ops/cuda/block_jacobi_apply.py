@@ -11,7 +11,10 @@ their global coordinates: the wrapper passes the model's offsets
 ``x0``/``y0`` (0 on an unsharded model).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises.  ``apply_block_jacobi.launches`` counts launches.
+raises.  f64 residuals (``precision.vectors: fp64``) launch the kernel's f64
+instance (the f32 table widened, as the plain form does).
+``apply_block_jacobi.launches`` counts the f32 launches,
+``.launches_f64`` the f64 ones.
 """
 
 from __future__ import annotations
@@ -35,22 +38,25 @@ def apply_block_jacobi(model, table, residual):
     dev = residual.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    dtype = residual.dtype
+    entry = _build.instance("civi_block_jacobi_apply", dtype)
     shape = model.vector_shape
-    _build.check_tensor(residual, "residual", shape, torch.float32, dev)
+    _build.check_tensor(residual, "residual", shape, dtype, dev)
     _build.check_tensor(model.bc_mask, "bc_mask", shape, torch.bool, dev)
     _build.check_tensor(table, "pc_table", (6, 3, 3, 3), torch.float32, dev)
     library = _build.load_library()
     z = torch.empty_like(residual)
     X, Y, Z = model.grid_shape
     with torch.cuda.device(dev):
-        code = library.lib.civi_block_jacobi_apply(
+        code = getattr(library.lib, entry)(
             table.data_ptr(), residual.data_ptr(), model.bc_mask.data_ptr(),
             z.data_ptr(), X, Y, Z, model.nx, model.ny, model.nz,
             model.x0, model.y0, torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(library, "block_jacobi_apply", code)
-    apply_block_jacobi.launches += 1
+    _build.count_launch(apply_block_jacobi, dtype)
     return z
 
 
 apply_block_jacobi.launches = 0
+apply_block_jacobi.launches_f64 = 0

@@ -10,10 +10,12 @@ block.  One template, two instances: ``tet_element_forces`` (4 nodes, one
 point) and ``hex_element_forces`` (8 nodes, 2x2x2 Gauss points).
 
 A CPU tensor takes the plain version (``ops/apply_keff.py``: sanitize, then
-the stream math); a CUDA tensor launches the kernel or raises (f32 x,
-contiguous tables of the model's shapes).  Each wrapper counts its
-launches in ``<wrapper>.launches``, a plain int that only a launch
-increments.
+the stream math); a CUDA tensor launches the kernel or raises (f32 or f64
+x, contiguous tables of the model's shapes).  f64 x
+(``precision.vectors: fp64``) launches the f64 instance and gets f64 force
+rows; the packed tables stay f32.  Each wrapper counts its launches in
+``<wrapper>.launches`` (f32) and ``.launches_f64``, plain ints that only a
+launch increments.
 """
 
 from __future__ import annotations
@@ -48,8 +50,10 @@ def _launch(model, x, stiffness_scale, block: str, out):
         raise ValueError(f"no kernel for device {dev}")
     n_local, n_gp = _BLOCKS[block]
     conn, grads, vol, lam, mu, e = _tables(model, block)
+    dtype = x.dtype
+    entry = _build.instance(f"civi_element_forces_{block}", dtype)
     shape = model.vector_shape
-    _build.check_tensor(x, "x", shape, torch.float32, dev)
+    _build.check_tensor(x, "x", shape, dtype, dev)
     _build.check_tensor(model.bc_mask, "bc_mask", shape, torch.bool, dev)
     _build.check_tensor(conn, f"conn_{block}", (e, n_local), torch.int32, dev)
     grads_shape = (n_local, 3, e) if block == "tet" else (n_gp, n_local, 3, e)
@@ -59,13 +63,14 @@ def _launch(model, x, stiffness_scale, block: str, out):
     _build.check_tensor(lam, f"lam_{block}", (e,), torch.float32, dev)
     _build.check_tensor(mu, f"mu_{block}", (e,), torch.float32, dev)
     if out is None:
-        out = torch.empty((e * n_local, 3), dtype=torch.float32, device=dev)
-    _build.check_tensor(out, "rows", (e * n_local, 3), torch.float32, dev)
+        out = torch.empty((e * n_local, 3), dtype=dtype, device=dev)
+    _build.check_tensor(out, "rows", (e * n_local, 3), dtype, dev)
     # the kernel reads conn rows as int4 and stores force rows as float4
+    # (double2 for f64)
     _build.check_aligned(conn, f"conn_{block}", 16)
     _build.check_aligned(out, "rows", 16)
     library = _build.load_library()
-    fn = getattr(library.lib, f"civi_element_forces_{block}")
+    fn = getattr(library.lib, entry)
     with torch.cuda.device(dev):
         code = fn(
             x.data_ptr(), model.bc_mask.data_ptr(), conn.data_ptr(),
@@ -83,7 +88,7 @@ def tet_element_forces(model, x, stiffness_scale, out=None):
     if x.device.type == "cpu":
         return element_forces_plain(model, x, stiffness_scale, "tet")
     out = _launch(model, x, stiffness_scale, "tet", out)
-    tet_element_forces.launches += 1
+    _build.count_launch(tet_element_forces, x.dtype)
     return out
 
 
@@ -93,12 +98,14 @@ def hex_element_forces(model, x, stiffness_scale, out=None):
     if x.device.type == "cpu":
         return element_forces_plain(model, x, stiffness_scale, "hex")
     out = _launch(model, x, stiffness_scale, "hex", out)
-    hex_element_forces.launches += 1
+    _build.count_launch(hex_element_forces, x.dtype)
     return out
 
 
 tet_element_forces.launches = 0
+tet_element_forces.launches_f64 = 0
 hex_element_forces.launches = 0
+hex_element_forces.launches_f64 = 0
 
 
 def element_force_rows(model, x, stiffness_scale):
@@ -109,9 +116,7 @@ def element_force_rows(model, x, stiffness_scale):
         from .. import apply_keff as ops
 
         return ops.element_force_rows(model, ops.sanitize(model, x), stiffness_scale)
-    rows = torch.empty(
-        (model.force_row_count, 3), dtype=torch.float32, device=x.device
-    )
+    rows = torch.empty((model.force_row_count, 3), dtype=x.dtype, device=x.device)
     split = model.padded_tet_count * 4
     if model.padded_tet_count:
         tet_element_forces(model, x, stiffness_scale, out=rows[:split])

@@ -24,10 +24,13 @@ ghost.  Every cut, gathered, equals the whole grid bit for bit, and the
 split's three launches equal one.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises (f32, contiguous, the shard's shapes).
-``keff_structured_halo.launches`` counts launches.  K1
-(``structured_stencil.apply_keff_fused``) launches the same kernel through
-:func:`launch_operator` on a whole grid with no ghosts, and counts its own.
+raises (f32 or f64, contiguous, the shard's shapes).  An f64 vector
+(``precision.vectors: fp64``) launches the kernel's f64 instance, with
+ss and mf in f64 as the plain version takes them; f32 vectors round both
+to f32.  ``keff_structured_halo.launches`` counts the f32 launches and
+``.launches_f64`` the f64 ones.  K1 (``structured_stencil.apply_keff_fused``)
+launches the same kernel through :func:`launch_operator` on a whole grid
+with no ghosts, and counts its own.
 """
 
 from __future__ import annotations
@@ -76,7 +79,8 @@ def keff_structured_halo_plain(
 ):
     """Plain PyTorch K5: the sanitized ghost-padded block through each
     node's 27 class taps as shifted slices, then the mass term and the
-    identity rows, on planes ``[p0, p1)`` of ``out`` (new if None)."""
+    identity rows, on planes ``[p0, p1)`` of ``out`` (new if None).  ss and
+    mf are rounded to f32 for f32 vectors only."""
     from ..structured import axis_classes
 
     _, yl, z = model.grid_shape
@@ -101,8 +105,8 @@ def keff_structured_halo_plain(
             acc[b] += (taps[..., b, 0] * win[0] + taps[..., b, 1] * win[1]
                        + taps[..., b, 2] * win[2])
     own = xs[:, p0 + 1:p1 + 1, 1:-1, 1:-1]
-    mass = model.mass_grid[p0:p1].to(x.dtype) * float(np.float32(mass_factor))
-    res = acc * float(np.float32(stiffness_scale)) + mass[None] * own
+    mass = model.mass_grid[p0:p1].to(x.dtype) * _build.scalar(mass_factor, x.dtype)
+    res = acc * _build.scalar(stiffness_scale, x.dtype) + mass[None] * own
     if out is None:
         out = torch.empty_like(x)
     out[:, p0:p1] = torch.where(model.bc_mask[:, p0:p1], x[:, p0:p1], res)
@@ -115,14 +119,17 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
     ``planes`` (None: all) of ``out`` (new if None), which is returned.
     ``ghosts`` is a shard's (an ``ops.structured_sharded.Ghosts``) or None
     on a whole grid.  The kernel is the plane sweep of ``plane_sweep.py``
-    over that range; it takes the model's ``sweep_taps`` by value.  Raises
+    over that range; it takes the model's ``sweep_taps`` by value (f64
+    vectors: the f64 instance with ``plane_sweep.sweep_taps64``).  Raises
     on a launch error; the caller counts the launch."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    dtype = x.dtype
+    entry = _build.instance("civi_keff_structured_halo", dtype)
     xl, yl, z = model.grid_shape
     shape = model.vector_shape
-    _build.check_tensor(x, "vector", shape, torch.float32, dev)
+    _build.check_tensor(x, "vector", shape, dtype, dev)
     _build.check_tensor(model.bc_mask, "bc_mask", shape, torch.bool, dev)
     _build.check_tensor(
         model.stencil_table, "stencil_table", (27, 27, 3, 3), torch.float32,
@@ -130,32 +137,34 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
     )
     # mask rows are staged as aligned 4-byte words
     _build.check_aligned(model.bc_mask, "bc_mask", 4)
-    taps = plane_sweep.sweep_taps32(model)
+    taps = (plane_sweep.sweep_taps32(model) if dtype == torch.float32
+            else plane_sweep.sweep_taps64(model))
     gy = _ghost_y(model)
     ptrs = []  # each side's values, then its mask; None reads as zero
     for side in ("x_lo", "x_hi") + (("y_lo", "y_hi") if gy else ()):
         gshape = (3, yl + 2 * gy, z) if side[0] == "x" else (3, xl, z)
-        for g, dtype in ((getattr(ghosts, side, None), torch.float32),
+        for g, gtype in ((getattr(ghosts, side, None), dtype),
                          (getattr(model.bc_ghosts, side, None), torch.bool)):
             if g is not None:
-                _build.check_tensor(g, f"ghost {side}", gshape, dtype, dev)
-                if dtype == torch.bool:
+                _build.check_tensor(g, f"ghost {side}", gshape, gtype, dev)
+                if gtype == torch.bool:
                     _build.check_aligned(g, f"ghost {side} mask", 4)
             ptrs.append(None if g is None else g.data_ptr())
     ptrs += [None] * (8 - len(ptrs))
     p0, p1 = _planes(model, planes)
-    geom = plane_sweep.sweep_geometry(model.grid_shape, 1, (p0, p1))
+    geom = plane_sweep.sweep_geometry(model.grid_shape, 1, (p0, p1),
+                                      elem=x.element_size())
     if out is None:
         out = torch.empty_like(x)
-    _build.check_tensor(out, "out", shape, torch.float32, dev)
+    _build.check_tensor(out, "out", shape, dtype, dev)
     library = _build.load_library()
     with torch.cuda.device(dev):
-        code = library.lib.civi_keff_structured_halo(
+        code = getattr(library.lib, entry)(
             x.data_ptr(), model.bc_mask.data_ptr(), *ptrs,
             model.stencil_table.data_ptr(), taps.ctypes.data, out.data_ptr(),
             xl, yl, z, gy, model.x0, model.y0, model.nx, model.ny, model.nz,
-            p0, p1, float(np.float32(stiffness_scale)),
-            float(np.float32(mass_factor)), float(np.float32(model.m8)),
+            p0, p1, _build.scalar(stiffness_scale, dtype),
+            _build.scalar(mass_factor, dtype), float(np.float32(model.m8)),
             *geom.launch_args(), plane_sweep.vector_copies(z, x),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -175,8 +184,9 @@ def keff_structured_halo(
         )
     out = launch_operator(model, x, ghosts, planes, out, stiffness_scale,
                           mass_factor, "keff_structured_halo")
-    keff_structured_halo.launches += 1
+    _build.count_launch(keff_structured_halo, x.dtype)
     return out
 
 
 keff_structured_halo.launches = 0
+keff_structured_halo.launches_f64 = 0

@@ -11,7 +11,10 @@ with one halo plane on each side through shared memory
 K6: all of them; K5: the overlap split's ranges); every node of the range
 belongs to exactly one block and plane.  K2 and K6 write one f32 triple of
 dot partials per block.  The C entry points refuse a geometry that does
-not match the constants they were built with.
+not match the constants they were built with.  K1/K5's f64 instance
+sweeps the same tiles and chunks with 8-byte elements: only the shared
+memory doubles (``elem``), 40,560 bytes against 22,080, and it takes the
+405 taps as doubles (:func:`sweep_taps64`).
 
 A chunk of 32 planes re-reads 2 halo planes (6 %) and cuts the 256^3-node
 grid into 2,048 blocks, several waves over the H100's 132 SMs.
@@ -95,11 +98,15 @@ class SweepGeometry:
 
 
 def sweep_geometry(grid_shape, vectors: int,
-                   planes: Optional[Tuple[int, int]] = None) -> SweepGeometry:
+                   planes: Optional[Tuple[int, int]] = None,
+                   elem: int = 4) -> SweepGeometry:
     """The geometry of a sweep over the planes ``planes`` = ``[p0, p1)``
     (default all) of the node grid ``grid_shape`` (X, Y, Z) that stages
-    ``vectors`` f32 vectors per plane (K1/K5 and K2: 1, x or r; K6: 3, r,
-    w and s) besides the mask.  An empty range has no x chunk."""
+    ``vectors`` vectors of ``elem``-byte elements (4: f32, 8: K1/K5's f64
+    instance) per plane (K1/K5 and K2: 1, x or r; K6: 3, r, w and s)
+    besides the mask.  An empty range has no x chunk."""
+    if elem not in (4, 8):
+        raise ValueError(f"elem {elem}: the sweeps stage 4- or 8-byte elements")
     X, Y, Z = (int(n) for n in grid_shape)
     if min(X, Y, Z) <= 0:
         raise ValueError(f"grid {grid_shape}: every extent must be positive")
@@ -109,9 +116,11 @@ def sweep_geometry(grid_shape, vectors: int,
     halo_y, halo_z = TILE_Y + 2, TILE_Z + 2
     # STAGES staging buffers (3 channels per vector, 3 mask components)
     # and one transformed plane of 3 components
-    smem = (4 * (STAGES * 3 * vectors * halo_y * STAGE_ROW
-                 + 3 * halo_y * halo_z)
+    smem = (elem * (STAGES * 3 * vectors * halo_y * STAGE_ROW
+                    + 3 * halo_y * halo_z)
             + STAGES * 3 * halo_y * MASK_ROW)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{smem} bytes of shared memory, over {SMEM_LIMIT}")
     grid = (-(-Z // TILE_Z), -(-Y // TILE_Y), -(-(p1 - p0) // CHUNK_X))
     return SweepGeometry(
         tile=(TILE_Y, TILE_Z), chunk=CHUNK_X, grid=grid,
@@ -159,8 +168,40 @@ def stencil_geometry(grid_shape, tile=None, chunk=None) -> SweepGeometry:
 
 def vector_copies(Z: int, *tensors) -> int:
     """1 when the staged rows move as 16-byte copies (Z % 4 == 0 and every
-    tensor 16-byte aligned), else 0 (4-byte copies)."""
+    tensor 16-byte aligned), else 0 (one copy per element).  The rule is the
+    same for f64 vectors, whose 16-byte copies move two values: the fast
+    path also stages the mask as aligned words found once per thread, which
+    needs the plane stride Y * Z, so Z, to be a multiple of 4."""
     return int(Z % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
+@lru_cache(maxsize=32)
+def _taps64(spacing, lam0: float, mu0: float) -> np.ndarray:
+    from ..structured import class_stencil_table
+
+    table = class_stencil_table(spacing, lam0, mu0).reshape(27, 3, 3, 3, 3, 3)
+    interior = table[13].astype(np.float64)
+    # interior minus the z-face class rows at dz = 0, exact in f64
+    ghost = np.stack([interior[:, :, 1] - table[12][:, :, 1],
+                      interior[:, :, 1] - table[14][:, :, 1]])
+    taps = np.concatenate([interior.reshape(-1), ghost.reshape(-1)])
+    taps.setflags(write=False)
+    return taps
+
+
+def sweep_taps64(model) -> np.ndarray:
+    """The 405 f64 taps K1/K5's f64 instance takes by value: the model's f32
+    interior taps widened, then the z-face ghost taps as the exact f64
+    differences between those and the f32 class-table rows of (1, 1, 0) and
+    (1, 1, 2) at dz = 0, so that interior minus ghost is the class table's
+    f32 tap (the f32 ghost taps are f32(interior - class) in f64, which
+    differs from it by a rounding)."""
+    taps32 = sweep_taps32(model)
+    taps = _taps64(tuple(float(h) for h in model.spacing), float(model.lam0),
+                   float(model.mu0))
+    if not np.array_equal(taps[:243], taps32[:243]):
+        raise ValueError("sweep_taps do not match the model's class table")
+    return taps
 
 
 def sweep_taps32(model) -> np.ndarray:

@@ -17,9 +17,10 @@ plus with ``with_dots`` each block's f32 partials of (r, u), (r, r) and
 (w, u), summed here in the reduction dtype.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises (f32 only, contiguous, shapes of the model).  Each wrapper counts
-its launches in ``<wrapper>.launches``, a plain int that only a launch
-increments.
+raises (contiguous, shapes of the model; K2 f32 only, as the reference's
+kernel; K1 f32 or f64, the f64 vectors on K5's f64 instance).  Each wrapper
+counts its launches in ``<wrapper>.launches``, a plain int that only a
+launch increments (K1's f64 launches in ``.launches_f64``).
 """
 
 from __future__ import annotations
@@ -55,17 +56,19 @@ def apply_keff_fused_plain(model, x, stiffness_scale, mass_factor):
 
 
 def apply_keff_fused(model, x, stiffness_scale, mass_factor):
-    """K1: the complete K_eff * x; kernel on CUDA, plain version on CPU."""
+    """K1: the complete K_eff * x; kernel on CUDA (its f64 instance for f64
+    vectors), plain version on CPU."""
     if x.device.type == "cpu":
         return apply_keff_fused_plain(model, x, stiffness_scale, mass_factor)
     out = keff_halo.launch_operator(model, x, None, None, None,
                                     stiffness_scale, mass_factor,
                                     "keff_structured")
-    apply_keff_fused.launches += 1
+    _build.count_launch(apply_keff_fused, x.dtype)
     return out
 
 
 apply_keff_fused.launches = 0
+apply_keff_fused.launches_f64 = 0
 
 
 def apply_pc_keff_fused_plain(

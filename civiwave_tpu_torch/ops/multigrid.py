@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..mesh.structured import StructuredModel, interior_mass
+from ..utils.profiling import scope
 from . import structured as _ops
 
 _MIN_COARSE_DIM = 3  # never coarsen an axis below 3 nodes
@@ -329,6 +330,11 @@ def apply_mg_preconditioner(model: StructuredModel,
 
 
 def _vcycle(levels, invs, omegas, li, r, ss, mf):
+    with scope(f"mg_level{li}"):
+        return _vcycle_level(levels, invs, omegas, li, r, ss, mf)
+
+
+def _vcycle_level(levels, invs, omegas, li, r, ss, mf):
     model = levels[li]
     om = float(np.float32(omegas[li]))
     # pre-smooth from zero (constrained components of r are zero and the

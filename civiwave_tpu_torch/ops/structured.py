@@ -25,8 +25,11 @@ identity-row envelope: ``bc ? x : ss * K(xs) + mf * mass * xs`` with
 input's sign (+0.0 stays +0.0).
 
 Dispatch is on the tensor's device: a CUDA tensor goes to the kernel
-wrapper (which raises on anything but f32), a CPU tensor to the plain
-version.  The grid's shape picks the form, as in the reference:
+wrapper, a CPU tensor to the plain version.  f64 vectors
+(``precision.vectors: fp64``) take the f64 instances of K1/K5 and K3 on
+CUDA; K2, K4, K6 and G2 are f32 only, as the reference's kernels, so an f64
+vector composes K3 and K1 where f32 would take K2, and a slender grid
+takes K1.  The grid's shape picks the form, as in the reference:
 
 * every grid takes the complete operator K1, except
 * large slender members (more than 700,000 nodes and a (Y, Z) plane under
@@ -67,6 +70,7 @@ import torch
 import torch.nn.functional as F
 
 from ..mesh.structured import CORNERS, StructuredModel
+from .cuda import _build as _cuda_build
 from .cuda import block_jacobi_apply as _k3
 from .cuda import interior_stencil as _k4
 from .cuda import keff_boundary as _g2
@@ -451,11 +455,11 @@ def apply_keff_structured(
 class MassCorrection(NamedTuple):
     """The nodes where a model's stored ``mass_grid`` differs from the
     mass the kernels synthesize (``m8`` times 0.5 per boundary axis), as
-    flat node indices into (X*Y*Z,) and ``mass_grid - synthesized`` there
-    (f32)."""
+    flat node indices into (X*Y*Z,) and ``mass_grid - synthesized`` there,
+    exact in f64 (both are f32); f32 vectors use it rounded to f32."""
 
     index: torch.Tensor  # (n,) int64
-    delta: torch.Tensor  # (n,) f32
+    delta: torch.Tensor  # (n,) f64
 
 
 def synthesized_mass(model: StructuredModel) -> torch.Tensor:
@@ -479,7 +483,8 @@ def mass_correction(model: StructuredModel):
     even fine node count its high-face node carries 0.875 of the interior
     value, not 0.5, so the kernels alone would apply another operator
     there."""
-    delta = (model.mass_grid - synthesized_mass(model)).reshape(-1)
+    delta = model.mass_grid.double() - synthesized_mass(model).double()
+    delta = delta.reshape(-1)
     index = torch.nonzero(delta).reshape(-1)
     if index.numel() == 0:
         return None
@@ -489,13 +494,16 @@ def mass_correction(model: StructuredModel):
 def correct_synthesized_mass(model: StructuredModel, out, x, mass_factor):
     """``out`` (the kernels' K_eff x with synthesized mass) with
     ``mf * (mass_grid - synthesized) * xs`` added on the corrected nodes'
-    free components; constrained outputs keep x.  In place."""
+    free components; constrained outputs keep x.  In place, in ``out``'s
+    dtype: f32 vectors take delta and mf rounded to f32, f64 ones both in
+    f64."""
     corr = model.mass_correction
     flat_out = out.view(3, -1)
     xs = x.reshape(3, -1)[:, corr.index]
     bc = model.bc_mask.reshape(3, -1)[:, corr.index]
-    mf = float(np.float32(mass_factor))
-    add = (corr.delta * mf)[None] * xs.masked_fill(bc, 0.0)
+    delta = corr.delta.to(out.dtype)
+    mf = _cuda_build.scalar(mass_factor, out.dtype)
+    add = (delta * mf)[None] * xs.to(out.dtype).masked_fill(bc, 0.0)
     flat_out[:, corr.index] = torch.where(
         bc, flat_out[:, corr.index], flat_out[:, corr.index] + add
     )
@@ -748,9 +756,9 @@ def apply_compact_preconditioner_structured(
 
 def pc_keff_kernel_eligible(model: StructuredModel, pc, dtype) -> bool:
     """Whether the fused pc+matvec(+dots) kernel K2 runs: class-table
-    preconditioner, f32 vectors, model on a CUDA device, not a shard and
-    not the slender route (where the reference's kernel is not
-    profitable)."""
+    preconditioner, f32 vectors (K2 declines f64, as the reference's
+    kernel), model on a CUDA device, not a shard and not the slender route
+    (where the reference's kernel is not profitable)."""
     return (
         model.shard_group is None
         and isinstance(pc, CompactBlockJacobi)
@@ -767,9 +775,10 @@ def apply_pc_keff_structured(
     """(u, w) = (M^-1 r, K_eff u) — the back-to-back pc apply + matvec of
     the Chronopoulos-Gear iteration: one K2 launch on CUDA (the
     composition of the two plain forms on CPU) plus the absorbing term on
-    w; on a shard and on the slender route the composition of the
-    preconditioner and the operator."""
-    if model.shard_group is not None or slender_route(model, residual.dtype):
+    w; on a shard, on the slender route and for f64 vectors (K2 is f32
+    only) the composition of the preconditioner and the operator."""
+    if (model.shard_group is not None or residual.dtype != torch.float32
+            or slender_route(model, residual.dtype)):
         u = model.apply_preconditioner(pc, residual)
         return u, model.apply_keff(u, stiffness_scale, mass_factor)
     u, w = _k12.apply_pc_keff_fused(
@@ -788,10 +797,11 @@ def apply_pc_keff_dots_structured(
     :func:`~civiwave_tpu_torch.solver.pcg.fused_dots`.
 
     None — the caller composes ``apply_pc_keff`` and ``fused_dots`` — on
-    a shard, on the slender route and with absorbing faces: the face term
-    is added to w after the kernel, so an in-kernel (w, u) partial would
-    miss it."""
+    a shard, on the slender route, for f64 vectors and with absorbing
+    faces: the face term is added to w after the kernel, so an in-kernel
+    (w, u) partial would miss it."""
     if (model.shard_group is not None or model.absorb_faces
+            or residual.dtype != torch.float32
             or slender_route(model, residual.dtype)):
         return None
     return _k12.apply_pc_keff_fused(
@@ -913,7 +923,7 @@ def add_absorbing_operator_term(
     constrained entries stay the passthrough."""
     if not model.absorb_faces or model.damp_factor is None:
         return out
-    factor = float(np.float32(model.damp_factor))
+    factor = _cuda_build.scalar(model.damp_factor, out.dtype)
     for sl, term in _face_damp_terms(model, x):
         out[sl] += factor * term.to(out.dtype)
     return out

@@ -17,20 +17,27 @@ Port of :mod:`civiwave_tpu.runner`.  Two routes, as in the reference:
 :class:`~civiwave_tpu_torch.config.schema.Config` (which needs no pyyaml),
 the torch device to run on and an optional output root (VTU frames and the
 probe CSV, written every frame by ``Simulation.run``).  Absorbing faces run
-on both routes.  :func:`run_static` is the static mode (BASELINE config
-#1): one PCG solve of K u = f to the scenario's pause tolerance, exposed
-through the stepper's state and written as VTU frame 0.
+on both routes, and ``precision.vectors: fp64`` on either device.
+:func:`run_static` is the static mode (BASELINE config #1): one PCG solve
+of K u = f to the scenario's pause tolerance, exposed through the
+stepper's state and written as VTU frame 0.  A stepping run can save
+checkpoints (``utils/checkpoint.py``) every ``--checkpoint-every`` frames
+and after its last, resume from the latest with ``--resume``, and write a
+torch.profiler trace with ``--profile DIR``.
 
 Usage::
 
     python -m civiwave_tpu_torch.runner scenario.yaml --frames 100 --output out/
     python -m civiwave_tpu_torch.runner scenario.yaml --static --output out/
+    python -m civiwave_tpu_torch.runner scenario.yaml --frames 100 \
+        --checkpoint-dir ck/ --checkpoint-every 50 --resume --profile trace/
     civiwave-tpu-torch scenario.yaml --frames 100 --device cuda
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -54,6 +61,7 @@ from .mesh.structured_config import (
 from .physics import loads as loads_mod
 from .physics import materials
 from .solver.stepper import NewmarkStepper, StepTelemetry
+from .utils import profiling
 from .utils.errors import CwfError
 
 
@@ -92,11 +100,14 @@ class Simulation:
             self.preprocess = preprocess.run(self.mesh, self.config)
 
     def run(
-        self, frames: int, paused_mode: bool = False, verbose: bool = False
+        self, frames: int, paused_mode: bool = False, verbose: bool = False,
+        checkpoint_manager=None, checkpoint_every: int = 50,
     ) -> List[StepTelemetry]:
         """Advance ``frames`` steps, re-evaluating time-curve loads and
         writing outputs per frame (the VTU writer is drained at the
-        end)."""
+        end).  With a ``checkpoint_manager`` the state is saved after
+        every frame ``frame > 0`` with ``frame % checkpoint_every == 0``
+        (the write runs on the manager's thread; 0 saves none)."""
         loads = self.config.loads
         has_curves = any(t.scale_curve for t in loads.tractions) or any(
             p.scale_curve for p in loads.points
@@ -114,6 +125,13 @@ class Simulation:
                 self.output.handle_from_stepper(
                     telemetry.simulation_time, frame, self.stepper
                 )
+            if (
+                checkpoint_manager is not None
+                and checkpoint_every > 0
+                and frame > 0
+                and frame % checkpoint_every == 0
+            ):
+                self.stepper.save_checkpoint(checkpoint_manager)
             if verbose:
                 print(
                     f"frame {frame:5d} t={telemetry.simulation_time:.6f}s "
@@ -207,14 +225,6 @@ def build_simulation(
                 "with block_jacobi",
                 file=sys.stderr,
             )
-        if (
-            cfg.precision.vector_precision == "fp64"
-            and torch.device(device).type == "cuda"
-        ):
-            raise NotImplementedError(
-                "precision.vectors 'fp64' has no CUDA kernels yet (ROADMAP A13); "
-                "run it on the CPU"
-            )
         mats = [materials.make_properties(m) for m in cfg.materials]
         mesh = _load_mesh(cfg, scenario_path)
         pre = preprocess.run(mesh, cfg)
@@ -301,15 +311,6 @@ def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, di
     }
 
 
-# CLI options of the reference runner whose subsystems are not ported yet
-_UNPORTED_OPTIONS = {
-    "checkpoint_dir": "--checkpoint-dir (checkpoints, ROADMAP A10)",
-    "checkpoint_every": "--checkpoint-every (checkpoints, ROADMAP A10)",
-    "resume": "--resume (checkpoints, ROADMAP A10)",
-    "profile": "--profile (device tracing, ROADMAP A14)",
-}
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="civiwave-tpu-torch",
@@ -340,20 +341,29 @@ def main(argv: Optional[List[str]] = None) -> int:
         default=None,
         help="write per-frame telemetry to this JSON file",
     )
-    parser.add_argument("--checkpoint-dir", default=None, help=argparse.SUPPRESS)
-    # default None, not the reference's 50: any set value is refused below
     parser.add_argument(
-        "--checkpoint-every", type=int, default=None, help=argparse.SUPPRESS
+        "--checkpoint-dir",
+        default=None,
+        help="save checkpoints here (and resume from here with --resume)",
     )
-    parser.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--profile", default=None, help=argparse.SUPPRESS)
+    parser.add_argument(
+        "--checkpoint-every",
+        type=int,
+        default=50,
+        help="checkpoint cadence in frames (0 disables periodic saves)",
+    )
+    parser.add_argument(
+        "--resume",
+        action="store_true",
+        help="resume from the latest checkpoint in --checkpoint-dir",
+    )
+    parser.add_argument(
+        "--profile",
+        default=None,
+        help="write a torch.profiler trace (Chrome JSON) into this directory",
+    )
     args = parser.parse_args(argv)
 
-    for name, what in _UNPORTED_OPTIONS.items():
-        value = getattr(args, name)
-        if value is not None and value is not False:  # set, 0 included
-            print(f"error: {what} is not ported yet", file=sys.stderr)
-            return 1
     try:
         return _run_cli(args)
     except (CwfError, NotImplementedError) as err:
@@ -368,11 +378,34 @@ def _run_cli(args) -> int:
     )
     if args.static:
         return _run_static_cli(sim, args)
-    start = time.perf_counter()
-    telemetries = sim.run(
-        args.frames, paused_mode=args.paused, verbose=not args.quiet
-    )
-    elapsed = time.perf_counter() - start
+
+    manager = None
+    if args.checkpoint_dir:
+        from .utils.checkpoint import CheckpointManager
+
+        manager = CheckpointManager(args.checkpoint_dir)
+        if args.resume and manager.latest_step() is not None:
+            frame = sim.stepper.restore_checkpoint(manager)
+            print(f"resumed from checkpoint at frame {frame}")
+
+    trace = (profiling.trace(args.profile, sim.model.device) if args.profile
+             else contextlib.nullcontext())
+    with trace as profiled:
+        start = time.perf_counter()
+        telemetries = sim.run(
+            args.frames,
+            paused_mode=args.paused,
+            verbose=not args.quiet,
+            checkpoint_manager=manager,
+            checkpoint_every=args.checkpoint_every,
+        )
+        elapsed = time.perf_counter() - start
+    if args.profile:
+        print(f"profile: {profiled['path']}")
+    if manager is not None:
+        sim.stepper.save_checkpoint(manager, wait=True)
+        manager.close()
+
     converged = sum(1 for t in telemetries if t.pcg_converged)
     print(
         f"ran {len(telemetries)} frames in {elapsed:.3f}s "

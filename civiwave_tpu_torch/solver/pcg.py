@@ -24,6 +24,10 @@ the loop with converged=False.
 Variants: classic, fused (Chronopoulos-Gear, one reduction per iteration;
 with ``CIVIWAVE_MEGA_PCG=1`` the whole-iteration K6 loop) and pipelined
 (Ghysels-Vanroose with periodic residual replacement).
+
+Under a torch.profiler trace the loops open the reference's named ranges
+(``pcg_matvec``, ``pcg_precondition``, ``pcg_pc_matvec``, ...;
+``utils/profiling.scope``), and nothing otherwise.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from ..utils.profiling import scope
 
 _BREAKDOWN_TOL = 1.0e-18
 _RHS_NORM_FLOOR = 1.0e-12  # pcg.cpp:774
@@ -201,7 +207,8 @@ def solve_pcg(
 
     iteration = 0
     while iteration < max_iterations and not converged and not breakdown:
-        ap = model.apply_keff(p, stiffness_scale, mass_factor)
+        with scope("pcg_matvec"):
+            ap = model.apply_keff(p, stiffness_scale, mass_factor)
         denom = rdot(p, ap)
         denom_small = denom.abs() < _BREAKDOWN_TOL
         alpha = rho / torch.where(denom_small, 1.0, denom)
@@ -214,7 +221,8 @@ def solve_pcg(
         x_new = x + alpha32 * p
         r_new = r - alpha32 * ap
 
-        z = model.apply_preconditioner(block_inverse, r_new)
+        with scope("pcg_precondition"):
+            z = model.apply_preconditioner(block_inverse, r_new)
         res_new = torch.sqrt(rdot(r_new, r_new))
         rho_new = rdot(r_new, z)
         rho_small = rho.abs() < _BREAKDOWN_TOL
@@ -310,7 +318,8 @@ def solve_pcg_fused(
     r = (rhs - ax).to(f32)
     x, r = _clamp_dirichlet(model, rhs, x, r)
 
-    u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
+    with scope("pcg_pc_matvec"):
+        u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
     # one fused setup reduction: gamma0, delta0, ||r||^2 and ||rhs||^2
     gamma, delta0, rr0, rhs2 = fused_dots(
         [(r, u), (w, u), (r, r), (rhs, rhs)], rdt, psum
@@ -341,18 +350,21 @@ def solve_pcg_fused(
         r = r - alpha32 * s
         # constrained axes: p and s are zero there by recurrence, so x stays
         # = rhs and r stays = 0 bit for bit (the reference's elided clamp)
-        fused_out = None if dots_fn is None else dots_fn(
-            block_inverse, r, stiffness_scale, mass_factor, rdt
-        )
+        with scope("pcg_pc_matvec_dots"):
+            fused_out = None if dots_fn is None else dots_fn(
+                block_inverse, r, stiffness_scale, mass_factor, rdt
+            )
         if fused_out is not None:
             u, w, (gamma_new, delta, rr) = fused_out
         else:
-            u, w = model.apply_pc_keff(
-                block_inverse, r, stiffness_scale, mass_factor
-            )
-            gamma_new, delta, rr = fused_dots(
-                [(r, u), (w, u), (r, r)], rdt, psum
-            )
+            with scope("pcg_pc_matvec"):
+                u, w = model.apply_pc_keff(
+                    block_inverse, r, stiffness_scale, mass_factor
+                )
+            with scope("pcg_fused_reduction"):
+                gamma_new, delta, rr = fused_dots(
+                    [(r, u), (w, u), (r, r)], rdt, psum
+                )
         residual_norm = torch.sqrt(rr)
 
         gamma_small = gamma.abs() < _BREAKDOWN_TOL
@@ -459,7 +471,8 @@ def solve_pcg_pipelined(
         a, b = pc_keff(v)
         return a.masked_fill(bc, 0.0), b.masked_fill(bc, 0.0)
 
-    u, w = pc_keff_masked(r)
+    with scope("pcg_pc_matvec"):
+        u, w = pc_keff_masked(r)
     rhs2, rr0 = fused_dots([(rhs, rhs), (r, r)], rdt, psum)
     rhs_norm_true = torch.sqrt(rhs2)
     rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
@@ -480,8 +493,10 @@ def solve_pcg_pipelined(
 
     iteration = 0
     while iteration < max_iterations and not converged and not breakdown:
-        gamma_new, delta, rr = fused_dots([(r, u), (w, u), (r, r)], rdt, psum)
-        m, n = pc_keff(w)
+        with scope("pcg_pipelined_reduction"):
+            gamma_new, delta, rr = fused_dots([(r, u), (w, u), (r, r)], rdt, psum)
+        with scope("pcg_pc_matvec"):
+            m, n = pc_keff(w)
         residual_norm = torch.sqrt(rr)
 
         first = iteration == 0
@@ -513,7 +528,8 @@ def solve_pcg_pipelined(
         u = u - alpha32 * q
         w = w - alpha32 * z
         if replace_every and (iteration + 1) % replace_every == 0:
-            u, w = pc_keff_masked(r)
+            with scope("pcg_residual_replacement"):
+                u, w = pc_keff_masked(r)
         gamma, alpha = gamma_new, alpha_new
         alpha_last, beta_last = alpha_new, beta
         iteration += 1
@@ -568,7 +584,8 @@ def _solve_pcg_megafused(
     r = (rhs - ax).to(f32)
     x, r = _clamp_dirichlet(model, rhs, x, r)
 
-    u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
+    with scope("pcg_pc_matvec"):
+        u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
     gamma, delta0, rr0, rhs2 = fused_dots(
         [(r, u), (w, u), (r, r), (rhs, rhs)], rdt
     )
@@ -590,9 +607,10 @@ def _solve_pcg_megafused(
 
     iteration = 0
     while iteration < max_iterations and not converged and not breakdown:
-        carries, (gamma_new, delta, rr) = iteration_fn(
-            carries, alpha.to(f32), beta.to(f32)
-        )
+        with scope("pcg_mega_iteration"):
+            carries, (gamma_new, delta, rr) = iteration_fn(
+                carries, alpha.to(f32), beta.to(f32)
+            )
         residual_norm = torch.sqrt(rr)
 
         gamma_small = gamma.abs() < _BREAKDOWN_TOL

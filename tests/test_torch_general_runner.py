@@ -239,12 +239,3 @@ def test_general_route_takes_a_parsed_config():
     assert all(t.pcg_converged for t in tel)
     assert np.isfinite(sim.stepper.displacement()).all()
 
-
-@pytest.mark.parametrize("precision, device", [("fp64", "cuda")])
-def test_general_fp64_on_cuda_raises_a13(precision, device):
-    cfg = cantilever_config(
-        mesh={"path": "synthetic://box/2,2,2,tet"},
-        precision={"vectors": precision, "reductions": "fp64"},
-    )
-    with pytest.raises(NotImplementedError, match="A13"):
-        build_simulation(cfg, device=device)

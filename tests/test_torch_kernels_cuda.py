@@ -6,7 +6,10 @@ K7 (element forces, tet and hex) and G1 (CSR assembly) of the general
 gather path; K1-K3 at the static mass factor 0, static solves on the card
 against the CPU, the general path's dashpot term after G1; K1 with the
 mass correction on multigrid coarse levels, and the V-cycle, multigrid
-and pipelined solves on the card against the CPU.
+and pipelined solves on the card against the CPU; the f64 instances of
+K1/K5, K3, K7 and G1 (``precision.vectors: fp64``) against their plain
+versions in f64 at 1e-12 of max|ref|, and an fp64 simulation that
+launches only them.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -229,8 +232,11 @@ def test_pc_keff_w_is_k1_of_its_u(device, case):
 
 def test_wrappers_refuse_wrong_dtype_and_layout(device):
     model, x = _model(device, "xpad4")
-    with pytest.raises(TypeError):
-        k12.apply_keff_fused(model, x.double(), SS, MF)
+    with pytest.raises(TypeError):  # f32 and f64 instances only
+        k12.apply_keff_fused(model, x.half(), SS, MF)
+    with pytest.raises(TypeError):  # K2 is f32 only, as the reference's
+        k12.apply_pc_keff_fused(model, model.build_preconditioner(SS, MF).table,
+                                x.double(), SS, MF)
     with pytest.raises(ValueError):
         k3.apply_block_jacobi(
             model, torch.zeros(6, 3, 3, 3, device=device), x.transpose(2, 3)
@@ -462,8 +468,8 @@ def test_general_apply_keff_launches_k7_and_g1(device):
     assert (k7.tet_element_forces.launches, k7.hex_element_forces.launches,
             g1.assemble_keff.launches) == tuple(c + 1 for c in counts)
     _close(out, gops.apply_keff_plain(model, x, SS, MF))
-    with pytest.raises(TypeError):
-        gops.apply_keff(model, x.double(), SS, MF)
+    with pytest.raises(TypeError):  # f32 and f64 instances only
+        gops.apply_keff(model, x.half(), SS, MF)
 
 
 def test_seismic_column_runs_on_the_card(device):
@@ -581,8 +587,8 @@ def test_keff_halo_on_one_shard_is_k1(device):
         sharding.local_model(model, (1, 1), (0, 0)), bc_ghosts=Ghosts(None, None))
     out = k5.keff_structured_halo(local, x, Ghosts(None, None), SS, MF)
     assert torch.equal(out, k12.apply_keff_fused(model, x, SS, MF))
-    with pytest.raises(TypeError):
-        k5.keff_structured_halo(local, x.double(), None, SS, MF)
+    with pytest.raises(TypeError):  # f32 and f64 instances only
+        k5.keff_structured_halo(local, x.half(), None, SS, MF)
     with pytest.raises(ValueError):
         k5.keff_structured_halo(local, x, None, SS, MF, planes=(0, 10**6))
 
@@ -788,3 +794,160 @@ def test_opt_in_solvers_16_cubed_match_the_cpu(device, variant):
                                atol=2.5e-4 * float(uc.abs().max()))
     if variant.startswith("mg"):
         _close(runs[f"z_{device}"], runs["z_cpu"])
+
+
+# ---------------------------------------------------------------------------
+# The f64 instances (precision.vectors: fp64) of K1/K5, K3, K7 and G1, each
+# against its plain version in f64 at 1e-12 of max|ref|: an f32 round trip
+# anywhere on the way would show at ~1e-7.  ss and mf are f64 values no f32
+# holds.
+
+F64_TOL = 1e-12
+SS64, MF64 = 1.0000727000000001, 4000363.6000000001
+F64_SHAPES = {
+    "cube_16": ((15, 15, 15), {}),
+    # Z = 41: one copy per element; Y and Z ragged against the tile
+    "ragged_yz": SWEEP_SHAPES["ragged_yz"],
+    # X = 65 nodes: a one-plane last chunk
+    "x_last_chunk_one_plane": SWEEP_SHAPES["x_last_chunk_one_plane"],
+    # Z = 64: 16-byte copies of two doubles; two z tiles
+    "two_z_tiles": SWEEP_SHAPES["two_z_tiles"],
+    "partial_fixes_33x19x45": SWEEP_SHAPES["partial_fixes_33x19x45"],
+    "xpad4": SHAPES["xpad4"],
+    "nx1": SHAPES["nx1"],
+}
+
+
+def _close64(out, ref):
+    assert out.dtype == ref.dtype == torch.float64
+    err = float((out - ref).abs().max())
+    assert err <= F64_TOL * float(ref.abs().max()) + 1e-300, err
+
+
+def _model64(device, case):
+    dims, kw = F64_SHAPES[case]
+    mat = cantilever_config().materials[0]
+    model, _ = build_structured_model(
+        *dims, materials.make_properties(mat), mat.density, device=device, **kw
+    )
+    x = torch.as_tensor(np.random.default_rng(13).standard_normal(model.vector_shape),
+                        device=device)
+    return model, x
+
+
+@pytest.mark.parametrize("case", sorted(F64_SHAPES))
+def test_keff_f64_matches_plain(device, case):
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+
+    model, x = _model64(device, case)
+    before = (k12.apply_keff_fused.launches, k12.apply_keff_fused.launches_f64)
+    out = k12.apply_keff_fused(model, x, SS64, MF64)
+    torch.cuda.synchronize()
+    assert (k12.apply_keff_fused.launches,
+            k12.apply_keff_fused.launches_f64) == (before[0], before[1] + 1)
+    # the class-table plain version, and the reference's inclusion-exclusion
+    _close64(out, k5.keff_structured_halo_plain(model, x, None, SS64, MF64))
+    _close64(out, k12.apply_keff_fused_plain(model, x, SS64, MF64))
+    bc = model.bc_mask
+    assert torch.equal(out[bc], x[bc])
+
+
+@pytest.mark.parametrize("case", sorted(HALO))
+def test_keff_halo_f64_matches_plain_and_k1(device, case, monkeypatch):
+    """K5's f64 instance on every tile with its ghosts: against its plain
+    version, the overlap split against one launch and the gathered tiles
+    against K1's f64 instance, bit for bit."""
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.ops.structured_sharded import local_keff
+
+    model, x, tiles = _halo_tiles(device, case)
+    x = x.double()
+    gathered = torch.empty_like(x)
+    for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+        xt = xt.double()
+        ghosts = ghosts._replace(**{
+            k: None if g is None else g.double() for k, g in ghosts._asdict().items()})
+        before = k5.keff_structured_halo.launches_f64
+        out = k5.keff_structured_halo(local, xt, ghosts, SS64, MF64)
+        torch.cuda.synchronize()
+        assert k5.keff_structured_halo.launches_f64 == before + 1
+        _close64(out, k5.keff_structured_halo_plain(local, xt, ghosts, SS64, MF64))
+        if xl >= 4:
+            monkeypatch.setenv("CIVIWAVE_HALO_OVERLAP", "1")
+            assert torch.equal(local_keff(local, xt, ghosts, SS64, MF64), out)
+        gathered[:, x0:x0 + xl, y0:y0 + yl] = out
+    assert torch.equal(gathered, k12.apply_keff_fused(model, x, SS64, MF64))
+
+
+@pytest.mark.parametrize("case", sorted(HALO))
+def test_block_jacobi_f64_with_offsets(device, case):
+    model, x, tiles = _halo_tiles(device, case)
+    pc = model.build_preconditioner(SS64, MF64)
+    before = k3.apply_block_jacobi.launches_f64
+    ref = k3.apply_block_jacobi(model, pc.table, x.double())
+    assert k3.apply_block_jacobi.launches_f64 == before + 1
+    _close64(ref, k3.apply_block_jacobi_plain(model, pc.table, x.double()))
+    gathered = torch.empty_like(ref)
+    for local, xt, _, (x0, y0, xl, yl) in tiles:
+        z = k3.apply_block_jacobi(local, pc.table, xt.double())
+        _close64(z, k3.apply_block_jacobi_plain(local, pc.table, xt.double()))
+        gathered[:, x0:x0 + xl, y0:y0 + yl] = z
+    torch.cuda.synchronize()
+    assert torch.equal(gathered, ref)
+    zb = ref[model.bc_mask]
+    assert not zb.any() and not torch.signbit(zb).any()
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL))
+def test_element_forces_and_assemble_f64_match_plain(device, case):
+    model, x = _general(device, case)
+    x = x.double()
+    for block, wrapper, count in (
+        ("tet", k7.tet_element_forces, model.padded_tet_count),
+        ("hex", k7.hex_element_forces, model.padded_hex_count),
+    ):
+        if not count:
+            continue
+        before = (wrapper.launches, wrapper.launches_f64)
+        rows = wrapper(model, x, SS)
+        torch.cuda.synchronize()
+        assert (wrapper.launches, wrapper.launches_f64) == (before[0], before[1] + 1)
+        _close64(rows, k7.element_forces_plain(model, x, SS, block))
+    rows = k7.element_force_rows(model, x, SS)
+    assert rows.dtype == torch.float64
+    before = g1.assemble_keff.launches_f64
+    out = g1.assemble_keff(model, rows, x, MF)
+    torch.cuda.synchronize()
+    assert g1.assemble_keff.launches_f64 == before + 1
+    # slot-order sums of the same rows: bit-equal, as the f32 instance
+    assert torch.equal(out, g1.assemble_keff_plain(model, rows, x, MF))
+    _close64(gops.apply_keff(model, x, SS, MF), gops.apply_keff_plain(model, x, SS, MF))
+
+
+def test_fp64_simulation_runs_f64_kernels_only(device):
+    """An fp64 build_simulation on CUDA (classic by 'auto'): K1 and K3 f64
+    on every matvec and pc apply, no f32 kernel and no plain operator."""
+    from civiwave_tpu_torch.ops import structured as ops
+
+    cfg = cantilever_config(mesh={"path": "synthetic://box/15,15,15"},
+                            precision={"vectors": "fp64", "reductions": "fp64"},
+                            tol_runtime=1e-10, max_iters=400)
+    sim = build_simulation(cfg, device=device)
+    plain = []
+    orig = ops.apply_keff_structured_plain
+    ops.apply_keff_structured_plain = lambda *a, **k: plain.append(1) or orig(*a, **k)
+    counters = (k12.apply_keff_fused, k3.apply_block_jacobi, k12.apply_pc_keff_fused,
+                k6.pcg_iteration_fused)
+    before = [(c.launches, getattr(c, "launches_f64", 0)) for c in counters]
+    try:
+        tel = sim.run(3)
+    finally:
+        ops.apply_keff_structured_plain = orig
+    after = [(c.launches, getattr(c, "launches_f64", 0)) for c in counters]
+    iters = sum(t.pcg_iterations for t in tel)
+    assert all(t.pcg_converged for t in tel) and not plain
+    assert sim.stepper.state.displacement.dtype == torch.float64
+    (k1, k1d), (bj, bjd), (pc, _), (k6n, _) = (
+        (a - b, ad - bd) for (a, ad), (b, bd) in zip(after, before))
+    assert (k1, bj, pc, k6n) == (0, 0, 0, 0)
+    assert k1d >= iters and bjd >= iters

@@ -102,25 +102,6 @@ def test_cli_runs_and_writes_telemetry(tmp_path, capsys):
     assert "ran 3 frames" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize(
-    "args, item",
-    [
-        (["--checkpoint-dir", "ck"], "A10"),
-        (["--checkpoint-every", "5"], "A10"),
-        (["--checkpoint-every", "0"], "A10"),
-        (["--resume"], "A10"),
-        (["--profile", "tr"], "A14"),
-    ],
-    ids=["checkpoint", "checkpoint-every",
-         "checkpoint-every-0", "resume", "profile"],
-)
-def test_cli_unported_options_exit_1(args, item, capsys):
-    rc = main([SCENARIO, "--frames", "1", "--device", "cpu", *args])
-    assert rc == 1
-    err = capsys.readouterr().err.strip().splitlines()
-    assert len(err) == 1 and item in err[0]
-
-
 def test_cli_runs_the_tet_basin_on_the_general_path(capsys, tmp_path):
     """examples/seismic_basin.yaml meshed with tets takes the general path,
     whose absorbing faces are ported: exit code 0, every frame converged."""

@@ -246,33 +246,28 @@ def test_try_build_structured_matches_reference():
 
 
 @pytest.mark.parametrize(
-    "node, device, item",
+    "node",
     [
         # multigrid is ported since: the scenario builds with its hierarchy
-        (dict(solver={"type": "pcg", "preconditioner": "multigrid",
-                      "tol_runtime": 1e-4, "tol_pause": 1e-5, "max_iters": 10},
-              mesh={"path": "synthetic://box/8,4,4"}), "cpu", None),
+        dict(solver={"type": "pcg", "preconditioner": "multigrid",
+                     "tol_runtime": 1e-4, "tol_pause": 1e-5, "max_iters": 10},
+             mesh={"path": "synthetic://box/8,4,4"}),
         # absorbing faces on a tet box take the general path, which has
-        # ported them: no item, the build succeeds with the dashpots packed
-        (dict(boundaries={"absorbing": ["SIDE_X1"]},
-              mesh={"path": "synthetic://box/3,2,2,tet"}), "cpu", None),
-        (dict(precision={"vectors": "fp64", "reductions": "fp64"}), "cuda", "A13"),
+        # ported them: the build succeeds with the dashpots packed
+        dict(boundaries={"absorbing": ["SIDE_X1"]},
+             mesh={"path": "synthetic://box/3,2,2,tet"}),
     ],
-    ids=["multigrid", "absorbing", "fp64_on_cuda"],
+    ids=["multigrid", "absorbing"],
 )
-def test_unported_scenarios_raise(node, device, item):
+def test_unported_scenarios_raise(node):
     from civiwave_tpu_torch.runner import build_simulation
 
     cfg = cantilever_config(**{"mesh": {"path": "synthetic://box/3,2,2"}, **node})
-    if item is None:  # ported since: the scenario builds
-        model = build_simulation(cfg, device=device).model
-        if cfg.solver.preconditioner == "multigrid":
-            assert model.multigrid and len(model.mg_levels) == 1
-        else:
-            assert model.has_damping
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        build_simulation(cfg, device=device)
+    model = build_simulation(cfg, device="cpu").model  # ported since: it builds
+    if cfg.solver.preconditioner == "multigrid":
+        assert model.multigrid and len(model.mg_levels) == 1
+    else:
+        assert model.has_damping
 
 
 def test_general_path_scenarios_are_not_routed():
