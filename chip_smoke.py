@@ -163,7 +163,33 @@ Phases, each printing its result:
     end: u, v, a and the warm start bit for bit; bytes, save and restore
     seconds;
 23. ``--profile`` through ``runner.main`` on cantilever_box on the card:
-    the trace names the reference's ranges and holds K1/K2 device events.
+    the trace names the reference's ranges and holds K1/K2 device events;
+24. the general path's banded halo cut, in this process and without a
+    group: phase 8's 66^3 tet cantilever and the 66^3 hex box cut into 4
+    and 8 shards (``local_general_shards``; L, G and E_s printed); each
+    shard's K7 on its (L + G)-row window and G1 over its L + G rows
+    against the plain versions (G1 bit-equal), the combined shards
+    against the unsharded K7 + G1 at 1e-5 of max|ref| (whether the rows
+    off the ghost bands are bit-equal is printed), K7 + G1 per shard timed
+    beside the unsharded call;
+25. phase 8's tet cantilever through ``shard_simulation`` over a one-rank
+    NCCL group (the single-device operator with the group's reductions;
+    'auto' = classic there, as in the reference): 8 frames against phase
+    8's (iterations +-1, u 2.5e-4, a 3e-3 of max), K7 and G1 once per
+    matvec; frame 9 profiled beside phase 8's; then 3 fused frames with
+    one f64 (3,) all-reduce per iteration and no exchange or all-gather;
+26. phase 13's 255^3 basin (five absorbing faces) over a one-rank 1-D and
+    a one-rank 2-D group, 4 frames each, against phase 13's (iterations
+    +-1, u and a at the stepping tolerances; K5 and K3 only); the face
+    terms of 4 slabs and 2x2 tiles in this process against the global
+    term, bit for bit;
+27. the 255^3 static cantilever, classic, on a one-rank shard (K5 + K3)
+    through ``run_static``: converged, u within 2.5e-4 of max|u| of phase
+    16's refined u, iterations beside phase 16's classic;
+28. with two or more GPUs, ``parallel.launch --npx 2 --against-one-rank``
+    on the 66^3 tet cantilever (with ``--profile``: rank 0's summaries)
+    and on examples/seismic_basin.yaml (a failed check fails the run);
+    with one GPU it prints that it skipped.
 
 Output files of phases 16-17 and 22-23 go to a fresh directory under
 ``civiwave_tpu_torch/_build/`` (ignored by git) and are removed.  Any
@@ -928,13 +954,14 @@ def general_matvec_phase(device, ss, mf):
 
 
 def profile_window(label, run):
-    """Run ``run()`` once under torch.profiler and print the device busy
-    share (the device-side events' total time over the window's wall time,
-    which the profiler itself stretches: a lower bound) and the kernels
-    with the most device time.  Only device-side events are summed: an
-    operator's own row repeats the time of the kernels it launched."""
-    from torch.autograd import DeviceType
+    """Run ``run()`` once under torch.profiler and print
+    ``utils.profiling.summary``: the wall time, the device busy share
+    (device-side events over the window's wall time, which the profiler
+    itself stretches: a lower bound), and the host operators and kernels
+    with the most self time."""
     from torch.profiler import ProfilerActivity, profile
+
+    from civiwave_tpu_torch.utils.profiling import summary
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -942,13 +969,7 @@ def profile_window(label, run):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.device_type != DeviceType.CPU]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    top = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)[:6]
-    print(f"{label} profile: {wall_ms:.3f} ms wall, device busy {busy_ms:.3f} ms "
-          f"(share {busy_ms / wall_ms:.3f}); by device time: " + "; ".join(
-              f"{e.key[:56]} {e.self_device_time_total / 1e3:.3f} ms x{e.count}"
-              for e in top), flush=True)
+    print(f"{label} profile: {summary(prof, wall_ms)}", flush=True)
 
 
 def general_main_path_phase(device, ss, mf):
@@ -1022,9 +1043,10 @@ def general_main_path_phase(device, ss, mf):
     profile_window("general main path frame 9", lambda: sim.run(1))
     del sim, model, state
     torch.cuda.empty_cache()
-    # the 8 classic frames' result, for phase 19's pipelined frames and
-    # phase 21's fp64 frames
-    return errs, timings, counts, dict(iters=iters, u=u, a=a)
+    # the 8 classic frames' result, for phase 19's pipelined frames,
+    # phase 21's fp64 frames and phase 25's one-rank shard
+    return errs, timings, counts, dict(iters=iters, u=u, a=a,
+                                       steps_per_s=len(steady) / sum(steady))
 
 
 def general_steps_phase(device):
@@ -1546,8 +1568,13 @@ def basin_phase(device):
           f"faces): pcg iterations {iters}, frame seconds " + ", ".join(
               f"{t:.4f}" for t in frame_s) + f"; steps/s {3 / sum(frame_s[1:]):.4f} "
           f"(frames 2-4); launches {counts}", flush=True)
+    # the 4 frames' result, off the card, for phase 26's sharded basin
+    full = dict(iters=iters, steps_per_s=3 / sum(frame_s[1:]),
+                u=sim.stepper.state.displacement.cpu(),
+                a=sim.stepper.state.acceleration.cpu())
     del sim
     torch.cuda.empty_cache()
+    return full
 
 
 # phase 14's grids: (label, cells, (npx, npy), 2-D, timing key); the
@@ -3445,6 +3472,370 @@ def profile_cli_phase():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- the multi-device remainder, part 1 (phases 24-28) -----------------------
+
+GENERAL_SHARDS = (4, 8)  # phase 24's in-process cuts
+
+
+def general_shard_counts():
+    """K7/G1 launches and the collectives' calls (phase 25)."""
+    from civiwave_tpu_torch.parallel import collectives
+
+    return {**general_counts(), "ppermute": collectives.ppermute.calls,
+            "psum": collectives.psum.calls,
+            "psum_f64_3": collectives.psum.shapes[(torch.float64, (3,))],
+            "psum_f64_4": collectives.psum.shapes[(torch.float64, (4,))],
+            "all_gather": collectives.all_gather.calls}
+
+
+def reset_general_shard_counts():
+    from civiwave_tpu_torch.parallel import collectives
+
+    reset_general_counts()
+    collectives.reset_counts()
+
+
+def local_windows(shards, x):
+    """Each in-process shard's inputs for a whole-model x: its (L, 3) rows
+    and the next shard's first G sanitized rows (zero past the end; None
+    when G = 0), as the group's first exchange delivers them."""
+    out = []
+    for shard in shards:
+        L, G, r0 = shard.local_rows, shard.halo_ghost, shard.shard_row0
+        ghost = None
+        if G:
+            nxt = x[r0 + L:r0 + L + G]
+            ghost = x.new_zeros((G, 3))
+            ghost[:nxt.shape[0]] = nxt
+            ghost = torch.where(shard.shard_window.bc_mask[L:], 0.0, ghost)
+        out.append((shard.own_rows(x), ghost))
+    return out
+
+
+def local_keff_general(shards, x, stiffness_scale, mass_factor):
+    """K_eff * x of every in-process shard of one halo cut
+    (``parallel.sharding.local_general_shards``, no group) for a
+    whole-model x, the two exchanges made by slicing: each shard's (L, 3)
+    rows, in shard order (the tests hold the port's shards with it too)."""
+    from civiwave_tpu_torch.ops.apply_keff import add_dashpot_term
+    from civiwave_tpu_torch.ops.general_sharded import (
+        add_ghost_partials, window_keff)
+
+    windows = local_windows(shards, x)
+    outs_ext = [window_keff(shard, part, ghost, stiffness_scale, mass_factor)
+                for shard, (part, ghost) in zip(shards, windows)]
+    outs = []
+    for s, shard in enumerate(shards):
+        recv = None
+        if s and shard.halo_ghost:
+            recv = outs_ext[s - 1][shard.local_rows:]
+        out = add_ghost_partials(shard, outs_ext[s], recv)
+        outs.append(add_dashpot_term(shard, out, windows[s][0]))
+    return outs
+
+
+def general_halo_phase(device, ss, mf):
+    """Phase 24: phase 8's 66^3 tet cantilever and the 66^3 hex box cut
+    into 4 and 8 shards in this process (``local_general_shards``, no
+    group): L, G and E_s; each shard's K7 on its (L + G)-row window and G1
+    over its L + G rows against the plain versions (G1 bit-equal); the
+    combined shards (``local_keff_general``) against the unsharded K7 +
+    G1 at OP_TOL, and whether the rows off the ghost bands are bit-equal;
+    K7 + G1 per shard timed beside the unsharded call."""
+    from civiwave_tpu_torch.ops import apply_keff as gops
+    from civiwave_tpu_torch.ops import general_sharded as gsh
+    from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
+    from civiwave_tpu_torch.ops.cuda import element_forces as k7
+    from civiwave_tpu_torch.parallel.sharding import local_general_shards
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.synthetic import box_mesh, cantilever_config
+
+    n = GENERAL_N
+    tet = build_simulation(cantilever_config(
+        mesh={"path": f"synthetic://box/{n},{n},{n},tet"}), device=device).model
+    hexm, _, _ = packed_model(box_mesh(n, n, n, hex_elements=True),
+                              cantilever_config(), device, pad_nodes=1024,
+                              pad_elems=1024)
+    worst, times = (0.0, 0.0), {}
+    for model in (tet, hexm):
+        block = "tet" if model.padded_tet_count else "hex"
+        label = f"{block} {n}^3"
+        wrapper = (k7.tet_element_forces if block == "tet"
+                   else k7.hex_element_forces)
+        x = random_vector(model, device)
+        ref = gops.apply_keff(model, x, ss, mf)
+        whole_ms = time_ms(lambda: gops.apply_keff(model, x, ss, mf), 20)
+        for n_shards in GENERAL_SHARDS:
+            t0 = time.perf_counter()
+            shards = local_general_shards(model, n_shards)
+            torch.cuda.synchronize()
+            cut_s = time.perf_counter() - t0
+            L, G, E = (shards[0].local_rows, shards[0].halo_ghost,
+                       shards[0].halo_elems)
+            windows = local_windows(shards, x)
+            for s, (shard, (part, ghost)) in enumerate(zip(shards, windows)):
+                w = shard.shard_window
+                xw = gsh.window_x(part, ghost)
+                err = check_close(f"K7 {block} {label} shard {s}/{n_shards}",
+                                  wrapper(w, xw, ss),
+                                  k7.element_forces_plain(w, xw, ss, block), OP_TOL)
+                worst = max(worst, err, key=lambda e: e[1])
+                rows = k7.element_force_rows(w, xw, ss)
+                out = g1.assemble_keff(w, rows, xw, mf)
+                if not torch.equal(out, g1.assemble_keff_plain(w, rows, xw, mf)):
+                    fail(f"G1 {label} shard {s}/{n_shards}: not bit-equal to "
+                         f"the plain version")
+            got = torch.cat(local_keff_general(shards, x, ss, mf))
+            err = check_close(f"{label} over {n_shards} shards", got, ref, OP_TOL)
+            worst = max(worst, err, key=lambda e: e[1])
+            off = torch.ones(model.padded_node_count, dtype=torch.bool,
+                             device=device)
+            for s in range(1, n_shards):
+                off[s * L:s * L + G] = False
+            off_equal = torch.equal(got[off], ref[off])
+            shard_ms = [time_ms(lambda sh=sh, p=p, g=g: gsh.window_keff(
+                sh, p, g, ss, mf), 20) for sh, (p, g) in zip(shards, windows)]
+            times[(block, n_shards)] = dict(max_ms=max(shard_ms),
+                                            mean_ms=float(np.mean(shard_ms)),
+                                            whole_ms=whole_ms)
+            print(f"general halo cut [{label} over {n_shards} shards]: L {L:,}, "
+                  f"G {G:,}, E_s {E:,} (cut in {cut_s:.3f} s); combined vs "
+                  f"unsharded abs/rel err {err[0]:.3e}/{err[1]:.2e}; rows off "
+                  f"the ghost bands bit-equal: {off_equal}; K7 + G1 per shard "
+                  f"{np.mean(shard_ms):.4f} ms mean, {max(shard_ms):.4f} max "
+                  f"(CUDA events; unsharded K7 + G1 {whole_ms:.4f} ms)",
+                  flush=True)
+            del shards, windows, got
+        del x, ref
+    del tet, hexm
+    torch.cuda.empty_cache()
+    return worst, times
+
+
+def general_sharded_main_path_phase(device, tet_classic):
+    """Phase 25: phase 8's 66^3 tet cantilever through build_simulation
+    and shard_simulation over a one-rank NCCL group (the single-device K7
+    + G1 operator with the group's reductions; 'auto' = classic, as the
+    reference's unmarked one-device model): 8 frames against phase 8's
+    (iterations +-1, u and a at the stepping tolerances), K7 and G1 once
+    per matvec; frame 9 profiled; then 3 fused frames, one f64 (3,)
+    all-reduce per iteration, no exchange and no all-gather."""
+    from civiwave_tpu_torch.parallel.sharding import (
+        close_shard_group, make_shard_group, shard_simulation)
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    n = GENERAL_N
+    cfg = cantilever_config(
+        mesh={"path": f"synthetic://box/{n},{n},{n},tet"}, dt=1e-3,
+        adaptive=False, tol_runtime=2e-4, max_iters=300,
+    )
+    sim = shard_simulation(build_simulation(cfg, device=device),
+                           make_shard_group(1, device))
+    torch.cuda.synchronize()
+    reset_general_shard_counts()
+    frame_s, tel = [], []
+    for _ in range(8):
+        t0 = time.perf_counter()
+        tel += sim.run(1)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    counts = general_shard_counts()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel) or any(
+            abs(a - b) > 1 for a, b in zip(iters, tet_classic["iters"])):
+        fail(f"general one-rank shard: iterations {iters} against phase 8's "
+             f"{tet_classic['iters']}")
+    matvecs = 2 * len(iters) + sum(iters)
+    if (counts["element_forces_tet"], counts["assemble_csr"]) != (matvecs, matvecs) \
+            or counts["ppermute"] or counts["all_gather"]:
+        fail(f"general one-rank shard: counts {counts}, {matvecs} matvecs")
+    errs = {}
+    for name, key, tol in (("displacement", "u", U_TOL),
+                           ("acceleration", "a", A_TOL)):
+        got = torch.from_numpy(getattr(sim.stepper, name)())
+        _, errs[key] = check_close(f"general one-rank shard {name}", got,
+                                   torch.from_numpy(tet_classic[key]), tol)
+    steady = frame_s[1:]
+    # the host cost of one all-reduce of an f64 (3,) partial on this group
+    # of one rank (each classic dot makes one)
+    group = sim.model.shard_group
+    partial = torch.zeros(3, dtype=torch.float64, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        group.psum(partial)
+    torch.cuda.synchronize()
+    psum_ms = (time.perf_counter() - t0) * 10
+    print(f"general one-rank shard ({n}^3 tet, classic): pcg iterations {iters} "
+          f"(phase 8 {tet_classic['iters']}); max abs err / max|phase 8| u "
+          f"{errs['u']:.3e}, a {errs['a']:.3e}; steps/s "
+          f"{len(steady) / sum(steady):.4f} (frames 2-8; phase 8 unsharded "
+          f"{tet_classic['steps_per_s']:.4f}); one f64 (3,) all-reduce on the "
+          f"one-rank group {psum_ms:.4f} ms (host clock, 100 calls); counts "
+          f"{counts}", flush=True)
+    # where its frames go, beside phase 8's "general main path frame 9"
+    profile_window("general one-rank shard frame 9", lambda: sim.run(1))
+    sim.stepper.solver_variant = "fused"
+    reset_general_shard_counts()
+    tel3 = sim.run(3)
+    counts3 = general_shard_counts()
+    it3 = [t.pcg_iterations for t in tel3]
+    want = dict(psum_f64_3=sum(it3), psum_f64_4=3, ppermute=0, all_gather=0)
+    if not all(t.pcg_converged for t in tel3) or any(
+            counts3[k] != v for k, v in want.items()):
+        fail(f"general one-rank shard fused: iterations {it3}, counts "
+             f"{counts3}, expected {want}")
+    print(f"general one-rank shard, 3 fused frames: iterations {it3}; one f64 "
+          f"(3,) all-reduce per iteration; counts {counts3}", flush=True)
+    del sim
+    close_shard_group()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, counts_fused=counts3)
+
+
+def sharded_basin_phase(device, basin):
+    """Phase 26: phase 13's 255^3 basin (five absorbing faces) over a
+    one-rank 1-D group and a one-rank 2-D group, 4 frames each, against
+    phase 13's (iterations +-1, u and a at the stepping tolerances; K5 and
+    K3, never K1, K2 or K6); then, in this process, the face terms of 4
+    slabs and 2x2 tiles against the global term, bit for bit."""
+    from civiwave_tpu_torch.config.loader import load_config_from_file
+    from civiwave_tpu_torch.ops import structured as sops
+    from civiwave_tpu_torch.parallel.sharding import (
+        close_shard_group, cut_block, local_tiles, make_shard_group,
+        make_shard_group_2d, shard_simulation)
+    from civiwave_tpu_torch.runner import build_simulation
+
+    cfg = dataclasses.replace(load_config_from_file(BASIN),
+                              mesh_path="synthetic://box/%d,%d,%d" % FULL)
+    counts_1d = None
+    for label, make in (("1-D", lambda: make_shard_group(1, device)),
+                        ("2-D", lambda: make_shard_group_2d(1, 1, device))):
+        sim = shard_simulation(build_simulation(cfg, device=device), make())
+        reset_sharded_counts()
+        t0 = time.perf_counter()
+        tel = sim.run(4)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = sharded_counts()
+        iters = [t.pcg_iterations for t in tel]
+        if not all(t.pcg_converged for t in tel) or any(
+                abs(a - b) > 1 for a, b in zip(iters, basin["iters"])):
+            fail(f"sharded basin {label}: iterations {iters} against phase "
+                 f"13's {basin['iters']}")
+        if counts["k5"] <= 0 or counts["bj"] <= 0 or counts["keff"] or \
+                counts["pc"] or counts["k6"]:
+            fail(f"sharded basin {label}: wrong kernels {counts}")
+        errs = {}
+        for name, key, tol in (("displacement", "u", U_TOL),
+                               ("acceleration", "a", A_TOL)):
+            _, errs[key] = check_close(
+                f"sharded basin {label} {name}",
+                getattr(sim.stepper.state, name).cpu(), basin[key], tol)
+        print(f"sharded basin 255^3 ({label}, one rank): pcg iterations {iters} "
+              f"(phase 13 {basin['iters']}); max abs err / max|phase 13| u "
+              f"{errs['u']:.3e}, a {errs['a']:.3e}; 4 frames {seconds:.3f} s; "
+              f"counts {counts}", flush=True)
+        counts_1d = counts_1d or counts
+        del sim
+        torch.cuda.empty_cache()
+    close_shard_group()
+
+    # (255^3 needs no padding; a smaller grid is padded to divide the cuts)
+    model = build_simulation(cfg, device=device, pad_x_multiple=4,
+                             pad_y_multiple=2).model
+    x = random_vector(model, device)
+    ref = sops.absorbing_force_structured(model, x)
+    for shape, two_d in (((4, 1), False), ((2, 2), True)):
+        for tile in local_tiles(model, shape, two_d):
+            cut = (tile.x0, tile.y0, *tile.local_extent)
+            got = sops.absorbing_force_structured(tile, cut_block(x, *cut))
+            if not torch.equal(got, cut_block(ref, *cut)):
+                fail(f"face terms of tile ({tile.x0}, {tile.y0}) of "
+                     f"{shape}: not the global term's block")
+            del tile, got
+        print(f"face terms of the 255^3 basin on {shape[0]}x{shape[1]} "
+              f"{'tiles' if two_d else 'slabs'}: equal to the global term's "
+              f"blocks, bit for bit", flush=True)
+    del model, x, ref
+    torch.cuda.empty_cache()
+    return dict(counts=counts_1d)
+
+
+def sharded_static_phase(device, static):
+    """Phase 27: the 255^3 static cantilever, classic, on a one-rank 1-D
+    shard (K5 + K3) through run_static, against phase 16's refined u
+    (within 2.5e-4 of max|u|), its iterations beside phase 16's."""
+    from civiwave_tpu_torch.parallel.sharding import (
+        close_shard_group, make_shard_group, shard_simulation)
+    from civiwave_tpu_torch.runner import build_simulation, run_static
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cfg = cantilever_config(max_iters=STATIC_MAX_ITERS,
+                            mesh={"path": "synthetic://box/%d,%d,%d" % FULL})
+    sim = shard_simulation(build_simulation(cfg, device=device),
+                           make_shard_group(1, device))
+    reset_sharded_counts()
+    u, payload = run_static(sim, variant="classic")
+    torch.cuda.synchronize()
+    counts = sharded_counts()
+    if not payload["converged"] or not bool(torch.isfinite(u).all()):
+        fail(f"sharded static 255^3: not converged in {payload['iterations']} "
+             f"iterations")
+    if counts["k5"] <= 0 or counts["bj"] <= 0 or counts["keff"] or counts["pc"]:
+        fail(f"sharded static 255^3: wrong kernels {counts}")
+    exact = static["exact"]
+    err = float((u.double() - exact).abs().max()) / float(exact.abs().max())
+    if not err <= U_TOL:
+        fail(f"sharded static 255^3: u {err:.3e} of max|u| from the refined "
+             f"solution > {U_TOL:g}")
+    print(f"sharded static 255^3 (classic, one rank): {payload['iterations']} "
+          f"iterations in {payload['elapsed_seconds']:.4f} s (phase 16 classic "
+          f"{static['classic']['iterations']} in {static['classic']['seconds']:.4f} "
+          f"s); u {err:.3e} of max|u| from phase 16's refined u (tol {U_TOL:g}); "
+          f"counts {counts}", flush=True)
+    del sim, u
+    close_shard_group()
+    torch.cuda.empty_cache()
+    return dict(counts=counts, iterations=payload["iterations"],
+                seconds=payload["elapsed_seconds"], err=err)
+
+
+def launch_across_gpus_phase():
+    """Phase 28: with two or more GPUs, ``parallel.launch
+    --against-one-rank`` over 2 ranks on the 66^3 tet cantilever (the
+    halo operator, rank 0's profile summaries of both runs printed) and
+    examples/seismic_basin.yaml (absorbing slabs); a failed check fails
+    the run.  With one GPU it prints that it skipped."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"launch across 2 GPUs: skipped ({count} GPU visible)", flush=True)
+        return
+    import shutil
+    import tempfile
+
+    n = GENERAL_N
+    traces = tempfile.mkdtemp(prefix="civiwave_traces_")
+    for label, args in (
+        (f"tet cantilever {n}^3", ["--cells", f"{n},{n},{n},tet", "--frames",
+                                   "4", "--profile", traces]),
+        ("seismic basin", ["--scenario", BASIN, "--frames", "4"]),
+    ):
+        proc = subprocess.run(
+            [sys.executable, "-m", "civiwave_tpu_torch.parallel.launch",
+             "--npx", "2", *args, "--against-one-rank", "--timeout", "240"],
+            capture_output=True, text=True, timeout=600)
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith(("against one rank", "2 rank", "1 rank",
+                                   "profile summary"))]
+        print(f"launch across 2 GPUs [{label}]: rc {proc.returncode}; " +
+              " | ".join(lines), flush=True)
+        if proc.returncode != 0:
+            fail(f"launch across 2 GPUs [{label}]: {proc.stderr[-2000:]}")
+    shutil.rmtree(traces, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -3489,7 +3880,7 @@ def main() -> int:
     column_trajectory_phase(device)
     slender_errs, slender_times = slender_kernel_phase(device, ss, mf)
     column_counts, column = column_main_path_phase(device)
-    basin_phase(device)
+    basin = basin_phase(device)
     halo_worst, halo_times = halo_kernel_phase(device, ss, mf)
     sharded = sharded_main_path_phase(device, split)
     static_tet_counts = static_example_phase(device)
@@ -3504,9 +3895,14 @@ def main() -> int:
         tet32=dict(k7=tet_timings["element_forces_tet"]["ms"],
                    g1=tet_timings["assemble_csr"]["ms"]))
     fp64 = fp64_paths_phase(device, static, tet_classic, column)
-    del static["exact"]
     ckpt = checkpoint_phase(device)
     profile_cli_phase()
+    general_halo_worst, general_halo_times = general_halo_phase(device, ss, mf)
+    general_shard = general_sharded_main_path_phase(device, tet_classic)
+    sharded_basin = sharded_basin_phase(device, basin)
+    sharded_static = sharded_static_phase(device, static)
+    del static["exact"], basin
+    launch_across_gpus_phase()
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
@@ -3559,7 +3955,9 @@ def main() -> int:
              ms=times["bj"][0], plain_ms=times["bj"][1],
              **structured_bound("bj"),
              launches_static=static_launches("bj"),
-             launches_pipelined_shard=pipelined["shard"]["counts"]["bj"]),
+             launches_pipelined_shard=pipelined["shard"]["counts"]["bj"],
+             launches_sharded_basin=sharded_basin["counts"]["bj"],
+             launches_sharded_static=sharded_static["counts"]["bj"]),
         dict(name="pcg_iteration_structured", route="cuda",
              source=src + "pcg_iteration_structured.cu",
              replaces=pallas + "structured_stencil.py:1226",
@@ -3584,7 +3982,10 @@ def main() -> int:
              **tet_timings["element_forces_tet"],
              launches_static=static_tet_counts["element_forces_tet"],
              launches_tet_basin=basin_counts["element_forces_tet"],
-             launches_pipelined=pipelined["general"]["counts"]["element_forces_tet"]),
+             launches_pipelined=pipelined["general"]["counts"]["element_forces_tet"],
+             launches_general_shard=general_shard["counts"]["element_forces_tet"],
+             max_rel_err_halo_shards=general_halo_worst[1],
+             ms_halo_shard8=general_halo_times[("tet", 8)]["max_ms"]),
         dict(name="assemble_csr", route="cuda", source=src + "assemble_csr.cu",
              replaces="civiwave_tpu/ops/apply_keff.py:283",
              launches=main_counts["assemble_csr"],
@@ -3594,7 +3995,8 @@ def main() -> int:
              bound_ms_hex66=g1_hex["bound_ms"],
              launches_static=static_tet_counts["assemble_csr"],
              launches_tet_basin=basin_counts["assemble_csr"],
-             launches_pipelined=pipelined["general"]["counts"]["assemble_csr"]),
+             launches_pipelined=pipelined["general"]["counts"]["assemble_csr"],
+             launches_general_shard=general_shard["counts"]["assemble_csr"]),
         # K4 and G2: errors over every grid of phase 11, device times at the
         # soil column's grid (and at 255^3), launches on its main path
         # (phase 12)
@@ -3628,7 +4030,9 @@ def main() -> int:
              ms_split=halo_times["slab256"]["split_ms"],
              ms_slab64=halo_times["slab64"]["ms"],
              bound_ms_slab64=halo_times["slab64"]["bound_ms"],
-             launches_pipelined_shard=pipelined["shard"]["counts"]["k5"]),
+             launches_pipelined_shard=pipelined["shard"]["counts"]["k5"],
+             launches_sharded_basin=sharded_basin["counts"]["k5"],
+             launches_sharded_static=sharded_static["counts"]["k5"]),
         # the f64 instances (phases 20-21): errors against the plain
         # versions in f64 (tol F64_TOL), times at the main-path shapes with
         # the f32 instance's beside them, bounds at the f64 rate, launches
@@ -3698,6 +4102,13 @@ def main() -> int:
           f"66^3: {fp64['tet']['steps_per_s']:.4f} steps/s; resume at 255^3 bit-equal "
           f"(checkpoint {ckpt['bytes']:,} bytes, save {ckpt['save_s']:.3f} s, restore "
           f"{ckpt['restore_s']:.3f} s)", flush=True)
+    print(f"sharded static 255^3 (one rank, classic): "
+          f"{sharded_static['iterations']} iterations, "
+          f"{sharded_static['seconds']:.4f} s, {sharded_static['err']:.3e} of "
+          f"max|u| from the refined u; general halo cuts K7 + G1 per shard "
+          f"(max over shards, ms): " + ", ".join(
+              f"{k[0]}/{k[1]} {v['max_ms']:.4f} (whole {v['whole_ms']:.4f})"
+              for k, v in general_halo_times.items()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -154,27 +154,38 @@ PACKED_META = (
     "node_count", "padded_node_count", "tet_count", "padded_tet_count",
     "hex_count", "padded_hex_count", "element_count", "csr_degree",
 )
-# fields of the JAX model that are not ported: the multi-device halo
-# tables (A11)
-UNPORTED_PACKED = (
-    "halo_conn", "halo_grads", "halo_vol", "halo_lam", "halo_mu",
-    "halo_csr_idx", "halo_csr_weight",
-)
+# the multi-device halo plan (the reference's parallel/general_halo.py,
+# attached by its shard_simulation): seven arrays, stacked over shards,
+# and four scalars; all or none
+PACKED_HALO = {
+    "halo_conn": np.int32,
+    "halo_grads": np.float32,
+    "halo_vol": np.float32,
+    "halo_lam": np.float32,
+    "halo_mu": np.float32,
+    "halo_csr_idx": np.int32,
+    "halo_csr_weight": np.float32,
+}
+PACKED_HALO_META = ("halo_block", "halo_local_nodes", "halo_ghost",
+                    "halo_elems")
 
 
 def packed_model_from_arrays(
     arrays: Mapping[str, np.ndarray], meta: Mapping[str, object], device
 ) -> PackedModel:
     """A :class:`PackedModel` on ``device`` from its array fields (as
-    numpy: ``PACKED_ARRAYS`` plus the optional ``PACKED_OPTIONAL``) and its
-    scalar fields (``PACKED_META``).  Halo fields that are not None raise
-    NotImplementedError; ``meta["has_damping"]`` without ``damp_blocks``
-    (or the reverse) raises ValueError."""
-    present = [k for k in UNPORTED_PACKED if arrays.get(k) is not None]
-    if present:
-        raise NotImplementedError(
-            f"packed-model fields {present} are not ported (halo exchange: "
-            "ROADMAP A11)"
+    numpy: ``PACKED_ARRAYS`` plus the optional ``PACKED_OPTIONAL`` and
+    ``PACKED_HALO``) and its scalar fields (``PACKED_META``, and
+    ``PACKED_HALO_META`` with the halo arrays).  Some but not all halo
+    arrays, or halo arrays without their scalars, raise ValueError, as
+    does ``meta["has_damping"]`` without ``damp_blocks`` (or the
+    reverse)."""
+    halo = [k for k in PACKED_HALO if arrays.get(k) is not None]
+    if halo and (len(halo) != len(PACKED_HALO)
+                 or any(meta.get(k) in (None, "") for k in PACKED_HALO_META)):
+        raise ValueError(
+            f"halo arrays {halo} need all of {sorted(PACKED_HALO)} and the "
+            f"scalars {list(PACKED_HALO_META)}"
         )
     has_blocks = arrays.get("damp_blocks") is not None
     if "has_damping" in meta and bool(meta["has_damping"]) != has_blocks:
@@ -186,10 +197,13 @@ def packed_model_from_arrays(
         name: torch.as_tensor(np.array(arrays[name], dtype), device=device)
         for name, dtype in PACKED_ARRAYS.items()
     }
-    for name, dtype in PACKED_OPTIONAL.items():
+    for name, dtype in {**PACKED_OPTIONAL, **PACKED_HALO}.items():
         value = arrays.get(name)
         fields[name] = (
             None if value is None
             else torch.as_tensor(np.array(value, dtype), device=device)
         )
+    if halo:
+        fields["halo_block"] = str(meta["halo_block"])
+        fields.update({k: int(meta[k]) for k in PACKED_HALO_META[1:]})
     return PackedModel(**fields, **{k: int(meta[k]) for k in PACKED_META})

@@ -25,11 +25,17 @@ together in L2.  Nodes are RCM-renumbered when that tightens the element
 spans (``mesh/renumber.py``); ``to_nodal``/``from_nodal`` translate.
 
 Left out, as TPU-only: the BLOCK_ELEMS = 4096 element padding (only the
-``pad_elems`` rounding stays), the banded gather windows and oct plans
-(ROADMAP "Do not port") and the halo fields of the multi-device path
-(A11).  Lysmer-Kuhlemeyer absorbing dashpots ride on the model as (N*, 6)
-sym-packed node blocks (``physics/absorbing.py``); the stepper sets
-``damp_factor`` (Newmark a1) on a copy of the model per step.
+``pad_elems`` rounding stays) and the banded gather windows and oct plans
+(ROADMAP "Do not port").  Lysmer-Kuhlemeyer absorbing dashpots ride on the
+model as (N*, 6) sym-packed node blocks (``physics/absorbing.py``); the
+stepper sets ``damp_factor`` (Newmark a1) on a copy of the model per step.
+
+A model can carry the multi-device halo plan (``parallel/general_halo.py``:
+the ``halo_*`` fields, stacked over shards) and can be a shard of one
+(``parallel.sharding.shard_general``): then its per-node tensors and
+vectors are its ``local_rows`` rows, its element and CSR tables are the
+ones its operator runs on, ``shard_window`` is the model that operator's
+kernels see, and ``to_nodal``/``from_nodal`` stay global.
 """
 
 from __future__ import annotations
@@ -142,6 +148,30 @@ class PackedModel:
     # perm_old_of_new inverts it; both padded to N* with an identity tail
     perm_new_of_old: Optional[torch.Tensor] = None  # (N*,) int64
     perm_old_of_new: Optional[torch.Tensor] = None  # (N*,) int64
+    # the banded halo plan (parallel/general_halo.py): on an unsharded model
+    # the tables of every shard stacked along their element (tables) or row
+    # (CSR) axis, as the reference's; on a shard this rank's own, with
+    # LOCAL node indices into its (L + G)-row window.  None / "" / 0 without
+    halo_conn: Optional[torch.Tensor] = None  # (S*E_s, nl) int32
+    halo_grads: Optional[torch.Tensor] = None  # tet (4,3,S*E_s) / hex (8,8,3,S*E_s)
+    halo_vol: Optional[torch.Tensor] = None  # tet (S*E_s,) / hex (8, S*E_s)
+    halo_lam: Optional[torch.Tensor] = None  # (S*E_s,)
+    halo_mu: Optional[torch.Tensor] = None  # (S*E_s,)
+    halo_csr_idx: Optional[torch.Tensor] = None  # (S*(L+G), D) int32
+    halo_csr_weight: Optional[torch.Tensor] = None  # (S*(L+G), D) f32
+    halo_block: str = ""
+    halo_local_nodes: int = 0  # L
+    halo_ghost: int = 0  # G
+    halo_elems: int = 0  # E_s
+    # a shard (parallel.sharding.shard_general): its group (a
+    # parallel.sharding.ShardGroup, None in in-process checks), its first
+    # global row and row count (0: unsharded), and the model its K7 + G1
+    # run on: the (L + G)-row window with the next rank's mask rows (the
+    # halo form) or the whole model (the all-gather form); None on one rank
+    shard_group: Optional[object] = None
+    shard_row0: int = 0
+    local_rows: int = 0
+    shard_window: Optional["PackedModel"] = None
     node_count: int = 0
     padded_node_count: int = 0
     tet_count: int = 0
@@ -154,6 +184,16 @@ class PackedModel:
     @property
     def has_damping(self) -> bool:
         return self.damp_blocks is not None
+
+    @property
+    def psum(self):
+        """The shard group's all-reduce (PCG's reduction hook), or None."""
+        return None if self.shard_group is None else self.shard_group.psum
+
+    @property
+    def halo(self) -> bool:
+        """Whether this shard runs the banded halo-exchange operator."""
+        return self.shard_window is not None and bool(self.halo_block)
 
     @property
     def device(self) -> torch.device:
@@ -170,7 +210,8 @@ class PackedModel:
     # --- operator protocol (shared with StructuredModel) -------------------
     @property
     def vector_shape(self) -> Tuple[int, ...]:
-        return (self.padded_node_count, 3)
+        """(N*, 3); a shard's (L, 3) rows."""
+        return (self.local_rows or self.padded_node_count, 3)
 
     @property
     def mass_b(self) -> torch.Tensor:
@@ -188,28 +229,48 @@ class PackedModel:
 
     def to_nodal(self, vector: torch.Tensor) -> torch.Tensor:
         """Solver vector -> (node_count, 3) nodal rows in the MESH's
-        original node order (inverse-permuting any RCM renumbering)."""
+        original node order (inverse-permuting any RCM renumbering).  On a
+        shard, gather the vector first (``parallel.sharding.gather``)."""
         if self.perm_new_of_old is not None:
             vector = vector[self.perm_new_of_old]
         return vector[: self.node_count]
 
     def from_nodal(self, rows) -> torch.Tensor:
-        """(node_count, 3) rows in original mesh order -> solver vector."""
+        """(node_count, 3) rows in original mesh order -> solver vector of
+        the whole model (a shard's rows: :meth:`own_rows`)."""
         rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
-        full = torch.zeros(self.vector_shape, dtype=torch.float32, device=self.device)
+        full = torch.zeros((self.padded_node_count, 3), dtype=torch.float32,
+                           device=self.device)
         full[: self.node_count] = rows[: self.node_count]
         if self.perm_old_of_new is not None:
             full = full[self.perm_old_of_new]
         return full
 
+    def own_rows(self, vector: torch.Tensor) -> torch.Tensor:
+        """This shard's rows of a whole-model (N*, ...) tensor (the tensor
+        itself on an unsharded model)."""
+        if not self.local_rows:
+            return vector
+        return vector[self.shard_row0:self.shard_row0 + self.local_rows]
+
     def apply_keff(self, x, stiffness_scale, mass_factor):
         from ..ops import apply_keff as _ops
 
+        if self.shard_window is not None:
+            from ..ops import general_sharded as _sharded
+
+            return _sharded.apply_keff_general_sharded(
+                self, x, stiffness_scale, mass_factor)
         return _ops.apply_keff(self, x, stiffness_scale, mass_factor)
 
     def assemble_node_blocks(self, stiffness_scale, mass_factor):
         from ..ops import block_jacobi as _ops
 
+        if self.shard_window is not None:
+            from ..ops import general_sharded as _sharded
+
+            return _sharded.node_blocks_general_sharded(
+                self, stiffness_scale, mass_factor)
         return _ops.assemble_node_blocks(self, stiffness_scale, mass_factor)
 
     def build_preconditioner(self, stiffness_scale, mass_factor):
@@ -232,8 +293,10 @@ class PackedModel:
     def prefers_fused_pcg(self, block_inverse, vector_dtype) -> bool:
         """'auto' variant probe: the general path has no fused
         pc+matvec+dots kernel, so 'auto' stays classic, as in the
-        reference."""
-        return False
+        reference, except on a shard that runs the halo operator (one
+        all-reduce per iteration instead of two or three; the reference
+        marks only such a model as sharded)."""
+        return self.halo
 
     def absorbing_force(self, v: torch.Tensor) -> torch.Tensor:
         """C v from the dashpots, zeroed on constrained axes (zeros without

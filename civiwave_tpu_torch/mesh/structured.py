@@ -240,11 +240,13 @@ class StructuredModel:
         return _ops.build_compact_block_jacobi(self, stiffness_scale, mass_factor)
 
     def prefers_fused_pcg(self, block_inverse, vector_dtype) -> bool:
-        """'auto' variant probe: Chronopoulos-Gear wherever the fused
-        pc+matvec+dots kernel runs (CUDA, f32), classic elsewhere and
-        under multigrid."""
+        """'auto' variant probe: Chronopoulos-Gear on a shard and wherever
+        the fused pc+matvec+dots kernel runs (CUDA, f32), classic
+        elsewhere and under multigrid."""
         from ..ops import structured as _ops
 
+        if self.shard_group is not None:
+            return True  # one all-reduce per iteration on a shard
         if self.multigrid:
             return False
         return _ops.pc_keff_kernel_eligible(self, block_inverse, vector_dtype)

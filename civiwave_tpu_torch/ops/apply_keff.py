@@ -180,11 +180,26 @@ def add_dashpot_term(model: PackedModel, out, x):
 add_dashpot_term.calls = 0  # applications of the term (torch ops, no kernel)
 
 
+def elastic_keff_plain(model: PackedModel, x, stiffness_scale, mass_factor):
+    """Plain PyTorch ``bc ? x : K x + mf m xs``: the operator without the
+    dashpot term."""
+    rows = element_force_rows(model, sanitize(model, x), stiffness_scale)
+    return finish_keff(model, assemble(model, rows), x, mass_factor)
+
+
 def apply_keff_plain(model: PackedModel, x, stiffness_scale, mass_factor):
     """Plain PyTorch K_eff * x with Dirichlet identity rows."""
-    rows = element_force_rows(model, sanitize(model, x), stiffness_scale)
-    out = finish_keff(model, assemble(model, rows), x, mass_factor)
+    out = elastic_keff_plain(model, x, stiffness_scale, mass_factor)
     return add_dashpot_term(model, out, x)
+
+
+def elastic_keff(model: PackedModel, x, stiffness_scale, mass_factor):
+    """The operator without the dashpot term: the plain version for a CPU
+    tensor, K7 (each block present) then G1 for a CUDA one."""
+    if x.device.type == "cpu":
+        return elastic_keff_plain(model, x, stiffness_scale, mass_factor)
+    rows = element_forces.element_force_rows(model, x, stiffness_scale)
+    return assemble_csr.assemble_keff(model, rows, x, mass_factor)
 
 
 def apply_keff(
@@ -199,8 +214,5 @@ def apply_keff(
     hex) and G1 (their f64 instances for f64, ``precision.vectors: fp64``),
     or raises; the dashpot term follows either.
     """
-    if x.device.type == "cpu":
-        return apply_keff_plain(model, x, stiffness_scale, mass_factor)
-    rows = element_forces.element_force_rows(model, x, stiffness_scale)
-    out = assemble_csr.assemble_keff(model, rows, x, mass_factor)
+    out = elastic_keff(model, x, stiffness_scale, mass_factor)
     return add_dashpot_term(model, out, x)

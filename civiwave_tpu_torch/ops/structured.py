@@ -431,14 +431,15 @@ def apply_keff_structured(
 ) -> torch.Tensor:
     """K_eff * x in CSG layout: K1 (or K4 + G2 on :func:`slender_route`)
     on CUDA, the plain forms on CPU; plus the absorbing-face term.  A
-    shard takes the sharded operator (ghost exchange + K5)."""
+    shard takes the sharded operator (ghost exchange + K5) and the terms
+    of the faces its block holds."""
     if model.shard_group is not None:
         from .structured_sharded import apply_keff_structured_sharded
 
-        return apply_keff_structured_sharded(
+        out = apply_keff_structured_sharded(
             model, x, stiffness_scale, mass_factor
         )
-    if slender_route(model, x.dtype):
+    elif slender_route(model, x.dtype):
         out = apply_keff_split_structured(model, x, stiffness_scale, mass_factor)
     else:
         out = _k12.apply_keff_fused(model, x, stiffness_scale, mass_factor)
@@ -868,16 +869,26 @@ _FACE_TAGS = {"x0": (0, 0), "x1": (0, 1), "y0": (1, 0), "y1": (1, 1),
 
 
 @lru_cache(maxsize=64)
-def _face_weights(tag, spacing, extents, plane_shape, rho_cp, rho_cs, device):
+def _face_weights(tag, spacing, extents, offsets, local_shape, rho_cp,
+                  rho_cs, device):
     """(plane index, (3, 1, 1) impedances, (d1, d2) tributary areas) of
-    one absorbing face, f32 on ``device``, uploaded once."""
+    one absorbing face on a block of ``local_shape`` nodes at node
+    ``offsets`` of the grid (a shard's; zeros unsharded), f32 on
+    ``device``, uploaded once; None where the block does not hold the
+    face's plane.  Plane and edges lie at global coordinates: only the end
+    slabs (and in 2-D the edge tiles) hold x/y faces, an X-padded grid's
+    x1 plane need not lie in the last slab, and the halved tributary areas
+    fall on the grid's edges, not a block's."""
     axis, side = _FACE_TAGS[tag]
+    plane = (0 if side == 0 else extents[axis]) - offsets[axis]
+    if not 0 <= plane < local_shape[axis]:
+        return None
     in_plane = [a for a in range(3) if a != axis]
     area = float(spacing[in_plane[0]] * spacing[in_plane[1]])
     sl = [slice(None)] * 4
-    sl[1 + axis] = 0 if side == 0 else extents[axis]
+    sl[1 + axis] = plane
     half, one = np.float32(0.5), np.float32(1.0)
-    r1, r2 = np.arange(plane_shape[0]), np.arange(plane_shape[1])
+    r1, r2 = (offsets[a] + np.arange(local_shape[a]) for a in in_plane)
     w1 = np.where((r1 == 0) | (r1 == extents[in_plane[0]]), half, one)
     w2 = np.where((r2 == 0) | (r2 == extents[in_plane[1]]), half, one)
     aw = np.float32(area) * (w1[:, None] * w2[None, :])
@@ -891,7 +902,8 @@ def _face_weights(tag, spacing, extents, plane_shape, rho_cp, rho_cs, device):
 
 
 def _face_damp_terms(model: StructuredModel, x: torch.Tensor):
-    """Yield (plane index, masked C x term) per absorbing face.
+    """Yield (plane index, masked C x term) per absorbing face the model's
+    block holds (every face on an unsharded model).
 
     Per node on face (axis, side) C is diagonal in the grid frame: rho*c_p
     against the normal component, rho*c_s tangential, times the tributary
@@ -900,15 +912,15 @@ def _face_damp_terms(model: StructuredModel, x: torch.Tensor):
     the input plane is sanitized, so the term is P_free C P_free:
     symmetric, as CG requires."""
     extents = (model.nx, model.ny, model.nz)
+    offsets = (model.x0, model.y0, 0)
     for tag in model.absorb_faces:
-        axis, _ = _FACE_TAGS[tag]
-        plane_shape = tuple(
-            s for a, s in enumerate(model.grid_shape) if a != axis
+        face = _face_weights(
+            tag, model.spacing, extents, offsets, model.grid_shape,
+            model.rho_cp, model.rho_cs, x.device,
         )
-        sl, coef, aw = _face_weights(
-            tag, model.spacing, extents, plane_shape, model.rho_cp,
-            model.rho_cs, x.device,
-        )
+        if face is None:
+            continue
+        sl, coef, aw = face
         bc_plane = model.bc_mask[sl]
         xs_plane = x[sl].masked_fill(bc_plane, 0.0)
         yield sl, (coef * (aw[None] * xs_plane)).masked_fill(bc_plane, 0.0)

@@ -11,11 +11,16 @@ functions over ``torch.distributed`` that count their calls, so tests and
   One call is one ghost exchange (2 per matvec on a 1-D group, 4 on a 2-D
   one);
 * :func:`psum` — an all-reduce sum (one per fused PCG iteration, of an f64
-  ``(3,)`` tensor).
+  ``(3,)`` tensor);
+* :func:`all_gather` — every rank's block, concatenated along the first
+  axis: the general path's fallback operator gathers the sanitized x once
+  per matvec where no halo plan holds (the reference's GSPMD form makes
+  the same all-gather implicitly).
 
-``ppermute.calls``, ``psum.calls`` and ``psum.shapes`` (a Counter of
-``(dtype, shape)``) are plain counters that only these functions
-increment; :func:`reset_counts` zeroes them.
+``ppermute.calls``, ``psum.calls``, ``psum.shapes`` (a Counter of
+``(dtype, shape)``) and ``all_gather.calls`` are plain counters that only
+these functions increment; :func:`reset_counts` zeroes them.  Gathers of a
+field for host output (``parallel.sharding.gather``) are not counted.
 """
 
 from __future__ import annotations
@@ -68,7 +73,17 @@ def psum(tensor, group=None):
     return tensor
 
 
+def all_gather(tensor, group=None, count: bool = True) -> torch.Tensor:
+    """Every rank's ``tensor`` (equal shapes), concatenated along dim 0 in
+    rank order.  ``count=False``: a gather for host output, not counted."""
+    parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, tensor.contiguous(), group=group)
+    all_gather.calls += count
+    return torch.cat(parts)
+
+
 def reset_counts() -> None:
+    all_gather.calls = 0
     ppermute.calls = 0
     psum.calls = 0
     psum.shapes = Counter()

@@ -28,21 +28,32 @@ planes (and, in 2-D, ghost rows) with its neighbours
   call it on a shard).
 
 Ranks are ordered X-major: rank ``px * npy + py`` holds tile ``(px, py)``,
-as the reference's 2-D mesh lays X slowest.  The general path's sharding
-(the reference's ``shard_simulation`` of a packed model and its
-``model_shardings``) is not ported (ROADMAP A11).
+as the reference's 2-D mesh lays X slowest.
+
+The general path (the reference's ``shard_simulation`` of a packed model)
+shards over a 1-D group by contiguous node rows: :func:`shard_general`
+gives rank s rows ``[s L, (s+1) L)`` (L = N*/n; build with
+``pad_nodes`` a multiple of n) and, where the banded halo plan holds
+(``parallel/general_halo.py``), its elements, their (L + G)-row window
+and the next rank's mask rows (exchanged once); elsewhere, or with
+``CIVIWAVE_GENERAL_HALO=0``, it keeps the whole model's tables for the
+all-gather form (``ops/general_sharded.py``).  One rank keeps the
+single-device operator with the group's reductions, as the reference.
+:func:`gather` reassembles a global vector of either route.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import List, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..mesh.pack import SimState
+from ..mesh.pack import PackedModel, SimState
 from ..utils.errors import ShardError
 from . import collectives
 
@@ -234,11 +245,6 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
     it."""
     from ..ops.structured_sharded import exchange_ghosts
 
-    if model.absorb_faces:
-        raise NotImplementedError(
-            "absorbing faces on a sharded structured model are not ported "
-            "yet (ROADMAP A11)"
-        )
     if model.shard_group is not None:
         raise ShardError("the model is already a shard")
     if model.preconditioner == "multigrid":
@@ -262,39 +268,45 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
 
 
 def shard_simulation(sim, group: ShardGroup):
-    """This rank's shard of ``sim``, a ``runner.Simulation`` on the
-    structured route whose grid divides the group (build it with
-    ``build_simulation(..., pad_x_multiple=npx, pad_y_multiple=npy)``):
-    its model, state and force cut by :func:`shard_structured`, each part
-    of its force schedule cut to the same block, and a new
-    ``NewmarkStepper`` over them with the old one's settings, dt, time and
-    frame.  A collective: every rank of the group calls it.  A simulation
-    built with an output root raises NotImplementedError (ROADMAP A11)."""
+    """This rank's shard of ``sim``, a ``runner.Simulation``: on the
+    structured route a grid that divides the group (build it with
+    ``build_simulation(..., pad_x_multiple=npx, pad_y_multiple=npy)``),
+    its model, state and force cut by :func:`shard_structured` and each
+    part of its force schedule cut to the same block; on the general path
+    a packed model whose N* divides the 1-D group (``pad_nodes`` a
+    multiple of n), cut by :func:`shard_general` (its curve loads are cut
+    per frame, ``Simulation._force_at``).  Either gets a new
+    ``NewmarkStepper`` over the shard with the old one's settings, dt,
+    time and frame.  A collective: every rank of the group calls it.  A
+    simulation built with an output root raises NotImplementedError
+    (ROADMAP A11)."""
     from ..mesh.structured_config import StructuredForceSchedule
     from ..solver.stepper import NewmarkStepper
 
-    if sim.force_schedule is None:
-        raise NotImplementedError(
-            "sharding the general gather path is not ported yet (ROADMAP A11)"
-        )
     if sim.output is not None:
         raise NotImplementedError(
             "output of a sharded simulation is not ported yet (ROADMAP A11)"
         )
     old = sim.stepper
-    model, state, force = shard_structured(
-        sim.model, old.state, old.external_force, group
-    )
-    x0, y0, (xl, yl) = model.x0, model.y0, model.local_extent
+    schedule = None
+    if sim.force_schedule is None:
+        model, state, force = shard_general(
+            sim.model, old.state, old.external_force, group
+        )
+    else:
+        model, state, force = shard_structured(
+            sim.model, old.state, old.external_force, group
+        )
+        x0, y0, (xl, yl) = model.x0, model.y0, model.local_extent
 
-    def cut(t):
-        return cut_block(t, x0, y0, xl, yl).to(group.device)
+        def cut(t):
+            return cut_block(t, x0, y0, xl, yl).to(group.device)
 
-    schedule = StructuredForceSchedule(
-        base=cut(sim.force_schedule.base),
-        curve_parts=[(name, cut(part))
-                     for name, part in sim.force_schedule.curve_parts],
-    )
+        schedule = StructuredForceSchedule(
+            base=cut(sim.force_schedule.base),
+            curve_parts=[(name, cut(part))
+                         for name, part in sim.force_schedule.curve_parts],
+        )
     stepper = NewmarkStepper(
         model, state, force, old.rayleigh, old.solver_settings,
         old.time_settings, adaptive_policy=old.adaptive_policy,
@@ -325,3 +337,224 @@ def gather_structured(vector: torch.Tensor, group: ShardGroup) -> torch.Tensor:
         for px in range(group.npx)
     ]
     return torch.cat(rows, dim=1)
+
+
+def gather(model, vector: torch.Tensor) -> torch.Tensor:
+    """The global vector of a shard's ``vector`` (a collective; the
+    vector itself on one rank): :func:`gather_general` on the general
+    path, :func:`gather_structured` on the structured route."""
+    if isinstance(model, PackedModel):
+        return gather_general(vector, model.shard_group)
+    return gather_structured(vector, model.shard_group)
+
+
+# --- the general path -------------------------------------------------------
+
+
+def gather_general(vector: torch.Tensor, group: ShardGroup) -> torch.Tensor:
+    """The global ``(N*, ...)`` vector from every rank's rows (an
+    all-gather in rank order, not counted; a collective)."""
+    if group.size == 1:
+        return vector
+    return collectives.all_gather(vector, count=False)
+
+
+def general_plan(model: PackedModel, n: int):
+    """The halo plan of ``model`` over ``n`` shards as a dict
+    (``general_halo.HALO_ARRAYS`` + ``HALO_META``): the tables the model
+    carries (``convert`` brings the reference's across) where they were
+    made for ``n`` shards, else :func:`general_halo.plan_general_halo`'s
+    (None where no plan holds)."""
+    from .general_halo import HALO_ARRAYS, HALO_META, plan_general_halo
+
+    if (model.halo_conn is not None
+            and model.halo_local_nodes * n == model.padded_node_count):
+        return {k: getattr(model, k) for k in HALO_ARRAYS + HALO_META}
+    return plan_general_halo(model, n)
+
+
+def _own(array, device) -> torch.Tensor:
+    """A contiguous tensor of its own on ``device`` (never a view: the
+    kernels read conn as int4 and CSR rows as 16-byte copies)."""
+    if isinstance(array, np.ndarray):
+        return torch.tensor(np.ascontiguousarray(array), device=device)
+    return array.to(device).clone(memory_format=torch.contiguous_format)
+
+
+def _without_elements(model: PackedModel) -> PackedModel:
+    """``model`` with empty element and CSR tables (new tensors, so the
+    whole model's are not kept alive): a shard's, whose K7 + G1 run on its
+    ``shard_window``."""
+    def empty(t, axis):
+        shape = list(t.shape)
+        shape[axis] = 0
+        return t.new_empty(shape)
+
+    tables = {}
+    for block in ("tet", "hex"):
+        for k in ("conn", "lam", "mu", "mat"):
+            tables[f"{k}_{block}"] = empty(getattr(model, f"{k}_{block}"), 0)
+        for k in ("grads", "vol"):
+            tables[f"{k}_{block}"] = empty(getattr(model, f"{k}_{block}"), -1)
+    return dataclasses.replace(
+        model, **tables, csr_idx=empty(model.csr_idx, 0),
+        csr_weight=empty(model.csr_weight, 0), padded_tet_count=0,
+        padded_hex_count=0)
+
+
+def _halo_shard(model, plan, s: int, bc_ghost, device):
+    """Shard ``s`` of ``model`` under ``plan``, halo form: its rows of the
+    per-node tensors and the plan's scalars, and ``shard_window``, the
+    (L + G)-row model its K7 + G1 run on: its block's element and CSR
+    tables (each its own tensor; the plan holds for one block only, so the
+    other is empty), its rows, then G ghost rows with zero mass and the
+    next shard's first G mask rows (``bc_ghost``, False past the end)."""
+    from .general_halo import HALO_ARRAYS
+
+    L, G, E = (int(plan[k]) for k in
+               ("halo_local_nodes", "halo_ghost", "halo_elems"))
+    e = slice(s * E, (s + 1) * E)
+    r = slice(s * (L + G), (s + 1) * (L + G))
+    block = plan["halo_block"]
+    rows = slice(s * L, (s + 1) * L)
+    no_halo = {k: None for k in HALO_ARRAYS}
+
+    def cut(t):
+        return None if t is None else _own(t[rows], device)
+
+    def ext(t, fill):
+        return torch.cat([cut(t), fill.to(device)])
+
+    window = dataclasses.replace(
+        model,
+        **{f"{k}_{block}": _own(plan[f"halo_{k}"][e], device)
+           for k in ("conn", "lam", "mu")},
+        **{f"{k}_{block}": _own(plan[f"halo_{k}"][..., e], device)
+           for k in ("grads", "vol")},
+        **{f"mat_{block}": torch.zeros(E, dtype=torch.int32, device=device),
+           f"padded_{block}_count": E},
+        csr_idx=_own(plan["halo_csr_idx"][r], device),
+        csr_weight=_own(plan["halo_csr_weight"][r], device),
+        position0=ext(model.position0, torch.zeros((G, 3))),
+        lumped_mass=ext(model.lumped_mass, torch.zeros(G)),
+        bc_mask=ext(model.bc_mask, bc_ghost),
+        bc_value=ext(model.bc_value, torch.zeros((G, 3))),
+        damp_blocks=None, damp_factor=None, perm_new_of_old=None,
+        perm_old_of_new=None, node_count=L + G, padded_node_count=L + G,
+        **no_halo, halo_block="", halo_local_nodes=0, halo_ghost=0,
+        halo_elems=0,
+    )
+    return dataclasses.replace(
+        _without_elements(model), **no_halo,
+        halo_block=block, halo_local_nodes=L, halo_ghost=G, halo_elems=E,
+        position0=cut(model.position0), lumped_mass=cut(model.lumped_mass),
+        bc_mask=cut(model.bc_mask), bc_value=cut(model.bc_value),
+        damp_blocks=cut(model.damp_blocks), shard_row0=s * L, local_rows=L,
+        shard_window=window,
+    )
+
+
+def _row_shard(model, s: int, n: int, window):
+    """Shard ``s`` of ``n`` without a plan: its rows of the per-node
+    tensors; its K7 + G1 run on ``window`` (the whole model; None on one
+    rank, whose operator is the model's own)."""
+    L = model.padded_node_count // n
+    rows = slice(s * L, (s + 1) * L)
+
+    def cut(t):
+        return None if t is None else t[rows]
+
+    return dataclasses.replace(
+        model if window is None else _without_elements(window),
+        position0=cut(model.position0), lumped_mass=cut(model.lumped_mass),
+        bc_mask=cut(model.bc_mask), bc_value=cut(model.bc_value),
+        damp_blocks=cut(model.damp_blocks), damp_factor=None,
+        shard_row0=s * L, local_rows=L, shard_window=window,
+    )
+
+
+def _check_general(model, n: int) -> None:
+    if model.shard_window is not None or model.local_rows:
+        raise ShardError("the model is already a shard")
+    if model.padded_node_count % n:
+        raise ShardError(
+            "the padded node count must divide the shard group "
+            "(build with pad_nodes = 8 * n)",
+            [f"nodes={model.padded_node_count}", f"ranks={n}"],
+        )
+
+
+def _halo_enabled() -> bool:
+    """The reference's switch: ``CIVIWAVE_GENERAL_HALO=0`` forces the
+    fallback (all-gather here, GSPMD there)."""
+    return os.environ.get("CIVIWAVE_GENERAL_HALO", "auto") != "0"
+
+
+def shard_general(model: PackedModel, state: SimState, external_force,
+                  group: ShardGroup):
+    """This rank's shard of a PackedModel simulation over a 1-D group:
+    ``(model, state, force)`` cut to its L = N*/n rows on the group's
+    device.  With n > 1 and a halo plan the model runs the halo operator
+    (the next rank's first G mask rows come over once, here); without a
+    plan, or with ``CIVIWAVE_GENERAL_HALO=0``, the all-gather form; one
+    rank keeps the single-device operator.  A collective: every rank of
+    the group calls it."""
+    from .collectives import ppermute
+    from .general_halo import HALO_ARRAYS
+
+    if group.two_d:
+        raise ShardError("the general path shards over a 1-D group",
+                         [f"npx={group.npx}", f"npy={group.npy}"])
+    n, s, device = group.size, group.rank, group.device
+    _check_general(model, n)
+    model = _to_device(model, device)
+    plan = general_plan(model, n) if n > 1 and _halo_enabled() else None
+    if plan is None:
+        window = None
+        if n > 1:
+            window = dataclasses.replace(
+                model, damp_blocks=None, damp_factor=None,
+                **{k: None for k in HALO_ARRAYS}, halo_block="")
+        local = _row_shard(model, s, n, window)
+    else:
+        L, G = int(plan["halo_local_nodes"]), int(plan["halo_ghost"])
+        bc_ghost = model.bc_mask[s * L:s * L + G]
+        if G:
+            bc_ghost = ppermute(bc_ghost.to(torch.uint8),
+                                group.pairs(0, -1)).bool()
+        local = _halo_shard(model, plan, s, bc_ghost, device)
+    local = dataclasses.replace(local, shard_group=group)
+    fields = (state.displacement, state.velocity, state.acceleration,
+              state.warm_x)
+    return (local, SimState(*(local.own_rows(v).to(device) for v in fields)),
+            local.own_rows(external_force).to(device))
+
+
+def _to_device(model: PackedModel, device) -> PackedModel:
+    """``model`` with every tensor field on ``device``."""
+    device = torch.device(device)
+    changes = {
+        f.name: getattr(model, f.name).to(device)
+        for f in dataclasses.fields(model)
+        if isinstance(getattr(model, f.name), torch.Tensor)
+    }
+    return dataclasses.replace(model, **changes)
+
+
+def local_general_shards(model: PackedModel, n: int):
+    """Every shard of an ``n``-way halo cut of ``model`` in one process,
+    without a group, each with its next shard's mask rows cut from the
+    global mask: what :func:`shard_general` gives each rank (for checks of
+    the shard operator).  Raises ShardError where no plan holds."""
+    _check_general(model, n)
+    plan = general_plan(model, n)
+    if plan is None:
+        raise ShardError("no halo plan holds for this model",
+                         [f"ranks={n}"])
+    L, G = int(plan["halo_local_nodes"]), int(plan["halo_ghost"])
+    mask = torch.cat([model.bc_mask, model.bc_mask.new_zeros((G, 3))])
+    return [
+        _halo_shard(model, plan, s, mask[(s + 1) * L:(s + 1) * L + G],
+                    model.device)
+        for s in range(n)
+    ]

@@ -151,8 +151,9 @@ class Simulation:
         load = loads_mod.assemble_load_vector(
             self.mesh, self.config, self.preprocess, t
         )
-        # from_nodal handles padding AND any RCM renumbering of the pack
-        return self.model.from_nodal(pack.clamp_to_f32(load))
+        # from_nodal handles padding AND any RCM renumbering of the pack; a
+        # shard keeps its own rows
+        return self.model.own_rows(self.model.from_nodal(pack.clamp_to_f32(load)))
 
 
 def _load_mesh(cfg: Config, scenario_path: str) -> Mesh:
@@ -186,7 +187,7 @@ def _load_mesh(cfg: Config, scenario_path: str) -> Mesh:
 def build_simulation(
     scenario: Union[str, Config], device="cuda",
     output_root: Optional[str] = None, *, pad_x_multiple: int = 1,
-    pad_y_multiple: int = 1,
+    pad_y_multiple: int = 1, pad_nodes: int = 8,
 ) -> Simulation:
     """Wire the structured route or the general gather path from a
     scenario path or a parsed Config, with every tensor on ``device``.
@@ -195,8 +196,10 @@ def build_simulation(
     probe rows there (the structured route on the device, the general path
     from the host mesh).  On the structured route the pad multiples add
     dead +X planes and +Y rows so the grid divides an ``(npx, npy)`` shard
-    group (``parallel.sharding.shard_simulation``, which refuses a
-    simulation with output: ROADMAP A11)."""
+    group; on the general path the node count is padded to a multiple of
+    ``pad_nodes`` (``8 * n`` for an n-rank group, as the reference packs)
+    so it divides the group (``parallel.sharding.shard_simulation``, which
+    refuses a simulation with output: ROADMAP A11)."""
     if isinstance(scenario, Config):
         cfg, scenario_path = scenario, ""
     else:
@@ -229,7 +232,7 @@ def build_simulation(
         mesh = _load_mesh(cfg, scenario_path)
         pre = preprocess.run(mesh, cfg)
         model, _state, force = pack.build_packed_model(
-            mesh, pre, cfg, mats, device=device
+            mesh, pre, cfg, mats, pad_nodes=pad_nodes, device=device
         )
         print(
             f"path: general gather path ({mesh.element_count:,} elements, "
@@ -269,7 +272,8 @@ def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, di
     VTU frame 0 and probe rows.  Returns (u in the model's vector layout,
     the telemetry payload of ``--telemetry-json``: mode, iterations,
     residual_norm, rhs_norm, converged, tolerance, max_displacement,
-    elapsed_seconds).  ``variant`` is the PCG variant; 'auto' is what the
+    elapsed_seconds).  On a shard u is this rank's and every rank calls it
+    (the payload's max|u| gathers the field).  ``variant`` is the PCG variant; 'auto' is what the
     CLI runs, as the reference does; 'pipelined' replaces its residual
     every ``solver.replace_every`` iterations of the scenario."""
     from .mesh.pack import SimState
@@ -290,6 +294,11 @@ def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, di
     )
     residual, rhs_norm = torch.stack([pcg.residual_norm, pcg.rhs_norm]).tolist()
     elapsed = time.perf_counter() - start
+    u_all = u
+    if getattr(sim.model, "shard_group", None) is not None:
+        from .parallel.sharding import gather
+
+        u_all = gather(sim.model, u)  # a collective: every rank calls it
 
     # the solution through the stepper, so both output managers read it
     zero = torch.zeros_like(u)
@@ -306,7 +315,7 @@ def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, di
         "rhs_norm": rhs_norm,
         "converged": bool(pcg.converged),
         "tolerance": tolerance,
-        "max_displacement": float(sim.model.to_nodal(u).abs().max()),
+        "max_displacement": float(sim.model.to_nodal(u_all).abs().max()),
         "elapsed_seconds": elapsed,
     }
 

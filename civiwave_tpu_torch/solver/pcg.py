@@ -108,6 +108,17 @@ def _flags(*conds: torch.Tensor):
     return [bool(v) for v in torch.stack(conds).tolist()]
 
 
+def resolve_variant(model, variant: str, block_inverse, vector_dtype) -> str:
+    """The PCG variant :func:`solve_pcg` runs for ``variant``: 'auto'
+    becomes 'fused' where the model says it profits and 'classic'
+    otherwise, as the reference (pcg.py:173-182); any other is kept."""
+    if variant != "auto":
+        return variant
+    prefers = getattr(model, "prefers_fused_pcg", None)
+    fused = prefers is not None and prefers(block_inverse, vector_dtype)
+    return "fused" if fused else "classic"
+
+
 def solve_pcg(
     model,
     rhs: torch.Tensor,
@@ -132,9 +143,10 @@ def solve_pcg(
     recurrence (:func:`solve_pcg_fused`); 'pipelined' the Ghysels-Vanroose
     recurrence (:func:`solve_pcg_pipelined`); 'auto' picks 'fused' where
     the model runs the fused pc+matvec+dots kernel (CUDA, f32, not under
-    multigrid) and 'classic' otherwise, and always on a shard (one
-    all-reduce per iteration instead of two or three, as the reference's
-    pcg.py:181-182).  On a shard every reduction goes through
+    multigrid) and on a shard the reference marks as sharded (a structured
+    shard, a general one under the halo operator: one all-reduce per
+    iteration instead of two or three, as the reference's pcg.py:181-182),
+    and 'classic' otherwise.  On a shard every reduction goes through
     ``model.psum``; every rank reads the same flags because the reduced
     scalars are the same.
 
@@ -147,19 +159,7 @@ def solve_pcg(
         if preconditioner is None
         else preconditioner
     )
-    if variant == "auto":
-        # as the reference (pcg.py:173-182): fused where the model says it
-        # profits (a fused pc+matvec+dots kernel), classic otherwise and for
-        # models with no preference
-        prefers = getattr(model, "prefers_fused_pcg", None)
-        sharded = getattr(model, "shard_group", None) is not None
-        variant = (
-            "fused"
-            if sharded or (
-                prefers is not None and prefers(block_inverse, vector_dtype)
-            )
-            else "classic"
-        )
+    variant = resolve_variant(model, variant, block_inverse, vector_dtype)
     if variant == "fused":
         return solve_pcg_fused(
             model, rhs, stiffness_scale, mass_factor, relative_tolerance,

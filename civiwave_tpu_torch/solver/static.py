@@ -47,13 +47,13 @@ def solve_static(
     ``variant`` 'auto' is what the reference runs: fused (K2, or K6 under
     ``CIVIWAVE_MEGA_PCG=1``) on a structured model on CUDA in f32, classic
     on the CPU, on the general path and under multigrid.  ``replace_every``
-    is the pipelined variant's residual-replacement period.  A shard of a
-    sharded model raises NotImplementedError (ROADMAP A11).
+    is the pipelined variant's residual-replacement period.  On a shard
+    (a structured slab or tile, a general row block) the clamp and the cold
+    start are row-local, the vectors are the shard's and every dot goes
+    through ``model.psum``; 'auto' is then fused, as under the reference's
+    GSPMD, except on a general shard without the halo operator.  Every rank
+    of the group calls it.
     """
-    if getattr(model, "shard_group", None) is not None:
-        raise NotImplementedError(
-            "static solves of a sharded model are not ported yet (ROADMAP A11)"
-        )
     vdt = torch.float64 if vector_precision == "fp64" else torch.float32
     scalar = np.float64 if vector_precision == "fp64" else np.float32
     one, zero = scalar(1.0), scalar(0.0)

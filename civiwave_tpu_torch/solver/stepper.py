@@ -36,7 +36,7 @@ from ..config.schema import SolverSettings, TimeSettings
 from ..mesh.pack import SimState
 from ..physics.materials import RayleighCoefficients
 from ..utils.profiling import scope
-from .pcg import PcgTelemetry, solve_pcg
+from .pcg import PcgTelemetry, resolve_variant, solve_pcg
 
 
 @dataclass(frozen=True)
@@ -289,6 +289,12 @@ class NewmarkStepper:
     def dof_count(self) -> int:
         return self.model.dof_count
 
+    def pcg_variant(self) -> str:
+        """The PCG variant this stepper's solves run: ``solver_variant``,
+        'auto' resolved as ``solver.pcg.solve_pcg`` resolves it."""
+        return resolve_variant(self.model, self.solver_variant, self._precond,
+                               self._vector_dtype())
+
     def set_external_force(self, external_force: torch.Tensor) -> None:
         self.external_force = external_force
 
@@ -422,11 +428,10 @@ class NewmarkStepper:
     # global vector first: a collective, so every rank of the group calls
     # it, and every rank gets the whole field.
     def _nodal(self, vector: torch.Tensor) -> np.ndarray:
-        group = getattr(self.model, "shard_group", None)
-        if group is not None:
-            from ..parallel.sharding import gather_structured
+        if getattr(self.model, "shard_group", None) is not None:
+            from ..parallel.sharding import gather
 
-            vector = gather_structured(vector, group)
+            vector = gather(self.model, vector)
         return self.model.to_nodal(vector).cpu().numpy()
 
     def displacement(self) -> np.ndarray:

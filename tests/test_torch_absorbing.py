@@ -149,9 +149,10 @@ def test_convert_carries_the_absorbing_fields():
     x = _x(jm.vector_shape, seed=2)
     _assert_close(td.apply_keff(torch.from_numpy(x), SS, MF).numpy(),
                   np.asarray(jd.apply_keff(jnp.asarray(x), SS, MF)))
-    # the packed-model converter refuses only the halo tables now (A11);
-    # the general path's dashpots are carried (test_torch_general_absorbing)
-    with pytest.raises(NotImplementedError, match="A11"):
+    # the packed-model converter carries the halo tables too, all or none
+    # (test_torch_general_sharded); the general path's dashpots are carried
+    # (test_torch_general_absorbing)
+    with pytest.raises(ValueError, match="halo"):
         convert.packed_model_from_arrays({"halo_conn": np.zeros((4, 4))}, {}, "cpu")
 
 

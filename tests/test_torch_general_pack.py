@@ -241,10 +241,22 @@ def test_convert_refuses_unported_fields():
         meta, "cpu",
     )
     assert damped.has_damping and not tm.has_damping
-    with pytest.raises(NotImplementedError, match="A11"):
+    # the halo tables are carried now (test_torch_general_sharded), all of
+    # them with their scalars, or none
+    with pytest.raises(ValueError, match="halo"):
         convert.packed_model_from_arrays(
             {**arrays, "halo_conn": np.zeros((8, 4), np.int32)}, meta, "cpu"
         )
+    from civiwave_tpu.parallel.general_halo import plan_general_halo as jplan
+
+    plan = jplan(jm, 2)
+    carried = convert.packed_model_from_arrays(
+        {**arrays, **{k: plan[k] for k in convert.PACKED_HALO}},
+        {**meta, **{k: plan[k] for k in convert.PACKED_HALO_META}}, "cpu")
+    assert (carried.halo_block, carried.halo_local_nodes, carried.halo_ghost,
+            carried.halo_elems) == tuple(plan[k] for k in convert.PACKED_HALO_META)
+    for name in convert.PACKED_HALO:
+        np.testing.assert_array_equal(getattr(carried, name).numpy(), plan[name])
 
 
 @pytest.mark.parametrize("hex_elements", [False, True], ids=["tet", "hex"])

@@ -45,7 +45,7 @@ def test_every_module_imports_with_jax_blocked():
         "ops.cuda.pcg_iteration", "ops.cuda.interior_stencil",
         "ops.cuda.keff_boundary", "ops.cuda.keff_halo",
         "ops.structured_sharded", "parallel.sharding", "parallel.collectives",
-        "parallel.launch", "solver.static", "physics.absorbing", "post.derived",
+        "parallel.launch", "parallel.general_halo", "ops.general_sharded", "solver.static", "physics.absorbing", "post.derived",
         "post.vtu", "post.native_vtu", "post.probes", "post.structured_fields",
         "post.output", "post.snapshot",
     ):

@@ -951,3 +951,129 @@ def test_fp64_simulation_runs_f64_kernels_only(device):
         (a - b, ad - bd) for (a, ad), (b, bd) in zip(after, before))
     assert (k1, bj, pc, k6n) == (0, 0, 0, 0)
     assert k1d >= iters and bjd >= iters
+
+
+# --- the sharded general path and absorbing shards (A11 part 1) ------------
+
+
+def _tet_box(device, cells=(20, 4, 3), hex_elements=False, pad=64):
+    cfg = cantilever_config()
+    mesh = box_mesh(*cells, hex_elements=hex_elements)
+    pre = preprocess.run(mesh, cfg)
+    mats = [materials.make_properties(m) for m in cfg.materials]
+    model, _, _ = pack.build_packed_model(mesh, pre, cfg, mats, pad_nodes=pad,
+                                          pad_elems=pad, device=device)
+    return model
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("hex_elements", [False, True], ids=["tet", "hex"])
+def test_general_halo_shards_on_the_card(device, hex_elements, dtype):
+    """K7 + G1 on each in-process shard's window (4 shards): the combined
+    rows against the unsharded K7 + G1 at 1e-5 (f64 1e-12) of max, the
+    rows off the ghost bands bit-equal, G1 on every window bit-equal to
+    its plain version."""
+    from chip_smoke import local_keff_general, local_windows
+    from civiwave_tpu_torch.ops import general_sharded as gsh
+    from civiwave_tpu_torch.parallel import sharding
+
+    model = _tet_box(device, (24, 3, 3) if hex_elements else (20, 4, 3),
+                     hex_elements)
+    x = torch.as_tensor(np.random.default_rng(3).standard_normal(
+        model.vector_shape), dtype=dtype, device=device)
+    shards = sharding.local_general_shards(model, 4)
+    for shard, (part, ghost) in zip(shards, local_windows(shards, x)):
+        w, xw = shard.shard_window, gsh.window_x(part, ghost)
+        rows = k7.element_force_rows(w, xw, SS)
+        assert torch.equal(g1.assemble_keff(w, rows, xw, MF),
+                           g1.assemble_keff_plain(w, rows, xw, MF))
+    out = torch.cat(local_keff_general(shards, x, SS, MF))
+    ref = gops.apply_keff(model, x, SS, MF)
+    tol = 1e-12 if dtype == torch.float64 else OP_TOL
+    assert float((out - ref).abs().max()) <= tol * float(ref.abs().max())
+    L, G = shards[0].local_rows, shards[0].halo_ghost
+    off = torch.ones(model.padded_node_count, dtype=torch.bool, device=device)
+    for s in range(1, 4):
+        off[s * L:s * L + G] = False
+    assert torch.equal(out[off], ref[off])
+
+
+def test_general_path_on_one_rank(device):
+    """A general-path simulation over a one-rank NCCL group: K7 and G1
+    once per matvec, 'auto' classic, frames equal to the unsharded run's
+    on the card."""
+    from civiwave_tpu_torch.parallel import collectives, sharding
+
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=300, dt=1e-3,
+                            adaptive=False,
+                            mesh={"path": "synthetic://box/16,6,6,tet"})
+    ref = build_simulation(cfg, device=device)
+    tel_ref = ref.run(3)
+    try:
+        sim = sharding.shard_simulation(build_simulation(cfg, device=device),
+                                        sharding.make_shard_group(1, device))
+        before = (k7.tet_element_forces.launches, g1.assemble_keff.launches)
+        collectives.reset_counts()
+        tel = sim.run(3)
+        torch.cuda.synchronize()
+        u = sim.stepper.displacement()
+    finally:
+        sharding.close_shard_group()
+    iters = [t.pcg_iterations for t in tel]
+    matvecs = 2 * len(tel) + sum(iters)
+    assert k7.tet_element_forces.launches - before[0] == matvecs
+    assert g1.assemble_keff.launches - before[1] == matvecs
+    assert collectives.ppermute.calls == collectives.all_gather.calls == 0
+    assert iters == [t.pcg_iterations for t in tel_ref]
+    np.testing.assert_array_equal(u, ref.stepper.displacement())
+
+
+def test_absorbing_basin_on_one_rank(device):
+    """examples/seismic_basin.yaml at 24x24x12 over one-rank 1-D and 2-D
+    NCCL groups: K5 + K3 with the shard's face terms, frames within the
+    stepping tolerances of the unsharded run on the card."""
+    from civiwave_tpu_torch.config.loader import load_config_from_file
+    from civiwave_tpu_torch.parallel import sharding
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "seismic_basin.yaml")
+    cfg = dataclasses.replace(load_config_from_file(path),
+                              mesh_path="synthetic://box/24,24,12")
+    ref = build_simulation(cfg, device=device)
+    tel_ref = ref.run(4)
+    for make in (lambda: sharding.make_shard_group(1, device),
+                 lambda: sharding.make_shard_group_2d(1, 1, device)):
+        try:
+            sim = sharding.shard_simulation(build_simulation(cfg, device=device),
+                                            make())
+            tel = sim.run(4)
+            u, a = sim.stepper.displacement(), sim.stepper.acceleration()
+        finally:
+            sharding.close_shard_group()
+        assert all(abs(t.pcg_iterations - r.pcg_iterations) <= 1
+                   for t, r in zip(tel, tel_ref))
+        u_ref, a_ref = ref.stepper.displacement(), ref.stepper.acceleration()
+        assert np.abs(u - u_ref).max() <= 2.5e-4 * np.abs(u_ref).max()
+        assert np.abs(a - a_ref).max() <= 3e-3 * np.abs(a_ref).max()
+
+
+@pytest.mark.parametrize("case", ["tet_cantilever", "seismic_basin"])
+def test_launcher_across_two_gpus(device, case):
+    """``parallel.launch --npx 2 --against-one-rank`` on the general path
+    (the halo operator over NCCL) and on the absorbing basin (slabs):
+    exit 0, the group's frames within the stepping tolerances of one
+    rank's.  Skips below 2 GPUs."""
+    import subprocess
+    import sys
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs: one per rank")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = (["--cells", "40,10,10,tet"] if case == "tet_cantilever" else
+            ["--scenario", os.path.join(repo, "examples", "seismic_basin.yaml")])
+    proc = subprocess.run(
+        [sys.executable, "-m", "civiwave_tpu_torch.parallel.launch", "--npx",
+         "2", *args, "--frames", "3", "--against-one-rank", "--timeout", "240"],
+        cwd=repo, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert "against one rank: iterations" in proc.stdout

@@ -230,7 +230,8 @@ def test_one_rank_group_runs_the_sharded_dispatch(monkeypatch):
 
 def test_shard_errors():
     """The reference's divisibility checks, the GPU count, an
-    uninitialised several-rank group and absorbing faces."""
+    uninitialised several-rank group; absorbing faces now shard (their
+    face terms on every cut equal the global term's)."""
     _, _, tm = _pair((6, 3, 3), (1, 1), False)  # X = 7, Y = 4
     with pytest.raises(ShardError, match="X extent"):
         tsharding.shard_layout(tm, (2, 1), (0, 0))
@@ -243,11 +244,36 @@ def test_shard_errors():
     mat = _material()
     absorbing, _ = tstructured.build_structured_model(
         4, 3, 3, tmaterials.make_properties(mat), mat.density,
-        absorb_planes=("z0",), device=CPU,
+        absorb_planes=("z0",), pad_x_multiple=2, device=CPU,
     )
-    with pytest.raises(NotImplementedError, match="A11"):
-        tsharding.shard_structured(absorbing, absorbing.zero_state(),
-                                   absorbing.zero_state().displacement, None)
+    _assert_face_terms_of_the_cut(absorbing, (2, 1), False)
+
+
+def _assert_face_terms_of_the_cut(model, shape, two_d):
+    """Every tile's absorbing-face term (C x of the faces it holds, at
+    global coordinates) is the global term's block, bit for bit."""
+    x = torch.from_numpy(_x(model))
+    ref = tops.absorbing_force_structured(model, x)
+    for tile in tsharding.local_tiles(model, shape, two_d):
+        block = tsharding.cut_block(x, tile.x0, tile.y0, *tile.local_extent)
+        want = tsharding.cut_block(ref, tile.x0, tile.y0, *tile.local_extent)
+        assert torch.equal(tops.absorbing_force_structured(tile, block), want)
+
+
+@pytest.mark.parametrize("name", sorted(GRIDS))
+def test_absorbing_face_terms_of_every_cut_equal_the_global_term(name):
+    """Faces ("x1", "y0", "y1", "z0") on the reference's cuts, the X-padded
+    and dead-row grids among them: only the end slabs and edge tiles hold
+    x/y faces, the padded grid's x1 plane lies inside a slab, and the
+    halved tributary areas fall on the global edges."""
+    cells, shape, two_d = GRIDS[name]
+    mat = _material()
+    model, _ = tstructured.build_structured_model(
+        *cells, tmaterials.make_properties(mat), mat.density,
+        pad_x_multiple=shape[0], pad_y_multiple=shape[1] if two_d else 1,
+        absorb_planes=("x1", "y0", "y1", "z0"), device=CPU,
+    )
+    _assert_face_terms_of_the_cut(model, shape, two_d)
 
 
 def test_shard_simulation_steps_a_curve_scenario_on_one_rank():
@@ -282,10 +308,31 @@ def test_shard_simulation_steps_a_curve_scenario_on_one_rank():
 
 def test_shard_simulation_refuses_the_general_path():
     """A simulation without a structured force schedule (the general
-    gather path) is not sharded: NotImplementedError naming A11."""
-    from civiwave_tpu_torch.runner import Simulation
+    gather path) used to be refused naming A11; it now shards.  Over a
+    one-rank gloo group it keeps the single-device operator with the
+    group's reductions ('auto' stays classic, as the reference's unmarked
+    model), so its frames equal the unsharded run's; a 2-D group is
+    refused."""
+    from civiwave_tpu_torch.runner import build_simulation
 
-    with pytest.raises(NotImplementedError, match="A11"):
-        tsharding.shard_simulation(
-            Simulation(config=None, model=None, stepper=None), None
-        )
+    cfg = cantilever_config(mesh={"path": "synthetic://box/8,3,3,tet"},
+                            tol_runtime=2e-4, max_iters=120, dt=1e-3,
+                            adaptive=False)
+    ref = build_simulation(cfg, device=CPU)
+    tel_ref = ref.run(3)
+    try:
+        group = tsharding.make_shard_group(1, "cpu")
+        sim = tsharding.shard_simulation(build_simulation(cfg, device=CPU),
+                                         group)
+        assert sim.model.shard_group is group and not sim.model.halo
+        assert sim.model.vector_shape == ref.model.vector_shape
+        tel = sim.run(3)
+        u = sim.stepper.displacement()
+        with pytest.raises(ShardError, match="1-D"):
+            tsharding.shard_general(
+                ref.model, ref.stepper.state, ref.stepper.external_force,
+                dataclasses.replace(group, two_d=True))
+    finally:
+        tsharding.close_shard_group()
+    assert [t.pcg_iterations for t in tel] == [t.pcg_iterations for t in tel_ref]
+    np.testing.assert_array_equal(u, ref.stepper.displacement())

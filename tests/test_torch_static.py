@@ -198,10 +198,23 @@ def test_true_relative_residual_of_the_zero_vector_is_one():
 
 
 def test_solve_static_refuses_a_shard():
+    """A shard used to be refused naming A11; a one-rank gloo shard now
+    solves ('auto' = fused, the dots through the group) to the unsharded
+    fused solve's u (2 ranks: test_torch_general_sharded).  The counts
+    are not held: the shard's plain operator (K5's) rounds otherwise than
+    the unsharded one, and a solve to 1e-8 in f32 ends at that floor."""
+    from civiwave_tpu_torch.parallel import sharding
+
     (tm, tf), _ = structured_pair(4, 3, 3)
-    shard = dataclasses.replace(tm, shard_group=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        solve_static(shard, tf)
+    u_ref, tel_ref = solve_static(tm, tf, tolerance=TOL, variant="fused")
+    try:
+        group = sharding.make_shard_group(1, "cpu")
+        shard, _, sf = sharding.shard_structured(tm, tm.zero_state(), tf, group)
+        u, tel = solve_static(shard, sf, tolerance=TOL)
+    finally:
+        sharding.close_shard_group()
+    assert tel.converged and tel_ref.converged
+    assert_u_close(u.numpy(), u_ref.numpy())
 
 
 @functools.lru_cache(maxsize=1)

@@ -125,10 +125,11 @@ def to_port_packed(jm, device="cpu"):
     """The JAX packed model handed over through ``convert`` (same arrays,
     same element order and node numbering)."""
     arrays = {name: np.asarray(getattr(jm, name)) for name in convert.PACKED_ARRAYS}
-    for name in (*convert.PACKED_OPTIONAL, *convert.UNPORTED_PACKED):
+    for name in (*convert.PACKED_OPTIONAL, *convert.PACKED_HALO):
         value = getattr(jm, name)
         arrays[name] = None if value is None else np.asarray(value)
-    meta = {name: getattr(jm, name) for name in convert.PACKED_META}
+    meta = {name: getattr(jm, name)
+            for name in (*convert.PACKED_META, *convert.PACKED_HALO_META)}
     meta["has_damping"] = jm.has_damping
     return convert.packed_model_from_arrays(arrays, meta, device)
 
