@@ -189,7 +189,23 @@ Phases, each printing its result:
 28. with two or more GPUs, ``parallel.launch --npx 2 --against-one-rank``
     on the 66^3 tet cantilever (with ``--profile``: rank 0's summaries)
     and on examples/seismic_basin.yaml (a failed check fails the run);
-    with one GPU it prints that it skipped.
+    with one GPU it prints that it skipped;
+29. heterogeneous grids (per-cell lam0 (1 + U), mu0 (1 + U') from
+    ``default_rng(SEED)``): G3 corner_gather against its plain version at
+    255^3 in f32 (1e-5 of max|ref|) and f64 (1e-12), constrained outputs
+    equal to x, timed beside its bound; G3 against K1 on the uniform 255^3
+    grid marked heterogeneous (3e-6 of max|K1 x|); a multigrid request
+    (the note on stderr, the model unchanged on block-Jacobi); the 255^3
+    heterogeneous cantilever through ``build_structured_model(...,
+    lam_grid=, mu_grid=)`` and ``NewmarkStepper``, 8 'auto' (= classic)
+    frames: converged, finite, the tip deflects, G3 once per iteration and
+    twice per frame and no other kernel (K1, K2, K3, K4, K6, K5, G2),
+    iterations, steps/s, ms per iteration, the per-node preconditioner's
+    apply and build ms, peak memory and a profiled frame; its static solve
+    through ``solve_static`` (tol 1e-6); 3 fp64 frames on G3's f64
+    instance alone against the f32 frames at the BASELINE tolerances; a
+    16x4x4 heterogeneous box for 10 frames on the GPU and the CPU.
+    Phase 4 also fails if the homogeneous main path launches G3.
 
 Output files of phases 16-17 and 22-23 go to a fresh directory under
 ``civiwave_tpu_torch/_build/`` (ignored by git) and are removed.  Any
@@ -496,6 +512,7 @@ def main_path_phase(device):
     k12.apply_keff_fused.launches = 0
     k12.apply_pc_keff_fused.launches = 0
     k3.apply_block_jacobi.launches = 0
+    reset_g3_counts()
 
     frame_s, telemetries = [], []
     for variant, frames in (("auto", 8), ("classic", 2)):
@@ -526,6 +543,8 @@ def main_path_phase(device):
     for key, n in launches.items():
         if n <= 0:
             fail(f"main path never launched kernel {key}")
+    if any(g3_counts().values()):  # a homogeneous grid never takes G3
+        fail(f"main path launched G3: {g3_counts()}")
     tip = float(state.displacement[2, FULL[0]].min())
     if not tip < 0.0:
         fail(f"main path: the loaded face did not deflect (min u_z {tip})")
@@ -3836,6 +3855,335 @@ def launch_across_gpus_phase():
     shutil.rmtree(traces, ignore_errors=True)
 
 
+# --- heterogeneous grids (A1): G3, the corner gather ---------------------
+
+HETERO_BOX = (16, 4, 4)  # phase 29's GPU-vs-CPU box
+HETERO_FRAMES = 8
+HETERO_STATIC_TOL = 1e-6
+# least bytes per node of G3: x and out (f32 12 B each, f64 24 B), the
+# stored mass (4 B) and the mask (3 B), plus lam and mu (4 B each) per
+# live cell; least operations: per node and live incident cell, the node's
+# 3 rows of lam A + mu B times the cell's 24 corner values, 2 x 72
+# multiply-adds, counted over the nodes that are not fully constrained
+G3_BYTES_PER_NODE = {torch.float32: 31, torch.float64: 55}
+G3_FLOPS_PER_PAIR = 288
+# G3's products are a matrix product (each cell's 24 corner values times
+# the 48 x 24 table [A; B]): the H100 SXM's published f64 tensor-core rate,
+# equal to its f32 rate outside the tensor cores
+F64_MATRIX_TFLOPS = 67.0
+
+
+def g3_counts():
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    return {"g3": g3.apply_keff_corner_gather.launches,
+            "g3_f64": g3.apply_keff_corner_gather.launches_f64}
+
+
+def reset_g3_counts():
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    g3.apply_keff_corner_gather.launches = 0
+    g3.apply_keff_corner_gather.launches_f64 = 0
+
+
+def hetero_path_counts():
+    """G3's counters, every structured and slender kernel's, and the f64
+    instances' (only G3's may move on a heterogeneous path)."""
+    return {**g3_counts(), **all_counts(), **f64_counts()}
+
+
+def check_hetero_counts(label, counts, want):
+    """``want`` (a G3 instance) launched, every other kernel never."""
+    others = {k: v for k, v in counts.items() if k != want and v}
+    if counts[want] <= 0 or others:
+        fail(f"{label}: {want} launched {counts[want]} times, other kernels "
+             f"{others}")
+
+
+def hetero_cells(dims, seed=SEED):
+    """Per-cell lam0 (1 + U), mu0 (1 + U') of the steel cantilever, U and U'
+    uniform on [0, 1) from ``default_rng(seed)`` (the reference's own
+    heterogeneous case, at full width)."""
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    lame = materials.make_properties(cantilever_config().materials[0]).lame
+    rng = np.random.default_rng(seed)
+    return (lame.lam * (1.0 + rng.uniform(0.0, 1.0, dims)),
+            lame.mu * (1.0 + rng.uniform(0.0, 1.0, dims)))
+
+
+def hetero_model(dims, device, lam_mu=None):
+    """The steel cantilever (x0 fixed, traction -1e6 Pa on x1) of ``dims``
+    cells with per-cell materials, through ``build_structured_model``."""
+    from civiwave_tpu_torch.mesh.structured import build_structured_model
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    mat = cantilever_config().materials[0]
+    lam, mu = hetero_cells(dims) if lam_mu is None else lam_mu
+    model, force = build_structured_model(
+        *dims, materials.make_properties(mat), mat.density,
+        traction=(0.0, 0.0, -1.0e6), lam_grid=lam, mu_grid=mu, device=device)
+    if model.homogeneous:
+        fail(f"heterogeneous {dims}: build_structured_model made a homogeneous grid")
+    return model, force
+
+
+def hetero_stepper(model, force, precision="fp32"):
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.solver.stepper import NewmarkStepper
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120, dt=1e-3,
+                            adaptive=False)
+    ray = materials.compute_rayleigh(cfg.damping)
+    return NewmarkStepper(model, model.zero_state(), force, ray, cfg.solver,
+                          cfg.time, vector_precision=precision)
+
+
+def g3_least(model, dtype):
+    """(least ms, bound_by) of one G3 call on ``model``: the bytes above
+    and the operations of this grid's (node, live cell) pairs."""
+    X, Y, Z = model.grid_shape
+    nx, ny, nz = model.nx, model.ny, model.nz
+    count = torch.zeros(model.grid_shape, dtype=torch.int32, device=model.device)
+    for di, dj, dk in ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+                       (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)):
+        count[di:di + nx, dj:dj + ny, dk:dk + nz] += 1
+    pairs = int(count[~model.bc_mask.all(dim=0)].sum())
+    nbytes = G3_BYTES_PER_NODE[dtype] * X * Y * Z + 8 * nx * ny * nz
+    return bound(nbytes, G3_FLOPS_PER_PAIR * pairs,
+                 F64_MATRIX_TFLOPS if dtype == torch.float64 else F32_TFLOPS)
+
+
+def heterogeneous_phase(device, ss, mf):
+    """Phase 29: heterogeneous grids (per-cell lam/mu) through G3."""
+    import contextlib
+    import io
+
+    from civiwave_tpu_torch.mesh.structured import build_structured_model
+    from civiwave_tpu_torch.ops import multigrid
+    from civiwave_tpu_torch.ops import structured as ops
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+    from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+    from civiwave_tpu_torch.physics import materials
+    from civiwave_tpu_torch.solver.static import (
+        solve_static,
+        true_relative_residual,
+    )
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    t0 = time.perf_counter()
+    model, force = hetero_model(FULL, device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    print(f"heterogeneous 255^3: {model.dof_count:,} DOF, lam/mu per cell, "
+          f"model build {build_s:.3f} s (cell grids from the host)", flush=True)
+
+    # G3 against its plain version at 255^3, f32 and f64
+    rng = np.random.default_rng(SEED)
+    bc = model.bc_mask
+    errs, times = {}, {}
+    for dtype, tol in ((torch.float32, OP_TOL), (torch.float64, F64_TOL)):
+        key = "f64" if dtype == torch.float64 else "f32"
+        x = torch.as_tensor(rng.standard_normal(model.vector_shape),
+                            device=device).to(dtype)
+        got = g3.apply_keff_corner_gather(model, x, ss, mf)
+        ref = ops.apply_keff_structured_plain(model, x, ss, mf)
+        torch.cuda.synchronize()
+        errs[key] = check_close(f"G3 {key} 255^3", got, ref, tol)
+        if not torch.equal(got[bc], x[bc]):
+            fail(f"G3 {key} 255^3: constrained outputs differ from x")
+        del got, ref
+        least, by = g3_least(model, dtype)
+        times[key] = dict(
+            ms=time_ms(lambda: g3.apply_keff_corner_gather(model, x, ss, mf), 20),
+            plain_ms=time_ms(
+                lambda: ops.apply_keff_structured_plain(model, x, ss, mf), 2),
+            bound_ms=least, bound_by=by, library_ms=None)
+        print(f"G3 {key} 255^3: vs plain {errs[key][0]:.3e} abs, "
+              f"{errs[key][1]:.3e} of max|ref| (tol {tol:g}); kernel "
+              f"{times[key]['ms']:.4f} ms, plain {times[key]['plain_ms']:.4f} "
+              f"ms, bound {least:.4f} ms ({by}; {least / times[key]['ms']:.3f} "
+              f"of it)", flush=True)
+        del x
+    torch.cuda.empty_cache()
+
+    # G3 against K1 on the uniform 255^3 grid marked heterogeneous
+    cfg = cantilever_config()
+    uniform, _ = build_structured_model(
+        *FULL, materials.make_properties(cfg.materials[0]),
+        cfg.materials[0].density, device=device)
+    x = torch.as_tensor(rng.standard_normal(uniform.vector_shape, dtype=np.float32),
+                        device=device)
+    k1 = k12.apply_keff_fused(uniform, x, ss, mf)
+    got = g3.apply_keff_corner_gather(
+        dataclasses.replace(uniform, homogeneous=False), x, ss, mf)
+    torch.cuda.synchronize()
+    errs["vs_k1"] = check_close("G3 vs K1 uniform 255^3", got, k1, 3e-6)
+    print(f"G3 vs K1 on the uniform 255^3 grid: {errs['vs_k1'][1]:.3e} of "
+          f"max|K1 x| (tol 3e-6)", flush=True)
+    del uniform, x, k1, got
+    torch.cuda.empty_cache()
+
+    # a multigrid request falls back to block-Jacobi with the note
+    note = io.StringIO()
+    with contextlib.redirect_stderr(note):
+        requested = multigrid.attach_multigrid(model)
+    text = note.getvalue().strip()
+    if requested is not model or "heterogeneous material grid" not in text:
+        fail(f"multigrid on a heterogeneous grid: model replaced or note "
+             f"missing ({text!r})")
+    print(f"multigrid request on the heterogeneous grid: {text}", flush=True)
+
+    # the main path: 8 'auto' (= classic) frames at 255^3
+    stepper = hetero_stepper(requested, force)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_f64_counts()
+    reset_g3_counts()
+    frame_s, tel = [], []
+    for _ in range(HETERO_FRAMES):
+        t0 = time.perf_counter()
+        tel.append(stepper.step(stepper.accumulated_time))
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+        if len(tel) == 3:
+            u3 = (stepper.state.displacement.cpu(),
+                  stepper.state.acceleration.cpu())
+    counts = hetero_path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel):
+        fail(f"heterogeneous 255^3: not every frame converged: {iters}")
+    state = stepper.state
+    for name in ("displacement", "velocity", "acceleration"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            fail(f"heterogeneous 255^3: non-finite {name}")
+    tip = float(state.displacement[2, FULL[0]].min())
+    if not tip < 0.0:
+        fail(f"heterogeneous 255^3: the loaded face did not deflect ({tip})")
+    check_hetero_counts("heterogeneous 255^3", counts, "g3")
+    # classic PCG: one matvec per iteration, plus the initial residual's
+    # and the Rayleigh term's per frame
+    if counts["g3"] != sum(iters) + 2 * HETERO_FRAMES:
+        fail(f"heterogeneous 255^3: {counts['g3']} G3 launches for "
+             f"{sum(iters)} iterations over {HETERO_FRAMES} frames")
+    variant = stepper.pcg_variant()
+    if variant != "classic" or not isinstance(stepper._precond, torch.Tensor):
+        fail(f"heterogeneous 255^3: 'auto' is {variant}, pc "
+             f"{type(stepper._precond).__name__}")
+    steady = frame_s[1:]
+    out = dict(iters=iters, counts=counts, steps_per_s=len(steady) / sum(steady),
+               ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3, peak=peak)
+    pc = stepper._precond
+    r = torch.as_tensor(rng.standard_normal(model.vector_shape, dtype=np.float32),
+                        device=device)
+    out["pc_apply_ms"] = time_ms(
+        lambda: ops.apply_preconditioner_structured(model, pc, r), 20)
+    # the stepper's dt is the 1 ms that ss and mf come from
+    out["pc_build_ms"] = time_ms(lambda: model.build_preconditioner(ss, mf), 2)
+    del r
+    print(f"heterogeneous 255^3: 'auto' = {variant}, per-node block-Jacobi; "
+          f"pcg iterations per frame {iters} (mean {np.mean(iters):.2f})",
+          flush=True)
+    print("heterogeneous 255^3: frame seconds " + ", ".join(
+        f"{t:.4f}" for t in frame_s), flush=True)
+    print(f"heterogeneous 255^3: steps/s {out['steps_per_s']:.4f} (frames 2-8), "
+          f"{out['ms_per_iter']:.4f} ms per iteration (host clock); per-node "
+          f"pc apply {out['pc_apply_ms']:.4f} ms, pc build "
+          f"{out['pc_build_ms']:.4f} ms; peak device memory "
+          f"{peak / 2**30:.3f} GiB ({peak} bytes)", flush=True)
+    print(f"heterogeneous 255^3: kernel launches {counts} (G3 "
+          f"{counts['g3'] / sum(iters):.3f} per iteration); tip u_z "
+          f"{tip:.6e} m", flush=True)
+    profile_window("heterogeneous 255^3 frame 9",
+                   lambda: stepper.step(stepper.accumulated_time))
+    del stepper, state, pc
+    torch.cuda.empty_cache()
+
+    # its static solve through solve_static (classic, per-node inverse)
+    reset_g3_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, st = solve_static(model, force, tolerance=HETERO_STATIC_TOL,
+                         max_iterations=STATIC_MAX_ITERS)
+    torch.cuda.synchronize()
+    static_s = time.perf_counter() - t0
+    if not st.converged or not bool(torch.isfinite(u).all()):
+        fail(f"heterogeneous static 255^3: converged {st.converged} after "
+             f"{st.iterations} iterations")
+    static_tip = float(u[2, FULL[0]].min())
+    if not static_tip < 0.0:
+        fail(f"heterogeneous static 255^3: the loaded face did not deflect "
+             f"({static_tip})")
+    # printed, not held: an f32 solution's true residual sits far above the
+    # recurred one on a large grid (phase 16)
+    residual = true_relative_residual(model, force, u)
+    out["static"] = dict(iterations=st.iterations, seconds=static_s,
+                         residual=residual, g3=g3_counts()["g3"])
+    print(f"heterogeneous static 255^3 (tol {HETERO_STATIC_TOL:g}): "
+          f"{st.iterations} iterations, {static_s:.4f} s, "
+          f"{static_s / max(st.iterations, 1) * 1e3:.4f} ms per iteration, "
+          f"true f64 relative residual {residual:.3e}, G3 {g3_counts()['g3']} "
+          f"launches; tip u_z {static_tip:.6e} m", flush=True)
+    del u
+
+    # fp64: 3 frames through G3's f64 instance, against the f32 frames
+    reset_f64_counts()
+    reset_g3_counts()
+    stepper = hetero_stepper(model, force, "fp64")
+    t0 = time.perf_counter()
+    tel64 = [stepper.step(stepper.accumulated_time) for _ in range(3)]
+    torch.cuda.synchronize()
+    fp64_s = time.perf_counter() - t0
+    counts64 = hetero_path_counts()
+    check_hetero_counts("heterogeneous fp64 255^3", counts64, "g3_f64")
+    iters64 = [t.pcg_iterations for t in tel64]
+    if not all(t.pcg_converged for t in tel64):
+        fail(f"heterogeneous fp64 255^3: not every frame converged: {iters64}")
+    state = stepper.state
+    if state.displacement.dtype != torch.float64:
+        fail("heterogeneous fp64 255^3: the state is not f64")
+    fp64_errs = [check_close(f"heterogeneous fp64 vs f32 {name}",
+                             getattr(state, name).float().cpu(), ref, tol)[1]
+                 for name, ref, tol in (("displacement", u3[0], U_TOL),
+                                        ("acceleration", u3[1], A_TOL))]
+    out["fp64"] = dict(iters=iters64, counts=counts64, seconds=fp64_s)
+    print(f"heterogeneous fp64 255^3: 3 frames, iterations {iters64} (f32 "
+          f"{iters[:3]}), {fp64_s:.4f} s, G3 f64 {counts64['g3_f64']} "
+          f"launches; against the f32 frames u {fp64_errs[0]:.3e}, a "
+          f"{fp64_errs[1]:.3e} of max", flush=True)
+    del stepper, state, model, force
+    torch.cuda.empty_cache()
+
+    # a small heterogeneous box on the card and on the CPU
+    cells = hetero_cells(HETERO_BOX)
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        box, box_force = hetero_model(HETERO_BOX, dev, cells)
+        box_stepper = hetero_stepper(box, box_force)
+        runs.append(([box_stepper.step(box_stepper.accumulated_time)
+                      for _ in range(10)], box_stepper.state))
+    (tg, sg), (tc, sc) = runs
+    it_g = [t.pcg_iterations for t in tg]
+    it_c = [t.pcg_iterations for t in tc]
+    if any(abs(a - b) > 1 for a, b in zip(it_g, it_c)) or not all(
+            t.pcg_converged for t in tg):
+        fail(f"heterogeneous box: iterations gpu {it_g} cpu {it_c}")
+    box_errs = [check_close(f"heterogeneous box {name}",
+                            getattr(sg, name).cpu(), getattr(sc, name), tol)[1]
+                for name, tol in (("displacement", U_TOL),
+                                  ("acceleration", A_TOL))]
+    print(f"heterogeneous box {HETERO_BOX} 10 frames GPU vs CPU: iterations "
+          f"gpu {it_g} cpu {it_c}; u {box_errs[0]:.3e}, a {box_errs[1]:.3e} "
+          f"of max", flush=True)
+    return errs, times, out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -3903,6 +4251,7 @@ def main() -> int:
     sharded_static = sharded_static_phase(device, static)
     del static["exact"], basin
     launch_across_gpus_phase()
+    hetero_errs, hetero_times, hetero = heterogeneous_phase(device, ss, mf)
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
@@ -4109,6 +4458,28 @@ def main() -> int:
           f"(max over shards, ms): " + ", ".join(
               f"{k[0]}/{k[1]} {v['max_ms']:.4f} (whole {v['whole_ms']:.4f})"
               for k, v in general_halo_times.items()), flush=True)
+    # G3 (phase 29): errors and times at 255^3, launches on the
+    # heterogeneous 255^3 cantilever's 8 frames (f32) and 3 fp64 frames
+    kernels += [
+        dict(name="corner_gather", route="cuda", source=src + "corner_gather.cu",
+             replaces="civiwave_tpu/ops/structured.py:503",
+             launches=hetero["counts"]["g3"], max_abs_err=hetero_errs["f32"][0],
+             max_rel_err=hetero_errs["f32"][1], tol=OP_TOL,
+             **hetero_times["f32"], max_rel_err_vs_k1=hetero_errs["vs_k1"][1],
+             launches_static=hetero["static"]["g3"]),
+        dict(name="corner_gather_f64", route="cuda",
+             source=src + "corner_gather.cu",
+             replaces="civiwave_tpu/ops/structured.py:503",
+             launches=hetero["fp64"]["counts"]["g3_f64"],
+             max_abs_err=hetero_errs["f64"][0],
+             max_rel_err=hetero_errs["f64"][1], tol=F64_TOL,
+             **hetero_times["f64"], ms_f32=hetero_times["f32"]["ms"]),
+    ]
+    print(f"heterogeneous 255^3: {hetero['steps_per_s']:.4f} steps/s, "
+          f"{hetero['ms_per_iter']:.4f} ms per iteration, iterations "
+          f"{hetero['iters']}, per-node pc apply {hetero['pc_apply_ms']:.4f} ms; "
+          f"static {hetero['static']['iterations']} iterations, "
+          f"{hetero['static']['seconds']:.4f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

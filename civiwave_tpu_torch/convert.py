@@ -34,12 +34,13 @@ STRUCTURED_ARRAYS = {
     "bc_value": np.float32,
     "position0": np.float32,
 }
-# scalar fields (the dead +X planes and +Y rows, the absorbing faces and
-# their impedances included; the stepper sets damp_factor per step); a
-# heterogeneous grid is refused (not ported)
+# scalar fields (the dead +X planes and +Y rows, whether one material
+# fills the grid, the absorbing faces and their impedances included; the
+# stepper sets damp_factor per step)
 STRUCTURED_META = (
     "nx", "ny", "nz", "node_count", "padded_node_count", "pad_planes",
-    "pad_rows", "spacing", "lam0", "mu0", "absorb_faces", "rho_cp", "rho_cs",
+    "pad_rows", "spacing", "homogeneous", "lam0", "mu0", "absorb_faces",
+    "rho_cp", "rho_cs",
 )
 
 
@@ -48,16 +49,13 @@ def structured_model_from_arrays(
     levels: Sequence[Tuple[Mapping[str, np.ndarray], Mapping[str, object]]] = (),
 ) -> StructuredModel:
     """A :class:`StructuredModel` on ``device`` from its array fields (as
-    numpy) and its scalar fields (``pad_rows`` defaults to 0).  ``meta``
-    may also carry ``homogeneous`` (False raises NotImplementedError) and
-    a multigrid hierarchy's ``preconditioner`` and ``mg_omegas``, whose
+    numpy) and its scalar fields (``pad_rows`` defaults to 0,
+    ``homogeneous`` to True; a heterogeneous model's per-cell
+    ``lam_grid``/``mu_grid`` are its material).  ``meta`` may also carry a
+    multigrid hierarchy's ``preconditioner`` and ``mg_omegas``, whose
     coarse levels are ``levels``: one ``(arrays, meta)`` pair per level,
     finest first, each carried with the mass correction its kernels need
     (``ops.structured.mass_correction``)."""
-    if not meta.get("homogeneous", True):
-        raise NotImplementedError(
-            "heterogeneous structured grids are not ported yet"
-        )
     fields = {
         name: torch.as_tensor(np.array(arrays[name], dtype), device=device)
         for name, dtype in STRUCTURED_ARRAYS.items()
@@ -85,6 +83,7 @@ def structured_model_from_arrays(
         pad_planes=int(meta["pad_planes"]),
         pad_rows=int(meta.get("pad_rows", 0)),
         spacing=spacing,
+        homogeneous=bool(meta.get("homogeneous", True)),
         lam0=lam0,
         mu0=mu0,
         m8=interior_mass(np.asarray(arrays["mass_grid"], np.float32), nx, ny, nz),

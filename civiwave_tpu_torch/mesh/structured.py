@@ -1,10 +1,13 @@
-"""Structured-grid route: uniform homogeneous hex8 grids without gathers.
+"""Structured-grid route: uniform hex8 grids without gathers.
 
 Port of :mod:`civiwave_tpu.mesh.structured`.  For an axis-aligned box of
 (nx, ny, nz) uniform hex cells every element shares one constant Gauss
-gradient table and connectivity is implicit, so the element-by-element
-matvec becomes a 27-point block stencil on the node grid (see
-``ops/structured.py``).
+gradient table and connectivity is implicit, so on a homogeneous grid the
+element-by-element matvec becomes a 27-point block stencil on the node grid
+(see ``ops/structured.py``).  Per-cell materials (``lam_grid``/``mu_grid``
+given to :func:`build_structured_model`) make a heterogeneous grid
+(``homogeneous`` False), whose operator is the corner-gather element loop
+and whose preconditioner is the per-node block-Jacobi inverse.
 
 Solver vectors are component-separated grids ``(3, X, Y, Z)`` f32 with Z
 the minor (contiguous) axis — the reference's layout, kept at the port's
@@ -32,8 +35,6 @@ A multigrid model (``preconditioner == "multigrid"``, from
 ``ops.multigrid.attach_multigrid``) carries its coarse levels; its
 preconditioner is the V-cycle and its PCG is classic ('auto') or
 pipelined, composing the V-cycle with the operator.
-
-Not ported yet: heterogeneous per-element material grids.
 """
 
 from __future__ import annotations
@@ -61,8 +62,7 @@ CORNERS = (
 
 @dataclass(frozen=True, eq=False)
 class StructuredModel:
-    """Uniform homogeneous hex grid implementing the solver operator
-    protocol.
+    """Uniform hex grid implementing the solver operator protocol.
 
     Node grid is (X, Y, Z) = (nx+1+pad_planes, ny+1, nz+1); the nodal order
     of ``to_nodal``/``from_nodal`` is x-major flattening.
@@ -95,6 +95,10 @@ class StructuredModel:
     pad_planes: int = 0
     pad_rows: int = 0
     spacing: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    # one material on every cell (lam0, mu0; the constant-stencil kernels);
+    # False: per-cell lam_grid/mu_grid, the corner-gather operator and the
+    # per-node block-Jacobi, lam0 = mu0 = 0.0 (the reference's rule)
+    homogeneous: bool = True
     lam0: float = 0.0
     mu0: float = 0.0
     # interior lumped mass rho*V_cell; every built grid's stored mass is m8
@@ -227,8 +231,10 @@ class StructuredModel:
         return self.preconditioner == "multigrid" and bool(self.mg_levels)
 
     def build_preconditioner(self, stiffness_scale, mass_factor):
-        """The V-cycle's per-level inverses on a multigrid model, else the
-        class-table block-Jacobi."""
+        """The V-cycle's per-level inverses on a multigrid model, the
+        class-table block-Jacobi on a homogeneous grid, else the per-node
+        packed inverse (6, X, Y, Z): the class table's 27 blocks assume one
+        material."""
         from ..ops import structured as _ops
 
         if self.multigrid:
@@ -237,12 +243,19 @@ class StructuredModel:
             return _mg.build_mg_preconditioner(
                 self, stiffness_scale, mass_factor
             )
-        return _ops.build_compact_block_jacobi(self, stiffness_scale, mass_factor)
+        if self.homogeneous:
+            return _ops.build_compact_block_jacobi(
+                self, stiffness_scale, mass_factor
+            )
+        return _ops.build_block_jacobi_inverse_structured(
+            self, stiffness_scale, mass_factor
+        )
 
     def prefers_fused_pcg(self, block_inverse, vector_dtype) -> bool:
         """'auto' variant probe: Chronopoulos-Gear on a shard and wherever
-        the fused pc+matvec+dots kernel runs (CUDA, f32), classic
-        elsewhere and under multigrid."""
+        the fused pc+matvec+dots kernel runs (CUDA, f32, homogeneous),
+        classic elsewhere (a heterogeneous grid included) and under
+        multigrid."""
         from ..ops import structured as _ops
 
         if self.shard_group is not None:
@@ -293,14 +306,19 @@ class StructuredModel:
         )
 
     def apply_preconditioner(self, block_inverse, residual):
-        """z = M^-1 r: the V-cycle on a multigrid model, else K3."""
+        """z = M^-1 r: the V-cycle on a multigrid model, K3 from a class
+        table, else the per-node inverse (torch ops)."""
         from ..ops import structured as _ops
 
         if self.multigrid:
             from ..ops import multigrid as _mg
 
             return _mg.apply_mg_preconditioner(self, block_inverse, residual)
-        return _ops.apply_compact_preconditioner_structured(
+        if isinstance(block_inverse, _ops.CompactBlockJacobi):
+            return _ops.apply_compact_preconditioner_structured(
+                self, block_inverse, residual
+            )
+        return _ops.apply_preconditioner_structured(
             self, block_inverse, residual
         )
 
@@ -398,6 +416,8 @@ def build_structured_model(
     pad_y_multiple: int = 1,
     *,
     device,
+    lam_grid: Optional[np.ndarray] = None,
+    mu_grid: Optional[np.ndarray] = None,
 ):
     """Build the structured cantilever-style model + initial force on
     ``device``.
@@ -413,15 +433,23 @@ def build_structured_model(
     pads the material cell grids along Y to the padded node extent, as the
     reference does.  ``absorb_planes`` names the
     absorbing faces; their impedances rho*c_p = sqrt(rho (lam + 2 mu)) and
-    rho*c_s = sqrt(rho mu) come from the one material (the builder makes
-    homogeneous grids only, so the reference's refusal of a heterogeneous
-    grid with absorbing faces has no case here).
+    rho*c_s = sqrt(rho mu) come from the one material.
+
+    ``lam_grid``/``mu_grid`` (host arrays of (nx, ny, nz) cells, stored as
+    f32; a missing one is filled with ``material``'s) give per-cell
+    materials, as in the reference: a grid whose cells are all equal is
+    homogeneous (lam0/mu0 taken from it), any other is heterogeneous, with
+    lam0 = mu0 = 0.0, and refuses absorbing faces with the reference's
+    ValueError.  The cell grids are padded with zero cells along +X to the
+    padded node extent and, under ``pad_y_multiple`` > 1, along +Y too.
 
     Every node-grid array is an analytic per-axis cell-adjacency count
     product (values in {0,1,2}) scaled by one f64 scalar, built in f64 on
     the device and cast to the storage dtype at the end — the same
     arithmetic as the reference's numpy and on-device builders, so the
-    fields agree with both bit for bit.
+    fields agree with both bit for bit.  None of them depends on the
+    material, so a heterogeneous grid differs only in its cell grids,
+    uploaded from the host.
 
     Returns (model, external_force (3, X, Y, Z) f32 tensor).
     """
@@ -435,6 +463,31 @@ def build_structured_model(
     hx, hy, hz = (float(s) for s in spacing)
     lam0 = float(np.float32(material.lame.lam))
     mu0 = float(np.float32(material.lame.mu))
+    homogeneous = lam_grid is None and mu_grid is None
+    if not homogeneous:
+        cells = []
+        for grid, value in ((lam_grid, lam0), (mu_grid, mu0)):
+            grid = np.asarray(
+                np.full((nx, ny, nz), value) if grid is None else grid,
+                np.float32,
+            )
+            if grid.shape != (nx, ny, nz):
+                raise ValueError(
+                    f"material grid of shape {grid.shape}, expected "
+                    f"{(nx, ny, nz)} cells"
+                )
+            cells.append(grid)
+        if all(np.all(g == g.flat[0]) for g in cells):
+            homogeneous = True
+            lam0, mu0 = (float(g.flat[0]) for g in cells)
+        else:
+            lam0 = mu0 = 0.0
+    if absorb_planes and not homogeneous:
+        raise ValueError(
+            "absorbing faces on the structured path require a homogeneous "
+            "material grid; use the general (Gmsh/packed) path for "
+            "multi-material absorbing boundaries"
+        )
     if fixes is None:
         fixes = [(tag, (True, True, True), (None, None, None))
                  for tag in fixed_axis_planes]
@@ -452,13 +505,18 @@ def build_structured_model(
     cm = density * (hx * hy * hz) / 8.0
     mass = (cm * counts).to(f32)
 
-    # material grids: the material value on real cells, 0 on the x/y pad tails
-    cell_real = (
-        (torch.arange(xs_pad, device=device) < nx)[:, None, None]
-        & (torch.arange(cell_ys, device=device) < ny)[None, :, None]
-    ).expand(xs_pad, cell_ys, nz)
-    lam = torch.where(cell_real, lam0, 0.0).to(f32)
-    mu = torch.where(cell_real, mu0, 0.0).to(f32)
+    # material grids: the cell values on real cells, 0 on the x/y pad tails
+    if homogeneous:
+        cell_real = (
+            (torch.arange(xs_pad, device=device) < nx)[:, None, None]
+            & (torch.arange(cell_ys, device=device) < ny)[None, :, None]
+        ).expand(xs_pad, cell_ys, nz)
+        lam = torch.where(cell_real, lam0, 0.0).to(f32)
+        mu = torch.where(cell_real, mu0, 0.0).to(f32)
+    else:
+        pads = ((0, xs_pad - nx), (0, cell_ys - ny), (0, 0))
+        lam, mu = (torch.as_tensor(np.pad(g, pads), device=device)
+                   for g in cells)
 
     # Dirichlet planes, then the dead-pad override (the reference's order)
     bc = torch.zeros((3, xs_pad, ys_pad, zs), dtype=torch.bool, device=device)
@@ -525,6 +583,7 @@ def build_structured_model(
         pad_planes=pad_planes,
         pad_rows=pad_rows,
         spacing=(hx, hy, hz),
+        homogeneous=homogeneous,
         lam0=lam0,
         mu0=mu0,
         m8=float(np.float32(cm * 8.0)),

@@ -106,6 +106,14 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _F,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
+    # (G3) x, bc, lam, mu, mass, tables (2 x 576 host values of the
+    # vector type), out, X, Y, Z, nx, ny, nz, cell_y, ss, mf, stream
+    "civi_corner_gather": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+    ),
+    "civi_corner_gather_f64": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P,
+    ),
 }
 
 
@@ -191,7 +199,7 @@ def load_library() -> KernelLibrary:
 def instance(name: str, dtype) -> str:
     """The C entry point of kernel ``name``'s instance for vectors of
     ``dtype``: ``name`` for torch.float32, ``name + "_f64"`` for
-    torch.float64 (the four kernels with a double instance); any other
+    torch.float64 (the five kernels with a double instance); any other
     dtype raises TypeError."""
     import torch
 
@@ -233,6 +241,16 @@ def check_aligned(t, name: str, nbytes: int) -> None:
     that move rows as int4/float4 vectors)."""
     if t.data_ptr() % nbytes:
         raise ValueError(f"{name}: data not {nbytes}-byte aligned")
+
+
+def check_homogeneous(model, name: str) -> None:
+    """Raise on a heterogeneous grid: the constant-stencil kernels (K1/K5,
+    K2) hold one material's taps; such a grid takes G3."""
+    if not model.homogeneous:
+        raise ValueError(
+            f"{name}: a heterogeneous material grid has no constant "
+            "stencil (its operator is G3, corner_gather)"
+        )
 
 
 def check_tensor(t, name: str, shape, dtype, device) -> None:

@@ -125,6 +125,7 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    _build.check_homogeneous(model, name)
     dtype = x.dtype
     entry = _build.instance("civi_keff_structured_halo", dtype)
     xl, yl, z = model.grid_shape

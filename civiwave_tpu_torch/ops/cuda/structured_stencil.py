@@ -37,6 +37,7 @@ def _launch_args(model, residual_or_x):
     dev = residual_or_x.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
+    _build.check_homogeneous(model, "pc_keff_structured")
     shape = model.vector_shape
     _build.check_tensor(residual_or_x, "vector", shape, torch.float32, dev)
     _build.check_tensor(model.bc_mask, "bc_mask", shape, torch.bool, dev)

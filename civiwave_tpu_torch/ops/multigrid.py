@@ -34,7 +34,8 @@ The reference moves its power iteration to the host CPU and its levels to
 the device in one bulk transfer (TPU workarounds); here the whole build
 runs on the model's own device.  Scope, as in the reference: homogeneous,
 unsharded structured grids; ``attach_multigrid`` falls back to
-block-Jacobi with a note on a shard or a grid too small to coarsen.
+block-Jacobi with a note on a heterogeneous grid (no constant coarse
+stencil) and on a shard, and leaves a grid too small to coarsen as it is.
 """
 
 from __future__ import annotations
@@ -218,6 +219,7 @@ def _estimate_lambda_max(model: StructuredModel) -> float:
 
 
 SHARD_REASON = "sharded decomposition (coarse levels are not distributed)"
+HETEROGENEOUS_REASON = "heterogeneous material grid"
 
 
 def fall_back_to_block_jacobi(model: StructuredModel, reason: str):
@@ -236,9 +238,12 @@ def fall_back_to_block_jacobi(model: StructuredModel, reason: str):
 
 def attach_multigrid(model: StructuredModel) -> StructuredModel:
     """A copy of ``model`` with its hierarchy attached and
-    ``preconditioner='multigrid'``; ``model`` on block-Jacobi with a note
-    on stderr on a shard, and unchanged when the grid is too small to
-    coarsen."""
+    ``preconditioner='multigrid'``; ``model`` on block-Jacobi with the
+    reference's note on stderr on a heterogeneous grid (the coarse levels
+    need one material) and on a shard, and unchanged when the grid is too
+    small to coarsen."""
+    if not model.homogeneous:
+        return fall_back_to_block_jacobi(model, HETEROGENEOUS_REASON)
     if model.shard_group is not None:
         return fall_back_to_block_jacobi(model, SHARD_REASON)
     levels: list[StructuredModel] = []

@@ -1,7 +1,6 @@
 """Structured-grid operators in component-separated (3, X, Y, Z) layout.
 
-Port of :mod:`civiwave_tpu.ops.structured` for homogeneous grids (the
-heterogeneous corner-gather operator waits).  Same math as the
+Port of :mod:`civiwave_tpu.ops.structured`.  Same math as the
 unstructured hex path (2x2x2 Gauss, tensor-form isotropic stress).
 
 For a uniform homogeneous grid the assembled interior operator is a
@@ -40,6 +39,17 @@ takes K1.  The grid's shape picks the form, as in the reference:
   the scale, the mass term and the identity rows.  There the fused K2
   and K6 decline and 'auto' PCG is classic.
 
+A heterogeneous grid (per-cell ``lam_grid``/``mu_grid``, ``homogeneous``
+False) takes the corner-gather element loop instead: each cell's 8 corner
+values, its Gauss-point strains and stresses with the cell's own material,
+and the 8 corner forces scattered back (:func:`heterogeneous_stiffness`,
+the reference's XLA form).  On CUDA one hand-written kernel, G3
+(``ops/cuda/corner_gather.py``), computes the whole ``bc ? x : ss *
+K(xs) + mf * mass * xs`` from the stored mass; every homogeneous kernel
+(K1, K2, K4 + G2, K6) declines such a grid, 'auto' PCG is classic and the
+preconditioner is the per-node packed inverse
+(:func:`build_block_jacobi_inverse_structured`, applied by torch ops).
+
 Lysmer-Kuhlemeyer absorbing faces add ``damp_factor * C x`` on their face
 planes after the identity rows, on both forms.
 
@@ -72,6 +82,7 @@ import torch.nn.functional as F
 from ..mesh.structured import CORNERS, StructuredModel
 from .cuda import _build as _cuda_build
 from .cuda import block_jacobi_apply as _k3
+from .cuda import corner_gather as _g3
 from .cuda import interior_stencil as _k4
 from .cuda import keff_boundary as _g2
 from .cuda import pcg_iteration as _k6
@@ -364,16 +375,83 @@ def keff_envelope(model: StructuredModel, x, xs, stiff, stiffness_scale,
     return torch.where(model.bc_mask, x, out)
 
 
+def corner_views(model: StructuredModel, grid: torch.Tensor):
+    """The eight (..., nx, ny, nz) corner views of a node grid (a CSG
+    vector's: the per-corner element views), in CORNERS order."""
+    nx, ny, nz = model.nx, model.ny, model.nz
+    return [
+        grid[..., di : di + nx, dj : dj + ny, dk : dk + nz]
+        for (di, dj, dk) in CORNERS
+    ]
+
+
+def heterogeneous_stiffness(model: StructuredModel, xs: torch.Tensor):
+    """Per-element corner-gather K*xs with the per-cell material grids (CSG
+    layout), the reference's ``_apply_heterogeneous_stiffness`` term by
+    term: the gradient weights and Gauss volumes rounded to f32 (widened
+    for f64 vectors), the same sums in the same order, and the 8 corner
+    forces scattered back by slice adds.  G3's plain version."""
+    grads, gp_vol = _element_tables(model.spacing)
+    nx, ny, nz = model.nx, model.ny, model.nz
+    lam = model.lam_cells
+    mu = model.mu_cells
+    u_l = corner_views(model, xs)
+
+    # accumulate per-corner force fields across Gauss points
+    f = [[None] * 3 for _ in range(8)]
+    for gp in range(8):
+        g = [[None] * 3 for _ in range(3)]
+        for a in range(3):
+            for b in range(3):
+                acc = None
+                for l in range(8):
+                    w = float(grads[gp, l, a])
+                    if w == 0.0:
+                        continue
+                    term = u_l[l][b] * float(np.float32(w))
+                    acc = term if acc is None else acc + term
+                g[a][b] = acc if acc is not None else xs.new_zeros((nx, ny, nz))
+        trace = g[0][0] + g[1][1] + g[2][2]
+        vol = float(np.float32(gp_vol[gp]))
+        stress = [[None] * 3 for _ in range(3)]
+        for a in range(3):
+            for b in range(a, 3):
+                s = mu * (g[a][b] + g[b][a])
+                if a == b:
+                    s = s + lam * trace
+                stress[a][b] = stress[b][a] = s * vol
+        for l in range(8):
+            for b in range(3):
+                acc = f[l][b]
+                for a in range(3):
+                    w = float(grads[gp, l, a])
+                    if w == 0.0:
+                        continue
+                    term = stress[a][b] * float(np.float32(w))
+                    acc = term if acc is None else acc + term
+                f[l][b] = acc
+
+    out = torch.zeros_like(xs)
+    for l, (di, dj, dk) in enumerate(CORNERS):
+        out[:, di : di + nx, dj : dj + ny, dk : dk + nz] += torch.stack(f[l])
+    return out
+
+
 def apply_keff_structured_plain(
     model: StructuredModel, x: torch.Tensor, stiffness_scale, mass_factor
 ) -> torch.Tensor:
-    """K_eff * x, plain PyTorch (the XLA form of the reference): sanitize ->
-    stiffness -> scale -> mass term -> identity rows.  Any float dtype, any
-    device.  No absorbing term."""
+    """K_eff * x, plain PyTorch (the XLA forms of the reference): sanitize ->
+    stiffness -> scale -> mass term (the stored ``mass_grid``) -> identity
+    rows.  The stiffness is the interior stencil minus the face
+    corrections on a homogeneous grid, the corner-gather element loop on a
+    heterogeneous one.  Any float dtype, any device.  No absorbing term."""
     xs = x.masked_fill(model.bc_mask, 0.0)
-    stiff = subtract_face_corrections(
-        model, xs, _apply_taps(xs, interior_taps(model))
-    )
+    if model.homogeneous:
+        stiff = subtract_face_corrections(
+            model, xs, _apply_taps(xs, interior_taps(model))
+        )
+    else:
+        stiff = heterogeneous_stiffness(model, xs)
     return keff_envelope(model, x, xs, stiff, stiffness_scale, mass_factor)
 
 
@@ -403,9 +481,10 @@ def stream_kernel_profitable(model: StructuredModel) -> bool:
 
 
 def slender_route(model: StructuredModel, dtype) -> bool:
-    """Whether the operator takes the split form K4 + G2: f32 vectors, more
-    than ``_FLAT_INTERIOR_NODE_THRESHOLD`` nodes (``grid_shape``, +X pad
-    planes included) and a plane too small for the stream kernels (the
+    """Whether the operator of a homogeneous grid takes the split form K4 +
+    G2 (a heterogeneous one takes G3 before this is asked): f32 vectors,
+    more than ``_FLAT_INTERIOR_NODE_THRESHOLD`` nodes (``grid_shape``, +X
+    pad planes included) and a plane too small for the stream kernels (the
     reference's route to ``interior_stencil_pallas``).  Shape alone decides:
     the reference's VMEM plane-fit rule and TPU-backend gate are not
     ported."""
@@ -431,14 +510,18 @@ def apply_keff_structured(
 ) -> torch.Tensor:
     """K_eff * x in CSG layout: K1 (or K4 + G2 on :func:`slender_route`)
     on CUDA, the plain forms on CPU; plus the absorbing-face term.  A
-    shard takes the sharded operator (ghost exchange + K5) and the terms
-    of the faces its block holds."""
+    heterogeneous grid takes G3 (the corner gather) on CUDA.  A shard
+    takes the sharded operator (ghost exchange + K5) and the terms of the
+    faces its block holds."""
     if model.shard_group is not None:
         from .structured_sharded import apply_keff_structured_sharded
 
         out = apply_keff_structured_sharded(
             model, x, stiffness_scale, mass_factor
         )
+    elif not model.homogeneous:
+        out = _g3.apply_keff_corner_gather(model, x, stiffness_scale,
+                                           mass_factor)
     elif slender_route(model, x.dtype):
         out = apply_keff_split_structured(model, x, stiffness_scale, mass_factor)
     else:
@@ -757,11 +840,12 @@ def apply_compact_preconditioner_structured(
 
 def pc_keff_kernel_eligible(model: StructuredModel, pc, dtype) -> bool:
     """Whether the fused pc+matvec(+dots) kernel K2 runs: class-table
-    preconditioner, f32 vectors (K2 declines f64, as the reference's
-    kernel), model on a CUDA device, not a shard and not the slender route
-    (where the reference's kernel is not profitable)."""
+    preconditioner, a homogeneous grid, f32 vectors (K2 declines f64, as
+    the reference's kernel), model on a CUDA device, not a shard and not
+    the slender route (where the reference's kernel is not profitable)."""
     return (
         model.shard_group is None
+        and model.homogeneous
         and isinstance(pc, CompactBlockJacobi)
         and dtype == torch.float32
         and model.device.type == "cuda"
@@ -776,9 +860,11 @@ def apply_pc_keff_structured(
     """(u, w) = (M^-1 r, K_eff u) — the back-to-back pc apply + matvec of
     the Chronopoulos-Gear iteration: one K2 launch on CUDA (the
     composition of the two plain forms on CPU) plus the absorbing term on
-    w; on a shard, on the slender route and for f64 vectors (K2 is f32
-    only) the composition of the preconditioner and the operator."""
-    if (model.shard_group is not None or residual.dtype != torch.float32
+    w; on a shard, on a heterogeneous grid, on the slender route and for
+    f64 vectors (K2 is f32 only) the composition of the preconditioner and
+    the operator."""
+    if (model.shard_group is not None or not model.homogeneous
+            or residual.dtype != torch.float32
             or slender_route(model, residual.dtype)):
         u = model.apply_preconditioner(pc, residual)
         return u, model.apply_keff(u, stiffness_scale, mass_factor)
@@ -798,10 +884,11 @@ def apply_pc_keff_dots_structured(
     :func:`~civiwave_tpu_torch.solver.pcg.fused_dots`.
 
     None — the caller composes ``apply_pc_keff`` and ``fused_dots`` — on
-    a shard, on the slender route, for f64 vectors and with absorbing
-    faces: the face term is added to w after the kernel, so an in-kernel
-    (w, u) partial would miss it."""
+    a shard, on a heterogeneous grid, on the slender route, for f64
+    vectors and with absorbing faces: the face term is added to w after
+    the kernel, so an in-kernel (w, u) partial would miss it."""
     if (model.shard_group is not None or model.absorb_faces
+            or not model.homogeneous
             or residual.dtype != torch.float32
             or slender_route(model, residual.dtype)):
         return None
@@ -838,12 +925,10 @@ def build_fused_pcg_iteration(
     """
     if os.environ.get("CIVIWAVE_MEGA_PCG", "0") != "1":
         return None
-    # the heterogeneous grid is a field the port's model does not carry
-    # yet; the rule stays so that slice inherits it
     if not (
         isinstance(pc, CompactBlockJacobi)
         and not model.absorb_faces
-        and getattr(model, "homogeneous", True)
+        and model.homogeneous
         and model.shard_group is None
         and vector_dtype == torch.float32
         and not slender_route(model, vector_dtype)

@@ -241,10 +241,16 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
     force)`` cut to its slab (1-D group) or tile (2-D group) on the group's
     device, the model carrying the group, its offsets and the mask's ghost
     planes and rows.  A multigrid model's shard falls back to block-Jacobi
-    with a note on stderr.  A collective: every rank of the group calls
-    it."""
+    with a note on stderr.  A heterogeneous grid raises
+    NotImplementedError (ROADMAP A11; the reference shards it under
+    GSPMD).  A collective: every rank of the group calls it."""
     from ..ops.structured_sharded import exchange_ghosts
 
+    if not model.homogeneous:
+        raise NotImplementedError(
+            "a heterogeneous material grid on a shard is not ported yet "
+            "(ROADMAP A11)"
+        )
     if model.shard_group is not None:
         raise ShardError("the model is already a shard")
     if model.preconditioner == "multigrid":

@@ -19,11 +19,12 @@ host in one transfer per frame; :func:`probe_derived_host` evaluates the
 <= 8 incident-cell strains from the window on the host, the same incident-
 cell mean the full node average computes.
 
-The port's structured model is homogeneous (heterogeneous grids wait for
-ROADMAP A1), so the probe formula reads the material from ``lam0``/``mu0``,
-which equal every live cell of ``lam_grid``/``mu_grid``.  Dead +Y rows
-(``pad_rows``) are stripped before the node rows are flattened, as
-``to_nodal`` does.  A shard's fields are not supported (ROADMAP A11).
+Both read each cell's own material from ``lam_grid``/``mu_grid`` (one
+value on every live cell of a homogeneous grid, per-cell values on a
+heterogeneous one); the probes gather their incident cells' values in one
+small transfer per call.  Dead +Y rows (``pad_rows``) are stripped before
+the node rows are flattened, as ``to_nodal`` does.  A shard's fields are
+not supported (ROADMAP A11).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ..mesh.structured import CORNERS, StructuredModel
-from ..ops.structured import _element_tables
+from ..ops.structured import _element_tables, corner_views
 from ..utils.errors import ProbeError
 from .derived import DerivedFieldSet
 
@@ -46,16 +47,6 @@ def _mean_grads(spacing: Tuple[float, float, float]) -> np.ndarray:
     element's volume-averaged strain is the strain of this table."""
     grads, gp_vol = _element_tables(spacing)
     return np.einsum("g,gla->la", gp_vol, grads) / gp_vol.sum()
-
-
-def _corner_views(model: StructuredModel, grid: torch.Tensor):
-    """The eight (..., nx, ny, nz) corner views of a node grid, in CORNERS
-    order."""
-    nx, ny, nz = model.nx, model.ny, model.nz
-    return [
-        grid[..., di : di + nx, dj : dj + ny, dk : dk + nz]
-        for (di, dj, dk) in CORNERS
-    ]
 
 
 def _von_mises_into(out: torch.Tensor, s) -> torch.Tensor:
@@ -95,7 +86,7 @@ def compute_structured_derived(model: StructuredModel, u_csg: torch.Tensor):
         )
     nx, ny, nz = model.nx, model.ny, model.nz
     mg = _mean_grads(tuple(model.spacing))
-    views = _corner_views(model, u_csg)
+    views = corner_views(model, u_csg)
     f32 = torch.float32
     dev = u_csg.device
 
@@ -144,7 +135,7 @@ def compute_structured_derived(model: StructuredModel, u_csg: torch.Tensor):
     node_strain = torch.zeros((6,) + tuple(model.grid_shape), dtype=f32, device=dev)
     node_stress = torch.zeros_like(node_strain)
     for acc, elem in ((node_strain, elem_strain), (node_stress, elem_stress)):
-        for view in _corner_views(model, acc):
+        for view in corner_views(model, acc):
             view += elem
         acc /= count
     node_vm = _von_mises_into(
@@ -274,40 +265,52 @@ def probe_derived_host(
     (f64 on the host): the mean over the probe's incident cells, the value
     of the full node average at that node."""
     mg = _mean_grads(tuple(model.spacing))
-    # the homogeneous grid's material: every live cell of lam_grid/mu_grid
-    lam, mu = float(np.float32(model.lam0)), float(np.float32(model.mu0))
     nx, ny, nz = model.nx, model.ny, model.nz
-    out = []
-    for p, w in zip(probes, windows):
+    incident = []  # per probe, its live incident cells
+    for p in probes:
+        i, j, k = _probe_coords((nx, ny, nz), int(p))
+        incident.append([
+            (ci, cj, ck)
+            for ci in (i - 1, i) for cj in (j - 1, j) for ck in (k - 1, k)
+            if 0 <= ci < nx and 0 <= cj < ny and 0 <= ck < nz
+        ])
+    # every incident cell's lam and mu, gathered on the device at once
+    cell_y = model.lam_grid.shape[1]
+    flat = [(ci * cell_y + cj) * nz + ck for cells in incident
+            for ci, cj, ck in cells]
+    index = torch.as_tensor(flat, dtype=torch.int64, device=model.device)
+    materials = torch.stack([
+        model.lam_grid.reshape(-1)[index], model.mu_grid.reshape(-1)[index],
+    ]).cpu().numpy().astype(np.float64)
+    out, start = [], 0
+    for p, w, cells in zip(probes, windows, incident):
         i, j, k = _probe_coords((nx, ny, nz), int(p))
         lo, _ = _window_bounds((nx, ny, nz), i, j, k)
         w = np.asarray(w, np.float64)  # (3, wx, wy, wz)
         strain_sum = np.zeros(6)
         stress_sum = np.zeros(6)
         n_cells = 0
-        for ci in (i - 1, i):
-            for cj in (j - 1, j):
-                for ck in (k - 1, k):
-                    if not (0 <= ci < nx and 0 <= cj < ny and 0 <= ck < nz):
-                        continue
-                    oi, oj, ok = ci - lo[0], cj - lo[1], ck - lo[2]
-                    g = np.zeros((3, 3))
-                    for l, (di, dj, dk) in enumerate(CORNERS):
-                        ul = w[:, oi + di, oj + dj, ok + dk]
-                        g += np.outer(mg[l], ul)  # g[a, b] = du_b/dx_a
-                    strain = np.array([
-                        g[0, 0], g[1, 1], g[2, 2],
-                        g[1, 0] + g[0, 1], g[2, 1] + g[1, 2],
-                        g[2, 0] + g[0, 2],
-                    ])
-                    tr = strain[:3].sum()
-                    stress = np.concatenate([
-                        lam * tr + 2.0 * mu * strain[:3],
-                        mu * strain[3:],
-                    ])
-                    strain_sum += strain
-                    stress_sum += stress
-                    n_cells += 1
+        for ci, cj, ck in cells:
+            lam, mu = materials[:, start + n_cells]
+            oi, oj, ok = ci - lo[0], cj - lo[1], ck - lo[2]
+            g = np.zeros((3, 3))
+            for l, (di, dj, dk) in enumerate(CORNERS):
+                ul = w[:, oi + di, oj + dj, ok + dk]
+                g += np.outer(mg[l], ul)  # g[a, b] = du_b/dx_a
+            strain = np.array([
+                g[0, 0], g[1, 1], g[2, 2],
+                g[1, 0] + g[0, 1], g[2, 1] + g[1, 2],
+                g[2, 0] + g[0, 2],
+            ])
+            tr = strain[:3].sum()
+            stress = np.concatenate([
+                lam * tr + 2.0 * mu * strain[:3],
+                mu * strain[3:],
+            ])
+            strain_sum += strain
+            stress_sum += stress
+            n_cells += 1
+        start += n_cells
         inv = 1.0 / max(n_cells, 1)
         s = stress_sum * inv
         vm = float(np.sqrt(max(

@@ -43,7 +43,7 @@ def test_every_module_imports_with_jax_blocked():
         "mesh.renumber", "ops.apply_keff", "ops.block_jacobi",
         "ops.cuda.element_forces", "ops.cuda.assemble_csr", "physics.oracle",
         "ops.cuda.pcg_iteration", "ops.cuda.interior_stencil",
-        "ops.cuda.keff_boundary", "ops.cuda.keff_halo",
+        "ops.cuda.keff_boundary", "ops.cuda.keff_halo", "ops.cuda.corner_gather",
         "ops.structured_sharded", "parallel.sharding", "parallel.collectives",
         "parallel.launch", "parallel.general_halo", "ops.general_sharded", "solver.static", "physics.absorbing", "post.derived",
         "post.vtu", "post.native_vtu", "post.probes", "post.structured_fields",

@@ -9,7 +9,11 @@ mass correction on multigrid coarse levels, and the V-cycle, multigrid
 and pipelined solves on the card against the CPU; the f64 instances of
 K1/K5, K3, K7 and G1 (``precision.vectors: fp64``) against their plain
 versions in f64 at 1e-12 of max|ref|, and an fp64 simulation that
-launches only them.
+launches only them; G3 (the heterogeneous grid's corner gather, f32 and
+f64) against its plain version on odd, padded and dead-row grids, on
+uniform grids against K1 (3e-6 of max), the constant-stencil kernels
+refusing a heterogeneous grid, and a heterogeneous cantilever on the
+card against the CPU.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -1077,3 +1081,124 @@ def test_launcher_across_two_gpus(device, case):
         cwd=repo, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
     assert "against one rank: iterations" in proc.stdout
+
+
+# --- heterogeneous grids: G3 (corner_gather) --------------------------------
+
+# X = 33 (1 mod 32), a padded X, a dead +Y row, fixes on several faces
+HETERO = {
+    "x_1_mod_32": ((32, 5, 7), {}),
+    "xpad4": ((6, 5, 4), dict(pad_x_multiple=4)),
+    "ypad_row": ((5, 5, 3), dict(pad_y_multiple=4)),
+    "odd_partial_fixes": SHAPES["odd_partial_fixes"],
+}
+
+
+def _hetero_model(device, case, seed=21):
+    """A heterogeneous grid of HETERO[case]: lam0 (1 + U), mu0 (1 + U') per
+    cell, U and U' uniform on [0, 1) from ``default_rng(seed)``."""
+    dims, kw = HETERO[case]
+    mat = cantilever_config().materials[0]
+    props = materials.make_properties(mat)
+    rng = np.random.default_rng(seed)
+    model, force = build_structured_model(
+        *dims, props, mat.density, device=device,
+        lam_grid=props.lame.lam * (1.0 + rng.uniform(0.0, 1.0, dims)),
+        mu_grid=props.lame.mu * (1.0 + rng.uniform(0.0, 1.0, dims)), **kw)
+    assert not model.homogeneous
+    return model, force
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(HETERO))
+def test_corner_gather_kernel_matches_plain(device, case, dtype):
+    """G3 against its plain version (the reference's corner-gather loop):
+    1e-5 of max|ref| in f32, 1e-12 in f64 (the split A/B form sums in
+    another order); constrained outputs equal x; one launch of the
+    instance for the dtype."""
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    model, _ = _hetero_model(device, case)
+    x = torch.as_tensor(np.random.default_rng(22).standard_normal(model.vector_shape),
+                        device=device).to(dtype)
+    ss, mf = (SS, MF) if dtype == torch.float32 else (SS64, MF64)
+    wrapper = g3.apply_keff_corner_gather
+    before = (wrapper.launches, wrapper.launches_f64)
+    out = model.apply_keff(x, ss, mf)
+    torch.cuda.synchronize()
+    f64 = int(dtype == torch.float64)
+    assert (wrapper.launches, wrapper.launches_f64) == (
+        before[0] + 1 - f64, before[1] + f64)
+    ref = tops.apply_keff_structured_plain(model, x, ss, mf)
+    tol = OP_TOL if dtype == torch.float32 else F64_TOL
+    err = float((out - ref).abs().max())
+    assert out.dtype == dtype and err <= tol * float(ref.abs().max()), err
+    bc = model.bc_mask
+    assert torch.equal(out[bc], x[bc])
+
+
+@pytest.mark.parametrize("case", sorted(SHAPES))
+def test_corner_gather_on_a_uniform_grid_matches_k1(device, case):
+    """A uniform grid marked heterogeneous: G3 within 3e-6 of max|K1 x|
+    (the bound of the reference's stencil-against-corner-path test)."""
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    model, x = _model(device, case)
+    k1 = k12.apply_keff_fused(model, x, SS, MF)
+    out = g3.apply_keff_corner_gather(
+        dataclasses.replace(model, homogeneous=False), x, SS, MF)
+    torch.cuda.synchronize()
+    assert float((out - k1).abs().max()) <= 3e-6 * float(k1.abs().max())
+
+
+def test_constant_stencil_kernels_refuse_a_heterogeneous_grid(device):
+    model, _ = _hetero_model(device, "xpad4")
+    x = torch.zeros(model.vector_shape, device=device)
+    with pytest.raises(ValueError, match="heterogeneous"):
+        k12.apply_keff_fused(model, x, SS, MF)
+    with pytest.raises(ValueError, match="heterogeneous"):
+        k12.apply_pc_keff_fused(model, torch.zeros((6, 3, 3, 3), device=device),
+                                x, SS, MF)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "fp64"])
+def test_heterogeneous_cantilever_runs_g3_only(device, precision):
+    """A heterogeneous 32x5x7 cantilever stepped on the card and on the
+    CPU (the plain version): iterations within 1, u within 2.5e-4 and a
+    within 3e-3 of max; on the card G3's instance for the precision on
+    every matvec, no K1, K2, K3, K4 or K6."""
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+    from civiwave_tpu_torch.solver.stepper import NewmarkStepper
+
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120)
+    ray = materials.compute_rayleigh(cfg.damping)
+    runs = {}
+    counters = (k12.apply_keff_fused, k12.apply_pc_keff_fused,
+                k3.apply_block_jacobi, k4.interior_stencil,
+                k6.pcg_iteration_fused)
+    for dev in (device, torch.device("cpu")):
+        model, force = _hetero_model(dev, "x_1_mod_32")
+        stepper = NewmarkStepper(model, model.zero_state(), force, ray,
+                                 cfg.solver, cfg.time, vector_precision=precision)
+        before = ([(c.launches, getattr(c, "launches_f64", 0)) for c in counters],
+                  (g3.apply_keff_corner_gather.launches,
+                   g3.apply_keff_corner_gather.launches_f64))
+        tel = [stepper.step(0.001 * i) for i in range(4)]
+        torch.cuda.synchronize()
+        after = ([(c.launches, getattr(c, "launches_f64", 0)) for c in counters],
+                 (g3.apply_keff_corner_gather.launches,
+                  g3.apply_keff_corner_gather.launches_f64))
+        runs[dev.type] = (tel, stepper.state, before, after)
+    tel, state, before, after = runs["cuda"]
+    ctel, cstate, _, _ = runs["cpu"]
+    assert all(t.pcg_converged for t in tel)
+    assert before[0] == after[0]
+    launched = [a - b for a, b in zip(after[1], before[1])]
+    iters = sum(t.pcg_iterations for t in tel)
+    assert launched[int(precision == "fp64")] >= iters
+    assert launched[int(precision != "fp64")] == 0
+    for a, b in zip(tel, ctel):
+        assert abs(a.pcg_iterations - b.pcg_iterations) <= 1
+    for name, tol in (("displacement", 2.5e-4), ("acceleration", 3e-3)):
+        got, ref = getattr(state, name).cpu(), getattr(cstate, name)
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())

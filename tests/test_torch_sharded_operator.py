@@ -306,13 +306,12 @@ def test_shard_simulation_steps_a_curve_scenario_on_one_rank():
     np.testing.assert_allclose(a, a_ref, rtol=0, atol=3e-3 * np.abs(a_ref).max())
 
 
-def test_shard_simulation_refuses_the_general_path():
+def test_shard_simulation_of_the_general_path_matches_unsharded():
     """A simulation without a structured force schedule (the general
-    gather path) used to be refused naming A11; it now shards.  Over a
-    one-rank gloo group it keeps the single-device operator with the
-    group's reductions ('auto' stays classic, as the reference's unmarked
-    model), so its frames equal the unsharded run's; a 2-D group is
-    refused."""
+    gather path) shards.  Over a one-rank gloo group it keeps the
+    single-device operator with the group's reductions ('auto' stays
+    classic, as the reference's unmarked model), so its frames equal the
+    unsharded run's; a 2-D group is refused."""
     from civiwave_tpu_torch.runner import build_simulation
 
     cfg = cantilever_config(mesh={"path": "synthetic://box/8,3,3,tet"},

@@ -197,12 +197,12 @@ def test_true_relative_residual_of_the_zero_vector_is_one():
     assert true_relative_residual(tm, tf, zero) == pytest.approx(1.0, rel=1e-12)
 
 
-def test_solve_static_refuses_a_shard():
-    """A shard used to be refused naming A11; a one-rank gloo shard now
-    solves ('auto' = fused, the dots through the group) to the unsharded
-    fused solve's u (2 ranks: test_torch_general_sharded).  The counts
-    are not held: the shard's plain operator (K5's) rounds otherwise than
-    the unsharded one, and a solve to 1e-8 in f32 ends at that floor."""
+def test_solve_static_on_a_one_rank_shard_matches_unsharded():
+    """A one-rank gloo shard solves ('auto' = fused, the dots through the
+    group) to the unsharded fused solve's u (2 ranks:
+    test_torch_general_sharded).  The counts are not held: the shard's
+    plain operator (K5's) rounds otherwise than the unsharded one, and a
+    solve to 1e-8 in f32 ends at that floor."""
     from civiwave_tpu_torch.parallel import sharding
 
     (tm, tf), _ = structured_pair(4, 3, 3)
