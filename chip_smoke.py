@@ -191,19 +191,27 @@ Phases, each printing its result:
     and on examples/seismic_basin.yaml (a failed check fails the run);
     with one GPU it prints that it skipped;
 29. heterogeneous grids (per-cell lam0 (1 + U), mu0 (1 + U') from
-    ``default_rng(SEED)``): G3 corner_gather against its plain version at
-    255^3 in f32 (1e-5 of max|ref|) and f64 (1e-12), constrained outputs
-    equal to x, timed beside its bound; G3 against K1 on the uniform 255^3
-    grid marked heterogeneous (3e-6 of max|K1 x|); a multigrid request
+    ``default_rng(SEED)``): G3 corner_gather (a plane sweep: per cell
+    plane an element stage, FFMA in f32 and DMMA tensor-core products in
+    f64, then a gather stage) with its ptxas registers and spills, against
+    its plain version on ``G3_SHAPES`` (grids that cut its tiles and
+    chunks) and at 255^3 in f32 (1e-5 of max|ref|) and f64 (1e-12),
+    constrained outputs equal to x, timed at 255^3 beside its bound and
+    the torch-composition yardstick (the packed [A; B] product through
+    ``torch.matmul`` and 8 slice adds; G3 must beat it); G3 against K1 on
+    the uniform 255^3 grid marked heterogeneous (3e-6 of max|K1 x|); a
+    multigrid request
     (the note on stderr, the model unchanged on block-Jacobi); the 255^3
     heterogeneous cantilever through ``build_structured_model(...,
     lam_grid=, mu_grid=)`` and ``NewmarkStepper``, 8 'auto' (= classic)
-    frames: converged, finite, the tip deflects, G3 once per iteration and
+    frames: converged, finite, the tip deflects, iterations within 1 of
+    ``HETERO_ITERS``, G3 once per iteration and
     twice per frame and no other kernel (K1, K2, K3, K4, K6, K5, G2),
     iterations, steps/s, ms per iteration, the per-node preconditioner's
     apply and build ms, peak memory and a profiled frame; its static solve
     through ``solve_static`` (tol 1e-6); 3 fp64 frames on G3's f64
-    instance alone against the f32 frames at the BASELINE tolerances; a
+    instance alone against the f32 frames (iterations within 1, u and a
+    at the BASELINE tolerances); a
     16x4x4 heterogeneous box for 10 frames on the GPU and the CPU.
     Phase 4 also fails if the homogeneous main path launches G3.
 
@@ -3859,7 +3867,37 @@ def launch_across_gpus_phase():
 
 HETERO_BOX = (16, 4, 4)  # phase 29's GPU-vs-CPU box
 HETERO_FRAMES = 8
+# PCG iterations of those 8 frames as measured on an H100 (PERF.md):
+# each frame must land within 1 of them
+HETERO_ITERS = (44, 39, 35, 32, 29, 27, 25, 22)
 HETERO_STATIC_TOL = 1e-6
+# cells and build options of the small heterogeneous grids G3 is held to
+# its plain version on (phase 29; tests/test_torch_kernels_cuda.py's HETERO
+# and the CPU tests of its tables and sweep): grids that cut G3's 8 x 32
+# (y, z) node tiles, its 9 x 33 cell tiles and its 32-plane X chunks
+G3_SHAPES = {
+    # X = 33 (1 mod 32): the last chunk holds one plane
+    "x_1_mod_32": ((32, 5, 7), {}),
+    # a padded X, a dead +Y row, fixes on several faces
+    "xpad4": ((6, 5, 4), dict(pad_x_multiple=4)),
+    "ypad_row": ((5, 5, 3), dict(pad_y_multiple=4)),
+    "odd_partial_fixes": ((17, 9, 33), dict(fixes=[
+        ("x0", (True, True, True), (None, None, None)),
+        ("y1", (False, True, False), (None, None, None)),
+        ("z0", (True, False, True), (1e-3, None, None)),
+    ])),
+    # Y = 13 (not a multiple of 8), Z = 37 (not a multiple of 4 or 32):
+    # two y and two z tiles, both ragged
+    "y13_z37": ((7, 12, 36), {}),
+    # X = 65 over three chunks, the last of one plane; a dead +Y row
+    "x65_dead_row": ((64, 4, 4), dict(pad_y_multiple=2)),
+    # one cell thick along each axis
+    "one_cell_x": ((1, 6, 9), {}),
+    "one_cell_y": ((6, 1, 9), {}),
+    "one_cell_z": ((6, 9, 1), dict(fixes=[
+        ("z1", (True, False, True), (None, None, None)),
+    ])),
+}
 # least bytes per node of G3: x and out (f32 12 B each, f64 24 B), the
 # stored mass (4 B) and the mask (3 B), plus lam and mu (4 B each) per
 # live cell; least operations: per node and live incident cell, the node's
@@ -3914,9 +3952,10 @@ def hetero_cells(dims, seed=SEED):
             lame.mu * (1.0 + rng.uniform(0.0, 1.0, dims)))
 
 
-def hetero_model(dims, device, lam_mu=None):
+def hetero_model(dims, device, lam_mu=None, **options):
     """The steel cantilever (x0 fixed, traction -1e6 Pa on x1) of ``dims``
-    cells with per-cell materials, through ``build_structured_model``."""
+    cells with per-cell materials, through ``build_structured_model``
+    (``options``: its padding and fixes)."""
     from civiwave_tpu_torch.mesh.structured import build_structured_model
     from civiwave_tpu_torch.physics import materials
     from civiwave_tpu_torch.utils.synthetic import cantilever_config
@@ -3925,7 +3964,8 @@ def hetero_model(dims, device, lam_mu=None):
     lam, mu = hetero_cells(dims) if lam_mu is None else lam_mu
     model, force = build_structured_model(
         *dims, materials.make_properties(mat), mat.density,
-        traction=(0.0, 0.0, -1.0e6), lam_grid=lam, mu_grid=mu, device=device)
+        traction=(0.0, 0.0, -1.0e6), lam_grid=lam, mu_grid=mu, device=device,
+        **options)
     if model.homogeneous:
         fail(f"heterogeneous {dims}: build_structured_model made a homogeneous grid")
     return model, force
@@ -3943,6 +3983,31 @@ def hetero_stepper(model, force, precision="fp32"):
                           cfg.time, vector_precision=precision)
 
 
+def g3_composition(model, x, stiffness_scale, mass_factor):
+    """G3's torch-composition yardstick (never on the path): the 8 corner
+    views of xs stacked into a (24, cells) matrix, one ``torch.matmul``
+    with the packed (48, 24) [A; B] (cuBLAS; f64 on the tensor cores), the
+    rows scaled by lam and mu, the 8 corner slices added back, then the
+    envelope of the plain version."""
+    from civiwave_tpu_torch.mesh.structured import CORNERS
+    from civiwave_tpu_torch.ops import structured as ops
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    nx, ny, nz = model.nx, model.ny, model.nz
+    packed = torch.as_tensor(g3.packed_tables(model.spacing, x.dtype),
+                             device=x.device)
+    xs = x.masked_fill(model.bc_mask, 0.0)
+    u = torch.stack(ops.corner_views(model, xs), dim=1).reshape(24, -1)
+    d = torch.matmul(packed, u)
+    lam = model.lam_cells.reshape(-1).to(x.dtype)
+    mu = model.mu_cells.reshape(-1).to(x.dtype)
+    f = (d[:24] * lam + d[24:] * mu).reshape(3, 8, nx, ny, nz)
+    stiff = torch.zeros_like(x)
+    for l, (di, dj, dk) in enumerate(CORNERS):
+        stiff[:, di:di + nx, dj:dj + ny, dk:dk + nz] += f[:, l]
+    return ops.keff_envelope(model, x, xs, stiff, stiffness_scale, mass_factor)
+
+
 def g3_least(model, dtype):
     """(least ms, bound_by) of one G3 call on ``model``: the bytes above
     and the operations of this grid's (node, live cell) pairs."""
@@ -3958,22 +4023,61 @@ def g3_least(model, dtype):
                  F64_MATRIX_TFLOPS if dtype == torch.float64 else F32_TFLOPS)
 
 
-def heterogeneous_phase(device, ss, mf):
-    """Phase 29: heterogeneous grids (per-cell lam/mu) through G3."""
-    import contextlib
-    import io
-
+def g3_kernel_phase(device, ss, mf):
+    """Phase 29, the kernel: G3's ptxas lines; G3 against its plain version
+    on ``G3_SHAPES`` and at 255^3 in f32 (1e-5 of max|ref|) and f64
+    (1e-12), constrained outputs equal to x; at 255^3 its time beside its
+    bound, the plain version's and the torch-composition yardstick's
+    (which it must beat); G3 against K1 on the uniform 255^3 grid marked
+    heterogeneous (3e-6 of max|K1 x|).  Returns the errors, the times and
+    the 255^3 model and force."""
     from civiwave_tpu_torch.mesh.structured import build_structured_model
-    from civiwave_tpu_torch.ops import multigrid
     from civiwave_tpu_torch.ops import structured as ops
+    from civiwave_tpu_torch.ops.cuda import _build
     from civiwave_tpu_torch.ops.cuda import corner_gather as g3
     from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
     from civiwave_tpu_torch.physics import materials
-    from civiwave_tpu_torch.solver.static import (
-        solve_static,
-        true_relative_residual,
-    )
     from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    ptxas = ptxas_report(_build.load_library().log, ["corner_gather_kernel"])
+    for line in ptxas:
+        print(f"  G3 ptxas: {line}", flush=True)
+    # registers and spill-store bytes of each instance (f: float, d: double)
+    regs = {}
+    for line in ptxas:
+        if "Compiling entry" in line:
+            key = "f32" if "corner_gather_kernelIf" in line else "f64"
+        elif "spill stores" in line:
+            regs.setdefault(key, {})["spill_stores"] = int(
+                line.split("bytes spill stores")[0].split(",")[-1])
+        elif "registers" in line:
+            regs.setdefault(key, {})["registers"] = int(
+                line.split("Used ")[1].split(" registers")[0])
+    if sorted(regs) != ["f32", "f64"] or any(len(v) != 2 for v in regs.values()):
+        fail(f"G3: registers and spills of both instances not in ptxas's "
+             f"lines: {ptxas}")
+    rng = np.random.default_rng(SEED)
+    dtypes = ((torch.float32, "f32", OP_TOL), (torch.float64, "f64", F64_TOL))
+    errs = {}
+
+    # the small grids that cut the tiles and chunks
+    for name, (dims, options) in G3_SHAPES.items():
+        model, _ = hetero_model(dims, device, **options)
+        line = []
+        for dtype, key, tol in dtypes:
+            x = torch.as_tensor(rng.standard_normal(model.vector_shape),
+                                device=device).to(dtype)
+            got = g3.apply_keff_corner_gather(model, x, ss, mf)
+            ref = ops.apply_keff_structured_plain(model, x, ss, mf)
+            torch.cuda.synchronize()
+            err = check_close(f"G3 {key} {name}", got, ref, tol)
+            if not torch.equal(got[model.bc_mask], x[model.bc_mask]):
+                fail(f"G3 {key} {name}: constrained outputs differ from x")
+            errs[f"odd_{key}"] = max(errs.get(f"odd_{key}", err), err,
+                                     key=lambda e: e[1])
+            line.append(f"{key} {err[1]:.3e}")
+        print(f"G3 vs plain {name} {model.grid_shape}: " + ", ".join(line)
+              + " of max|ref|; constrained outputs = x", flush=True)
 
     t0 = time.perf_counter()
     model, force = hetero_model(FULL, device)
@@ -3983,11 +4087,9 @@ def heterogeneous_phase(device, ss, mf):
           f"model build {build_s:.3f} s (cell grids from the host)", flush=True)
 
     # G3 against its plain version at 255^3, f32 and f64
-    rng = np.random.default_rng(SEED)
     bc = model.bc_mask
-    errs, times = {}, {}
-    for dtype, tol in ((torch.float32, OP_TOL), (torch.float64, F64_TOL)):
-        key = "f64" if dtype == torch.float64 else "f32"
+    times = {}
+    for dtype, key, tol in dtypes:
         x = torch.as_tensor(rng.standard_normal(model.vector_shape),
                             device=device).to(dtype)
         got = g3.apply_keff_corner_gather(model, x, ss, mf)
@@ -3996,20 +4098,35 @@ def heterogeneous_phase(device, ss, mf):
         errs[key] = check_close(f"G3 {key} 255^3", got, ref, tol)
         if not torch.equal(got[bc], x[bc]):
             fail(f"G3 {key} 255^3: constrained outputs differ from x")
-        del got, ref
+        composed = g3_composition(model, x, ss, mf)
+        torch.cuda.synchronize()
+        errs[f"composition_{key}"] = check_close(
+            f"G3 composition {key} 255^3", composed, ref, tol)
+        del got, ref, composed
+        torch.cuda.empty_cache()
         least, by = g3_least(model, dtype)
         times[key] = dict(
             ms=time_ms(lambda: g3.apply_keff_corner_gather(model, x, ss, mf), 20),
             plain_ms=time_ms(
                 lambda: ops.apply_keff_structured_plain(model, x, ss, mf), 2),
-            bound_ms=least, bound_by=by, library_ms=None)
+            bound_ms=least, bound_by=by, library_ms=None,
+            torch_composition_ms=time_ms(
+                lambda: g3_composition(model, x, ss, mf), 3),
+            max_rel_err_odd_shapes=errs[f"odd_{key}"][1], **regs[key])
+        t = times[key]
         print(f"G3 {key} 255^3: vs plain {errs[key][0]:.3e} abs, "
               f"{errs[key][1]:.3e} of max|ref| (tol {tol:g}); kernel "
-              f"{times[key]['ms']:.4f} ms, plain {times[key]['plain_ms']:.4f} "
-              f"ms, bound {least:.4f} ms ({by}; {least / times[key]['ms']:.3f} "
-              f"of it)", flush=True)
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, torch "
+              f"composition {t['torch_composition_ms']:.4f} ms (matmul "
+              f"{errs[f'composition_{key}'][1]:.3e} of max|ref|), bound "
+              f"{least:.4f} ms ({by}; {least / t['ms']:.3f} of it); "
+              f"{t['registers']} registers, {t['spill_stores']} B spill "
+              f"stores", flush=True)
+        if t["ms"] >= t["torch_composition_ms"]:
+            fail(f"G3 {key} 255^3: {t['ms']:.4f} ms, not faster than its "
+                 f"torch composition ({t['torch_composition_ms']:.4f} ms)")
         del x
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
 
     # G3 against K1 on the uniform 255^3 grid marked heterogeneous
     cfg = cantilever_config()
@@ -4027,6 +4144,23 @@ def heterogeneous_phase(device, ss, mf):
           f"max|K1 x| (tol 3e-6)", flush=True)
     del uniform, x, k1, got
     torch.cuda.empty_cache()
+    return errs, times, model, force
+
+
+def heterogeneous_phase(device, ss, mf):
+    """Phase 29: heterogeneous grids (per-cell lam/mu) through G3."""
+    import contextlib
+    import io
+
+    from civiwave_tpu_torch.ops import multigrid
+    from civiwave_tpu_torch.ops import structured as ops
+    from civiwave_tpu_torch.solver.static import (
+        solve_static,
+        true_relative_residual,
+    )
+
+    errs, times, model, force = g3_kernel_phase(device, ss, mf)
+    rng = np.random.default_rng(SEED + 1)
 
     # a multigrid request falls back to block-Jacobi with the note
     note = io.StringIO()
@@ -4058,6 +4192,9 @@ def heterogeneous_phase(device, ss, mf):
     iters = [t.pcg_iterations for t in tel]
     if not all(t.pcg_converged for t in tel):
         fail(f"heterogeneous 255^3: not every frame converged: {iters}")
+    if any(abs(a - b) > 1 for a, b in zip(iters, HETERO_ITERS)):
+        fail(f"heterogeneous 255^3: iterations {iters}, not within 1 of "
+             f"{list(HETERO_ITERS)}")
     state = stepper.state
     for name in ("displacement", "velocity", "acceleration"):
         if not bool(torch.isfinite(getattr(state, name)).all()):
@@ -4142,8 +4279,10 @@ def heterogeneous_phase(device, ss, mf):
     counts64 = hetero_path_counts()
     check_hetero_counts("heterogeneous fp64 255^3", counts64, "g3_f64")
     iters64 = [t.pcg_iterations for t in tel64]
-    if not all(t.pcg_converged for t in tel64):
-        fail(f"heterogeneous fp64 255^3: not every frame converged: {iters64}")
+    if not all(t.pcg_converged for t in tel64) or any(
+            abs(a - b) > 1 for a, b in zip(iters64, iters)):
+        fail(f"heterogeneous fp64 255^3: iterations {iters64} (f32 "
+             f"{iters[:3]}), converged {[t.pcg_converged for t in tel64]}")
     state = stepper.state
     if state.displacement.dtype != torch.float64:
         fail("heterogeneous fp64 255^3: the state is not f64")
@@ -4458,8 +4597,11 @@ def main() -> int:
           f"(max over shards, ms): " + ", ".join(
               f"{k[0]}/{k[1]} {v['max_ms']:.4f} (whole {v['whole_ms']:.4f})"
               for k, v in general_halo_times.items()), flush=True)
-    # G3 (phase 29): errors and times at 255^3, launches on the
-    # heterogeneous 255^3 cantilever's 8 frames (f32) and 3 fp64 frames
+    # G3 (phase 29): errors and times at 255^3 (the torch-composition
+    # yardstick beside them, not a library call: no single PyTorch call
+    # computes G3), the worst error over G3_SHAPES, registers and spill
+    # bytes, launches on the heterogeneous 255^3 cantilever's 8 frames
+    # (f32) and 3 fp64 frames
     kernels += [
         dict(name="corner_gather", route="cuda", source=src + "corner_gather.cu",
              replaces="civiwave_tpu/ops/structured.py:503",

@@ -5,61 +5,124 @@
 // Replaces no Pallas kernel: the reference computes this operator in XLA,
 // the corner-gather element loop _apply_heterogeneous_stiffness and the
 // envelope of _apply_keff_structured_base
-// (civiwave_tpu/ops/structured.py:503-552, :603-609).  Its plain version is
+// (civiwave_tpu/ops/structured.py:504-552, :603-609).  Its plain version is
 // ops.structured.heterogeneous_stiffness inside apply_keff_structured_plain.
 //
-// Gather, no atomics: one thread per node sums over its <= 8 incident cells
-// c the node's 3 rows of that cell's element matrix times the cell's 8
-// corner values.  The element matrix splits by material,
-// K_e = lam_c A + mu_c B, with A and B constant (8, 3, 8, 3) tables
-// [l][b][m][c] (output corner l, component b, input corner m, component c)
-// built on the host from the f32-rounded Gauss gradients and volumes
-// (ops/cuda/corner_gather.pair_tables) and passed by value as a kernel
-// argument, so they sit in the launch's own parameter bank: every index is
-// a compile-time constant after unrolling, so each multiply-add takes its
-// table entry straight from the constant bank, the same address in every
-// lane, and no copy to the card precedes a launch (nor can two launches
-// with different spacings share one table).  The loop runs over the 27
-// neighbours d outermost: each neighbour's 3 values are loaded and
-// sanitized once, then fed to the cells l that hold it as corner m
-// (CORNERS[m] = CORNERS[l] + d), into two accumulators per cell and
-// component (48 in all); the cell's lam and mu multiply them at the end.
-// A missing cell (outside [0, nx) x [0, ny) x [0, nz)) has lam = mu = 0; a
-// neighbour outside the grid reads as 0, and every neighbour reached only
-// through missing cells is outside the grid or a constrained pad node, so
-// it is 0 either way.
-// Fully constrained nodes (Dirichlet planes, the dead +X planes and +Y
-// rows) skip the gather and write x.  Constrained outputs are written by
-// select (+0.0 stays +0.0).  The mass is the stored mass_grid (not K1's
-// synthesized one).
+// Semantics.  The element matrix splits by material, K_e = lam_c A +
+// mu_c B, with A and B constant (8, 3, 8, 3) tables built on the host from
+// the f32-rounded Gauss gradients and volumes, summed in f64
+// (ops/cuda/corner_gather.pair_tables).  A missing cell (outside [0, nx) x
+// [0, ny) x [0, nz)) has lam = mu = 0; a neighbour off the grid reads as
+// 0.  The cell grids are (X, cell_y, nz): padded along +X and +Y, never
+// along Z.  Fully constrained nodes (Dirichlet planes, the dead +X planes
+// and +Y rows) write x; every constrained output is written by select
+// (+0.0 stays +0.0).  The mass is the stored mass_grid (not K1's
+// synthesized one).  ss and mf are launch arguments: a new dt rebuilds
+// nothing.
 //
-// f64 instance (precision.vectors: fp64): x, out, the tables (3,456 B of
-// the 4,096 B parameter space), the accumulators, ss and mf in double;
-// lam, mu and mass are the f32 grids, widened, and the tables the
-// f32-rounded weights widened before their products are summed in f64, as
-// the plain version computes.
+// Bound on the H100 at 255^3 cells (16.8M nodes): operations.  Each cell's
+// 24 corner values times the 48 x 24 table [A; B] is 1,152 multiply-adds,
+// ~38 GFLOP per application: ~0.57 ms at 67 TFLOP/s (f32 outside the tensor
+// cores; f64 on the tensor cores).  The bytes (x and out, the mask, the
+// mass, lam and mu: 0.65 GB in f32, 1.06 GB in f64) take 0.19 / 0.32 ms.
 //
-// Bound on the H100 at 255^3 cells (16.8M nodes): operations.  The dense
-// A/B form does 2 x 8 cells x 8 corners x 9 multiply-adds per node, 2,304
-// flop, ~38.8 GFLOP: ~0.58 ms at 67 TFLOP/s in f32 and in f64 (each
-// cell's 24 corner values times the 48 x 24 table [A; B] is a matrix
-// product, which the f64 tensor cores run at 67 TFLOP/s); the bytes (x and
-// out 12 B/node each, lam + mu 8 B/cell, mass 4 B/node, mask 3 B/node:
-// ~0.65 GB) take ~0.19 ms.  The design keeps the arithmetic at one FMA
-// per table entry with no load for the entry; x is read through L1/L2 (27
-// neighbours per node, mostly cache hits).
+// Design: the plane sweep of K1 (structured.cuh, civi::sweep), with the
+// work split into an element stage and a gather stage inside the block,
+// and no atomics.  A block owns 8 x 32 (y, z) node columns over a chunk
+// of 32 X planes and walks node planes x_lo - 1 .. x_hi.  For each plane:
+//
+// * staging: x and the mask of the next node plane (tile plus a one-node
+//   halo, 4- or 8-byte cp.async copies, any Z) and lam and mu of the next
+//   cell plane (the 9 x 33 cell tile of the 8 x 32 nodes, 4-byte copies
+//   that zero-fill a cell off the grid) land one plane ahead in a ring of
+//   two; each node is sanitized once into a ring of two node planes;
+// * element stage, for cell plane ci between node planes ci and ci + 1:
+//   f_c = lam_c (A u_c) + mu_c (B u_c) for the 297 cells of the tile, u_c
+//   the cell's 24 sanitized corner values read from the two node planes,
+//   written as 24 corner forces per cell into shared memory;
+//     - f32: FFMA, two cells per thread (149 threads), in two halves (the
+//       corners on node plane ci, then on ci + 1) and one output component
+//       at a time, 16 accumulators live.  The table sits in shared memory
+//       and every lane reads the same float4 (a broadcast): one LDS.128
+//       per 8 FFMA.  Taken from the parameter bank at compile-time
+//       indices instead, each entry costs a ULDC into a uniform register
+//       before its FFMA (sm_90's compiler does that for a by-value and a
+//       __grid_constant__ table alike), and that form was slower than the
+//       one-thread-per-node kernel it replaced; one cell per thread with
+//       the shared table was slower than two.  No TF32: it keeps about
+//       three digits against the 1e-5 of max|ref| the kernel is held to;
+//     - f64: the tensor cores, mma.sync m8n8k4 f64 (DMMA): M = the 48 rows
+//       of [A; B], K = the 24 corner values, N = 8 cells.  A warp takes
+//       groups of 8 cells (38 groups over 8 warps); each lane's 36 table
+//       fragments stay in registers for the whole block, its B fragment
+//       is read straight from the sanitized node planes, and lam A u +
+//       mu B u meet in the same lane (rows b * 8 + l of A and of B sit in
+//       tiles b and b + 3);
+// * gather stage: each node thread adds its <= 8 cells' corner forces
+//   (the 4 on plane ci finish node plane ci, the 4 on plane ci + 1 are
+//   carried to the next plane) and writes node plane ci through
+//   civi::keff_out with the mass term and the identity rows.
+//
+// Redundancy: a block computes the 9 x 33 cells its 8 x 32 nodes touch,
+// 16 % more than it owns, and the chunk's first cell plane x_lo - 1 is
+// computed by two blocks (f32: only its upper half here).  Shared memory:
+// 58,272 B (f32) and 99,936 B (f64), so two blocks fit on an SM in both.
 #include <cstring>
 
 #include "structured.cuh"
 
 namespace {
 
-constexpr int kTable = 8 * 3 * 8 * 3;  // one of A, B: [l][b][m][c]
+using civi::sweep::kHaloY;
+using civi::sweep::kHaloZ;
+using civi::sweep::kMaskRow;
+using civi::sweep::kMaskWords;
+using civi::sweep::kPlane;
+using civi::sweep::kRing;
+using civi::sweep::kThreads;
+using civi::sweep::kTileY;
+using civi::sweep::kTileZ;
 
-// A then B, [l][b][m][c] each, by value (the parameter bank)
+// the cell tile of the node tile: cells (y0 - 1 + r, z0 - 1 + col)
+constexpr int kCellY = kTileY + 1;
+constexpr int kCellZ = kTileZ + 1;
+constexpr int kCells = kCellY * kCellZ;  // 297
+constexpr int kGroups = (kCells + 7) / 8;  // 38 DMMA column groups
+// one force row (and one lam/mu plane) in shared memory: >= 8 * kGroups,
+// and 8 mod 16 doubles, so a warp's f64 row stores spread over both halves
+// of the banks
+constexpr int kForceStride = 312;
+// staging ring: the next plane in flight while one is worked
+constexpr int kStages = 2;
+// [A; B]: 48 rows (A/B, b, l) x 24 columns (c, m)
+constexpr int kRows = 48;
+constexpr int kCols = 24;
+
 template <typename T>
-struct Tables {
-  T v[2 * kTable];
+struct Packed {
+  T v[kRows * kCols];
+};
+
+// Dynamic shared memory, byte offsets: the staged x planes, the sanitized
+// node planes and the corner forces (all T), lam and mu (f32), the mask,
+// the f32 table
+template <typename T>
+struct Smem {
+  static constexpr int kStage = 3 * kHaloY * kHaloZ;  // elements per plane
+  static constexpr int kSan = 3 * kPlane;
+  static constexpr int kCellStage = 2 * kForceStride;  // floats: lam, mu
+  static constexpr int kMaskStage = 3 * kHaloY * kMaskRow;
+  static constexpr int st = 0;
+  static constexpr int san = st + kStages * kStage * int(sizeof(T));
+  static constexpr int force = san + 2 * kSan * int(sizeof(T));
+  static constexpr int cell = force + 24 * kForceStride * int(sizeof(T));
+  static constexpr int mask = cell + kStages * kCellStage * 4;
+  // the f32 table, [row][k]; the f64 instance stages its table through the
+  // force rows before they are first written
+  static constexpr int table =
+      sizeof(T) == 4 ? mask + kStages * kMaskStage : force;
+  static constexpr int bytes =
+      mask + kStages * kMaskStage + (sizeof(T) == 4 ? kRows * kCols * 4 : 0);
 };
 
 // CORNERS (Gmsh hex order): (0,0,0) (1,0,0) (1,1,0) (0,1,0) then z = 1
@@ -68,132 +131,503 @@ __host__ __device__ constexpr int corner_x(int l) {
 }
 __host__ __device__ constexpr int corner_y(int l) { return (l & 3) >= 2 ? 1 : 0; }
 __host__ __device__ constexpr int corner_z(int l) { return l >= 4 ? 1 : 0; }
+// corner i (0-3) of the four with corner_x == h
+__host__ __device__ constexpr int half_corner(int h, int i) {
+  return h ? (i < 2 ? 1 + i : 3 + i) : (i < 2 ? 3 * i : 1 + 3 * (i - 1));
+}
 
-// index of corner (cx, cy, cz) in CORNERS, -1 off the cell
-__host__ __device__ constexpr int corner_index(int cx, int cy, int cz) {
-  return (cx < 0 || cx > 1 || cy < 0 || cy > 1 || cz < 0 || cz > 1)
-             ? -1
-             : cz * 4 + (cy ? (cx ? 2 : 3) : (cx ? 1 : 0));
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Waits until every group but the newest is complete.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 template <typename T>
-__global__ void __launch_bounds__(256) corner_gather_kernel(
-    const T* __restrict__ x, const uint8_t* __restrict__ bc,
-    const float* __restrict__ lam, const float* __restrict__ mu,
-    const float* __restrict__ mass, T* __restrict__ out, int X, int Y, int Z,
-    int nx, int ny, int nz, int cell_y, T ss, T mf, const Tables<T> tables) {
-  const int64_t comp = static_cast<int64_t>(X) * Y * Z;
-  const int64_t n = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (n >= comp) return;
-  const int k = static_cast<int>(n % Z);
-  const int64_t row = n / Z;
-  const int j = static_cast<int>(row % Y);
-  const int i = static_cast<int>(row / Y);
+struct Args {
+  const T* x;
+  const uint8_t* bc;
+  const float* lam;
+  const float* mu;
+  const float* mass;
+  T* out;
+  int X, Y, Z, nx, ny, nz, cell_y, chunk;
+  T ss, mf;
+};
 
-  const bool f0 = bc[n], f1 = bc[n + comp], f2 = bc[n + 2 * comp];
-  const T x0 = x[n], x1 = x[n + comp], x2 = x[n + 2 * comp];
-  if (f0 && f1 && f2) {
-    out[n] = x0;
-    out[n + comp] = x1;
-    out[n + 2 * comp] = x2;
-    return;
-  }
-
-  // the incident cells' materials, slot l = the node's corner in the cell
-  float cell_lam[8], cell_mu[8];
-#pragma unroll
-  for (int l = 0; l < 8; ++l) {
-    const int ci = i - corner_x(l), cj = j - corner_y(l), ck = k - corner_z(l);
-    cell_lam[l] = 0.0f;
-    cell_mu[l] = 0.0f;
-    if (ci >= 0 && ci < nx && cj >= 0 && cj < ny && ck >= 0 && ck < nz) {
-      const int64_t c = (static_cast<int64_t>(ci) * cell_y + cj) * nz + ck;
-      cell_lam[l] = __ldg(lam + c);
-      cell_mu[l] = __ldg(mu + c);
+// Issues the copies of node plane jx, tile plus halo: x into st[c][row][h]
+// (one warp per row, an element per lane, then lanes 0-1 for the last two
+// columns) and the mask into mst[c][row] as the aligned words covering
+// [z0 - 1, z0 + 33), three rows per warp; a word that runs past the mask's
+// end is read byte by byte.  Rows and columns off the grid are not copied
+// (the transform reads them as zero).  civi::sweep::stage_plane does the
+// same for f32 vectors only; made generic and inlined here it raised G3's
+// spills and ran slower, so G3 keeps this rolled loop.
+template <typename T>
+__device__ __forceinline__ void stage_nodes(const Args<T>& a, T* st,
+                                            uint8_t* mst, int jx, int y0,
+                                            int z0, int64_t comp) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int64_t plane = static_cast<int64_t>(jx) * a.Y * a.Z;
+  for (int p = warp; p < 3 * kHaloY; p += warps) {
+    const int c = p / kHaloY;
+    const int jy = y0 - 1 + p - c * kHaloY;
+    if (jy < 0 || jy >= a.Y) continue;
+    const T* g = a.x + c * comp + plane + static_cast<int64_t>(jy) * a.Z + z0 - 1;
+    T* d = st + p * kHaloZ;
+    const int z = z0 - 1 + lane;
+    if (z >= 0 && z < a.Z) civi::sweep::cp_async_elem(d + lane, g + lane);
+    if (lane < kHaloZ - 32 && z + 32 < a.Z) {
+      civi::sweep::cp_async_elem(d + 32 + lane, g + 32 + lane);
     }
   }
-
-  T acc_lam[8][3], acc_mu[8][3];
-#pragma unroll
-  for (int l = 0; l < 8; ++l) {
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      acc_lam[l][b] = T(0);
-      acc_mu[l][b] = T(0);
+  constexpr int kRowsPerWarp = 32 / kMaskWords;
+  const int64_t total = 3 * comp;
+  for (int q0 = warp * kRowsPerWarp; q0 < 3 * kHaloY;
+       q0 += warps * kRowsPerWarp) {
+    const int q = q0 + lane / kMaskWords;
+    const int k = lane % kMaskWords;
+    if (lane >= kRowsPerWarp * kMaskWords || q >= 3 * kHaloY) continue;
+    const int c = q / kHaloY;
+    const int jy = y0 - 1 + q - c * kHaloY;
+    if (jy < 0 || jy >= a.Y) continue;
+    const int64_t first = c * comp + plane + static_cast<int64_t>(jy) * a.Z + z0 - 1;
+    const int64_t addr = (first & ~int64_t{3}) + 4 * k;
+    uint8_t* d = mst + q * kMaskRow + 4 * k;
+    if (addr < 0 || addr >= total) continue;
+    if (addr + 4 <= total) {
+      civi::sweep::cp_async4(d, a.bc + addr);
+    } else {
+      for (int b = 0; addr + b < total; ++b) d[b] = a.bc[addr + b];
     }
   }
+}
 
+// Issues the copies of lam and mu of cell plane ci over the cell tile into
+// cl[0][n] and cl[kForceStride + n], n = r * kCellZ + col; a cell off the
+// grid is zero-filled.
+template <typename T>
+__device__ __forceinline__ void stage_cells(const Args<T>& a, float* cl, int ci,
+                                            int y0, int z0) {
+  for (int e = threadIdx.x; e < 2 * kCells; e += blockDim.x) {
+    const int m = e >= kCells;
+    const int n = e - m * kCells;
+    const int r = n / kCellZ;
+    const int cj = y0 - 1 + r;
+    const int ck = z0 - 1 + n - r * kCellZ;
+    const bool live = cj >= 0 && cj < a.ny && ck >= 0 && ck < a.nz;
+    const float* src = m ? a.mu : a.lam;
+    cp_async4_zfill(cl + m * kForceStride + n,
+                    live ? src + (static_cast<int64_t>(ci) * a.cell_y + cj) * a.nz + ck
+                         : src,
+                    live);
+  }
+}
+
+// xs of halo node (hy, hz) of node plane jx into san ([3][kHaloY][kHaloZ]):
+// the staged x, or +0.0 on a constrained component and off the grid.
+// Returns the node's constrained components as bits 0-2.
+template <typename T>
+__device__ __forceinline__ int transform(const Args<T>& a, const T* sp,
+                                         const uint8_t* mp, T* san, int jx,
+                                         int y0, int z0, int hy, int hz) {
+  const int jy = y0 - 1 + hy;
+  const int jz = z0 - 1 + hz;
+  int fixed = 0;
+  T q[3] = {T(0), T(0), T(0)};
+  if (jx >= 0 && jx < a.X && jy >= 0 && jy < a.Y && jz >= 0 && jz < a.Z) {
+    const uint32_t comp = static_cast<uint32_t>(a.X) * a.Y * a.Z;
+    const uint32_t rowoff = (static_cast<uint32_t>(jx) * a.Y + jy) * a.Z;
 #pragma unroll
-  for (int d = 0; d < 27; ++d) {
-    const int dx = d / 9 - 1, dy = (d / 3) % 3 - 1, dz = d % 3 - 1;
-    const int ii = i + dx, jj = j + dy, kk = k + dz;
-    T u[3] = {T(0), T(0), T(0)};
-    if (ii >= 0 && ii < X && jj >= 0 && jj < Y && kk >= 0 && kk < Z) {
-      const int64_t q = n + (static_cast<int64_t>(dx) * Y + dy) * Z + dz;
+    for (int c = 0; c < 3; ++c) {
+      const int shift = civi::sweep::mask_shift(comp, c, rowoff, z0);
+      const bool f = mp[(c * kHaloY + hy) * kMaskRow + shift + hz] != 0;
+      // select, not multiply: a constrained component is +0.0
+      q[c] = f ? T(0) : sp[(c * kHaloY + hy) * kHaloZ + hz];
+      fixed |= static_cast<int>(f) << c;
+    }
+  }
 #pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        u[c] = bc[q + c * comp] ? T(0) : x[q + c * comp];
+  for (int c = 0; c < 3; ++c) san[c * kPlane + hy * kHaloZ + hz] = q[c];
+  return fixed;
+}
+
+// The element stage of one cell plane: the 24 corner forces of every cell
+// of the tile into force[b * 8 + l][n] from the sanitized node planes
+// s_lo (plane ci) and s_hi (ci + 1) and lam, mu in cl.  `lower`: the
+// forces on node plane ci are needed (else only those on ci + 1).
+template <typename T>
+struct ElementStage;
+
+template <>
+struct ElementStage<float> {
+  // [A; B] in shared memory as [row][k / 4] quads: every lane of a warp
+  // reads the same quad (a broadcast)
+  const float4* table;
+
+  __device__ __forceinline__ ElementStage(const Packed<float>& tab,
+                                          float* smem_table)
+      : table(reinterpret_cast<const float4*>(smem_table)) {
+    for (int i = threadIdx.x; i < kRows * kCols; i += blockDim.x) {
+      smem_table[i] = tab.v[i];
+    }
+    __syncthreads();
+  }
+
+  // Two cells per thread, n and n + kPairs, so that each quad feeds 8 FFMA;
+  // one output component b at a time (16 accumulators live).
+  static constexpr int kPairs = (kCells + 1) / 2;
+
+  __device__ __forceinline__ void corner_values(const float* s_lo,
+                                                const float* s_hi, int n,
+                                                float (&u)[kCols]) const {
+    const int r = n / kCellZ;
+    const int col = n - r * kCellZ;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const float* s = corner_x(m) ? s_hi : s_lo;
+        u[c * 8 + m] =
+            s[c * kPlane + (r + corner_y(m)) * kHaloZ + col + corner_z(m)];
       }
     }
+  }
+
+  __device__ __forceinline__ void run(const Packed<float>&, const float* s_lo,
+                                      const float* s_hi, const float* cl,
+                                      float* force, bool lower) const {
+    const int n0 = threadIdx.x;
+    if (n0 >= kPairs) return;
+    const int n1 = n0 + kPairs;  // kCells when past the tile: not written
+    const int n1c = min(n1, kCells - 1);
+    float u0[kCols], u1[kCols];  // column c * 8 + m of [A; B]
+    corner_values(s_lo, s_hi, n0, u0);
+    corner_values(s_lo, s_hi, n1c, u1);
+    const float lam0 = cl[n0], mu0 = cl[kForceStride + n0];
+    const float lam1 = cl[n1c], mu1 = cl[kForceStride + n1c];
 #pragma unroll
-    for (int l = 0; l < 8; ++l) {
-      const int m =
-          corner_index(corner_x(l) + dx, corner_y(l) + dy, corner_z(l) + dz);
-      if (m < 0) continue;
+    for (int h = 0; h < 2; ++h) {
+      if (h == 0 && !lower) continue;
 #pragma unroll
       for (int b = 0; b < 3; ++b) {
-        const int base = ((l * 3 + b) * 8 + m) * 3;
+        float fa0[4], fb0[4], fa1[4], fb1[4];
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          acc_lam[l][b] = fma(tables.v[base + c], u[c], acc_lam[l][b]);
-          acc_mu[l][b] = fma(tables.v[kTable + base + c], u[c], acc_mu[l][b]);
+        for (int i = 0; i < 4; ++i) fa0[i] = fb0[i] = fa1[i] = fb1[i] = 0.0f;
+#pragma unroll
+        for (int kq = 0; kq < kCols / 4; ++kq) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int row = b * 8 + half_corner(h, i);
+            const float4 ta = table[row * (kCols / 4) + kq];
+            const float4 tb = table[(24 + row) * (kCols / 4) + kq];
+            const float* v0 = u0 + 4 * kq;
+            const float* v1 = u1 + 4 * kq;
+            fa0[i] = fmaf(ta.x, v0[0], fa0[i]);
+            fa0[i] = fmaf(ta.y, v0[1], fa0[i]);
+            fa0[i] = fmaf(ta.z, v0[2], fa0[i]);
+            fa0[i] = fmaf(ta.w, v0[3], fa0[i]);
+            fb0[i] = fmaf(tb.x, v0[0], fb0[i]);
+            fb0[i] = fmaf(tb.y, v0[1], fb0[i]);
+            fb0[i] = fmaf(tb.z, v0[2], fb0[i]);
+            fb0[i] = fmaf(tb.w, v0[3], fb0[i]);
+            fa1[i] = fmaf(ta.x, v1[0], fa1[i]);
+            fa1[i] = fmaf(ta.y, v1[1], fa1[i]);
+            fa1[i] = fmaf(ta.z, v1[2], fa1[i]);
+            fa1[i] = fmaf(ta.w, v1[3], fa1[i]);
+            fb1[i] = fmaf(tb.x, v1[0], fb1[i]);
+            fb1[i] = fmaf(tb.y, v1[1], fb1[i]);
+            fb1[i] = fmaf(tb.z, v1[2], fb1[i]);
+            fb1[i] = fmaf(tb.w, v1[3], fb1[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* f = force + (b * 8 + half_corner(h, i)) * kForceStride;
+          f[n0] = fmaf(mu0, fb0[i], lam0 * fa0[i]);
+          if (n1 < kCells) f[n1] = fmaf(mu1, fb1[i], lam1 * fa1[i]);
         }
       }
     }
   }
+};
 
-  T stiff[3] = {T(0), T(0), T(0)};
+// D (8 x 8) += A (8 x 4, row) B (4 x 8, col) in f64 on the tensor cores.
+// Lane l holds A[l / 4][l % 4], B[l % 4][l / 4] and D[l / 4][2 (l % 4) + i].
+__device__ __forceinline__ void dmma(double (&d)[2], double a, double b) {
+  asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(d[0]), "+d"(d[1])
+      : "d"(a), "d"(b));
+}
+
+template <>
+struct ElementStage<double> {
+  // this lane's A fragment of [A; B] for row tile mt and k step ks
+  double frag[6][6];
+
+  // The table arrives in fragment order, frag[mt][ks][lane]
+  // (ops/cuda/corner_gather.kernel_tables): copied from the parameter bank
+  // into scratch shared memory once, then into registers.
+  __device__ __forceinline__ ElementStage(const Packed<double>& tab,
+                                          double* scratch) {
+    for (int i = threadIdx.x; i < kRows * kCols; i += blockDim.x) {
+      scratch[i] = tab.v[i];
+    }
+    __syncthreads();
+    const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int l = 0; l < 8; ++l) {
+    for (int mt = 0; mt < 6; ++mt) {
 #pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      stiff[b] = fma(static_cast<T>(cell_lam[l]), acc_lam[l][b], stiff[b]);
-      stiff[b] = fma(static_cast<T>(cell_mu[l]), acc_mu[l][b], stiff[b]);
+      for (int ks = 0; ks < 6; ++ks) frag[mt][ks] = scratch[(mt * 6 + ks) * 32 + lane];
+    }
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ void run(const Packed<double>&,
+                                      const double* s_lo, const double* s_hi,
+                                      const float* cl, double* force,
+                                      bool) const {
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    const int warps = blockDim.x >> 5;
+    // this lane's B rows: column ks * 4 + mc = c * 8 + m of [A; B], i.e.
+    // component c = ks / 2 of corner m = mc + 4 (ks % 2), whose x and y
+    // offsets are those of mc and whose z offset is ks % 2
+    const int mc = lane & 3;
+    const double* sb = (corner_x(mc) ? s_hi : s_lo) + corner_y(mc) * kHaloZ;
+    const int l = lane >> 2;
+    for (int g = warp; g < kGroups; g += warps) {
+      // the B column's cell (pad columns of the last group read the last
+      // cell; their forces land in unused columns)
+      const int nb = min(g * 8 + l, kCells - 1);
+      const int rb = nb / kCellZ;
+      const double* bp = sb + rb * kHaloZ + nb - rb * kCellZ;
+      double d[6][2];
+#pragma unroll
+      for (int mt = 0; mt < 6; ++mt) d[mt][0] = d[mt][1] = 0.0;
+#pragma unroll
+      for (int ks = 0; ks < 6; ++ks) {
+        const double b = bp[(ks >> 1) * kPlane + (ks & 1)];
+#pragma unroll
+        for (int mt = 0; mt < 6; ++mt) dmma(d[mt], frag[mt][ks], b);
+      }
+      const int nc = g * 8 + 2 * mc;
+      const double lam0 = cl[nc], lam1 = cl[nc + 1];
+      const double mu0 = cl[kForceStride + nc], mu1 = cl[kForceStride + nc + 1];
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        double2 f;
+        f.x = fma(mu0, d[b + 3][0], lam0 * d[b][0]);
+        f.y = fma(mu1, d[b + 3][1], lam1 * d[b][1]);
+        *reinterpret_cast<double2*>(force + (b * 8 + l) * kForceStride + nc) = f;
+      }
     }
   }
-  const T mm = mf * static_cast<T>(mass[n]);
-  out[n] = civi::keff_out(f0, x0, stiff[0], ss, mm);
-  out[n + comp] = civi::keff_out(f1, x1, stiff[1], ss, mm);
-  out[n + 2 * comp] = civi::keff_out(f2, x2, stiff[2], ss, mm);
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2) corner_gather_kernel(
+    const __grid_constant__ Args<T> a, const __grid_constant__ Packed<T> tab) {
+  using S = Smem<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* st = reinterpret_cast<T*>(smem + S::st);
+  T* san = reinterpret_cast<T*>(smem + S::san);
+  T* force = reinterpret_cast<T*>(smem + S::force);
+  float* cl = reinterpret_cast<float*>(smem + S::cell);
+  uint8_t* mst = smem + S::mask;
+
+  const int t = threadIdx.x;
+  const int tz = t % kTileZ;
+  const int ty = t / kTileZ;
+  const int z0 = blockIdx.x * kTileZ;
+  const int y0 = blockIdx.y * kTileY;
+  const int x_lo = blockIdx.z * a.chunk;
+  const int x_hi = min(x_lo + a.chunk, a.X);
+  const int iy = y0 + ty;
+  const int iz = z0 + tz;
+  const bool own = iy < a.Y && iz < a.Z;
+  const int64_t comp = static_cast<int64_t>(a.X) * a.Y * a.Z;
+  const int own_h = (ty + 1) * kHaloZ + tz + 1;
+
+  // the unused tail of every lam/mu row reads as zero
+  for (int i = t; i < kStages * 2 * (kForceStride - kCells); i += blockDim.x) {
+    const int row = i / (kForceStride - kCells);
+    cl[row * kForceStride + kCells + i - row * (kForceStride - kCells)] = 0.0f;
+  }
+  const ElementStage<T> element(tab, reinterpret_cast<T*>(smem + S::table));
+
+  // node plane j and cell plane j - 1 into ring slot j & 1
+  auto issue = [&](int j) {
+    const int s = j & 1;
+    if (j >= 0 && j < a.X) {
+      stage_nodes(a, st + s * S::kStage, mst + s * S::kMaskStage, j, y0, z0, comp);
+    }
+    const int ci = j - 1;
+    if (ci >= x_lo - 1 && ci >= 0 && ci < a.nx) {
+      stage_cells(a, cl + s * S::kCellStage, ci, y0, z0);
+    }
+  };
+
+  const int jlo = x_lo - 1;
+  const int jhi = x_hi;
+  // the own node of plane j - 1: constrained components and the stiffness
+  // its cell plane j - 2 contributed
+  int fix_prev = 0;
+  T carry[3] = {T(0), T(0), T(0)};
+  issue(jlo);
+  civi::sweep::cp_async_commit();
+  for (int j = jlo; j <= jhi; ++j) {
+    if (j < jhi) issue(j + 1);
+    civi::sweep::cp_async_commit();
+    cp_async_wait_one();
+    const bool emit = own && j - 1 >= x_lo;
+    const int64_t n0 = (static_cast<int64_t>(j - 1) * a.Y + iy) * a.Z + iz;
+    const float mass = emit ? __ldg(a.mass + n0) : 0.0f;
+    __syncthreads();
+    // node plane j: the block's own nodes, then the halo ring
+    T* s_hi = san + (j & 1) * S::kSan;
+    const T* sp = st + (j & 1) * S::kStage;
+    const uint8_t* mp = mst + (j & 1) * S::kMaskStage;
+    const int fix_cur = transform(a, sp, mp, s_hi, j, y0, z0, ty + 1, tz + 1);
+    if (t < kRing) {
+      int hy, hz;
+      civi::sweep::ring_node(t, hy, hz);
+      transform(a, sp, mp, s_hi, j, y0, z0, hy, hz);
+    }
+    __syncthreads();
+    if (j == jlo) {
+      fix_prev = fix_cur;
+      continue;
+    }
+    // cell plane ci = j - 1 between node planes j - 1 and j
+    const int ci = j - 1;
+    const T* s_lo = san + (ci & 1) * S::kSan;
+    const bool lower = ci >= x_lo;
+    T done[3] = {carry[0], carry[1], carry[2]};
+    T next[3] = {T(0), T(0), T(0)};
+    if (ci >= 0 && ci < a.nx) {  // the same for the whole block
+      element.run(tab, s_lo, s_hi, cl + (j & 1) * S::kCellStage, force, lower);
+      __syncthreads();
+      if (own) {
+#pragma unroll
+        for (int l = 0; l < 8; ++l) {
+          if (!corner_x(l) && !lower) continue;
+          const int n = (ty + 1 - corner_y(l)) * kCellZ + tz + 1 - corner_z(l);
+#pragma unroll
+          for (int b = 0; b < 3; ++b) {
+            const T f = force[(b * 8 + l) * kForceStride + n];
+            if (corner_x(l)) {
+              next[b] += f;
+            } else {
+              done[b] += f;
+            }
+          }
+        }
+      }
+    }
+    if (emit) {
+      const T mm = a.mf * static_cast<T>(mass);
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const bool f = (fix_prev >> b) & 1;
+        // where free, x is the sanitized value still in the plane's slot
+        const T xv = f ? __ldg(a.x + n0 + b * comp) : s_lo[b * kPlane + own_h];
+        a.out[n0 + b * comp] = civi::keff_out(f, xv, done[b], a.ss, mm);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 3; ++b) carry[b] = next[b];
+    fix_prev = fix_cur;
+  }
 }
 
 template <typename T>
-int launch(const T* x, const unsigned char* bc, const float* lam,
-           const float* mu, const float* mass, const T* tables, T* out, int X,
-           int Y, int Z, int nx, int ny, int nz, int cell_y, T ss, T mf,
-           void* stream) {
-  const int64_t nodes = static_cast<int64_t>(X) * Y * Z;
-  if (nodes <= 0) return 0;
-  const int64_t blocks = (nodes + 255) / 256;
-  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  Tables<T> t;
-  std::memcpy(t.v, tables, sizeof(t.v));
-  corner_gather_kernel<T><<<static_cast<unsigned>(blocks), 256, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, bc, lam, mu, mass, out, X, Y, Z, nx, ny, nz, cell_y, ss, mf, t);
+int launch(const Args<T>& a, const T* tables, dim3 grid, cudaStream_t stream) {
+  constexpr int smem = Smem<T>::bytes;
+  static bool raised = false;  // once per process and instance
+  if (!raised) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        corner_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised = true;
+  }
+  Packed<T> p;
+  std::memcpy(p.v, tables, sizeof(p.v));
+  corner_gather_kernel<T><<<grid, kThreads, smem, stream>>>(a, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Checks the geometry against this build and launches the instance of T.
+template <typename T>
+int launch_checked(const T* x, const unsigned char* bc, const float* lam,
+                   const float* mu, const float* mass, const T* tables, T* out,
+                   int X, int Y, int Z, int nx, int ny, int nz, int cell_y,
+                   T ss, T mf, int tile_y, int tile_z, int chunk, int grid_x,
+                   int grid_y, int grid_z, int threads, int smem, void* stream) {
+  if (X <= 0 || Y <= 0 || Z <= 0 || nx <= 0 || ny <= 0 || nz <= 0 ||
+      nx >= X || ny > cell_y || ny >= Y || nz != Z - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (tile_y != kTileY || tile_z != kTileZ || chunk <= 0 ||
+      threads != kThreads || smem != Smem<T>::bytes ||
+      grid_x != (Z + kTileZ - 1) / kTileZ ||
+      grid_y != (Y + kTileY - 1) / kTileY ||
+      grid_z != (X + chunk - 1) / chunk || grid_y > 65535 || grid_z > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args<T> a;
+  a.x = x;
+  a.bc = bc;
+  a.lam = lam;
+  a.mu = mu;
+  a.mass = mass;
+  a.out = out;
+  a.X = X;
+  a.Y = Y;
+  a.Z = Z;
+  a.nx = nx;
+  a.ny = ny;
+  a.nz = nz;
+  a.cell_y = cell_y;
+  a.chunk = chunk;
+  a.ss = ss;
+  a.mf = mf;
+  return launch<T>(a, tables, dim3(grid_x, grid_y, grid_z),
+                   static_cast<cudaStream_t>(stream));
+}
+
+static_assert(Smem<float>::bytes == 58272, "f32 shared memory");
+static_assert(Smem<double>::bytes == 99936, "f64 shared memory");
+
 }  // namespace
 
+// tables: the 1,152 values of [A; B] the instance reads, in host memory
+// (copied into the launch's parameters): f32 row-major (48, 24), f64 in
+// DMMA fragment order (ops/cuda/corner_gather.kernel_tables); tile, chunk,
+// grid, threads and smem as ops/cuda/plane_sweep.corner_gather_geometry
+// computes them, refused unless they match this build; the mask 4-byte
+// aligned
 extern "C" int civi_corner_gather(const float* x, const unsigned char* bc,
                                   const float* lam, const float* mu,
                                   const float* mass, const float* tables,
                                   float* out, int X, int Y, int Z, int nx,
                                   int ny, int nz, int cell_y, float ss,
-                                  float mf, void* stream) {
-  return launch<float>(x, bc, lam, mu, mass, tables, out, X, Y, Z, nx, ny, nz,
-                       cell_y, ss, mf, stream);
+                                  float mf, int tile_y, int tile_z, int chunk,
+                                  int grid_x, int grid_y, int grid_z,
+                                  int threads, int smem, void* stream) {
+  return launch_checked<float>(x, bc, lam, mu, mass, tables, out, X, Y, Z, nx,
+                               ny, nz, cell_y, ss, mf, tile_y, tile_z, chunk,
+                               grid_x, grid_y, grid_z, threads, smem, stream);
 }
 
 extern "C" int civi_corner_gather_f64(const double* x, const unsigned char* bc,
@@ -201,7 +635,12 @@ extern "C" int civi_corner_gather_f64(const double* x, const unsigned char* bc,
                                       const float* mass, const double* tables,
                                       double* out, int X, int Y, int Z, int nx,
                                       int ny, int nz, int cell_y, double ss,
-                                      double mf, void* stream) {
-  return launch<double>(x, bc, lam, mu, mass, tables, out, X, Y, Z, nx, ny,
-                        nz, cell_y, ss, mf, stream);
+                                      double mf, int tile_y, int tile_z,
+                                      int chunk, int grid_x, int grid_y,
+                                      int grid_z, int threads, int smem,
+                                      void* stream) {
+  return launch_checked<double>(x, bc, lam, mu, mass, tables, out, X, Y, Z,
+                                nx, ny, nz, cell_y, ss, mf, tile_y, tile_z,
+                                chunk, grid_x, grid_y, grid_z, threads, smem,
+                                stream);
 }

@@ -106,13 +106,16 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _F,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # (G3) x, bc, lam, mu, mass, tables (2 x 576 host values of the
-    # vector type), out, X, Y, Z, nx, ny, nz, cell_y, ss, mf, stream
+    # (G3) x, bc, lam, mu, mass, tables (1,152 host values of the vector
+    # type), out, X, Y, Z, nx, ny, nz, cell_y, ss, mf, geometry (tile_y,
+    # tile_z, chunk, grid_x, grid_y, grid_z, threads, smem), stream
     "civi_corner_gather": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
     "civi_corner_gather_f64": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D, _P,
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D,
+        _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
 }
 

@@ -6,10 +6,15 @@ needs where the reference uses XLA: the complete ``bc ? x : ss *
 K(lam_c, mu_c) xs + mf * mass * xs`` of a heterogeneous structured grid
 (per-cell ``lam_grid``/``mu_grid``), the reference's
 ``_apply_heterogeneous_stiffness`` and the envelope around it
-(civiwave_tpu/ops/structured.py:503-552, :603-609).  One thread per node
-gathers its <= 8 incident cells, each through the split element matrix
-``lam_c A + mu_c B``; A and B (:func:`pair_tables`) travel by value as a
-kernel argument.  The mass is the stored ``mass_grid``.
+(civiwave_tpu/ops/structured.py:503-552, :603-609).  It is K1's plane
+sweep with two stages inside the block: each cell of the tile multiplies
+its 24 sanitized corner values by the packed 48 x 24 table [A; B] of the
+split element matrix ``lam_c A + mu_c B`` (f32: FFMA, the table in the
+launch's parameter bank; f64: the tensor cores' m8n8k4 DMMA, the table in
+fragment order, :func:`kernel_tables`), then each node gathers the corner
+forces of its <= 8 cells from shared memory.  The geometry is
+``plane_sweep.corner_gather_geometry``.  The mass is the stored
+``mass_grid``.
 
 A CPU tensor takes the plain version,
 ``ops.structured.apply_keff_structured_plain`` (the reference's
@@ -28,7 +33,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, plane_sweep
 
 
 @lru_cache(maxsize=16)
@@ -44,7 +49,9 @@ def _pair_tables(spacing, f64: bool) -> np.ndarray:
     for c in range(3):
         b[:, c, :, c] += dot
     table = np.stack([a, b])
-    return np.ascontiguousarray(table if f64 else table.astype(np.float32))
+    table = np.ascontiguousarray(table if f64 else table.astype(np.float32))
+    table.setflags(write=False)
+    return table
 
 
 def pair_tables(spacing, dtype) -> np.ndarray:
@@ -56,6 +63,43 @@ def pair_tables(spacing, dtype) -> np.ndarray:
     f32 vectors)."""
     return _pair_tables(tuple(float(h) for h in spacing),
                         dtype == torch.float64)
+
+
+def packed_tables(spacing, dtype) -> np.ndarray:
+    """(48, 24) [A; B] as G3 multiplies it: row (A/B) * 24 + b * 8 + l
+    (output component b of corner l), column c * 8 + m (component c of
+    corner m), so that a cell's 24 corner values u[c * 8 + m] give its
+    corner forces f[b * 8 + l] = lam (A u) + mu (B u) from rows r and
+    24 + r.  The values of :func:`pair_tables`, in its dtype."""
+    table = pair_tables(spacing, dtype)  # [A/B][l][b][m][c]
+    return np.ascontiguousarray(table.transpose(0, 2, 1, 4, 3).reshape(48, 24))
+
+
+def dmma_fragments(packed: np.ndarray) -> np.ndarray:
+    """(6, 6, 32) ``packed`` in the A-fragment order of mma.sync m8n8k4
+    (row-major A, 8 x 4 per tile): [mt][ks][lane] = packed[8 mt + lane //
+    4, 4 ks + lane % 4], row tile mt, k step ks, the value lane ``lane``
+    holds."""
+    lane = np.arange(32)
+    rows = 8 * np.arange(6)[:, None, None] + lane // 4
+    cols = 4 * np.arange(6)[None, :, None] + lane % 4
+    return np.ascontiguousarray(packed[rows, cols])
+
+
+@lru_cache(maxsize=16)
+def _kernel_tables(spacing, f64: bool) -> np.ndarray:
+    packed = packed_tables(spacing, torch.float64 if f64 else torch.float32)
+    table = dmma_fragments(packed) if f64 else packed
+    table.setflags(write=False)
+    return table
+
+
+def kernel_tables(spacing, dtype) -> np.ndarray:
+    """The 1,152 table values G3's instance for ``dtype`` takes by value:
+    :func:`packed_tables` row-major in f32 (FFMA at compile-time indices),
+    its :func:`dmma_fragments` in f64."""
+    return _kernel_tables(tuple(float(h) for h in spacing),
+                          dtype == torch.float64)
 
 
 def apply_keff_corner_gather(model, x, stiffness_scale, mass_factor):
@@ -83,9 +127,13 @@ def apply_keff_corner_gather(model, x, stiffness_scale, mass_factor):
     _build.check_tensor(model.mu_grid, "mu_grid", cells, torch.float32, dev)
     _build.check_tensor(model.mass_grid, "mass_grid", shape[1:], torch.float32,
                         dev)
-    if not (model.nx < X and model.ny <= cell_y):
-        raise ValueError(f"cells ({model.nx}, {model.ny}) outside {cells}")
-    tables = pair_tables(model.spacing, dtype)
+    _build.check_aligned(model.bc_mask, "bc_mask", 4)
+    if not (model.nx < X and model.ny <= cell_y and model.nz == Z - 1):
+        raise ValueError(f"cells ({model.nx}, {model.ny}, {model.nz}) outside "
+                         f"{cells}")
+    geom = plane_sweep.corner_gather_geometry(model.grid_shape,
+                                              x.element_size())
+    tables = kernel_tables(model.spacing, dtype)
     out = torch.empty_like(x)
     library = _build.load_library()
     with torch.cuda.device(dev):
@@ -94,7 +142,8 @@ def apply_keff_corner_gather(model, x, stiffness_scale, mass_factor):
             model.mu_grid.data_ptr(), model.mass_grid.data_ptr(),
             tables.ctypes.data, out.data_ptr(), X, Y, Z, model.nx, model.ny,
             model.nz, cell_y, _build.scalar(stiffness_scale, dtype),
-            _build.scalar(mass_factor, dtype),
+            _build.scalar(mass_factor, dtype), *geom.launch_args()[:6],
+            geom.threads, geom.smem_bytes,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check_launch(library, "corner_gather", code)

@@ -1,6 +1,7 @@
 """Launch geometry of the plane-sweep kernels K1/K5
 (``keff_structured_halo``), K2 (``pc_keff_structured``), K6
-(``pcg_iteration_structured``) and K4 (``interior_stencil``), and the taps
+(``pcg_iteration_structured``), K4 (``interior_stencil``) and G3
+(``corner_gather``), and the taps
 K1/K5, K2 and K6 take by value.
 
 A block owns ``TILE_Y x TILE_Z`` (y, z) node columns (one warp per y row,
@@ -26,6 +27,10 @@ follow the grid's shape (:func:`stencil_geometry`): the tile of
 8 x 32 idles a quarter of its lanes), then the longest chunk of
 ``STENCIL_CHUNKS`` that still gives every SM ``STENCIL_BLOCKS_PER_SM``
 blocks, so that the last wave is a small share of the run.
+
+G3 (``corner_gather``, a heterogeneous grid's operator) sweeps K1's tiles
+and chunks, and also computes the element forces of the cells its nodes
+touch (:func:`corner_gather_geometry`, :func:`corner_gather_cells`).
 """
 
 from __future__ import annotations
@@ -126,6 +131,53 @@ def sweep_geometry(grid_shape, vectors: int,
         tile=(TILE_Y, TILE_Z), chunk=CHUNK_X, grid=grid,
         threads=TILE_Y * TILE_Z, smem_bytes=smem, planes=(p0, p1),
     )
+
+
+# G3 (``corner_gather``): the node tile, chunk and threads of K1's sweep,
+# plus the cell tile those nodes touch (one more row and column, the cells
+# at y0 - 1 and z0 - 1), the row stride of its corner forces and lam/mu
+# planes, and a staging ring of 2
+G3_CELL_TILE = (TILE_Y + 1, TILE_Z + 1)
+G3_FORCE_STRIDE = 312
+G3_STAGES = 2
+
+
+def corner_gather_geometry(grid_shape, elem: int = 4) -> SweepGeometry:
+    """G3's sweep over every plane of the node grid ``grid_shape`` (X, Y,
+    Z) with ``elem``-byte vectors (4: f32, 8: f64): K1's 8 x 32 tiles and
+    32-plane chunks; shared memory for 2 staged planes of x (tile plus
+    halo) and of the mask, 2 sanitized node planes, 24 corner-force rows
+    and 2 lam/mu cell planes of ``G3_FORCE_STRIDE`` entries, and in f32
+    the (48, 24) table (f64 holds it in registers)."""
+    if elem not in (4, 8):
+        raise ValueError(f"elem {elem}: G3 has f32 and f64 instances")
+    X, Y, Z = (int(n) for n in grid_shape)
+    if min(X, Y, Z) <= 0:
+        raise ValueError(f"grid {grid_shape}: every extent must be positive")
+    halo = 3 * (TILE_Y + 2) * (TILE_Z + 2)
+    smem = (elem * (G3_STAGES * halo + 2 * halo + 24 * G3_FORCE_STRIDE)
+            + 4 * G3_STAGES * 2 * G3_FORCE_STRIDE
+            + G3_STAGES * 3 * (TILE_Y + 2) * MASK_ROW
+            + (4 * 48 * 24 if elem == 4 else 0))
+    grid = (-(-Z // TILE_Z), -(-Y // TILE_Y), -(-X // CHUNK_X))
+    return SweepGeometry(
+        tile=(TILE_Y, TILE_Z), chunk=CHUNK_X, grid=grid,
+        threads=TILE_Y * TILE_Z, smem_bytes=smem, planes=(0, X),
+    )
+
+
+def corner_gather_cells(geometry: SweepGeometry, block, cells):
+    """The ``[lo, hi)`` cell ranges along (x, y, z) whose element forces G3's
+    block ``(bx, by, bz)`` computes and gathers, as the kernel computes
+    them, cut to the grid's ``cells`` (nx, ny, nz): the cell planes between
+    its node planes x_lo - 1 .. x_hi and the cell tile of its node tile."""
+    bx, by, bz = block
+    ty, tz = geometry.tile
+    x_lo = geometry.planes[0] + bz * geometry.chunk
+    x_hi = min(x_lo + geometry.chunk, geometry.planes[1])
+    y0, z0 = by * ty, bx * tz
+    return tuple((max(lo, 0), min(hi, n)) for (lo, hi), n in zip(
+        ((x_lo - 1, x_hi), (y0 - 1, y0 + ty), (z0 - 1, z0 + tz)), cells))
 
 
 def _idle_lanes(tile, Y: int, Z: int) -> int:

@@ -10,7 +10,8 @@ and pipelined solves on the card against the CPU; the f64 instances of
 K1/K5, K3, K7 and G1 (``precision.vectors: fp64``) against their plain
 versions in f64 at 1e-12 of max|ref|, and an fp64 simulation that
 launches only them; G3 (the heterogeneous grid's corner gather, f32 and
-f64) against its plain version on odd, padded and dead-row grids, on
+f64) against its plain version on odd, padded and dead-row grids and on
+grids that cut its tiles and chunks (``chip_smoke.G3_SHAPES``), on
 uniform grids against K1 (3e-6 of max), the constant-stencil kernels
 refusing a heterogeneous grid, and a heterogeneous cantilever on the
 card against the CPU.
@@ -39,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import G3_SHAPES
 from civiwave_tpu_torch.mesh import pack, preprocess
 from civiwave_tpu_torch.mesh.structured import build_structured_model
 from civiwave_tpu_torch.ops import apply_keff as gops
@@ -1085,12 +1087,18 @@ def test_launcher_across_two_gpus(device, case):
 
 # --- heterogeneous grids: G3 (corner_gather) --------------------------------
 
-# X = 33 (1 mod 32), a padded X, a dead +Y row, fixes on several faces
+# X = 33 (1 mod 32), a padded X, a dead +Y row, fixes on several faces;
+# then the grids that cut G3's 8 x 32 node tiles, 9 x 33 cell tiles and
+# 32-plane chunks (chip_smoke.G3_SHAPES): Y = 13, Z = 37 (not a multiple of
+# 4 or 32), X = 65 (a one-plane last chunk) with a dead +Y row, and one
+# cell along each axis
 HETERO = {
     "x_1_mod_32": ((32, 5, 7), {}),
     "xpad4": ((6, 5, 4), dict(pad_x_multiple=4)),
     "ypad_row": ((5, 5, 3), dict(pad_y_multiple=4)),
     "odd_partial_fixes": SHAPES["odd_partial_fixes"],
+    **{name: G3_SHAPES[name] for name in (
+        "y13_z37", "x65_dead_row", "one_cell_x", "one_cell_y", "one_cell_z")},
 }
 
 
