@@ -4260,7 +4260,7 @@ def heterogeneous_phase(device, ss, mf):
     # recurred one on a large grid (phase 16)
     residual = true_relative_residual(model, force, u)
     out["static"] = dict(iterations=st.iterations, seconds=static_s,
-                         residual=residual, g3=g3_counts()["g3"])
+                         residual=residual, g3=g3_counts()["g3"], u=u.cpu())
     print(f"heterogeneous static 255^3 (tol {HETERO_STATIC_TOL:g}): "
           f"{st.iterations} iterations, {static_s:.4f} s, "
           f"{static_s / max(st.iterations, 1) * 1e3:.4f} ms per iteration, "
@@ -4290,7 +4290,8 @@ def heterogeneous_phase(device, ss, mf):
                              getattr(state, name).float().cpu(), ref, tol)[1]
                  for name, ref, tol in (("displacement", u3[0], U_TOL),
                                         ("acceleration", u3[1], A_TOL))]
-    out["fp64"] = dict(iters=iters64, counts=counts64, seconds=fp64_s)
+    out["fp64"] = dict(iters=iters64, counts=counts64, seconds=fp64_s,
+                       u=state.displacement.cpu(), a=state.acceleration.cpu())
     print(f"heterogeneous fp64 255^3: 3 frames, iterations {iters64} (f32 "
           f"{iters[:3]}), {fp64_s:.4f} s, G3 f64 {counts64['g3_f64']} "
           f"launches; against the f32 frames u {fp64_errs[0]:.3e}, a "
@@ -4321,6 +4322,285 @@ def heterogeneous_phase(device, ss, mf):
           f"of max", flush=True)
     return errs, times, out
 
+
+
+# --- heterogeneous grids on a shard (A11 part 2): G3 over a plane range ----
+
+# phase 30's in-process cuts of the 255^3 heterogeneous grid: (label,
+# (npx, npy), 2-D); the 4 slabs have K5's 64-plane slab shape (phase 14)
+HETERO_CUTS = [("4 slabs (Xl 64)", (4, 1), False),
+               ("2x2 tiles (128x128)", (2, 2), True)]
+
+
+def g3_shard_least(local, dtype):
+    """(least ms, bound_by) of one G3 call on a shard: G3's bytes per node
+    on the block's nodes, lam and mu of each live cell of the block and of
+    its ghost cells once, each ghost node's values and mask once; the
+    operations of the block's (node, live cell) pairs."""
+    X, Y, Z = local.grid_shape
+    nz = local.nz
+    gx = torch.arange(-1, X, device=local.device) + local.x0
+    gy = torch.arange(-1, Y, device=local.device) + local.y0
+    live = (((gx >= 0) & (gx < local.nx))[:, None]
+            & ((gy >= 0) & (gy < local.ny))[None, :]).to(torch.int32)
+    count = torch.zeros(local.grid_shape, dtype=torch.int32, device=local.device)
+    for di, dj, dk in ((0, 0, 0), (1, 0, 0), (1, 1, 0), (0, 1, 0),
+                       (0, 0, 1), (1, 0, 1), (1, 1, 1), (0, 1, 1)):
+        count[:, :, dk:dk + nz] += live[1 - di:1 - di + X, 1 - dj:1 - dj + Y, None]
+    pairs = int(count[~local.bc_mask.all(dim=0)].sum())
+    two_d = local.bc_ghosts.y_lo is not None
+    ghost_nodes = 2 * (Y + 2 * int(two_d)) * Z + (2 * X * Z if two_d else 0)
+    elem = 8 if dtype == torch.float64 else 4
+    nbytes = (G3_BYTES_PER_NODE[dtype] * X * Y * Z + 8 * nz * int(live.sum())
+              + (3 * elem + 3) * ghost_nodes)
+    return bound(nbytes, G3_FLOPS_PER_PAIR * pairs,
+                 F64_MATRIX_TFLOPS if dtype == torch.float64 else F32_TFLOPS)
+
+
+def hetero_shard_kernel_phase(device, ss, mf, k5_slab_ms):
+    """Phase 30, in this process: phase 29's 255^3 heterogeneous grid cut
+    into 4 slabs and 2x2 tiles (``HETERO_CUTS``), each shard's G3 with and
+    without the overlap split in f32 and f64, every cut gathered against
+    the whole-grid G3 bit for bit, each shard against G3's plain shard
+    version (1e-5 / 1e-12 of max); G3 on an inner 64-plane slab timed
+    beside its bound and K5's time on that slab shape (phase 14)."""
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    model, _ = hetero_model(FULL, device)
+    rng = np.random.default_rng(SEED + 30)
+    errs, times = {}, {}
+    for dtype, key, tol in ((torch.float32, "f32", OP_TOL),
+                            (torch.float64, "f64", F64_TOL)):
+        s_, m_ = (ss, mf) if dtype == torch.float32 else (float(ss), float(mf))
+        x = torch.as_tensor(rng.standard_normal(model.vector_shape),
+                            device=device).to(dtype)
+        whole = g3.apply_keff_corner_gather(model, x, s_, m_)
+        worst = (0.0, 0.0)
+        for label, shape, two_d in HETERO_CUTS:
+            gathered = torch.full_like(x, float("nan"))
+            tiles = halo_tiles(model, x, shape, two_d)
+            for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+                out = g3.apply_keff_corner_gather(local, xt, s_, m_, ghosts)
+                if not torch.equal(split_keff(local, xt, ghosts, s_, m_), out):
+                    fail(f"G3 {key} {label} ({x0}, {y0}): the overlap split "
+                         f"differs from one launch")
+                plain = g3.apply_keff_corner_gather_plain_shard(
+                    local, xt, s_, m_, ghosts)
+                worst = max(worst, check_close(
+                    f"G3 {key} {label} ({x0}, {y0}) vs plain", out, plain, tol),
+                    key=lambda e: e[1])
+                del plain
+                gathered[:, x0:x0 + xl, y0:y0 + yl] = out
+            if not torch.equal(gathered, whole):
+                fail(f"G3 {key} {label}: the gathered shards differ from the "
+                     f"whole-grid G3 ({int((gathered != whole).sum()):,} values)")
+            print(f"G3 {key} 255^3 {label}: {len(tiles)} shards, with and "
+                  f"without the split, gathered bit-equal to the whole-grid "
+                  f"G3; vs plain shard max rel err {worst[1]:.3e} (tol {tol:g})",
+                  flush=True)
+            if label.startswith("4 slabs"):
+                local, xt, ghosts, _ = tiles[1]  # an inner slab
+                least, by = g3_shard_least(local, dtype)
+                t = dict(
+                    ms=time_ms(lambda: g3.apply_keff_corner_gather(
+                        local, xt, s_, m_, ghosts), 20),
+                    plain_ms=time_ms(lambda: g3.apply_keff_corner_gather_plain_shard(
+                        local, xt, s_, m_, ghosts), 3),
+                    bound_ms=least, bound_by=by, library_ms=None,
+                    split_ms=time_ms(lambda: split_keff(local, xt, ghosts, s_, m_), 20),
+                    k5_slab64_ms=k5_slab_ms)
+                times[key] = t
+                print(f"time G3 {key} slab64 {tuple(local.grid_shape)}: kernel "
+                      f"{t['ms']:.4f} ms (overlap split, 3 launches, "
+                      f"{t['split_ms']:.4f} ms), plain {t['plain_ms']:.4f} ms; "
+                      f"bound {least:.4f} ms by {by} ({least / t['ms']:.3f} of it); "
+                      f"K5 on the same slab shape (phase 14) {k5_slab_ms:.4f} ms",
+                      flush=True)
+            del gathered, tiles
+            torch.cuda.empty_cache()
+        errs[key] = worst
+        del x, whole
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    return errs, times
+
+
+def hetero_frames(stepper, n, label):
+    """``n`` frames of ``stepper``, each synchronised: iterations, frame
+    seconds, peak device memory, steps/s and ms per iteration over frames
+    2 on, and the final u and a."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_s, tel = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        tel.append(stepper.step(stepper.accumulated_time))
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    iters = [t.pcg_iterations for t in tel]
+    if not all(t.pcg_converged for t in tel):
+        fail(f"{label}: not every frame converged: {iters}")
+    steady = frame_s[1:]
+    return dict(iters=iters, frame_s=frame_s,
+                peak=torch.cuda.max_memory_allocated(),
+                steps_per_s=len(steady) / sum(steady),
+                ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3,
+                u=stepper.state.displacement, a=stepper.state.acceleration)
+
+
+def hetero_shard_phase(device, ss, mf, hetero, k5_slab_ms):
+    """Phase 30: heterogeneous grids on a shard (G3 over a plane range with
+    ghost planes, rows and cells; the per-node block-Jacobi of a shard)."""
+    from civiwave_tpu_torch.parallel.sharding import (
+        close_shard_group,
+        make_shard_group,
+        make_shard_group_2d,
+        shard_structured,
+    )
+
+    errs, times = hetero_shard_kernel_phase(device, ss, mf, k5_slab_ms)
+    model, force = hetero_model(FULL, device)
+
+    # the unsharded fused loop on the same grid: what the shards are held to
+    ref = hetero_stepper(model, force)
+    ref.solver_variant = "fused"
+    reset_g3_counts()
+    fused = hetero_frames(ref, HETERO_FRAMES, "heterogeneous 255^3 fused")
+    fused.update(g3=g3_counts()["g3"], u=fused["u"].cpu(), a=fused["a"].cpu())
+    print(f"heterogeneous 255^3 unsharded fused: iterations {fused['iters']}, "
+          f"steps/s {fused['steps_per_s']:.4f}, {fused['ms_per_iter']:.4f} ms per "
+          f"iteration (phase 29 classic {hetero['steps_per_s']:.4f}, "
+          f"{hetero['ms_per_iter']:.4f}); G3 {fused['g3']} launches", flush=True)
+    del ref
+    torch.cuda.empty_cache()
+
+    out = {"fused": {k: v for k, v in fused.items() if k not in ("u", "a")}}
+    for label, make, exchanges in (
+        ("1-D", lambda: make_shard_group(1, device), 2),
+        ("2-D", lambda: make_shard_group_2d(1, 1, device), 4),
+    ):
+        name = f"heterogeneous shard {label} 255^3"
+        group = make()
+        reset_sharded_counts()
+        sm, _, sf = shard_structured(model, model.zero_state(), force, group)
+        # the mask's ghosts (2 or 4 exchanges) and the ghost cells (1 or 2)
+        shard_exchanges = sharded_counts()["ppermute"]
+        if shard_exchanges != exchanges + exchanges // 2:
+            fail(f"{name}: {shard_exchanges} exchanges at shard time")
+        stepper = hetero_stepper(sm, sf)
+        reset_sharded_counts()
+        reset_g3_counts()
+        reset_f64_counts()
+        run = hetero_frames(stepper, HETERO_FRAMES, name)
+        variant = stepper.pcg_variant()
+        if variant != "fused" or not isinstance(stepper._precond, torch.Tensor):
+            fail(f"{name}: 'auto' is {variant}, pc {type(stepper._precond).__name__}")
+        kernels = hetero_path_counts()
+        collectives_ = sharded_counts()
+        iters = run["iters"]
+        if any(abs(a - b) > 1 for a, b in zip(iters, fused["iters"])):
+            fail(f"{name}: iterations {iters} not within 1 of the unsharded "
+                 f"fused frames' {fused['iters']}")
+        check_hetero_counts(name, kernels, "g3")
+        matvecs = 3 * HETERO_FRAMES + sum(iters)
+        want = {"g3": 3 * matvecs, "ppermute": exchanges * matvecs,
+                "psum_f64_3": sum(iters), "psum_f64_4": HETERO_FRAMES}
+        got = {"g3": kernels["g3"],
+               **{k: collectives_[k] for k in ("ppermute", "psum_f64_3",
+                                                "psum_f64_4")}}
+        if got != want:
+            fail(f"{name}: counts {got}, expected {want}")
+        e = {}
+        for field, tol in (("u", U_TOL), ("a", A_TOL)):
+            v = run[field]
+            if not bool(torch.isfinite(v).all()):
+                fail(f"{name}: non-finite {field}")
+            _, e[field] = check_close(f"{name} {field}", v.cpu(), fused[field], tol)
+        print(f"{name}: 'auto' = fused, per-node block-Jacobi; iterations "
+              f"{iters} (unsharded fused {fused['iters']}); max abs err / "
+              f"max|unsharded| u {e['u']:.3e} (tol {U_TOL:g}), a {e['a']:.3e} "
+              f"(tol {A_TOL:g}); counts {got} (G3 3 per matvec: the overlap "
+              f"split), no other kernel; {shard_exchanges} exchanges at shard "
+              f"time", flush=True)
+        print(f"{name}: frame seconds " + ", ".join(
+            f"{t:.4f}" for t in run["frame_s"]), flush=True)
+        print(f"{name}: steps/s {run['steps_per_s']:.4f} (frames 2-8; unsharded "
+              f"fused {fused['steps_per_s']:.4f}), {run['ms_per_iter']:.4f} ms per "
+              f"iteration (unsharded fused {fused['ms_per_iter']:.4f}); peak device "
+              f"memory {run['peak'] / 2**30:.3f} GiB ({run['peak']} bytes)",
+              flush=True)
+        profile_window(f"{name} frame 9",
+                       lambda: stepper.step(stepper.accumulated_time))
+        out[label] = dict(iters=iters, counts=got, err_u=e["u"], err_a=e["a"],
+                          **{k: run[k] for k in ("steps_per_s", "ms_per_iter",
+                                                 "peak")})
+        del stepper, run
+        torch.cuda.empty_cache()
+        if label == "1-D":
+            out.update(hetero_shard_fp64_static(name, sm, sf, group, hetero))
+        del sm, sf
+        close_shard_group()
+        torch.cuda.empty_cache()
+    del model, force
+    torch.cuda.empty_cache()
+    return errs, times, out
+
+
+def hetero_shard_fp64_static(name, sm, sf, group, hetero):
+    """Phase 30 on the one-rank 1-D shard: 3 fp64 frames (G3's f64 instance
+    alone) against phase 29's fp64 frames, and the static solve (classic,
+    phase 29's variant) to 1e-6 against phase 29's static u."""
+    from civiwave_tpu_torch.parallel.sharding import gather_structured
+    from civiwave_tpu_torch.solver.static import solve_static
+
+    reset_sharded_counts()
+    reset_g3_counts()
+    reset_f64_counts()
+    stepper = hetero_stepper(sm, sf, "fp64")
+    run = hetero_frames(stepper, 3, f"{name} fp64")
+    counts = hetero_path_counts()
+    check_hetero_counts(f"{name} fp64", counts, "g3_f64")
+    it64 = run["iters"]
+    if any(abs(a - b) > 1 for a, b in zip(it64, hetero["fp64"]["iters"])):
+        fail(f"{name} fp64: iterations {it64}, phase 29 {hetero['fp64']['iters']}")
+    if counts["g3_f64"] != 3 * (9 + sum(it64)):
+        fail(f"{name} fp64: {counts['g3_f64']} G3 f64 launches for "
+             f"{sum(it64)} iterations")
+    if run["u"].dtype != torch.float64:
+        fail(f"{name} fp64: the state is not f64")
+    e64 = [check_close(f"{name} fp64 {field}", run[field].float().cpu(),
+                       hetero["fp64"][field].float(), tol)[1]
+           for field, tol in (("u", U_TOL), ("a", A_TOL))]
+    fp64 = dict(iters=it64, g3_f64=counts["g3_f64"],
+                seconds=sum(run["frame_s"]), err_u=e64[0], err_a=e64[1])
+    print(f"{name} fp64: 3 frames, iterations {it64} (phase 29 unsharded "
+          f"classic {hetero['fp64']['iters']}), {fp64['seconds']:.4f} s, G3 f64 "
+          f"{counts['g3_f64']} launches; against phase 29's fp64 frames u "
+          f"{e64[0]:.3e}, a {e64[1]:.3e} of max", flush=True)
+    del stepper, run
+    torch.cuda.empty_cache()
+
+    reset_g3_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, st = solve_static(sm, sf, tolerance=HETERO_STATIC_TOL,
+                         max_iterations=STATIC_MAX_ITERS, variant="classic")
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not st.converged or not bool(torch.isfinite(u).all()):
+        fail(f"{name} static: converged {st.converged} after {st.iterations} "
+             f"iterations")
+    _, err = check_close(f"{name} static u", gather_structured(u, group).cpu(),
+                         hetero["static"]["u"], U_TOL)
+    static = dict(iterations=st.iterations, seconds=seconds, err=err,
+                  g3=g3_counts()["g3"])
+    print(f"{name} static (classic, tol {HETERO_STATIC_TOL:g}): "
+          f"{st.iterations} iterations in {seconds:.4f} s (phase 29 unsharded "
+          f"{hetero['static']['iterations']} in {hetero['static']['seconds']:.4f} "
+          f"s); u {err:.3e} of max|u| from phase 29's; G3 {static['g3']} "
+          f"launches", flush=True)
+    return {"fp64": fp64, "static": static}
 
 
 def main() -> int:
@@ -4391,6 +4671,8 @@ def main() -> int:
     del static["exact"], basin
     launch_across_gpus_phase()
     hetero_errs, hetero_times, hetero = heterogeneous_phase(device, ss, mf)
+    shard_errs, shard_times, hetero_shard = hetero_shard_phase(
+        device, ss, mf, hetero, halo_times["slab64"]["ms"])
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
@@ -4616,12 +4898,41 @@ def main() -> int:
              max_abs_err=hetero_errs["f64"][0],
              max_rel_err=hetero_errs["f64"][1], tol=F64_TOL,
              **hetero_times["f64"], ms_f32=hetero_times["f32"]["ms"]),
+        # G3 on a shard (phase 30): the worst error over the shards of the
+        # 255^3 cuts against the plain shard version, the time of one
+        # launch on an inner 64-plane slab, launches on the one-rank 1-D
+        # shard's 8 frames (3 per matvec: the overlap split) and its 3
+        # fp64 frames
+        dict(name="corner_gather_shard", route="cuda",
+             source=src + "corner_gather.cu",
+             replaces="civiwave_tpu/ops/structured.py:503",
+             launches=hetero_shard["1-D"]["counts"]["g3"],
+             max_abs_err=shard_errs["f32"][0], max_rel_err=shard_errs["f32"][1],
+             tol=OP_TOL, **shard_times["f32"],
+             launches_2d=hetero_shard["2-D"]["counts"]["g3"],
+             launches_static=hetero_shard["static"]["g3"]),
+        dict(name="corner_gather_shard_f64", route="cuda",
+             source=src + "corner_gather.cu",
+             replaces="civiwave_tpu/ops/structured.py:503",
+             launches=hetero_shard["fp64"]["g3_f64"],
+             max_abs_err=shard_errs["f64"][0], max_rel_err=shard_errs["f64"][1],
+             tol=F64_TOL, **shard_times["f64"],
+             ms_f32=shard_times["f32"]["ms"]),
     ]
     print(f"heterogeneous 255^3: {hetero['steps_per_s']:.4f} steps/s, "
           f"{hetero['ms_per_iter']:.4f} ms per iteration, iterations "
           f"{hetero['iters']}, per-node pc apply {hetero['pc_apply_ms']:.4f} ms; "
           f"static {hetero['static']['iterations']} iterations, "
           f"{hetero['static']['seconds']:.4f} s", flush=True)
+    print(f"heterogeneous shard 255^3 (one rank): 1-D "
+          f"{hetero_shard['1-D']['steps_per_s']:.4f} steps/s, "
+          f"{hetero_shard['1-D']['ms_per_iter']:.4f} ms per iteration; 2-D "
+          f"{hetero_shard['2-D']['steps_per_s']:.4f}, "
+          f"{hetero_shard['2-D']['ms_per_iter']:.4f}; unsharded fused "
+          f"{hetero_shard['fused']['steps_per_s']:.4f}, "
+          f"{hetero_shard['fused']['ms_per_iter']:.4f}; static "
+          f"{hetero_shard['static']['iterations']} iterations, "
+          f"{hetero_shard['static']['seconds']:.4f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

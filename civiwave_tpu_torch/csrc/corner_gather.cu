@@ -63,6 +63,26 @@
 //   carried to the next plane) and writes node plane ci through
 //   civi::keff_out with the mass term and the identity rows.
 //
+// Shards and plane ranges (parallel/sharding.py, ops/structured_sharded.py).
+// The block is a shard's (3, X, Y, Z) node block at offsets (x0, y0) in the
+// global grid, and the launch writes its planes [p0, p1) (a whole grid:
+// offsets 0, planes [0, X), no ghosts).  A node row of plane jx, row jy
+// (local) comes from the block where both lie inside it; from an X ghost
+// plane (3, Y + 2 gy, Z), row jy + gy, at jx = -1 or X; in the 2-D (X, Y)
+// decomposition (gy = 1) from a Y ghost row (3, X, Z) at jy = -1 or Y;
+// else it reads as zero (K5's routing, csrc/keff_structured_halo.cu).  A
+// null ghost reads as zero, a null ghost mask as free.  Cell (ci, cj) has
+// its low corner at node (ci, cj), so the block holds the cells of its
+// nodes (X, cell_y, nz), and a node needs one more cell plane and row
+// below it: lam and mu of cell plane -1 come from a ghost cell plane
+// (cell_y + gy, nz) from row -gy (in 2-D it carries the corner cell
+// (-1, -1)), of cell row -1 from a ghost cell row (X, nz).  A cell is live
+// at its GLOBAL coordinate (x0 + ci < nx, y0 + cj < ny), so the dead +X
+// planes, the dead +Y rows and the global ends read lam = mu = 0.  Each
+// node's cells are computed from the same bits as on the whole grid and
+// summed in the same order, so every cut, gathered, equals the whole grid
+// bit for bit, and the overlap split's three launches equal one.
+//
 // Redundancy: a block computes the 9 x 33 cells its 8 x 32 nodes touch,
 // 16 % more than it owns, and the chunk's first cell plane x_lo - 1 is
 // computed by two blocks (f32: only its upper half here).  Shared memory:
@@ -153,26 +173,128 @@ template <typename T>
 struct Args {
   const T* x;
   const uint8_t* bc;
+  // X ghost planes below plane 0 / above plane X - 1, (3, Y + 2 gy, Z);
+  // in 2-D (gy = 1) Y ghost rows below row 0 / above row Y - 1, (3, X, Z)
+  const T *gx_lo, *gx_hi, *gy_lo, *gy_hi;
+  const uint8_t *bgx_lo, *bgx_hi, *bgy_lo, *bgy_hi;
   const float* lam;
   const float* mu;
+  // lam and mu of cell plane -1, (cell_y + gy, nz) from cell row -gy, and
+  // in 2-D of cell row -1, (X, nz)
+  const float *lam_gx, *mu_gx, *lam_gy, *mu_gy;
   const float* mass;
   T* out;
-  int X, Y, Z, nx, ny, nz, cell_y, chunk;
+  // the block's node extents, its global offsets, the global cells, the
+  // block's cell rows, gy, the planes [p0, p1) written, the chunk
+  int X, Y, Z, x0, y0, nx, ny, nz, cell_y, ghost_y, p0, p1, chunk;
   T ss, mf;
 };
 
-// Issues the copies of node plane jx, tile plus halo: x into st[c][row][h]
-// (one warp per row, an element per lane, then lanes 0-1 for the last two
-// columns) and the mask into mst[c][row] as the aligned words covering
-// [z0 - 1, z0 + 33), three rows per warp; a word that runs past the mask's
-// end is read byte by byte.  Rows and columns off the grid are not copied
-// (the transform reads them as zero).  civi::sweep::stage_plane does the
-// same for f32 vectors only; made generic and inlined here it raised G3's
-// spills and ran slower, so G3 keeps this rolled loop.
+// A staged node row's source: component 0 of its z = 0 entry (null: the
+// row reads as zero), its mask row (null: free), the start of the mask
+// buffer that holds it (3 * cs bytes) and the stride between components.
 template <typename T>
-__device__ __forceinline__ void stage_nodes(const Args<T>& a, T* st,
-                                            uint8_t* mst, int jx, int y0,
-                                            int z0, int64_t comp) {
+struct Src {
+  const T* v;
+  const uint8_t* m;
+  const uint8_t* mbase;
+  int64_t cs;
+};
+
+template <typename T>
+__device__ __forceinline__ Src<T> row_source(const Args<T>& a, int jx, int jy) {
+  const int gy = a.ghost_y;
+  if (jx >= 0 && jx < a.X) {
+    if (jy >= 0 && jy < a.Y) {  // the block
+      const int64_t off = (static_cast<int64_t>(jx) * a.Y + jy) * a.Z;
+      return {a.x + off, a.bc + off, a.bc, static_cast<int64_t>(a.X) * a.Y * a.Z};
+    }
+    if (!gy || jy < -1 || jy > a.Y) return {nullptr, nullptr, nullptr, 0};
+    // a Y ghost row (selects, not an index: no local copy of the params)
+    const T* g = jy < 0 ? a.gy_lo : a.gy_hi;
+    const uint8_t* bg = jy < 0 ? a.bgy_lo : a.bgy_hi;
+    if (g == nullptr) return {nullptr, nullptr, nullptr, 0};
+    const int64_t off = static_cast<int64_t>(jx) * a.Z;
+    return {g + off, bg == nullptr ? nullptr : bg + off, bg,
+            static_cast<int64_t>(a.X) * a.Z};
+  }
+  if (jx < -1 || jx > a.X) return {nullptr, nullptr, nullptr, 0};
+  const T* g = jx < 0 ? a.gx_lo : a.gx_hi;  // an X ghost plane
+  const uint8_t* bg = jx < 0 ? a.bgx_lo : a.bgx_hi;
+  const int rows = a.Y + 2 * gy;
+  const int ry = jy + gy;
+  if (g == nullptr || ry < 0 || ry >= rows) return {nullptr, nullptr, nullptr, 0};
+  const int64_t off = static_cast<int64_t>(ry) * a.Z;
+  return {g + off, bg == nullptr ? nullptr : bg + off, bg,
+          static_cast<int64_t>(rows) * a.Z};
+}
+
+// Issues the copies of the staged rows [row0, row0 + nrows) of a node
+// plane outside the block (an X ghost plane, a Y ghost row), each from its
+// source (``source(jy)``, a Src), as stage_block_rows copies the block's;
+// a word that runs past the end of its mask buffer is read byte by byte,
+// a row with no source is not copied (the transform reads it as zero).
+template <typename T, typename Source>
+__device__ __forceinline__ void stage_rows(const Args<T>& a, T* st,
+                                           uint8_t* mst, int y0, int z0,
+                                           int row0, int nrows,
+                                           const Source& source) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  for (int p = warp; p < 3 * nrows; p += warps) {
+    const int c = p / nrows;
+    const int row = row0 + p - c * nrows;
+    const Src<T> s = source(y0 - 1 + row);
+    if (s.v == nullptr) continue;
+    const T* g = s.v + c * s.cs + z0 - 1;
+    T* d = st + (c * kHaloY + row) * kHaloZ;
+    const int z = z0 - 1 + lane;
+    if (z >= 0 && z < a.Z) civi::sweep::cp_async_elem(d + lane, g + lane);
+    if (lane < kHaloZ - 32 && z + 32 < a.Z) {
+      civi::sweep::cp_async_elem(d + 32 + lane, g + 32 + lane);
+    }
+  }
+  constexpr int kRowsPerWarp = 32 / kMaskWords;
+  for (int q0 = warp * kRowsPerWarp; q0 < 3 * nrows;
+       q0 += warps * kRowsPerWarp) {
+    const int q = q0 + lane / kMaskWords;
+    const int k = lane % kMaskWords;
+    if (lane >= kRowsPerWarp * kMaskWords || q >= 3 * nrows) continue;
+    const int c = q / nrows;
+    const int row = row0 + q - c * nrows;
+    const Src<T> s = source(y0 - 1 + row);
+    if (s.m == nullptr) continue;
+    // the buffers are 4-byte aligned: a word at or past mbase is whole
+    const uintptr_t lo = reinterpret_cast<uintptr_t>(s.mbase);
+    const uintptr_t hi = lo + static_cast<uintptr_t>(3 * s.cs);
+    const uintptr_t w =
+        ((reinterpret_cast<uintptr_t>(s.m) + c * s.cs + z0 - 1) & ~uintptr_t{3}) +
+        4 * k;
+    uint8_t* d = mst + (c * kHaloY + row) * kMaskRow + 4 * k;
+    if (w < lo || w >= hi) continue;
+    const uint8_t* src = reinterpret_cast<const uint8_t*>(w);
+    if (w + 4 <= hi) {
+      civi::sweep::cp_async4(d, src);
+    } else {
+      for (int b = 0; w + b < hi; ++b) d[b] = src[b];
+    }
+  }
+}
+
+// Issues the copies of the staged rows of block plane jx that lie in the
+// block: x into st[c][row][h] (one warp per row, an element per lane, then
+// lanes 0-1 for the last two columns) and the mask into mst[c][row] as the
+// aligned words covering [z0 - 1, z0 + 33), three rows per warp; a word
+// that runs past the mask's end is read byte by byte.  civi::sweep::
+// stage_plane does the same for f32 vectors only; made generic and inlined
+// here it raised G3's spills and ran slower, so G3 keeps this rolled loop,
+// and keeps it apart from stage_rows: routed through stage_rows' sources,
+// the block's rows made the kernel slower.
+template <typename T>
+__device__ __forceinline__ void stage_block_rows(const Args<T>& a, T* st,
+                                                 uint8_t* mst, int jx, int y0,
+                                                 int z0, int64_t comp) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
@@ -180,7 +302,7 @@ __device__ __forceinline__ void stage_nodes(const Args<T>& a, T* st,
   for (int p = warp; p < 3 * kHaloY; p += warps) {
     const int c = p / kHaloY;
     const int jy = y0 - 1 + p - c * kHaloY;
-    if (jy < 0 || jy >= a.Y) continue;
+    if (jy < 0 || jy >= a.Y) continue;  // a ghost row or none
     const T* g = a.x + c * comp + plane + static_cast<int64_t>(jy) * a.Z + z0 - 1;
     T* d = st + p * kHaloZ;
     const int z = z0 - 1 + lane;
@@ -198,7 +320,7 @@ __device__ __forceinline__ void stage_nodes(const Args<T>& a, T* st,
     if (lane >= kRowsPerWarp * kMaskWords || q >= 3 * kHaloY) continue;
     const int c = q / kHaloY;
     const int jy = y0 - 1 + q - c * kHaloY;
-    if (jy < 0 || jy >= a.Y) continue;
+    if (jy < 0 || jy >= a.Y) continue;  // a ghost row or none
     const int64_t first = c * comp + plane + static_cast<int64_t>(jy) * a.Z + z0 - 1;
     const int64_t addr = (first & ~int64_t{3}) + 4 * k;
     uint8_t* d = mst + q * kMaskRow + 4 * k;
@@ -211,30 +333,76 @@ __device__ __forceinline__ void stage_nodes(const Args<T>& a, T* st,
   }
 }
 
+// Issues the copies of node plane jx, tile plus halo: a plane of the block
+// from the block, then in 2-D the (at most two) Y ghost rows of the tile's
+// halo; a plane outside the block from its X ghost plane.
+template <typename T>
+__device__ __forceinline__ void stage_nodes(const Args<T>& a, T* st,
+                                            uint8_t* mst, int jx, int y0,
+                                            int z0) {
+  if (jx < 0 || jx >= a.X) {
+    stage_rows(a, st, mst, y0, z0, 0, kHaloY,
+               [&](int jy) { return row_source(a, jx, jy); });
+    return;
+  }
+  stage_block_rows(a, st, mst, jx, y0, z0,
+                   static_cast<int64_t>(a.X) * a.Y * a.Z);
+  if (a.ghost_y) {  // the halo rows -1 and Y, where the tile reaches them
+    const auto ghost = [&](int jy) { return row_source(a, jx, jy); };
+    if (y0 == 0) stage_rows(a, st, mst, y0, z0, 0, 1, ghost);
+    if (a.Y - y0 + 1 < kHaloY) stage_rows(a, st, mst, y0, z0, a.Y - y0 + 1, 1, ghost);
+  }
+}
+
 // Issues the copies of lam and mu of cell plane ci over the cell tile into
-// cl[0][n] and cl[kForceStride + n], n = r * kCellZ + col; a cell off the
-// grid is zero-filled.
+// cl[0][n] and cl[kForceStride + n], n = r * kCellZ + col: from the block,
+// the ghost cell plane (ci = -1) or the ghost cell row (cj = -1); a cell
+// off the global grid, past the block's cell rows or with no source is
+// zero-filled.
 template <typename T>
 __device__ __forceinline__ void stage_cells(const Args<T>& a, float* cl, int ci,
                                             int y0, int z0) {
+  if (ci < 0) {  // the ghost cell plane, row cj + gy
+    for (int e = threadIdx.x; e < 2 * kCells; e += blockDim.x) {
+      const int m = e >= kCells;
+      const int n = e - m * kCells;
+      const int r = n / kCellZ;
+      const int cj = y0 - 1 + r;
+      const int ck = z0 - 1 + n - r * kCellZ;
+      const int gj = a.y0 + cj;
+      const float* g = m ? a.mu_gx : a.lam_gx;
+      const bool live = gj >= 0 && gj < a.ny && cj < a.cell_y &&
+                        cj >= -a.ghost_y && ck >= 0 && ck < a.nz;
+      cp_async4_zfill(cl + m * kForceStride + n,
+                      live ? g + static_cast<int64_t>(cj + a.ghost_y) * a.nz + ck
+                           : a.lam,
+                      live);
+    }
+    return;
+  }
   for (int e = threadIdx.x; e < 2 * kCells; e += blockDim.x) {
     const int m = e >= kCells;
     const int n = e - m * kCells;
     const int r = n / kCellZ;
     const int cj = y0 - 1 + r;
     const int ck = z0 - 1 + n - r * kCellZ;
-    const bool live = cj >= 0 && cj < a.ny && ck >= 0 && ck < a.nz;
+    const int gj = a.y0 + cj;
+    bool live = gj >= 0 && gj < a.ny && cj < a.cell_y && ck >= 0 && ck < a.nz;
     const float* src = m ? a.mu : a.lam;
-    cp_async4_zfill(cl + m * kForceStride + n,
-                    live ? src + (static_cast<int64_t>(ci) * a.cell_y + cj) * a.nz + ck
-                         : src,
-                    live);
+    if (cj >= 0) {
+      src += (static_cast<int64_t>(ci) * a.cell_y + cj) * a.nz + ck;
+    } else {  // the ghost cell row
+      const float* g = m ? a.mu_gy : a.lam_gy;
+      live = live && g != nullptr;
+      src = live ? g + static_cast<int64_t>(ci) * a.nz + ck : src;
+    }
+    cp_async4_zfill(cl + m * kForceStride + n, live ? src : a.lam, live);
   }
 }
 
 // xs of halo node (hy, hz) of node plane jx into san ([3][kHaloY][kHaloZ]):
-// the staged x, or +0.0 on a constrained component and off the grid.
-// Returns the node's constrained components as bits 0-2.
+// the staged x, or +0.0 on a constrained component and where the row has
+// no source.  Returns the node's constrained components as bits 0-2.
 template <typename T>
 __device__ __forceinline__ int transform(const Args<T>& a, const T* sp,
                                          const uint8_t* mp, T* san, int jx,
@@ -243,16 +411,32 @@ __device__ __forceinline__ int transform(const Args<T>& a, const T* sp,
   const int jz = z0 - 1 + hz;
   int fixed = 0;
   T q[3] = {T(0), T(0), T(0)};
-  if (jx >= 0 && jx < a.X && jy >= 0 && jy < a.Y && jz >= 0 && jz < a.Z) {
-    const uint32_t comp = static_cast<uint32_t>(a.X) * a.Y * a.Z;
-    const uint32_t rowoff = (static_cast<uint32_t>(jx) * a.Y + jy) * a.Z;
+  if (jz >= 0 && jz < a.Z) {
+    if (jx >= 0 && jx < a.X && jy >= 0 && jy < a.Y) {  // the block
+      const uint32_t comp = static_cast<uint32_t>(a.X) * a.Y * a.Z;
+      const uint32_t rowoff = (static_cast<uint32_t>(jx) * a.Y + jy) * a.Z;
 #pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      const int shift = civi::sweep::mask_shift(comp, c, rowoff, z0);
-      const bool f = mp[(c * kHaloY + hy) * kMaskRow + shift + hz] != 0;
-      // select, not multiply: a constrained component is +0.0
-      q[c] = f ? T(0) : sp[(c * kHaloY + hy) * kHaloZ + hz];
-      fixed |= static_cast<int>(f) << c;
+      for (int c = 0; c < 3; ++c) {
+        const int shift = civi::sweep::mask_shift(comp, c, rowoff, z0);
+        const bool f = mp[(c * kHaloY + hy) * kMaskRow + shift + hz] != 0;
+        // select, not multiply: a constrained component is +0.0
+        q[c] = f ? T(0) : sp[(c * kHaloY + hy) * kHaloZ + hz];
+        fixed |= static_cast<int>(f) << c;
+      }
+    } else {
+      const Src<T> s = row_source(a, jx, jy);
+      if (s.v != nullptr) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          const int shift = static_cast<int>(
+              (reinterpret_cast<uintptr_t>(s.m) + static_cast<uintptr_t>(c * s.cs) +
+               z0 - 1) & 3u);
+          const bool f = s.m != nullptr &&
+                         mp[(c * kHaloY + hy) * kMaskRow + shift + hz] != 0;
+          q[c] = f ? T(0) : sp[(c * kHaloY + hy) * kHaloZ + hz];
+          fixed |= static_cast<int>(f) << c;
+        }
+      }
     }
   }
 #pragma unroll
@@ -450,8 +634,8 @@ __global__ void __launch_bounds__(kThreads, 2) corner_gather_kernel(
   const int ty = t / kTileZ;
   const int z0 = blockIdx.x * kTileZ;
   const int y0 = blockIdx.y * kTileY;
-  const int x_lo = blockIdx.z * a.chunk;
-  const int x_hi = min(x_lo + a.chunk, a.X);
+  const int x_lo = a.p0 + blockIdx.z * a.chunk;
+  const int x_hi = min(x_lo + a.chunk, a.p1);
   const int iy = y0 + ty;
   const int iz = z0 + tz;
   const bool own = iy < a.Y && iz < a.Z;
@@ -465,14 +649,18 @@ __global__ void __launch_bounds__(kThreads, 2) corner_gather_kernel(
   }
   const ElementStage<T> element(tab, reinterpret_cast<T*>(smem + S::table));
 
+  // whether cell plane ci has cells here: inside the global grid, and
+  // below the block only from a ghost cell plane (the same for the block)
+  auto cells_live = [&](int ci) {
+    const int g = a.x0 + ci;
+    return g >= 0 && g < a.nx && (ci >= 0 || a.lam_gx != nullptr);
+  };
   // node plane j and cell plane j - 1 into ring slot j & 1
   auto issue = [&](int j) {
     const int s = j & 1;
-    if (j >= 0 && j < a.X) {
-      stage_nodes(a, st + s * S::kStage, mst + s * S::kMaskStage, j, y0, z0, comp);
-    }
+    stage_nodes(a, st + s * S::kStage, mst + s * S::kMaskStage, j, y0, z0);
     const int ci = j - 1;
-    if (ci >= x_lo - 1 && ci >= 0 && ci < a.nx) {
+    if (ci >= x_lo - 1 && cells_live(ci)) {
       stage_cells(a, cl + s * S::kCellStage, ci, y0, z0);
     }
   };
@@ -514,7 +702,7 @@ __global__ void __launch_bounds__(kThreads, 2) corner_gather_kernel(
     const bool lower = ci >= x_lo;
     T done[3] = {carry[0], carry[1], carry[2]};
     T next[3] = {T(0), T(0), T(0)};
-    if (ci >= 0 && ci < a.nx) {  // the same for the whole block
+    if (cells_live(ci)) {  // the same for the whole block
       element.run(tab, s_lo, s_hi, cl + (j & 1) * S::kCellStage, force, lower);
       __syncthreads();
       if (own) {
@@ -569,41 +757,75 @@ int launch(const Args<T>& a, const T* tables, dim3 grid, cudaStream_t stream) {
 
 // Checks the geometry against this build and launches the instance of T.
 template <typename T>
-int launch_checked(const T* x, const unsigned char* bc, const float* lam,
-                   const float* mu, const float* mass, const T* tables, T* out,
-                   int X, int Y, int Z, int nx, int ny, int nz, int cell_y,
-                   T ss, T mf, int tile_y, int tile_z, int chunk, int grid_x,
-                   int grid_y, int grid_z, int threads, int smem, void* stream) {
-  if (X <= 0 || Y <= 0 || Z <= 0 || nx <= 0 || ny <= 0 || nz <= 0 ||
-      nx >= X || ny > cell_y || ny >= Y || nz != Z - 1) {
+int launch_checked(Args<T> a, const T* tables, int tile_y, int tile_z,
+                   int grid_x, int grid_y, int grid_z, int threads, int smem,
+                   void* stream) {
+  if (a.X <= 0 || a.Y <= 0 || a.Z <= 0 || a.nx <= 0 || a.ny <= 0 ||
+      a.nz != a.Z - 1 || a.x0 < 0 || a.y0 < 0 || a.cell_y < 0 ||
+      (a.ghost_y != 0 && a.ghost_y != 1) || a.p0 < 0 || a.p1 > a.X) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (tile_y != kTileY || tile_z != kTileZ || chunk <= 0 ||
+  if (a.p1 <= a.p0) return 0;
+  if (tile_y != kTileY || tile_z != kTileZ || a.chunk <= 0 ||
       threads != kThreads || smem != Smem<T>::bytes ||
-      grid_x != (Z + kTileZ - 1) / kTileZ ||
-      grid_y != (Y + kTileY - 1) / kTileY ||
-      grid_z != (X + chunk - 1) / chunk || grid_y > 65535 || grid_z > 65535) {
+      grid_x != (a.Z + kTileZ - 1) / kTileZ ||
+      grid_y != (a.Y + kTileY - 1) / kTileY ||
+      grid_z != (a.p1 - a.p0 + a.chunk - 1) / a.chunk || grid_y > 65535 ||
+      grid_z > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return launch<T>(a, tables, dim3(grid_x, grid_y, grid_z),
+                   static_cast<cudaStream_t>(stream));
+}
+
+template <typename T>
+int entry(const T* x, const unsigned char* bc, const T* gx_lo,
+          const unsigned char* bgx_lo, const T* gx_hi,
+          const unsigned char* bgx_hi, const T* gy_lo,
+          const unsigned char* bgy_lo, const T* gy_hi,
+          const unsigned char* bgy_hi, const float* lam, const float* mu,
+          const float* lam_gx, const float* mu_gx, const float* lam_gy,
+          const float* mu_gy, const float* mass, const T* tables, T* out,
+          int X, int Y, int Z, int ghost_y, int x0, int y0, int nx, int ny,
+          int nz, int cell_y, int p0, int p1, T ss, T mf, int tile_y,
+          int tile_z, int chunk, int grid_x, int grid_y, int grid_z,
+          int threads, int smem, void* stream) {
   Args<T> a;
   a.x = x;
   a.bc = bc;
+  a.gx_lo = gx_lo;
+  a.gx_hi = gx_hi;
+  a.gy_lo = gy_lo;
+  a.gy_hi = gy_hi;
+  a.bgx_lo = bgx_lo;
+  a.bgx_hi = bgx_hi;
+  a.bgy_lo = bgy_lo;
+  a.bgy_hi = bgy_hi;
   a.lam = lam;
   a.mu = mu;
+  a.lam_gx = lam_gx;
+  a.mu_gx = mu_gx;
+  a.lam_gy = lam_gy;
+  a.mu_gy = mu_gy;
   a.mass = mass;
   a.out = out;
   a.X = X;
   a.Y = Y;
   a.Z = Z;
+  a.x0 = x0;
+  a.y0 = y0;
   a.nx = nx;
   a.ny = ny;
   a.nz = nz;
   a.cell_y = cell_y;
+  a.ghost_y = ghost_y;
+  a.p0 = p0;
+  a.p1 = p1;
   a.chunk = chunk;
   a.ss = ss;
   a.mf = mf;
-  return launch<T>(a, tables, dim3(grid_x, grid_y, grid_z),
-                   static_cast<cudaStream_t>(stream));
+  return launch_checked<T>(a, tables, tile_y, tile_z, grid_x, grid_y, grid_z,
+                           threads, smem, stream);
 }
 
 static_assert(Smem<float>::bytes == 58272, "f32 shared memory");
@@ -611,36 +833,50 @@ static_assert(Smem<double>::bytes == 99936, "f64 shared memory");
 
 }  // namespace
 
-// tables: the 1,152 values of [A; B] the instance reads, in host memory
-// (copied into the launch's parameters): f32 row-major (48, 24), f64 in
-// DMMA fragment order (ops/cuda/corner_gather.kernel_tables); tile, chunk,
-// grid, threads and smem as ops/cuda/plane_sweep.corner_gather_geometry
-// computes them, refused unless they match this build; the mask 4-byte
-// aligned
-extern "C" int civi_corner_gather(const float* x, const unsigned char* bc,
-                                  const float* lam, const float* mu,
-                                  const float* mass, const float* tables,
-                                  float* out, int X, int Y, int Z, int nx,
-                                  int ny, int nz, int cell_y, float ss,
-                                  float mf, int tile_y, int tile_z, int chunk,
-                                  int grid_x, int grid_y, int grid_z,
-                                  int threads, int smem, void* stream) {
-  return launch_checked<float>(x, bc, lam, mu, mass, tables, out, X, Y, Z, nx,
-                               ny, nz, cell_y, ss, mf, tile_y, tile_z, chunk,
-                               grid_x, grid_y, grid_z, threads, smem, stream);
+// x, the mask and their ghosts (null: zero, free), lam, mu and their ghost
+// cell plane and row (null: zero), the stored mass and out as the header
+// says; tables: the 1,152 values of [A; B] the instance reads, in host
+// memory (copied into the launch's parameters): f32 row-major (48, 24),
+// f64 in DMMA fragment order (ops/cuda/corner_gather.kernel_tables); the
+// block (X, Y, Z) at (x0, y0) of the global (nx, ny, nz) cells, its
+// cell_y cell rows, gy and the planes [p0, p1); tile, chunk, grid,
+// threads and smem as ops/cuda/plane_sweep.corner_gather_geometry
+// computes them for that range, refused unless they match this build;
+// every mask buffer 4-byte aligned
+extern "C" int civi_corner_gather(
+    const float* x, const unsigned char* bc, const float* gx_lo,
+    const unsigned char* bgx_lo, const float* gx_hi,
+    const unsigned char* bgx_hi, const float* gy_lo,
+    const unsigned char* bgy_lo, const float* gy_hi,
+    const unsigned char* bgy_hi, const float* lam, const float* mu,
+    const float* lam_gx, const float* mu_gx, const float* lam_gy,
+    const float* mu_gy, const float* mass, const float* tables, float* out,
+    int X, int Y, int Z, int ghost_y, int x0, int y0, int nx, int ny, int nz,
+    int cell_y, int p0, int p1, float ss, float mf, int tile_y, int tile_z,
+    int chunk, int grid_x, int grid_y, int grid_z, int threads, int smem,
+    void* stream) {
+  return entry<float>(x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo,
+                      gy_hi, bgy_hi, lam, mu, lam_gx, mu_gx, lam_gy, mu_gy,
+                      mass, tables, out, X, Y, Z, ghost_y, x0, y0, nx, ny, nz,
+                      cell_y, p0, p1, ss, mf, tile_y, tile_z, chunk, grid_x,
+                      grid_y, grid_z, threads, smem, stream);
 }
 
-extern "C" int civi_corner_gather_f64(const double* x, const unsigned char* bc,
-                                      const float* lam, const float* mu,
-                                      const float* mass, const double* tables,
-                                      double* out, int X, int Y, int Z, int nx,
-                                      int ny, int nz, int cell_y, double ss,
-                                      double mf, int tile_y, int tile_z,
-                                      int chunk, int grid_x, int grid_y,
-                                      int grid_z, int threads, int smem,
-                                      void* stream) {
-  return launch_checked<double>(x, bc, lam, mu, mass, tables, out, X, Y, Z,
-                                nx, ny, nz, cell_y, ss, mf, tile_y, tile_z,
-                                chunk, grid_x, grid_y, grid_z, threads, smem,
-                                stream);
+extern "C" int civi_corner_gather_f64(
+    const double* x, const unsigned char* bc, const double* gx_lo,
+    const unsigned char* bgx_lo, const double* gx_hi,
+    const unsigned char* bgx_hi, const double* gy_lo,
+    const unsigned char* bgy_lo, const double* gy_hi,
+    const unsigned char* bgy_hi, const float* lam, const float* mu,
+    const float* lam_gx, const float* mu_gx, const float* lam_gy,
+    const float* mu_gy, const float* mass, const double* tables, double* out,
+    int X, int Y, int Z, int ghost_y, int x0, int y0, int nx, int ny, int nz,
+    int cell_y, int p0, int p1, double ss, double mf, int tile_y, int tile_z,
+    int chunk, int grid_x, int grid_y, int grid_z, int threads, int smem,
+    void* stream) {
+  return entry<double>(x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo,
+                       gy_hi, bgy_hi, lam, mu, lam_gx, mu_gx, lam_gy, mu_gy,
+                       mass, tables, out, X, Y, Z, ghost_y, x0, y0, nx, ny,
+                       nz, cell_y, p0, p1, ss, mf, tile_y, tile_z, chunk,
+                       grid_x, grid_y, grid_z, threads, smem, stream);
 }

@@ -116,14 +116,17 @@ class StructuredModel:
     damp_factor: Optional[float] = None
     # a shard (parallel.sharding.shard_structured): its group (a
     # parallel.sharding.ShardGroup), its node offsets (x0, y0) in the global
-    # grid, its local node extents (Xl, Yl) and the bc mask's ghost planes
-    # and rows (an ops.structured_sharded.Ghosts of bool tensors, exchanged
-    # once); None and 0 on an unsharded model
+    # grid, its local node extents (Xl, Yl), the bc mask's ghost planes
+    # and rows (an ops.structured_sharded.Ghosts of bool tensors) and, on a
+    # heterogeneous grid, lam and mu of the cell plane and row below the
+    # block (an ops.structured_sharded.CellGhosts), both exchanged once;
+    # None and 0 on an unsharded model
     shard_group: Optional[object] = None
     x0: int = 0
     y0: int = 0
     local_extent: Optional[Tuple[int, int]] = None
     bc_ghosts: Optional[object] = None
+    cell_ghosts: Optional[object] = None
     # geometric multigrid (ops.multigrid.attach_multigrid): the
     # preconditioner ("block_jacobi" or "multigrid"), the coarse levels
     # (StructuredModels of doubled spacing, finest first) and one smoother

@@ -106,16 +106,16 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _D, _D, _F,
         _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # (G3) x, bc, lam, mu, mass, tables (1,152 host values of the vector
-    # type), out, X, Y, Z, nx, ny, nz, cell_y, ss, mf, geometry (tile_y,
-    # tile_z, chunk, grid_x, grid_y, grid_z, threads, smem), stream
+    # (G3) x, bc, gx_lo, bgx_lo, gx_hi, bgx_hi, gy_lo, bgy_lo, gy_hi, bgy_hi,
+    # lam, mu, lam_gx, mu_gx, lam_gy, mu_gy, mass, tables (1,152 host
+    # values of the vector type), out, X, Y, Z, ghost_y, x0, y0, nx, ny, nz,
+    # cell_y, p0, p1, ss, mf, geometry (tile_y, tile_z, chunk, grid_x,
+    # grid_y, grid_z, threads, smem), stream
     "civi_corner_gather": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F,
-        _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        *(_P,) * 19, *(_I,) * 12, _F, _F, *(_I,) * 8, _P,
     ),
     "civi_corner_gather_f64": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _D, _D,
-        _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        *(_P,) * 19, *(_I,) * 12, _D, _D, *(_I,) * 8, _P,
     ),
 }
 

@@ -142,27 +142,33 @@ G3_FORCE_STRIDE = 312
 G3_STAGES = 2
 
 
-def corner_gather_geometry(grid_shape, elem: int = 4) -> SweepGeometry:
-    """G3's sweep over every plane of the node grid ``grid_shape`` (X, Y,
-    Z) with ``elem``-byte vectors (4: f32, 8: f64): K1's 8 x 32 tiles and
-    32-plane chunks; shared memory for 2 staged planes of x (tile plus
-    halo) and of the mask, 2 sanitized node planes, 24 corner-force rows
-    and 2 lam/mu cell planes of ``G3_FORCE_STRIDE`` entries, and in f32
-    the (48, 24) table (f64 holds it in registers)."""
+def corner_gather_geometry(grid_shape, elem: int = 4,
+                           planes: Optional[Tuple[int, int]] = None
+                           ) -> SweepGeometry:
+    """G3's sweep over the planes ``planes`` = ``[p0, p1)`` (default all)
+    of the node grid ``grid_shape`` (X, Y, Z) with ``elem``-byte vectors
+    (4: f32, 8: f64): K1's 8 x 32 tiles and 32-plane chunks; shared memory
+    for 2 staged planes of x (tile plus halo) and of the mask, 2 sanitized
+    node planes, 24 corner-force rows and 2 lam/mu cell planes of
+    ``G3_FORCE_STRIDE`` entries, and in f32 the (48, 24) table (f64 holds
+    it in registers).  An empty range has no x chunk."""
     if elem not in (4, 8):
         raise ValueError(f"elem {elem}: G3 has f32 and f64 instances")
     X, Y, Z = (int(n) for n in grid_shape)
     if min(X, Y, Z) <= 0:
         raise ValueError(f"grid {grid_shape}: every extent must be positive")
+    p0, p1 = (0, X) if planes is None else (int(planes[0]), int(planes[1]))
+    if not 0 <= p0 <= p1 <= X:
+        raise ValueError(f"plane range [{p0}, {p1}) outside [0, {X})")
     halo = 3 * (TILE_Y + 2) * (TILE_Z + 2)
     smem = (elem * (G3_STAGES * halo + 2 * halo + 24 * G3_FORCE_STRIDE)
             + 4 * G3_STAGES * 2 * G3_FORCE_STRIDE
             + G3_STAGES * 3 * (TILE_Y + 2) * MASK_ROW
             + (4 * 48 * 24 if elem == 4 else 0))
-    grid = (-(-Z // TILE_Z), -(-Y // TILE_Y), -(-X // CHUNK_X))
+    grid = (-(-Z // TILE_Z), -(-Y // TILE_Y), -(-(p1 - p0) // CHUNK_X))
     return SweepGeometry(
         tile=(TILE_Y, TILE_Z), chunk=CHUNK_X, grid=grid,
-        threads=TILE_Y * TILE_Z, smem_bytes=smem, planes=(0, X),
+        threads=TILE_Y * TILE_Z, smem_bytes=smem, planes=(p0, p1),
     )
 
 

@@ -18,7 +18,8 @@ planes (and, in 2-D, ghost rows) with its neighbours
 * :func:`shard_structured` cuts this rank's slab or tile from the model,
   the state and the force, and exchanges the Dirichlet mask's ghosts once
   (the mask is loop-invariant; the reference's compiled program hoists
-  that exchange out of its PCG body).
+  that exchange out of its PCG body), and on a heterogeneous grid the
+  ghost cells of λ and μ once too.
 * :func:`shard_simulation` does the same to a whole
   ``runner.Simulation`` (its force schedule included) and gives it a
   stepper over the shard: the one way the launcher, ``chip_smoke.py`` and
@@ -197,7 +198,7 @@ def cut_block(t: torch.Tensor, x0: int, y0: int, xl: int, yl: int):
 
 def local_model(model, group_shape, coords, device=None):
     """The shard model of tile ``coords`` without its group and without its
-    mask ghosts: every node-grid field cut to the tile (the material cell
+    mask ghosts or ghost cells: every node-grid field cut to the tile (the material cell
     grids to the cells whose low corner is a node of the tile), the
     stencil table and ``position0`` as they are, ``grid_shape`` local."""
     x0, y0, xl, yl = shard_layout(model, group_shape, coords)
@@ -221,18 +222,22 @@ def local_model(model, group_shape, coords, device=None):
 
 def local_tiles(model, group_shape, two_d: bool):
     """Every tile's shard model of a ``(npx, npy)`` cut (1-D with
-    ``two_d`` False), each with its mask ghosts cut from the global mask:
-    what :func:`shard_structured` gives each rank, in one process and
-    without a group (for checks of the shard operator)."""
-    from ..ops.structured_sharded import cut_ghosts
+    ``two_d`` False), each with its mask ghosts cut from the global mask
+    (and on a heterogeneous grid its ghost cells from the global cell
+    grids): what :func:`shard_structured` gives each rank, in one process
+    and without a group (for checks of the shard operator)."""
+    from ..ops.structured_sharded import cut_cell_ghosts, cut_ghosts
 
     tiles = []
     for px in range(group_shape[0]):
         for py in range(group_shape[1]):
             local = local_model(model, group_shape, (px, py))
-            bc = cut_ghosts(model.bc_mask, local.x0, local.y0,
-                            *local.local_extent, two_d)
-            tiles.append(dataclasses.replace(local, bc_ghosts=bc))
+            at = (local.x0, local.y0, *local.local_extent, two_d)
+            cells = None if model.homogeneous else cut_cell_ghosts(
+                model.lam_grid, model.mu_grid, *at)
+            tiles.append(dataclasses.replace(
+                local, bc_ghosts=cut_ghosts(model.bc_mask, *at),
+                cell_ghosts=cells))
     return tiles
 
 
@@ -240,17 +245,12 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
     """This rank's shard of a StructuredModel simulation: ``(model, state,
     force)`` cut to its slab (1-D group) or tile (2-D group) on the group's
     device, the model carrying the group, its offsets and the mask's ghost
-    planes and rows.  A multigrid model's shard falls back to block-Jacobi
-    with a note on stderr.  A heterogeneous grid raises
-    NotImplementedError (ROADMAP A11; the reference shards it under
-    GSPMD).  A collective: every rank of the group calls it."""
-    from ..ops.structured_sharded import exchange_ghosts
+    planes and rows, and on a heterogeneous grid (per-cell λ/μ; the
+    reference shards it under GSPMD) its ghost cells.  A multigrid model's
+    shard falls back to block-Jacobi with a note on stderr.  A collective:
+    every rank of the group calls it."""
+    from ..ops.structured_sharded import exchange_cell_ghosts, exchange_ghosts
 
-    if not model.homogeneous:
-        raise NotImplementedError(
-            "a heterogeneous material grid on a shard is not ported yet "
-            "(ROADMAP A11)"
-        )
     if model.shard_group is not None:
         raise ShardError("the model is already a shard")
     if model.preconditioner == "multigrid":
@@ -267,7 +267,10 @@ def shard_structured(model, state: SimState, external_force, group: ShardGroup):
     bc = local.bc_mask.to(torch.uint8)
     ghosts = exchange_ghosts(bc, group)
     bc_ghosts = type(ghosts)(*(None if g is None else g.bool() for g in ghosts))
-    local = dataclasses.replace(local, shard_group=group, bc_ghosts=bc_ghosts)
+    cells = None if model.homogeneous else exchange_cell_ghosts(
+        local.lam_grid, local.mu_grid, group)
+    local = dataclasses.replace(local, shard_group=group, bc_ghosts=bc_ghosts,
+                                cell_ghosts=cells)
     fields = (state.displacement, state.velocity, state.acceleration,
               state.warm_x)
     return local, SimState(*(cut(v) for v in fields)), cut(external_force)

@@ -18,7 +18,13 @@ packed tables, its launch geometry and its sweep, emulated in numpy.
   f32 halves, the DMMA lanes' A, B and D fragments, the carry between
   planes, the envelope) against the plain version: 1e-12 of max|ref| in
   f64, 1e-5 in f32 (the emulation sums in f64; its point is the
-  indexing).
+  indexing).  The same loop over a shard's plane range, its node rows
+  routed as the kernel's ``row_source`` routes them (the block, X ghost
+  planes, Y ghost rows) and its cells as ``stage_cells`` reads them (the
+  block, the ghost cell plane and row, liveness at global coordinates):
+  every node of the range written once, and ``G3_SHAPES`` cut into 2
+  slabs and 2 x 2 tiles, in one launch and in the overlap split's three
+  ranges, gathered, equal to the whole grid's emulation exactly.
 
 The CUDA kernel itself is held against the plain version on the card
 (``tests/test_torch_kernels_cuda.py -k corner_gather``, ``chip_smoke.py``
@@ -40,6 +46,8 @@ from civiwave_tpu_torch.mesh.structured import CORNERS
 from civiwave_tpu_torch.ops import structured as tops
 from civiwave_tpu_torch.ops.cuda import corner_gather as g3
 from civiwave_tpu_torch.ops.cuda import plane_sweep
+from civiwave_tpu_torch.ops.structured_sharded import cut_ghosts
+from civiwave_tpu_torch.parallel import sharding
 from civiwave_tpu_torch.physics import materials as tmaterials
 from civiwave_tpu_torch.utils.synthetic import cantilever_config
 
@@ -54,12 +62,13 @@ DTYPES = pytest.mark.parametrize("dtype", [np.float32, np.float64],
                                  ids=["f32", "f64"])
 
 
-def build_pair(case):
-    """(jax model, port model) of G3_SHAPES[case] with the same cells."""
+def build_pair(case, **pads):
+    """(jax model, port model) of G3_SHAPES[case] with the same cells
+    (``pads``: build options that override the case's)."""
     dims, kw = G3_SHAPES[case]
     mat = cantilever_config().materials[0]
     lam, mu = hetero_cells(dims)
-    kw = dict(traction=TRACTION, lam_grid=lam, mu_grid=mu, **kw)
+    kw = dict(traction=TRACTION, lam_grid=lam, mu_grid=mu, **{**kw, **pads})
     jm, _ = jstructured.build_structured_model(
         *dims, jmaterials.make_properties(mat), mat.density, **kw)
     tm, _ = tstructured.build_structured_model(
@@ -195,45 +204,113 @@ def corner_x(l):
     return CORNERS[l][0]
 
 
-def emulate(model, x, ss, mf):
-    """G3's block loop in numpy (f64 sums), with the kernel's indices:
-    the result the kernel computes up to rounding."""
+def framed_nodes(model, x, ghosts):
+    """x and the mask on the node block with a one-node frame along X and
+    Y, each row taken from its source as the kernel's ``row_source`` picks
+    it (the block; an X ghost plane, row jy + gy; a Y ghost row in 2-D;
+    zero and free where there is none), and which rows have a source."""
+    X, Y, Z = model.grid_shape
+    bc = model.bc_mask.numpy()
+    bg = model.bc_ghosts
+    gy = int(ghosts is not None and ghosts.y_lo is not None)
+    vals = np.zeros((3, X + 2, Y + 2, Z), x.dtype)
+    mask = np.zeros((3, X + 2, Y + 2, Z), bool)
+    has = np.zeros((X + 2, Y + 2), bool)
+
+    def ghost(side, index):
+        g = None if ghosts is None else getattr(ghosts, side)
+        if g is None:
+            return None
+        m = None if bg is None else getattr(bg, side)
+        return (np.asarray(g)[:, index],
+                np.zeros((3, Z), bool) if m is None else m.numpy()[:, index])
+
+    for jx, jy in itertools.product(range(-1, X + 1), range(-1, Y + 1)):
+        if 0 <= jx < X and 0 <= jy < Y:
+            row = x[:, jx, jy], bc[:, jx, jy]
+        elif 0 <= jx < X:
+            row = ghost("y_lo" if jy < 0 else "y_hi", jx) if gy else None
+        elif 0 <= jy + gy < Y + 2 * gy:
+            row = ghost("x_lo" if jx < 0 else "x_hi", jy + gy)
+        else:
+            row = None
+        if row is not None:
+            vals[:, jx + 1, jy + 1], mask[:, jx + 1, jy + 1] = row
+            has[jx + 1, jy + 1] = True
+    return vals, mask, has
+
+
+def cell_source(model, ci, cj):
+    """(lam, mu) rows (nz,) of cell (ci, cj) of the block as the kernel's
+    ``stage_cells`` reads them, or None (zero): the block, the ghost cell
+    plane (ci = -1, row cj + gy) or row (cj = -1); dead off the global
+    grid and past the block's cell rows."""
+    cg = model.cell_ghosts
+    cell_y = model.lam_grid.shape[1]
+    gy = 0 if cg is None or cg.y_lo is None else 1
+    if not (0 <= model.x0 + ci < model.nx and 0 <= model.y0 + cj < model.ny
+            and cj < cell_y):
+        return None
+    if ci < 0:
+        if cg is None or cj < -gy:
+            return None
+        return cg.x_lo[:, cj + gy].numpy()
+    if cj < 0:
+        return None if not gy else cg.y_lo[:, ci].numpy()
+    return np.stack([model.lam_grid[ci, cj].numpy(),
+                     model.mu_grid[ci, cj].numpy()])
+
+
+def emulate(model, x, ss, mf, ghosts=None, planes=None):
+    """G3's block loop in numpy (f64 sums), with the kernel's indices,
+    over planes ``planes`` (default all) of the model's block (a whole
+    grid, or a shard with its x ``ghosts`` and the model's mask ghosts and
+    ghost cells): the result the kernel computes up to rounding, NaN on the
+    nodes it does not write.  Also returns how often each node was
+    written."""
     x = np.asarray(x)
     f64 = x.dtype == np.float64
     X, Y, Z = model.grid_shape
-    nx, ny, nz = model.nx, model.ny, model.nz
-    geom = plane_sweep.corner_gather_geometry(model.grid_shape, x.itemsize)
+    nz = model.nz
+    geom = plane_sweep.corner_gather_geometry(model.grid_shape, x.itemsize,
+                                              planes)
     ty, tz = geom.tile
     cy, cz = plane_sweep.G3_CELL_TILE
-    bc = model.bc_mask.numpy()
-    lam_grid = model.lam_grid.numpy().astype(np.float64)
-    mu_grid = model.mu_grid.numpy().astype(np.float64)
+    vals, fixed_all, has = framed_nodes(model, x, ghosts)
+    cg = model.cell_ghosts
     mass = model.mass_grid.numpy().astype(np.float64)
     table = g3.kernel_tables(model.spacing, torch.from_numpy(x).dtype)
     table = table.astype(np.float64)
     out = np.full_like(x, np.nan)
+    written = np.zeros(model.grid_shape, np.uint8)
+
+    def cells_live(ci):
+        return (0 <= model.x0 + ci < model.nx
+                and (ci >= 0 or (cg is not None and cg.x_lo is not None)))
 
     def node_plane(j, y0, z0):
         """The sanitized plane j, tile plus halo, and its mask."""
         san = np.zeros((3, ty + 2, tz + 2))
         fixed = np.zeros((3, ty + 2, tz + 2), bool)
-        if 0 <= j < X:
-            ys = slice(max(y0 - 1, 0), min(y0 + ty + 1, Y))
-            zs = slice(max(z0 - 1, 0), min(z0 + tz + 1, Z))
-            hy = slice(ys.start - y0 + 1, ys.stop - y0 + 1)
-            hz = slice(zs.start - z0 + 1, zs.stop - z0 + 1)
-            fixed[:, hy, hz] = bc[:, j, ys, zs]
-            san[:, hy, hz] = np.where(fixed[:, hy, hz], 0.0, x[:, j, ys, zs])
+        ys = slice(max(y0 - 1, -1), min(y0 + ty + 1, Y + 1))
+        zs = slice(max(z0 - 1, 0), min(z0 + tz + 1, Z))
+        hy = slice(ys.start - y0 + 1, ys.stop - y0 + 1)
+        hz = slice(zs.start - z0 + 1, zs.stop - z0 + 1)
+        fy = slice(ys.start + 1, ys.stop + 1)
+        present = has[j + 1, fy][None, :, None]
+        fixed[:, hy, hz] = fixed_all[:, j + 1, fy, zs] & present
+        san[:, hy, hz] = np.where(fixed[:, hy, hz] | ~present, 0.0,
+                                  vals[:, j + 1, fy, zs])
         return san, fixed
 
     def cell_plane(ci, y0, z0):
         lam, mu = np.zeros((cy, cz)), np.zeros((cy, cz))
-        ys = slice(max(y0 - 1, 0), min(y0 + ty, ny))
         zs = slice(max(z0 - 1, 0), min(z0 + tz, nz))
-        r = slice(ys.start - y0 + 1, ys.stop - y0 + 1)
         c = slice(zs.start - z0 + 1, zs.stop - z0 + 1)
-        lam[r, c] = lam_grid[ci, ys, zs]
-        mu[r, c] = mu_grid[ci, ys, zs]
+        for r in range(cy):
+            row = cell_source(model, ci, y0 - 1 + r)
+            if row is not None:
+                lam[r, c], mu[r, c] = row[0][zs], row[1][zs]
         return lam.reshape(-1), mu.reshape(-1)
 
     def corner_values(lo, hi):
@@ -295,7 +372,7 @@ def emulate(model, x, ss, mf):
             hi, hi_fixed = node_plane(j, y0, z0)
             ci, lower = j - 1, j - 1 >= x_lo
             done, nxt = carry.copy(), np.zeros((3, ty, tz))
-            if 0 <= ci < nx:
+            if cells_live(ci):
                 lam, mu = cell_plane(ci, y0, z0)
                 force = (element_f64(lo, hi, lam, mu) if f64 else
                          element_f32(lo, hi, lam, mu, lower)).reshape(3, 8, cy, cz)
@@ -312,8 +389,9 @@ def emulate(model, x, ss, mf):
                 fixed = lo_fixed[:, 1:ty + 1, 1:tz + 1][own]
                 out[n] = np.where(fixed, x[n], ss * done[own]
                                   + mf * mass[ci, y0:y1, z0:z1] * xs)
+                written[ci, y0:y1, z0:z1] += 1
             carry, lo, lo_fixed = nxt, hi, hi_fixed
-    return out
+    return out, written
 
 
 @DTYPES
@@ -323,9 +401,56 @@ def test_emulated_sweep_matches_plain(case, dtype):
     _, tm = build_pair(case)
     x = vector(tm, seed=32, dtype=dtype)
     ss, mf = scalars(dtype)
-    got = emulate(tm, x, ss, mf)
+    got, written = emulate(tm, x, ss, mf)
+    assert (written == 1).all()
     plain = tops.apply_keff_structured_plain(tm, torch.as_tensor(x), ss, mf)
     assert np.isfinite(got).all()
     assert_close(got, plain.numpy(), TOL[dtype])
     bc = tm.bc_mask.numpy()
     np.testing.assert_array_equal(got[bc], x[bc])
+
+
+# G3_SHAPES cut into 2 slabs and 2 x 2 tiles (the cases padded to divide
+# the cut): (npx, npy), 2-D
+CUTS = {"slabs_2": ((2, 1), False), "tiles_2x2": ((2, 2), True)}
+
+
+@DTYPES
+@pytest.mark.parametrize("cut", sorted(CUTS))
+@pytest.mark.parametrize("case", ["odd_partial_fixes", "x65_dead_row",
+                                  "ypad_row", "y13_z37", "one_cell_x"])
+def test_emulated_cuts_equal_the_whole_grid(case, cut, dtype):
+    """Each shard of the cut, with its x ghosts cut from x and its mask
+    ghosts and ghost cells from the global grids (``local_tiles``), swept
+    in one launch and in the overlap split's three plane ranges (slabs of
+    4 or more planes; the interior launch without X ghosts): every node of
+    each range written once, and the gathered cut equal to the whole
+    grid's sweep."""
+    shape, two_d = CUTS[cut]
+    dims, kw = G3_SHAPES[case]
+    pads = dict(pad_x_multiple=max(shape[0], kw.get("pad_x_multiple", 1)),
+                pad_y_multiple=max(shape[1], kw.get("pad_y_multiple", 1)))
+    _, tm = build_pair(case, **pads)
+    x = vector(tm, seed=33, dtype=dtype)
+    ss, mf = scalars(dtype)
+    whole, _ = emulate(tm, x, ss, mf)
+    xt_all = torch.as_tensor(x)
+    for local in sharding.local_tiles(tm, shape, two_d):
+        x0, y0, (xl, yl) = local.x0, local.y0, local.local_extent
+        xt = sharding.cut_block(xt_all, x0, y0, xl, yl).numpy()
+        ghosts = cut_ghosts(xt_all, x0, y0, xl, yl, two_d)
+        want = whole[:, x0:x0 + xl, y0:y0 + yl]
+        got, written = emulate(local, xt, ss, mf, ghosts)
+        assert (written == 1).all()
+        np.testing.assert_array_equal(got, want)
+        if xl < 4:
+            continue
+        split = np.full_like(xt, np.nan)
+        for planes, g in (((1, xl - 1), ghosts._replace(x_lo=None, x_hi=None)),
+                          ((0, 1), ghosts), ((xl - 1, xl), ghosts)):
+            part, written = emulate(local, xt, ss, mf, g, planes)
+            p0, p1 = planes
+            assert (written[p0:p1] == 1).all() and not written[:p0].any()
+            assert not written[p1:].any()
+            split[:, p0:p1] = part[:, p0:p1]
+        np.testing.assert_array_equal(split, want)

@@ -20,8 +20,8 @@ heterogeneous case, ``__graft_entry__.py:218-223``), go to both packages'
 * Newmark frames (adaptive dt, so the preconditioner is rebuilt) against
   the reference's stepper in f32 and f64 (u within 2.5e-4 and a within
   3e-3 of max, iterations within 1), a static solve, a checkpoint resume;
-* the multigrid fallback, derived fields and probes, ``convert`` of a
-  heterogeneous JAX model, and ``shard_structured``'s refusal;
+* the multigrid fallback, derived fields and probes, and ``convert`` of a
+  heterogeneous JAX model (its shards: ``test_torch_sharded_heterogeneous``);
 * the routing: every homogeneous kernel (K1, K2, K4 + G2, K6) declines a
   heterogeneous grid and 'auto' PCG resolves to classic.
 
@@ -50,7 +50,6 @@ from civiwave_tpu_torch.ops import multigrid as tmg
 from civiwave_tpu_torch.ops import structured as tops
 from civiwave_tpu_torch.ops.cuda import _build
 from civiwave_tpu_torch.ops.cuda import corner_gather as g3
-from civiwave_tpu_torch.parallel import sharding
 from civiwave_tpu_torch.physics import materials as tmaterials
 from civiwave_tpu_torch.post import structured_fields as tfields
 from civiwave_tpu_torch.solver.pcg import resolve_variant
@@ -453,12 +452,6 @@ def test_convert_carries_a_heterogeneous_model():
     torch.testing.assert_close(carried.apply_keff(x, SS, MF),
                                tm.apply_keff(x, SS, MF), rtol=0, atol=0)
     assert isinstance(carried.build_preconditioner(SS, MF), torch.Tensor)
-
-
-def test_shard_structured_refuses_a_heterogeneous_model():
-    _, _, tm, tf = build_pair(*CASES["xpad"])
-    with pytest.raises(NotImplementedError, match="A11"):
-        sharding.shard_structured(tm, tm.zero_state(), tf, group=None)
 
 
 def test_effective_scalars_build_the_same_inverse_as_the_stepper():

@@ -14,7 +14,10 @@ f64) against its plain version on odd, padded and dead-row grids and on
 grids that cut its tiles and chunks (``chip_smoke.G3_SHAPES``), on
 uniform grids against K1 (3e-6 of max), the constant-stencil kernels
 refusing a heterogeneous grid, and a heterogeneous cantilever on the
-card against the CPU.
+card against the CPU; G3 on the slabs and tiles of a heterogeneous grid
+(its plane range, ghost planes, rows and cells) against its plain shard
+version and, gathered, against the whole-grid G3, and a heterogeneous
+cantilever on one-rank shards.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -26,7 +29,8 @@ without it:
 Tolerances: operator and preconditioner outputs at 1e-5 * max|ref|, dots
 at rtol 1e-5 (the sums run in another order than the plain version's).
 Bit for bit (``torch.equal``): the operator sweep K1/K5 on every slab or
-tile cut against the whole grid, the overlap split against one launch, K2's
+tile cut against the whole grid, G3's cuts against the whole-grid G3 (f32
+and f64), the overlap split against one launch, K2's
 w against K1 of K2's u, G1 against its plain version, and G2's constrained
 outputs against x.  K4 and G2 run on ``SLENDER_SHAPES``: the grids above
 plus a column-shaped one (40 x 48 x 48 nodes, K4's 16 x 16 tiles), with
@@ -1209,4 +1213,182 @@ def test_heterogeneous_cantilever_runs_g3_only(device, precision):
         assert abs(a.pcg_iterations - b.pcg_iterations) <= 1
     for name, tol in (("displacement", 2.5e-4), ("acceleration", 3e-3)):
         got, ref = getattr(state, name).cpu(), getattr(cstate, name)
+        assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+# --- G3 on a shard: plane ranges, ghost planes, rows and cells --------------
+
+# name -> (cells, build options, (npx, npy), 2-D): the reference's sharded
+# heterogeneous cuts (tests/test_sharding.py:468, :852), 4-plane slabs
+# (the overlap split), 33-plane slabs (two X chunks, the second of one
+# plane) with a dead +Y row, ragged tiles with fixes on several faces and
+# tiles of 21 x 9 nodes (two y tiles each, the +Y ghost row inside the
+# second one's halo)
+HETERO_CUTS = {
+    "1d_15x6x6_over_4": ((15, 6, 6), {}, (4, 1), False),
+    "1d_15x6x6_over_8": ((15, 6, 6), {}, (8, 1), False),
+    "2d_7x4x5_on_2x2": ((7, 4, 5), {}, (2, 2), True),
+    "2d_7x4x5_on_4x2": ((7, 4, 5), {}, (4, 2), True),
+    "1d_64x4x4_dead_row_over_2": ((64, 4, 4), dict(pad_y_multiple=2),
+                                  (2, 1), False),
+    "2d_odd_partial_fixes_on_2x2": (G3_SHAPES["odd_partial_fixes"][0],
+                                    G3_SHAPES["odd_partial_fixes"][1],
+                                    (2, 2), True),
+    "2d_41x17x63_on_2x2": ((41, 17, 63), {}, (2, 2), True),
+}
+
+
+def _hetero_cut(device, case, dtype):
+    """(whole model, x, [(tile model, x block, x ghosts, (x0, y0, Xl,
+    Yl))]) of a heterogeneous grid cut without a process group: lam0 (1 +
+    U), mu0 (1 + U') per cell from ``default_rng(23)``."""
+    from civiwave_tpu_torch.ops.structured_sharded import cut_ghosts
+    from civiwave_tpu_torch.parallel import sharding
+
+    dims, kw, shape, two_d = HETERO_CUTS[case]
+    mat = cantilever_config().materials[0]
+    props = materials.make_properties(mat)
+    rng = np.random.default_rng(23)
+    kw = {**kw, "pad_x_multiple": shape[0],
+          "pad_y_multiple": max(shape[1], kw.get("pad_y_multiple", 1))}
+    model, _ = build_structured_model(
+        *dims, props, mat.density, device=device,
+        lam_grid=props.lame.lam * (1.0 + rng.uniform(0.0, 1.0, dims)),
+        mu_grid=props.lame.mu * (1.0 + rng.uniform(0.0, 1.0, dims)), **kw)
+    assert not model.homogeneous
+    x = torch.as_tensor(rng.standard_normal(model.vector_shape),
+                        device=device).to(dtype)
+    tiles = []
+    for local in sharding.local_tiles(model, shape, two_d):
+        x0, y0, (xl, yl) = local.x0, local.y0, local.local_extent
+        tiles.append((local, sharding.cut_block(x, x0, y0, xl, yl),
+                      cut_ghosts(x, x0, y0, xl, yl, two_d), (x0, y0, xl, yl)))
+    return model, x, tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(HETERO_CUTS))
+def test_corner_gather_cuts_match_plain_and_the_whole_grid(device, case, dtype,
+                                                            monkeypatch):
+    """Each tile: one G3 launch against G3's plain shard version (1e-5 of
+    max|ref| in f32, 1e-12 in f64), the overlap split's three launches
+    (slabs of 4 or more planes) equal to one; gathered, every cut equals
+    the whole-grid G3 bit for bit."""
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+    from civiwave_tpu_torch.ops.structured_sharded import local_keff
+
+    ss, mf = (SS, MF) if dtype == torch.float32 else (SS64, MF64)
+    tol = OP_TOL if dtype == torch.float32 else F64_TOL
+    model, x, tiles = _hetero_cut(device, case, dtype)
+    wrapper = g3.apply_keff_corner_gather
+    key = "launches" if dtype == torch.float32 else "launches_f64"
+    whole = wrapper(model, x, ss, mf)
+    gathered = torch.full_like(x, float("nan"))
+    for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+        before = getattr(wrapper, key)
+        out = wrapper(local, xt, ss, mf, ghosts)
+        torch.cuda.synchronize()
+        assert getattr(wrapper, key) == before + 1
+        ref = g3.apply_keff_corner_gather_plain_shard(local, xt, ss, mf, ghosts)
+        err = float((out - ref).abs().max())
+        assert err <= tol * float(ref.abs().max()), (x0, y0, err)
+        if xl >= 4:  # the overlap split's three launches write the same bits
+            monkeypatch.setenv("CIVIWAVE_HALO_OVERLAP", "1")
+            before = getattr(wrapper, key)
+            assert torch.equal(local_keff(local, xt, ghosts, ss, mf), out)
+            assert getattr(wrapper, key) == before + 3
+        gathered[:, x0:x0 + xl, y0:y0 + yl] = out
+    assert torch.equal(gathered, whole)
+
+
+@pytest.mark.parametrize("case", sorted(HETERO_CUTS))
+def test_corner_gather_missing_ghosts_read_as_zero(device, case):
+    """At a global end a ghost of None (x, the mask, the ghost cell plane
+    or row) gives the bits of the zero ghost a group delivers there."""
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    model, _, tiles = _hetero_cut(device, case, torch.float32)
+    for local, xt, ghosts, (x0, y0, xl, yl) in tiles:
+        ends = {"x_lo": x0 == 0, "x_hi": x0 + xl == model.grid_shape[0],
+                "y_lo": y0 == 0, "y_hi": y0 + yl == model.grid_shape[1]}
+        cut = {k: None for k, end in ends.items()
+               if end and getattr(ghosts, k) is not None}
+        cells = {k: None for k in ("x_lo", "y_lo")
+                 if ends[k] and getattr(local.cell_ghosts, k) is not None}
+        if not cut and not cells:
+            continue
+        bare = dataclasses.replace(
+            local, bc_ghosts=local.bc_ghosts._replace(**cut),
+            cell_ghosts=local.cell_ghosts._replace(**cells))
+        assert torch.equal(
+            g3.apply_keff_corner_gather(bare, xt, SS, MF, ghosts._replace(**cut)),
+            g3.apply_keff_corner_gather(local, xt, SS, MF, ghosts))
+
+
+def test_corner_gather_refuses_wrong_ghosts(device):
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    _, _, tiles = _hetero_cut(device, "2d_7x4x5_on_2x2", torch.float32)
+    local, xt, ghosts, _ = tiles[-1]
+    with pytest.raises(ValueError):  # a 1-D plane on a tile
+        g3.apply_keff_corner_gather(local, xt, SS, MF,
+                                    ghosts._replace(x_lo=ghosts.x_lo[:, 1:-1]))
+    with pytest.raises(ValueError):
+        g3.apply_keff_corner_gather(local, xt, SS, MF, ghosts, planes=(0, 99))
+    short = local.cell_ghosts._replace(x_lo=local.cell_ghosts.x_lo[:, 1:])
+    with pytest.raises(ValueError):
+        g3.apply_keff_corner_gather(
+            dataclasses.replace(local, cell_ghosts=short), xt, SS, MF, ghosts)
+
+
+@pytest.mark.parametrize("two_d", [False, True], ids=["1d", "2d"])
+def test_heterogeneous_cantilever_runs_sharded_on_one_rank(device, two_d,
+                                                           monkeypatch):
+    """A one-rank NCCL group (1-D and 2-D): 'auto' is fused, every matvec is
+    G3 (three launches with the overlap split), no other kernel runs, one
+    f64 (3,) all-reduce per iteration, and the frames match the unsharded
+    fused run on the card (iterations +-1, u 2.5e-4, a 3e-3 of max)."""
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+    from civiwave_tpu_torch.ops.cuda import keff_halo as k5
+    from civiwave_tpu_torch.parallel import collectives, sharding
+    from civiwave_tpu_torch.solver.stepper import NewmarkStepper
+
+    monkeypatch.delenv("CIVIWAVE_HALO_OVERLAP", raising=False)
+    model, force = _hetero_model(device, "x_1_mod_32")
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120, dt=1e-3,
+                            adaptive=False)
+    ray = materials.compute_rayleigh(cfg.damping)
+
+    def frames(m, f, variant):
+        stepper = NewmarkStepper(m, m.zero_state(), f, ray, cfg.solver, cfg.time)
+        stepper.solver_variant = variant
+        tel = [stepper.step(stepper.accumulated_time) for _ in range(4)]
+        return tel, stepper.state
+
+    tel_ref, state_ref = frames(model, force, "fused")
+    counters = (k12.apply_keff_fused, k12.apply_pc_keff_fused,
+                k3.apply_block_jacobi, k4.interior_stencil,
+                k6.pcg_iteration_fused, k5.keff_structured_halo)
+    try:
+        group = (sharding.make_shard_group_2d(1, 1, device) if two_d
+                 else sharding.make_shard_group(1, device))
+        sm, _, sf = sharding.shard_structured(model, model.zero_state(), force,
+                                              group)
+        before = [c.launches for c in counters]
+        g3_before = g3.apply_keff_corner_gather.launches
+        collectives.reset_counts()
+        tel, state = frames(sm, sf, "auto")
+        torch.cuda.synchronize()
+    finally:
+        sharding.close_shard_group()
+    iters = [t.pcg_iterations for t in tel]
+    matvecs = 3 * len(tel) + sum(iters)
+    assert g3.apply_keff_corner_gather.launches - g3_before == 3 * matvecs
+    assert [c.launches for c in counters] == before
+    assert collectives.psum.shapes[(torch.float64, (3,))] == sum(iters)
+    assert collectives.ppermute.calls == (4 if two_d else 2) * matvecs
+    assert all(t.pcg_converged for t in tel)
+    assert all(abs(a - b.pcg_iterations) <= 1 for a, b in zip(iters, tel_ref))
+    for name, tol in (("displacement", 2.5e-4), ("acceleration", 3e-3)):
+        got, ref = getattr(state, name), getattr(state_ref, name)
         assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
