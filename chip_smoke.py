@@ -188,8 +188,11 @@ Phases, each printing its result:
     16's refined u, iterations beside phase 16's classic;
 28. with two or more GPUs, ``parallel.launch --npx 2 --against-one-rank``
     on the 66^3 tet cantilever (with ``--profile``: rank 0's summaries)
-    and on examples/seismic_basin.yaml (a failed check fails the run);
-    with one GPU it prints that it skipped;
+    and on examples/seismic_basin.yaml (a failed check fails the run),
+    then ``--output --checkpoint-dir`` on the 63^3 cantilever over 2 ranks
+    against 1 (the same files, VTU arrays at the stepping tolerances, the
+    2-rank checkpoint restored into the unsharded build equal to the last
+    VTU's u); with one GPU it prints that it skipped;
 29. heterogeneous grids (per-cell lam0 (1 + U), mu0 (1 + U') from
     ``default_rng(SEED)``): G3 corner_gather (a plane sweep: per cell
     plane an element stage, FFMA in f32 and DMMA tensor-core products in
@@ -213,10 +216,36 @@ Phases, each printing its result:
     instance alone against the f32 frames (iterations within 1, u and a
     at the BASELINE tolerances); a
     16x4x4 heterogeneous box for 10 frames on the GPU and the CPU.
-    Phase 4 also fails if the homogeneous main path launches G3.
+    Phase 4 also fails if the homogeneous main path launches G3;
+30. heterogeneous grids on a shard: G3 over the 255^3 grid's slab and
+    tile cuts against the whole-grid G3 and its plain shard version,
+    timed on a 64-plane slab; 8 frames on one-rank 1-D and 2-D groups
+    against the unsharded fused frames, fp64 frames and a static solve;
+31. a shard's checkpoints, output, derived fields and probes at full
+    width: phase 17b's scenario (255^3, probes, a VTU every 8 frames)
+    through ``shard_simulation`` over one-rank 1-D and 2-D groups, 8
+    frames with a checkpoint every 4 (iterations within 1 of phase 17b's,
+    the output directory against phase 17b's at the stepping tolerances,
+    the collectives the output made, frame 4's checkpoint resumed
+    bit-equal, the derived fields and probe rows bit-equal to the
+    unsharded functions' on the same state; steps/s, derived-field and
+    probe ms, VTU seconds, checkpoint bytes and seconds); the
+    heterogeneous 255^3 cantilever over a one-rank 1-D group (G3), 4
+    frames; the 66^3 tet cantilever over a one-rank general group (K7 +
+    G1), 3 frames (the VTU's u is the gathered state); each checkpoint
+    resumed bit-equal;
+32. the native Gmsh parser built with g++ here (a missing toolchain fails
+    the run): the 34^3 tet box written as Gmsh 4.1 text parsed natively
+    and in Python (array for array equal, both timed), the 66^3 tet box
+    parsed natively (timed);
+33. ``InteractiveSession`` on the 255^3 cantilever (two equal point-load
+    requests bit-equal, reset exact, K2 launched, round trips timed) and
+    ``viewer.start_in_thread`` on the 66^3 tet cantilever on the card
+    (the page, the mesh, a solve with a point load, reset, seconds).
 
-Output files of phases 16-17 and 22-23 go to a fresh directory under
-``civiwave_tpu_torch/_build/`` (ignored by git) and are removed.  Any
+Output files of phases 16-17, 22-23 and 28b-33 go to a fresh directory
+under ``civiwave_tpu_torch/_build/`` (ignored by git) and are removed
+(phase 17b's by phase 31, which compares against it).  Any
 failed check exits non-zero.  The last two lines of stdout are a JSON
 summary of the kernels and ``{"ok": true, "device": {...}}``.
 """
@@ -2258,11 +2287,54 @@ def box_output_phase(device):
           f"{U_TOL:g}, the rest at {A_TOL:g})", flush=True)
 
 
+def output_255_config(vtu_stride=8):
+    """Phase 17b's scenario: the cantilever of ``FULL`` cells with probes on
+    the loaded face's corners and at mid-span, a VTU every ``vtu_stride``
+    frames."""
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    cells = FULL
+    nx, ny, nz = cells
+    ys, zs = ny + 1, nz + 1
+
+    def node(i, j, k):
+        return (i * ys + j) * zs + k
+
+    probes = [node(nx, 0, 0), node(nx, ny, 0), node(nx, 0, nz), node(nx, ny, nz),
+              node(nx // 2, ny // 2, nz // 2)]
+    return cantilever_config(
+        tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
+        mesh={"path": "synthetic://box/%d,%d,%d" % cells},
+        output={"vtu_stride": vtu_stride, "probes": probes},
+    )
+
+
+def defer_output(output):
+    """Time each VTU write of ``output`` (an output manager) on its writer
+    thread and take ``Simulation.run``'s flush away, so frame 0's file is
+    written while the next frames step.  Returns (the write seconds, the
+    manager's own flush)."""
+    writer = output._writer
+    plain_submit, write_s = writer.submit, []
+
+    def timed_submit(fn, *args):
+        def timed(*a):
+            t = time.perf_counter()
+            fn(*a)
+            write_s.append(time.perf_counter() - t)
+        plain_submit(timed, *args)
+
+    writer.submit = timed_submit
+    manager_flush, output.flush = output.flush, lambda: None
+    return write_s, manager_flush
+
+
 def output_full_width_phase(device, split):
     """Phase 17b: the 255^3 cantilever stepped for 8 frames with the
     structured output manager (probes on the loaded face and at mid-span,
     VTU frame 0 written on the writer thread while frames 1-7 step),
-    against phase 4's fused frames without output."""
+    against phase 4's fused frames without output.  Its output directory
+    is kept for phase 31 (which removes it)."""
     import shutil
 
     from civiwave_tpu_torch.post.structured_fields import (
@@ -2271,40 +2343,17 @@ def output_full_width_phase(device, split):
         probe_samples,
     )
     from civiwave_tpu_torch.runner import build_simulation
-    from civiwave_tpu_torch.utils.synthetic import cantilever_config
 
-    nx, ny, nz = FULL
-    ys, zs = ny + 1, nz + 1
-
-    def node(i, j, k):
-        return (i * ys + j) * zs + k
-
-    probes = [node(nx, 0, 0), node(nx, ny, 0), node(nx, 0, nz), node(nx, ny, nz),
-              node(nx // 2, ny // 2, nz // 2)]
-    cfg = cantilever_config(
-        tol_runtime=2e-4, max_iters=120, dt=1e-3, adaptive=False,
-        mesh={"path": "synthetic://box/%d,%d,%d" % FULL},
-        output={"vtu_stride": 8, "probes": probes},
-    )
+    cfg = output_255_config()
+    probes = cfg.output.probes
     tmp = scratch_dir("output_255")
     try:
         sim = build_simulation(cfg, device=device, output_root=tmp)
         model = sim.model
-        writer = sim.output._writer
-        plain_submit, write_s = writer.submit, []
-
-        def timed_submit(fn, *args):
-            def timed(*a):
-                t = time.perf_counter()
-                fn(*a)
-                write_s.append(time.perf_counter() - t)
-            plain_submit(timed, *args)
-
-        writer.submit = timed_submit
         # one frame per run() call for per-frame times, without run()'s
         # flush of the writer, so frame 0's file is written while frames
         # 1-7 step; the flush is waited for after frame 8
-        manager_flush, sim.output.flush = sim.output.flush, lambda: None
+        write_s, manager_flush = defer_output(sim.output)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_structured_counts()
@@ -2385,12 +2434,14 @@ def output_full_width_phase(device, split):
               f"thread (writer {'native' if native_writer() else 'numpy'}); probe "
               f"rows vs device node fields worst {worst:.3e} of max|.|; peak device "
               f"memory {peak / 2**30:.3f} GiB ({peak} bytes)", flush=True)
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     del sim, model, state
     torch.cuda.empty_cache()
     return dict(steps_per_s=steps, derived_ms=derived_ms, probe_ms=probe_ms,
-                vtu_bytes=vtu_bytes, vtu_write_s=write_s[0])
+                vtu_bytes=vtu_bytes, vtu_write_s=write_s[0], iters=iters,
+                root=tmp)
 
 
 def dashpot_device_kernels(model, x):
@@ -3861,6 +3912,59 @@ def launch_across_gpus_phase():
         if proc.returncode != 0:
             fail(f"launch across 2 GPUs [{label}]: {proc.stderr[-2000:]}")
     shutil.rmtree(traces, ignore_errors=True)
+    launch_output_check("cuda")
+
+
+def launch_output_check(device_name, cells="63,63,63", frames=4):
+    """Phase 28b: ``parallel.launch --output --checkpoint-dir`` over 2 ranks
+    and over 1 (``device_name``'s backend): the same files, their VTU
+    arrays at the stepping tolerances; the 2-rank run's last checkpoint
+    restores into the unsharded build padded for 2 ranks and equals its
+    last VTU's displacement bit for bit."""
+    import argparse
+    import shutil
+
+    from civiwave_tpu_torch.parallel.launch import _scenario
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.checkpoint import CheckpointManager
+
+    label = f"launch --output --checkpoint-dir cantilever {cells}"
+    tmp = scratch_dir("launch_output")
+    try:
+        dirs = {}
+        for npx in (2, 1):
+            out, ck = (os.path.join(tmp, f"{k}{npx}") for k in ("out", "ck"))
+            proc = subprocess.run(
+                [sys.executable, "-m", "civiwave_tpu_torch.parallel.launch",
+                 "--npx", str(npx), "--cells", cells, "--frames", str(frames),
+                 "--device", device_name, "--output", out, "--checkpoint-dir",
+                 ck, "--checkpoint-every", "2", "--timeout", "240"],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                fail(f"{label} over {npx} rank(s): {proc.stderr[-2000:]}")
+            rate = [ln for ln in proc.stdout.splitlines() if "steps/s" in ln]
+            print(f"{label} over {npx} rank(s): " + " | ".join(rate), flush=True)
+            dirs[npx] = (out, ck)
+        identical, worst = compare_output_dirs(f"{label} 2 ranks vs 1",
+                                               dirs[2][0], dirs[1][0])
+        ns = argparse.Namespace(scenario=None, cells=cells, static=False)
+        sim = build_simulation(_scenario(ns), device=device_name,
+                               pad_x_multiple=2)
+        manager = CheckpointManager(dirs[2][1])
+        if manager.steps() != [frames - 1, frames]:
+            fail(f"{label}: checkpoints {manager.steps()}")
+        sim.stepper.restore_checkpoint(manager)
+        u = sim.model.to_nodal(sim.stepper.state.displacement).cpu().numpy()
+        vtu = read_vtu(os.path.join(dirs[2][0], "vtu", f"frame_{frames - 1:05d}.vtu"),
+                       ["displacement"])[1]["displacement"]
+        if not np.array_equal(u.reshape(-1), vtu):
+            fail(f"{label}: the checkpoint's u is not the last VTU's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"{label}: 2 ranks against 1: the same files, byte-identical "
+          f"{identical}, worst {worst:.3e} of max|.|; the 2-rank checkpoint "
+          f"restores into the unsharded build and equals the last VTU's u",
+          flush=True)
 
 
 # --- heterogeneous grids (A1): G3, the corner gather ---------------------
@@ -4603,6 +4707,637 @@ def hetero_shard_fp64_static(name, sm, sf, group, hetero):
     return {"fp64": fp64, "static": static}
 
 
+
+# --- the port's remainder: a shard's checkpoints and output, the native
+# Gmsh parser, the interactive session and its viewer (phases 31-33) --------
+
+SHARD_OUTPUT_FRAMES = 8  # phase 17b's frames, with its VTU stride
+HETERO_OUTPUT_FRAMES = 4
+GENERAL_OUTPUT_FRAMES = 3
+
+
+def output_counts():
+    """The collectives' calls, the gathers of output and checkpoints
+    included."""
+    from civiwave_tpu_torch.parallel import collectives
+
+    return {"ppermute": collectives.ppermute.calls,
+            "gather": collectives.gather.calls}
+
+
+def same_state(label, a, b):
+    """Fail unless two SimStates are equal bit for bit."""
+    for name in ("displacement", "velocity", "acceleration", "warm_x"):
+        if not torch.equal(getattr(a, name), getattr(b, name)):
+            fail(f"{label}: {name} differs")
+
+
+def dir_files(root):
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, fs in os.walk(root) for f in fs)
+
+
+def compare_output_dirs(label, got, ref):
+    """The files of two output directories of separate runs: the same
+    names, VTU arrays (u at U_TOL, the rest at A_TOL) and probe rows at the
+    stepping tolerances; returns (whether every file is byte-identical,
+    the worst error of max|ref|)."""
+    import filecmp
+
+    files = dir_files(got)
+    if files != dir_files(ref):
+        fail(f"{label}: files {files}, the unsharded run's {dir_files(ref)}")
+    identical = all(filecmp.cmp(os.path.join(got, f), os.path.join(ref, f),
+                                shallow=False) for f in files)
+    worst = 0.0
+    for f in files:
+        if f.endswith(".vtu"):
+            a = read_vtu(os.path.join(got, f))[1]
+            b = read_vtu(os.path.join(ref, f))[1]
+            if sorted(a) != sorted(b):
+                fail(f"{label} {f}: arrays {sorted(a)} vs {sorted(b)}")
+            for name in a:
+                tol = U_TOL if name == "displacement" else A_TOL
+                worst = max(worst, check_rows(f"{label} {f} {name}", a[name],
+                                              b[name], tol))
+        elif f.endswith(".csv"):
+            worst = max(worst, check_probe_tables(
+                label, probe_table(os.path.join(got, f)),
+                probe_table(os.path.join(ref, f))))
+    return identical, worst
+
+
+def unsharded_view(shard):
+    """A one-rank shard's model without its group: the block is the whole
+    grid, so this is the unsharded model over the same tensors."""
+    return dataclasses.replace(shard, shard_group=None, local_extent=None,
+                               bc_ghosts=None, cell_ghosts=None)
+
+
+def check_shard_fields(label, sim, device):
+    """On a one-rank shard's last state: its derived fields (gathered) and
+    probe rows against the unsharded functions on the same state, bit for
+    bit; the derived fields' device ms and the probe rows' ms per frame."""
+    from civiwave_tpu_torch.post import structured_fields as fields
+
+    model, state = sim.model, sim.stepper.state
+    plain = unsharded_view(model)
+    got = fields.gather_derived(model, fields.compute_structured_derived(
+        model, state.displacement))
+    want = fields.compute_structured_derived(plain, state.displacement)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            fail(f"{label}: derived field {i} differs from the unsharded "
+                 f"function's on the same u by "
+                 f"{float((g - w).abs().max()):.3e}")
+    del got, want
+    probes = sim.config.output.probes
+    kin, rows = fields.probe_rows(model, state, probes)
+    kin0, rows0 = fields.probe_rows(plain, state, probes)
+    if not np.array_equal(kin, kin0) or any(
+            not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                 and a[2] == b[2]) for a, b in zip(rows, rows0)):
+        fail(f"{label}: probe rows differ from the unsharded ones")
+    derived_ms = time_ms(lambda: fields.compute_structured_derived(
+        model, state.displacement), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reps = 20
+    for _ in range(reps):
+        fields.probe_rows(model, state, probes)
+    probe_ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.empty_cache()
+    return derived_ms, probe_ms
+
+
+def shard_output_frames(sim, frames, manager, every):
+    """``frames`` frames of ``sim`` one ``run`` call each (the writer's
+    flush deferred, as phase 17b), saving checkpoints in ``manager`` every
+    ``every`` frames: (telemetries, frame seconds, flush seconds, VTU write
+    seconds)."""
+    write_s, flush = defer_output(sim.output)
+    torch.cuda.synchronize()
+    frame_s, tel = [], []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        tel += sim.run(1, checkpoint_manager=manager, checkpoint_every=every)
+        torch.cuda.synchronize()
+        frame_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    flush()
+    manager.wait()
+    return tel, frame_s, time.perf_counter() - t0, write_s
+
+
+def checkpoint_round_trip(label, sim, fresh, manager, step, frames):
+    """A new shard ``fresh`` restores ``manager``'s checkpoint ``step``
+    (timed) and runs ``frames`` frames: its state must equal ``sim``'s
+    bit for bit.  Also times the save of ``sim``'s end state.  Returns
+    (bytes, save s, restore s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.stepper.save_checkpoint(manager, wait=True)
+    save_s = time.perf_counter() - t0
+    path = manager.path(sim.stepper.frame_index)
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    if fresh.stepper.restore_checkpoint(manager, step) != step:
+        fail(f"{label}: restored another frame than {step}")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    fresh.run(frames)
+    same_state(f"{label}: resumed from frame {step}", fresh.stepper.state,
+               sim.stepper.state)
+    return nbytes, save_s, restore_s
+
+
+def shard_output_group(device, label, make_group, phase17):
+    """Phase 31a-b: phase 17b's scenario (255^3, probes, a VTU every 8
+    frames) through ``shard_simulation`` over a one-rank group, 8 frames
+    with a checkpoint every 4: iterations within 1 of phase 17b's, the
+    output directory against phase 17b's, the checkpoint of frame 4
+    resumed bit-equal, the derived fields and probes bit-equal to the
+    unsharded functions', the collectives the output made."""
+    import shutil
+
+    from civiwave_tpu_torch.parallel.sharding import shard_simulation
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.checkpoint import CheckpointManager
+
+    name = f"shard output {label} 255^3"
+    cfg = output_255_config()
+    tmp = scratch_dir(f"shard_output_{label}")
+    try:
+        group = make_group()
+        two_d = group.two_d
+        sim = shard_simulation(build_simulation(
+            cfg, device=device, output_root=os.path.join(tmp, "out")), group)
+        manager = CheckpointManager(os.path.join(tmp, "ck"))
+        torch.cuda.reset_peak_memory_stats()
+        reset_sharded_counts()
+        tel, frame_s, flush_s, write_s = shard_output_frames(
+            sim, SHARD_OUTPUT_FRAMES, manager, 4)
+        counts = {**sharded_counts(), **output_counts()}
+        peak = torch.cuda.max_memory_allocated()
+        iters = [t.pcg_iterations for t in tel]
+        if not all(t.pcg_converged for t in tel) or any(
+                abs(a - b) > 1 for a, b in zip(iters, phase17["iters"])):
+            fail(f"{name}: iterations {iters} against phase 17b's "
+                 f"{phase17['iters']}")
+        # the solver's collectives (phase 15's budget), then the output's:
+        # one VTU frame (u's ghosts once, 6 derived fields and u, v, a
+        # gathered), a probe gather per frame, 4 gathers per checkpoint
+        exchanges = 4 if two_d else 2
+        matvecs = 3 * len(iters) + sum(iters)
+        want = {"ppermute": exchanges * (matvecs + 1),
+                "gather": 9 + SHARD_OUTPUT_FRAMES + 4}
+        if {k: counts[k] for k in want} != want:
+            fail(f"{name}: collectives {counts}, expected {want}")
+        identical, worst = compare_output_dirs(
+            name, os.path.join(tmp, "out"), phase17["root"])
+        shutil.rmtree(os.path.join(tmp, "out"), ignore_errors=True)
+        fresh = shard_simulation(build_simulation(cfg, device=device),
+                                 make_group())
+        nbytes, save_s, restore_s = checkpoint_round_trip(
+            name, sim, fresh, manager, 5, SHARD_OUTPUT_FRAMES - 5)
+        del fresh
+        torch.cuda.empty_cache()
+        derived_ms, probe_ms = check_shard_fields(name, sim, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steady = frame_s[1:]
+    # frame 5 (index 4) saves frame 4's checkpoint
+    no_ckpt = frame_s[1:4] + frame_s[5:]
+    out = dict(iters=iters, counts=counts, steps_per_s=len(steady) / sum(steady),
+               steps_no_ckpt=len(no_ckpt) / sum(no_ckpt),
+               steps_all=len(frame_s) / (sum(frame_s) + flush_s),
+               ms_per_iter=sum(steady) / sum(iters[1:]) * 1e3, peak=peak,
+               vtu_write_s=write_s[0], derived_ms=derived_ms, probe_ms=probe_ms,
+               ckpt_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+               identical=identical, worst=worst)
+    print(f"{name}: iterations {iters} (phase 17b {phase17['iters']}); frame "
+          f"seconds " + ", ".join(f"{t:.4f}" for t in frame_s) + f", then "
+          f"{flush_s:.4f} s waiting for the writer; steps/s {out['steps_per_s']:.4f} "
+          f"over frames 2-8 while frame 0's VTU is written (phase 17b "
+          f"{phase17['steps_per_s']:.4f}), {out['steps_no_ckpt']:.4f} without frame "
+          f"5 (it saves a checkpoint), {out['steps_all']:.4f} over all 8 with "
+          f"the wait; {out['ms_per_iter']:.4f} ms per iteration; peak device "
+          f"memory {peak / 2**30:.3f} GiB", flush=True)
+    print(f"{name}: output directory against phase 17b's: the same files, "
+          f"byte-identical {identical}, worst {worst:.3e} of max|.|; VTU frame 0 "
+          f"written in {write_s[0]:.3f} s; derived fields {derived_ms:.4f} ms "
+          f"device time, bit-equal to the unsharded function's; probes "
+          f"{probe_ms:.4f} ms per frame, bit-equal; collectives per frame: "
+          f"{exchanges} ppermute + {9 + 1} gathers on a VTU frame, 1 gather on "
+          f"the others, 4 gathers per checkpoint (counts {counts})", flush=True)
+    print(f"{name}: checkpoint {nbytes:,} bytes, save {save_s:.3f} s, restore "
+          f"{restore_s:.3f} s; frame 4's checkpoint resumed to frame 8 bit-equal",
+          flush=True)
+    return out
+
+
+def hetero_output_group(device):
+    """Phase 31c: the heterogeneous 255^3 cantilever (phase 29's grid)
+    through ``shard_simulation`` over a one-rank 1-D group (G3 per shard),
+    4 frames with output (a VTU every 4) and a checkpoint every 2, frame
+    2's checkpoint resumed bit-equal, the derived fields and probes
+    bit-equal to the unsharded functions'."""
+    import shutil
+
+    from civiwave_tpu_torch.mesh.structured_config import (
+        StructuredForceSchedule,
+    )
+    from civiwave_tpu_torch.parallel.sharding import (
+        make_shard_group,
+        shard_simulation,
+    )
+    from civiwave_tpu_torch.post.output import StructuredOutputManager
+    from civiwave_tpu_torch.runner import Simulation
+    from civiwave_tpu_torch.utils.checkpoint import CheckpointManager
+
+    name = "shard output heterogeneous 1-D 255^3"
+    cfg = output_255_config(vtu_stride=HETERO_OUTPUT_FRAMES)
+    model, force = hetero_model(FULL, device)
+
+    def simulation(root=None):
+        stepper = hetero_stepper(model, force)
+        output = (None if root is None
+                  else StructuredOutputManager(root, cfg.output, model))
+        sim = Simulation(config=cfg, model=model, stepper=stepper,
+                         force_schedule=StructuredForceSchedule(force, []),
+                         output=output)
+        return shard_simulation(sim, make_shard_group(1, device))
+
+    tmp = scratch_dir("shard_output_hetero")
+    try:
+        sim = simulation(os.path.join(tmp, "out"))
+        manager = CheckpointManager(os.path.join(tmp, "ck"))
+        reset_g3_counts()
+        tel, frame_s, flush_s, write_s = shard_output_frames(
+            sim, HETERO_OUTPUT_FRAMES, manager, 2)
+        g3 = g3_counts()["g3"]
+        iters = [t.pcg_iterations for t in tel]
+        if not all(t.pcg_converged for t in tel) or any(
+                abs(a - b) > 1 for a, b in zip(iters, HETERO_ITERS)):
+            fail(f"{name}: iterations {iters} against {HETERO_ITERS[:4]}")
+        files = dir_files(os.path.join(tmp, "out"))
+        if files != ["probes/probes.csv", "vtu/frame_00000.vtu"]:
+            fail(f"{name}: files {files}")
+        if g3 != 3 * (3 * len(iters) + sum(iters)):
+            fail(f"{name}: {g3} G3 launches for iterations {iters}")
+        fresh = simulation()
+        nbytes, save_s, restore_s = checkpoint_round_trip(
+            name, sim, fresh, manager, 3, HETERO_OUTPUT_FRAMES - 3)
+        del fresh
+        derived_ms, probe_ms = check_shard_fields(name, sim, device)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    steady = frame_s[1:]
+    out = dict(iters=iters, g3=g3, steps_per_s=len(steady) / sum(steady),
+               vtu_write_s=write_s[0], derived_ms=derived_ms,
+               probe_ms=probe_ms, ckpt_bytes=nbytes, save_s=save_s,
+               restore_s=restore_s)
+    print(f"{name}: iterations {iters}; G3 {g3} launches (3 per matvec); frame "
+          f"seconds " + ", ".join(f"{t:.4f}" for t in frame_s) + f", then "
+          f"{flush_s:.4f} s for the writer; steps/s {out['steps_per_s']:.4f} over "
+          f"frames 2-4; VTU frame 0 written in {write_s[0]:.3f} s; derived "
+          f"fields {derived_ms:.4f} ms, probes {probe_ms:.4f} ms per frame, both "
+          f"bit-equal to the unsharded functions'; checkpoint {nbytes:,} bytes, "
+          f"save {save_s:.3f} s, restore {restore_s:.3f} s, frame 2's resumed "
+          f"bit-equal", flush=True)
+    del sim, model, force
+    torch.cuda.empty_cache()
+    return out
+
+
+def general_output_group(device):
+    """Phase 31d: phase 8's 66^3 tet cantilever through ``shard_simulation``
+    over a one-rank group (K7 + G1), 3 frames with output (a VTU every 2,
+    probes; derived fields on rank 0's host) and a checkpoint every frame:
+    the VTU's displacement is the gathered state's, frame 1's checkpoint
+    resumed bit-equal, 3 gathers per frame."""
+    import shutil
+
+    from civiwave_tpu_torch.parallel.sharding import (
+        make_shard_group,
+        shard_simulation,
+    )
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.utils.checkpoint import CheckpointManager
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    n = GENERAL_N
+    name = f"shard output general one rank tet {n}^3"
+    cfg = cantilever_config(
+        mesh={"path": f"synthetic://box/{n},{n},{n},tet"}, dt=1e-3,
+        adaptive=False, tol_runtime=2e-4, max_iters=300,
+        output={"vtu_stride": 2, "probes": [0, (n + 1) ** 3 // 2,
+                                            (n + 1) ** 3 - 1]})
+    tmp = scratch_dir("shard_output_general")
+    try:
+        sim = shard_simulation(build_simulation(
+            cfg, device=device, output_root=os.path.join(tmp, "out")),
+            make_shard_group(1, device))
+        manager = CheckpointManager(os.path.join(tmp, "ck"))
+        reset_general_shard_counts()
+        write_s, flush = defer_output(sim.output)
+        frame_s, tel = [], []
+        for frame in range(GENERAL_OUTPUT_FRAMES):
+            t0 = time.perf_counter()
+            tel += sim.run(1, checkpoint_manager=manager, checkpoint_every=1)
+            torch.cuda.synchronize()
+            frame_s.append(time.perf_counter() - t0)
+            if frame == 2:
+                u2 = sim.stepper.displacement()
+        flush()
+        manager.wait()
+        counts = {**general_shard_counts(), **output_counts()}
+        iters = [t.pcg_iterations for t in tel]
+        if not all(t.pcg_converged for t in tel):
+            fail(f"{name}: not every frame converged: {iters}")
+        files = dir_files(os.path.join(tmp, "out"))
+        if files != ["probes/probes.csv", "vtu/frame_00000.vtu",
+                     "vtu/frame_00002.vtu"]:
+            fail(f"{name}: files {files}")
+        vtu_u = read_vtu(os.path.join(tmp, "out", "vtu", "frame_00002.vtu"),
+                         ["displacement"])[1]["displacement"]
+        if not np.array_equal(vtu_u, u2.astype(np.float32).reshape(-1)):
+            fail(f"{name}: the VTU's displacement is not the gathered state")
+        matvecs = 2 * len(iters) + sum(iters)  # phase 25's classic frames
+        want_gathers = 3 * GENERAL_OUTPUT_FRAMES + 4 * (GENERAL_OUTPUT_FRAMES - 1)
+        if (counts["gather"] != want_gathers
+                or counts["element_forces_tet"] != matvecs):
+            fail(f"{name}: counts {counts}, expected {want_gathers} gathers "
+                 f"and {matvecs} K7 launches")
+        fresh = shard_simulation(build_simulation(cfg, device=device),
+                                 make_shard_group(1, device))
+        nbytes, save_s, restore_s = checkpoint_round_trip(
+            name, sim, fresh, manager, 2, GENERAL_OUTPUT_FRAMES - 2)
+        del fresh
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(iters=iters, counts=counts, frame_s=frame_s,
+               vtu_write_s=write_s, ckpt_bytes=nbytes, save_s=save_s,
+               restore_s=restore_s)
+    print(f"{name}: iterations {iters}; frame seconds (host derived fields and "
+          f"probes every frame) " + ", ".join(f"{t:.4f}" for t in frame_s)
+          + f"; VTU writes " + ", ".join(f"{t:.3f}" for t in write_s) + " s; "
+          f"the VTU's u equals the gathered state; 3 gathers per frame, 4 per "
+          f"checkpoint (counts {counts}); checkpoint {nbytes:,} bytes, save "
+          f"{save_s:.3f} s, restore {restore_s:.3f} s, frame 1's resumed "
+          f"bit-equal", flush=True)
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def shard_output_phase(device, phase17):
+    """Phase 31: checkpoints, output, derived fields and probes of a shard
+    at full width (one-rank 1-D and 2-D groups, the heterogeneous 1-D
+    group, the general 66^3 tet group); removes phase 17b's output."""
+    import shutil
+
+    from civiwave_tpu_torch.parallel.sharding import (
+        close_shard_group,
+        make_shard_group,
+        make_shard_group_2d,
+    )
+
+    t0 = time.perf_counter()
+    try:
+        out = {
+            "1-D": shard_output_group(device, "1-D",
+                                      lambda: make_shard_group(1, device),
+                                      phase17),
+            "2-D": shard_output_group(device, "2-D",
+                                      lambda: make_shard_group_2d(1, 1, device),
+                                      phase17),
+        }
+    finally:
+        shutil.rmtree(phase17["root"], ignore_errors=True)
+    out["hetero"] = hetero_output_group(device)
+    out["general"] = general_output_group(device)
+    close_shard_group()
+    print(f"phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def gmsh_text(mesh) -> str:
+    """A mesh as Gmsh 4.1 ASCII text: one node block, surface blocks by
+    physical group and type, one volume block (tests/test_native_gmsh.py's
+    layout, written with numpy)."""
+    def rows(a):
+        return "\n".join(" ".join(r) for r in np.asarray(a).astype(str)) + "\n"
+
+    n, e = mesh.node_count, mesh.element_count
+    parts = ["$MeshFormat\n4.1 0 8\n$EndMeshFormat\n$PhysicalNames\n3\n"
+             '2 1 "FIXED"\n2 2 "LOAD_FACE"\n3 3 "SOLID"\n$EndPhysicalNames\n',
+             f"$Nodes\n1 {n} 1 {n}\n3 1 0 {n}\n",
+             "\n".join(map(str, range(1, n + 1))) + "\n",
+             "\n".join(" ".join(map(repr, p)) for p in
+                       np.asarray(mesh.node_positions).tolist()) + "\n",
+             "$EndNodes\n"]
+    blocks = []
+    for group in (1, 2):
+        for count, gtype in ((3, 2), (4, 3)):
+            idx = np.nonzero((mesh.surface_physical_group == group)
+                             & (mesh.surface_node_counts == count))[0]
+            if idx.size:
+                body = np.column_stack([idx + 1, mesh.surfaces[idx, :count] + 1])
+                blocks.append(f"2 {group} {gtype} {idx.size}\n" + rows(body))
+    s = len(mesh.surfaces)
+    count = int(mesh.element_node_counts[0])
+    body = np.column_stack([np.arange(e) + s + 1, mesh.elements[:, :count] + 1])
+    blocks.append(f"3 3 {5 if count == 8 else 4} {e}\n" + rows(body))
+    parts.append(f"$Elements\n{len(blocks)} {e + s} 1 {e + s}\n")
+    parts += blocks
+    parts.append("$EndElements\n")
+    return "".join(parts)
+
+
+def same_mesh(label, a, b):
+    for name in ("node_positions", "elements", "element_node_counts",
+                 "element_physical_group", "surfaces", "surface_physical_group"):
+        if not np.array_equal(getattr(a, name), getattr(b, name)):
+            fail(f"{label}: {name} differs")
+    for groups in ("surface_groups", "node_groups"):
+        ga, gb = getattr(a, groups), getattr(b, groups)
+        if set(ga) != set(gb) or any(not np.array_equal(ga[k], gb[k]) for k in ga):
+            fail(f"{label}: {groups} differ")
+
+
+def native_parser_phase():
+    """Phase 32: the native Gmsh parser (``mesh/native.py`` over
+    native/gmsh_fast.cpp) built with g++ on this machine (a missing
+    toolchain fails the run), the 34^3 tet box written as Gmsh 4.1 text
+    parsed natively and in Python (array for array equal, both timed),
+    then the 66^3 tet box parsed natively (timed, against the mesh it was
+    written from)."""
+    import shutil
+
+    from civiwave_tpu_torch.mesh import native
+    from civiwave_tpu_torch.mesh.gmsh import load_gmsh_file
+    from civiwave_tpu_torch.utils.synthetic import box_mesh
+
+    t_phase = time.perf_counter()
+    # built again here from the checkout's source, whatever an earlier
+    # phase's Gmsh load built and loaded
+    t0 = time.perf_counter()
+    if not native.build_library() or not native.available():
+        fail("native Gmsh parser: g++ did not build native/gmsh_fast.cpp")
+    build_s = time.perf_counter() - t0
+    tmp = scratch_dir("gmsh")
+    times = {}
+    try:
+        for n in (34, GENERAL_N):
+            mesh = box_mesh(n, n, n, hex_elements=False)
+            path = os.path.join(tmp, f"box{n}.msh")
+            t0 = time.perf_counter()
+            with open(path, "w", encoding="ascii") as f:
+                f.write(gmsh_text(mesh))
+            write_s = time.perf_counter() - t0
+            native.reset_counts()
+            t0 = time.perf_counter()
+            got = load_gmsh_file(path, use_native=True)
+            native_s = time.perf_counter() - t0
+            if (native.parse_nodes_section.calls,
+                    native.parse_elements_section.calls) != (1, 1):
+                fail(f"native Gmsh parser {n}^3: the native parse did not run")
+            if not (np.array_equal(got.node_positions, mesh.node_positions)
+                    and np.array_equal(got.elements, mesh.elements)):
+                fail(f"native Gmsh parser {n}^3: not the mesh written")
+            python_s = None
+            if n == 34:
+                t0 = time.perf_counter()
+                plain = load_gmsh_file(path, use_native=False)
+                python_s = time.perf_counter() - t0
+                same_mesh(f"native Gmsh parser {n}^3 against Python", got, plain)
+            times[n] = dict(native_s=native_s, python_s=python_s,
+                            bytes=os.path.getsize(path))
+            print(f"native Gmsh parser tet {n}^3 ({mesh.node_count:,} nodes, "
+                  f"{mesh.element_count:,} tets, {times[n]['bytes']:,} bytes "
+                  f"written in {write_s:.2f} s): native {native_s:.3f} s"
+                  + ("" if python_s is None else
+                     f", Python {python_s:.3f} s ({python_s / native_s:.1f}x), "
+                     f"array for array equal"), flush=True)
+            del mesh, got
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 32: g++ build {build_s:.2f} s -> {native.LIB_PATH}; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(build_s=build_s, **{f"tet{n}": v for n, v in times.items()})
+
+
+def session_phase(device):
+    """Phase 33: ``InteractiveSession`` on the 255^3 cantilever (two equal
+    point-load requests bit-equal, reset exact, K2 launched, each solve's
+    round trip timed), then ``viewer.start_in_thread`` on the 66^3 tet
+    cantilever on the card: the page, the mesh, a solve with a point load,
+    reset, round-trip seconds."""
+    import json as json_
+    import urllib.request
+
+    from civiwave_tpu_torch.runner import build_simulation
+    from civiwave_tpu_torch.ui import InteractiveSession, PointLoadRequest, viewer
+    from civiwave_tpu_torch.utils.synthetic import cantilever_config
+
+    t_phase = time.perf_counter()
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120, dt=1e-3,
+                            adaptive=False,
+                            mesh={"path": "synthetic://box/%d,%d,%d" % FULL})
+    sim = build_simulation(cfg, device=device)
+    session = InteractiveSession(sim)
+
+    def snapshot():
+        st = sim.stepper.state
+        return {k: getattr(st, k).clone() for k in
+                ("displacement", "velocity", "acceleration", "warm_x")}
+
+    baseline = snapshot()
+    request = PointLoadRequest(enabled=True, anchor=sim.model.node_count - 1,
+                               direction=(0.0, 0.3, -1.0),
+                               magnitude_newtons=5e5)
+    reset_structured_counts()
+    states, session_s, iters = [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tel, derived = session.solve(request)
+        torch.cuda.synchronize()
+        session_s.append(time.perf_counter() - t0)
+        iters.append(tel.pcg_iterations)
+        if not tel.pcg_converged or not np.isfinite(derived.node_von_mises).all():
+            fail(f"session 255^3: solve not converged or non-finite: {tel}")
+        states.append(snapshot())
+    counts = structured_counts()
+    for name, a in states[0].items():
+        if not torch.equal(a, states[1][name]):
+            fail(f"session 255^3: two equal requests differ in {name}")
+    if counts["pc"] == 0:
+        fail(f"session 255^3: K2 never launched ({counts})")
+    session.reset()
+    for name, a in snapshot().items():
+        if not torch.equal(a, baseline[name]):
+            fail(f"session 255^3: reset left {name} off the baseline")
+    print(f"session 255^3: two equal point-load solves bit-equal, "
+          f"{iters} iterations, round trips " + ", ".join(
+              f"{t:.3f}" for t in session_s) + f" s (step + derived fields to "
+          f"the host); reset exact; launches {counts}", flush=True)
+    del sim, session, states, baseline
+    torch.cuda.empty_cache()
+
+    n = GENERAL_N
+    cfg = cantilever_config(mesh={"path": f"synthetic://box/{n},{n},{n},tet"},
+                            dt=1e-3, adaptive=False, tol_runtime=2e-4,
+                            max_iters=300)
+    t0 = time.perf_counter()
+    sim = build_simulation(cfg, device=device)
+    server, backend, _ = viewer.start_in_thread(sim, port=0)
+    start_s = time.perf_counter() - t0
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+
+        def call(path, body=None):
+            t = time.perf_counter()
+            req = urllib.request.Request(base + path, data=body,
+                                         method="GET" if body is None else "POST")
+            with urllib.request.urlopen(req, timeout=300) as r:
+                blob = r.read()
+                header = r.headers.get("X-Civiwave")
+            return blob, header and json_.loads(header), time.perf_counter() - t
+
+        page, _, page_s = call("/")
+        mesh_blob, mesh_hdr, mesh_s = call("/mesh")
+        nodes = backend.node_count
+        if b"webgl2" not in page or mesh_hdr["nodes"] != nodes or len(
+                mesh_blob) != 12 * (nodes + mesh_hdr["tris"]):
+            fail(f"viewer tet {n}^3: page or mesh blob wrong ({mesh_hdr})")
+        solve_blob, tele, viewer_s = call("/solve", json_.dumps(
+            {"enabled": True, "anchor": nodes - 1, "direction": [0, 0, -1],
+             "magnitude": 1e6}).encode())
+        u = np.frombuffer(solve_blob, np.float32, nodes * 3)
+        if not tele["converged"] or len(solve_blob) != 16 * nodes or not (
+                np.isfinite(u).all() and np.abs(u).max() > 0):
+            fail(f"viewer tet {n}^3: solve round trip wrong ({tele})")
+        _, _, reset_s = call("/reset", b"")
+        if np.abs(backend.sim.stepper.displacement()).max() != 0.0:
+            fail(f"viewer tet {n}^3: reset left a displacement")
+    finally:
+        server.shutdown()
+        server.server_close()
+    print(f"viewer tet {n}^3 on {device}: build + start {start_s:.2f} s "
+          f"({nodes:,} nodes, {mesh_hdr['tris']:,} surface triangles); page "
+          f"{page_s:.3f} s, mesh {mesh_s:.3f} s ({len(mesh_blob):,} bytes), solve "
+          f"with a point load {viewer_s:.3f} s ({tele['iterations']} iterations, "
+          f"server-side {tele['solve_ms']} ms), reset {reset_s:.3f} s", flush=True)
+    del sim, backend
+    torch.cuda.empty_cache()
+    print(f"phase 33: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return dict(session_s=session_s, session_iters=iters,
+                session_pc=counts["pc"], viewer_s=viewer_s,
+                viewer_solve_ms=tele["solve_ms"], viewer_start_s=start_s)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: torch.cuda.is_available() is false; this smoke run needs "
@@ -4673,6 +5408,9 @@ def main() -> int:
     hetero_errs, hetero_times, hetero = heterogeneous_phase(device, ss, mf)
     shard_errs, shard_times, hetero_shard = hetero_shard_phase(
         device, ss, mf, hetero, halo_times["slab64"]["ms"])
+    shard_out = shard_output_phase(device, output)
+    parser = native_parser_phase()
+    session = session_phase(device)
 
     src = "civiwave_tpu_torch/csrc/"
     pallas = "civiwave_tpu/ops/pallas/"
@@ -4716,7 +5454,8 @@ def main() -> int:
              **structured_bound("pc"),
              launches_static=static_launches("pc"),
              launches_pipelined=pipelined["counts"]["pc"],
-             launches_pipelined_static=pipelined["static"]["counts"]["pc"]),
+             launches_pipelined_static=pipelined["static"]["counts"]["pc"],
+             launches_session=session["session_pc"]),
         dict(name="block_jacobi_apply", route="cuda",
              source=src + "block_jacobi_apply.cu",
              replaces=pallas + "block_jacobi_apply.py:144",
@@ -4727,7 +5466,8 @@ def main() -> int:
              launches_static=static_launches("bj"),
              launches_pipelined_shard=pipelined["shard"]["counts"]["bj"],
              launches_sharded_basin=sharded_basin["counts"]["bj"],
-             launches_sharded_static=sharded_static["counts"]["bj"]),
+             launches_sharded_static=sharded_static["counts"]["bj"],
+             launches_shard_output=shard_out["1-D"]["counts"]["bj"]),
         dict(name="pcg_iteration_structured", route="cuda",
              source=src + "pcg_iteration_structured.cu",
              replaces=pallas + "structured_stencil.py:1226",
@@ -4755,7 +5495,8 @@ def main() -> int:
              launches_pipelined=pipelined["general"]["counts"]["element_forces_tet"],
              launches_general_shard=general_shard["counts"]["element_forces_tet"],
              max_rel_err_halo_shards=general_halo_worst[1],
-             ms_halo_shard8=general_halo_times[("tet", 8)]["max_ms"]),
+             ms_halo_shard8=general_halo_times[("tet", 8)]["max_ms"],
+             launches_shard_output=shard_out["general"]["counts"]["element_forces_tet"]),
         dict(name="assemble_csr", route="cuda", source=src + "assemble_csr.cu",
              replaces="civiwave_tpu/ops/apply_keff.py:283",
              launches=main_counts["assemble_csr"],
@@ -4766,7 +5507,8 @@ def main() -> int:
              launches_static=static_tet_counts["assemble_csr"],
              launches_tet_basin=basin_counts["assemble_csr"],
              launches_pipelined=pipelined["general"]["counts"]["assemble_csr"],
-             launches_general_shard=general_shard["counts"]["assemble_csr"]),
+             launches_general_shard=general_shard["counts"]["assemble_csr"],
+             launches_shard_output=shard_out["general"]["counts"]["assemble_csr"]),
         # K4 and G2: errors over every grid of phase 11, device times at the
         # soil column's grid (and at 255^3), launches on its main path
         # (phase 12)
@@ -4802,7 +5544,9 @@ def main() -> int:
              bound_ms_slab64=halo_times["slab64"]["bound_ms"],
              launches_pipelined_shard=pipelined["shard"]["counts"]["k5"],
              launches_sharded_basin=sharded_basin["counts"]["k5"],
-             launches_sharded_static=sharded_static["counts"]["k5"]),
+             launches_sharded_static=sharded_static["counts"]["k5"],
+             launches_shard_output=shard_out["1-D"]["counts"]["k5"],
+             launches_shard_output_2d=shard_out["2-D"]["counts"]["k5"]),
         # the f64 instances (phases 20-21): errors against the plain
         # versions in f64 (tol F64_TOL), times at the main-path shapes with
         # the f32 instance's beside them, bounds at the f64 rate, launches
@@ -4910,7 +5654,8 @@ def main() -> int:
              max_abs_err=shard_errs["f32"][0], max_rel_err=shard_errs["f32"][1],
              tol=OP_TOL, **shard_times["f32"],
              launches_2d=hetero_shard["2-D"]["counts"]["g3"],
-             launches_static=hetero_shard["static"]["g3"]),
+             launches_static=hetero_shard["static"]["g3"],
+             launches_shard_output=shard_out["hetero"]["g3"]),
         dict(name="corner_gather_shard_f64", route="cuda",
              source=src + "corner_gather.cu",
              replaces="civiwave_tpu/ops/structured.py:503",
@@ -4933,6 +5678,24 @@ def main() -> int:
           f"{hetero_shard['fused']['ms_per_iter']:.4f}; static "
           f"{hetero_shard['static']['iterations']} iterations, "
           f"{hetero_shard['static']['seconds']:.4f} s", flush=True)
+    one, two = shard_out["1-D"], shard_out["2-D"]
+    print(f"shard output 255^3 (one rank): 1-D {one['steps_per_s']:.4f} steps/s, "
+          f"2-D {two['steps_per_s']:.4f} (frames 2-8 with a VTU in flight and a "
+          f"checkpoint; without the checkpoint frame {one['steps_no_ckpt']:.4f} / "
+          f"{two['steps_no_ckpt']:.4f}; "
+          f"phase 17b unsharded {output['steps_per_s']:.4f}); derived fields "
+          f"{one['derived_ms']:.4f} / {two['derived_ms']:.4f} ms, probes "
+          f"{one['probe_ms']:.4f} / {two['probe_ms']:.4f} ms per frame, VTU "
+          f"{one['vtu_write_s']:.3f} / {two['vtu_write_s']:.3f} s; checkpoint "
+          f"{one['ckpt_bytes']:,} bytes, save {one['save_s']:.3f} s, restore "
+          f"{one['restore_s']:.3f} s; heterogeneous 1-D "
+          f"{shard_out['hetero']['steps_per_s']:.4f} steps/s; native Gmsh parse "
+          f"tet 34^3 {parser['tet34']['native_s']:.3f} s (Python "
+          f"{parser['tet34']['python_s']:.3f} s), tet {GENERAL_N}^3 "
+          f"{parser[f'tet{GENERAL_N}']['native_s']:.3f} s; session 255^3 round "
+          f"trips {', '.join(f'{t:.3f}' for t in session['session_s'])} s; viewer "
+          f"tet {GENERAL_N}^3 solve round trip {session['viewer_s']:.3f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

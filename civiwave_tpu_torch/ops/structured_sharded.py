@@ -79,7 +79,7 @@ def _overlap_enabled() -> bool:
     ``CIVIWAVE_HALO_OVERLAP`` is 0.  The default is the reference's; on
     four H100s at 255^3 the split measured slower than one launch (its
     two extra launches cost host time), and the default is an open
-    ``perf_opt`` item (ROADMAP A11)."""
+    ``perf_opt`` item (ROADMAP §B, the sharded route)."""
     return os.environ.get("CIVIWAVE_HALO_OVERLAP", "1") != "0"
 
 

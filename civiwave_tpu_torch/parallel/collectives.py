@@ -15,12 +15,16 @@ functions over ``torch.distributed`` that count their calls, so tests and
 * :func:`all_gather` — every rank's block, concatenated along the first
   axis: the general path's fallback operator gathers the sanitized x once
   per matvec where no halo plan holds (the reference's GSPMD form makes
-  the same all-gather implicitly).
+  the same all-gather implicitly);
+* :func:`gather` — every rank's tensor on one rank only: a shard's output,
+  probes and checkpoints bring their fields to rank 0, which writes them
+  (the reference's arrays are global, so its host fetch is implicit).
 
 ``ppermute.calls``, ``psum.calls``, ``psum.shapes`` (a Counter of
-``(dtype, shape)``) and ``all_gather.calls`` are plain counters that only
-these functions increment; :func:`reset_counts` zeroes them.  Gathers of a
-field for host output (``parallel.sharding.gather``) are not counted.
+``(dtype, shape)``), ``all_gather.calls`` and ``gather.calls`` are plain
+counters that only these functions increment; :func:`reset_counts` zeroes
+them.  All-gathers of a field for the host (``parallel.sharding.gather``
+without ``dst``) are not counted.
 """
 
 from __future__ import annotations
@@ -82,8 +86,25 @@ def all_gather(tensor, group=None, count: bool = True) -> torch.Tensor:
     return torch.cat(parts)
 
 
+def gather(tensor, dst: int = 0, group=None):
+    """Every rank's ``tensor`` (equal shapes) as a list in rank order on
+    rank ``dst``, None on the others.  One call, counted, whatever the
+    group's size (a group of one sends nothing)."""
+    gather.calls += 1
+    tensor = tensor.contiguous()
+    if dist.get_world_size(group) == 1:
+        return [tensor]
+    rank = dist.get_rank(group)
+    parts = ([torch.empty_like(tensor)
+              for _ in range(dist.get_world_size(group))]
+             if rank == dst else None)
+    dist.gather(tensor, parts, dst=dst, group=group)
+    return parts
+
+
 def reset_counts() -> None:
     all_gather.calls = 0
+    gather.calls = 0
     ppermute.calls = 0
     psum.calls = 0
     psum.shapes = Counter()

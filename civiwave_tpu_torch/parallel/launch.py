@@ -27,6 +27,16 @@ sync), then steps/s and ms per PCG iteration over frames 2 onwards.
 prints its line.  ``CIVIWAVE_HALO_OVERLAP=0`` and
 ``CIVIWAVE_GENERAL_HALO=0`` in the environment reach every rank.
 
+``--output DIR`` writes the VTU frames and probe rows of the scenario's
+``output`` settings, as the runner's ``--output``: every rank derives its
+share and rank 0 writes the files an unsharded run writes.
+``--checkpoint-dir DIR`` saves a checkpoint every ``--checkpoint-every``
+frames (default 50; 0: the final save only) and after the run, and
+``--resume`` first restores the latest one (none: frame 0), as the
+runner's flags; rank 0 writes one file of the padded global model, which
+the unsharded build of the same padding (and a group of another size
+over the same padding) restores too.
+
 ``--profile DIR`` has every rank write a torch.profiler trace of frames 2
 onwards (the per-frame gathers included) into DIR, as the runner's
 ``--profile``, and rank 0 print its ``utils.profiling.summary``.
@@ -36,7 +46,8 @@ acceleration, dt, iterations and the collective counts.
 variant the group ran ('auto' resolves differently on one rank of the
 general path, as in the reference) and exits 1 unless the group's
 iterations are within 1 of it and u and a within 2.5e-4 and 3e-3 of its
-max|.| (a static solve: both converged and u within 2.5e-4).  Several
+max|.| (a static solve: both converged and u within 2.5e-4); the
+one-rank run writes no output and no checkpoint.  Several
 processes meet at ``--init-method`` (default
 ``tcp://localhost:<a free port>``); a world of one needs none.  Ranks that
 outlast ``--timeout`` seconds are killed.
@@ -105,10 +116,21 @@ def run_rank(rank: int, args) -> None:
         else:
             group = make_shard_group(args.npx, device)
         sim = build_simulation(
-            _scenario(args), device=group.device, pad_x_multiple=args.npx,
-            pad_y_multiple=args.npy, pad_nodes=8 * world,
+            _scenario(args), device=group.device, output_root=args.output,
+            pad_x_multiple=args.npx, pad_y_multiple=args.npy,
+            pad_nodes=8 * world,
         )
         sim = shard_simulation(sim, group)
+        manager = None
+        if args.checkpoint_dir:
+            from ..utils.checkpoint import CheckpointManager
+
+            manager = CheckpointManager(args.checkpoint_dir)
+            if args.resume and manager.latest_step() is not None:
+                start = sim.stepper.restore_checkpoint(manager)
+                if rank == 0:
+                    print(f"resumed from checkpoint at frame {start}",
+                          flush=True)
         if args.variant:
             sim.stepper.solver_variant = args.variant
         variant = sim.stepper.pcg_variant()
@@ -126,7 +148,8 @@ def run_rank(rank: int, args) -> None:
         def frame(index):
             sync()
             t0 = time.perf_counter()
-            [tel] = sim.run(1)
+            [tel] = sim.run(1, checkpoint_manager=manager,
+                            checkpoint_every=args.checkpoint_every)
             sync()
             seconds = time.perf_counter() - t0
             u = sim.stepper.displacement()  # gathers: every rank calls it
@@ -146,6 +169,9 @@ def run_rank(rank: int, args) -> None:
                  else contextlib.nullcontext())
         with trace as profiled:
             frames += [frame(index) for index in range(1, args.frames)]
+        if manager is not None:
+            sim.stepper.save_checkpoint(manager, wait=True)
+            manager.close()
         if rank == 0 and args.profile:
             summary = profiling.summary(profiled["profiler"],
                                         profiled["wall_ms"])
@@ -297,6 +323,18 @@ def main(argv=None) -> int:
                         help="rank 0 writes the frames to this .npz")
     parser.add_argument("--against-one-rank", action="store_true",
                         help="then run one rank and compare the frames")
+    parser.add_argument("--output", default=None,
+                        help="output root for VTU/probe files (rank 0 "
+                        "writes them)")
+    parser.add_argument("--checkpoint-dir", default=None,
+                        help="save checkpoints here (and resume from here "
+                        "with --resume)")
+    parser.add_argument("--checkpoint-every", type=int, default=50,
+                        help="checkpoint cadence in frames (0 disables "
+                        "periodic saves)")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the latest checkpoint in "
+                        "--checkpoint-dir")
     parser.add_argument("--profile", default=None,
                         help="write each rank's torch.profiler trace of "
                         "frames 2 on into this directory; rank 0 prints "
@@ -321,7 +359,8 @@ def main(argv=None) -> int:
         got = np.load(args.out)
         one = argparse.Namespace(**{**vars(args), "npx": 1, "npy": 1,
                                     "variant": str(got["variant"]),
-                                    "out": os.path.join(tmp, "one.npz")})
+                                    "out": os.path.join(tmp, "one.npz"),
+                                    "output": None, "checkpoint_dir": None})
         print("== one rank", flush=True)
         if _spawn(one):
             return 1

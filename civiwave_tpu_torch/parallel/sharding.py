@@ -26,7 +26,8 @@ planes (and, in 2-D, ghost rows) with its neighbours
   the tests build a sharded run.
 * :func:`gather_structured` reassembles a global ``(3, X, Y, Z)`` vector
   for host-facing output (the stepper's ``displacement()`` and the like
-  call it on a shard).
+  call it on a shard); with ``dst`` only that rank gets it (a shard's
+  output manager, probes and checkpoints gather to rank 0, which writes).
 
 Ranks are ordered X-major: rank ``px * npy + py`` holds tile ``(px, py)``,
 as the reference's 2-D mesh lays X slowest.
@@ -40,7 +41,8 @@ and the next rank's mask rows (exchanged once); elsewhere, or with
 ``CIVIWAVE_GENERAL_HALO=0``, it keeps the whole model's tables for the
 all-gather form (``ops/general_sharded.py``).  One rank keeps the
 single-device operator with the group's reductions, as the reference.
-:func:`gather` reassembles a global vector of either route.
+:func:`gather` reassembles a global vector of either route, on every
+rank or on one.
 """
 
 from __future__ import annotations
@@ -286,16 +288,14 @@ def shard_simulation(sim, group: ShardGroup):
     multiple of n), cut by :func:`shard_general` (its curve loads are cut
     per frame, ``Simulation._force_at``).  Either gets a new
     ``NewmarkStepper`` over the shard with the old one's settings, dt,
-    time and frame.  A collective: every rank of the group calls it.  A
-    simulation built with an output root raises NotImplementedError
-    (ROADMAP A11)."""
+    time and frame.  A collective: every rank of the group calls it.  The
+    simulation's output goes with it: every rank computes its share and
+    rank 0 writes the files an unsharded run writes
+    (``post/output.py``)."""
     from ..mesh.structured_config import StructuredForceSchedule
+    from ..post.output import StructuredOutputManager
     from ..solver.stepper import NewmarkStepper
 
-    if sim.output is not None:
-        raise NotImplementedError(
-            "output of a sharded simulation is not ported yet (ROADMAP A11)"
-        )
     old = sim.stepper
     schedule = None
     if sim.force_schedule is None:
@@ -330,39 +330,58 @@ def shard_simulation(sim, group: ShardGroup):
     stepper.current_dt = old.current_dt
     stepper.accumulated_time = old.accumulated_time
     stepper.frame_index = old.frame_index
+    output = sim.output
+    if isinstance(output, StructuredOutputManager):
+        output = StructuredOutputManager(output.output_root, output.settings,
+                                         model)
     return dataclasses.replace(sim, model=model, stepper=stepper,
-                               force_schedule=schedule)
+                               force_schedule=schedule, output=output)
 
 
-def gather_structured(vector: torch.Tensor, group: ShardGroup) -> torch.Tensor:
-    """The global ``(3, X, Y, Z)`` vector from every rank's block (an
-    all-gather, on the group's device; a collective)."""
-    if group.size == 1:
-        return vector
-    parts = [torch.empty_like(vector) for _ in range(group.size)]
-    dist.all_gather(parts, vector.contiguous())
+def gather_structured(vector: torch.Tensor, group: ShardGroup,
+                      dst: int | None = None):
+    """The global ``(..., X, Y, Z)`` grid from every rank's block, on the
+    group's device (a collective): on every rank (an all-gather, not
+    counted; the block itself on one rank), or with ``dst`` on that rank
+    only, None on the others (a counted ``collectives.gather``, one call
+    on a group of one too)."""
+    if dst is None:
+        if group.size == 1:
+            return vector
+        parts = [torch.empty_like(vector) for _ in range(group.size)]
+        dist.all_gather(parts, vector.contiguous())
+    else:
+        parts = collectives.gather(vector, dst)
+        if parts is None:
+            return None
     rows = [
-        torch.cat(parts[px * group.npy:(px + 1) * group.npy], dim=2)
+        torch.cat(parts[px * group.npy:(px + 1) * group.npy], dim=-2)
         for px in range(group.npx)
     ]
-    return torch.cat(rows, dim=1)
+    return torch.cat(rows, dim=-3)
 
 
-def gather(model, vector: torch.Tensor) -> torch.Tensor:
+def gather(model, vector: torch.Tensor, dst: int | None = None):
     """The global vector of a shard's ``vector`` (a collective; the
-    vector itself on one rank): :func:`gather_general` on the general
-    path, :func:`gather_structured` on the structured route."""
+    vector itself on one rank without ``dst``): :func:`gather_general` on
+    the general path, :func:`gather_structured` on the structured route;
+    with ``dst`` on that rank only (None on the others)."""
     if isinstance(model, PackedModel):
-        return gather_general(vector, model.shard_group)
-    return gather_structured(vector, model.shard_group)
+        return gather_general(vector, model.shard_group, dst)
+    return gather_structured(vector, model.shard_group, dst)
 
 
 # --- the general path -------------------------------------------------------
 
 
-def gather_general(vector: torch.Tensor, group: ShardGroup) -> torch.Tensor:
-    """The global ``(N*, ...)`` vector from every rank's rows (an
-    all-gather in rank order, not counted; a collective)."""
+def gather_general(vector: torch.Tensor, group: ShardGroup,
+                   dst: int | None = None):
+    """The global ``(N*, ...)`` vector from every rank's rows in rank
+    order (a collective): an all-gather, not counted, or with ``dst`` a
+    counted gather to that rank (None on the others)."""
+    if dst is not None:
+        parts = collectives.gather(vector, dst)
+        return None if parts is None else torch.cat(parts)
     if group.size == 1:
         return vector
     return collectives.all_gather(vector, count=False)

@@ -13,6 +13,13 @@ frames).  VTU frames are written on a background thread (a bounded queue)
 so disk IO overlaps the next steps; everything handed to it is host numpy,
 never a device tensor, and a worker's exception is raised at the next
 ``submit`` or ``flush``.
+
+A sharded run (``parallel.sharding.shard_simulation``) keeps its manager.
+Every rank calls ``handle_from_stepper`` in the frame loop, in the same
+order, since it makes collectives; only rank 0 gets the gathered fields
+and writes, through the same writer and the same file names, so the
+output directory holds exactly the files of the unsharded run.  The
+gathers are issued from the frame loop, never from the writer thread.
 """
 
 from __future__ import annotations
@@ -96,14 +103,12 @@ class OutputManager:
     def handle_from_stepper(
         self, simulation_time: float, frame_index: int, stepper
     ) -> None:
-        """Pull the nodal views from the stepper and run the frame."""
-        self.handle_frame(
-            simulation_time,
-            frame_index,
-            stepper.displacement(),
-            stepper.velocity(),
-            stepper.acceleration(),
-        )
+        """Pull the nodal views from the stepper and run the frame.  On a
+        shard a collective: u, v and a are gathered to rank 0 (three
+        gathers), whose host work is the unsharded run's."""
+        views = stepper.host_kinematics()
+        if views is not None:
+            self.handle_frame(simulation_time, frame_index, *views)
 
     def flush(self) -> None:
         self._writer.flush()
@@ -147,8 +152,10 @@ class StructuredOutputManager:
     """Output of the structured route: derived fields on the model's device
     (``post/structured_fields.py``), probe rows sampled O(1) per frame,
     whole-field transfers only on VTU frames, VTU written asynchronously
-    with implicit connectivity.  A shard raises NotImplementedError
-    (ROADMAP A11)."""
+    with implicit connectivity.  On a shard each rank derives its block's
+    fields, and a VTU frame gathers them with u, v and a to rank 0 (nine
+    gathers; the derived fields' ghost exchange adds 2 or 4 ``ppermute``);
+    every frame's probe rows come to rank 0 in one gather."""
 
     def __init__(
         self,
@@ -156,10 +163,6 @@ class StructuredOutputManager:
         settings: OutputSettings,
         model,
     ) -> None:
-        if model.shard_group is not None:
-            raise NotImplementedError(
-                "output of a sharded model is not ported yet (ROADMAP A11)"
-            )
         self.output_root = output_root
         self.settings = settings
         self.model = model
@@ -175,39 +178,37 @@ class StructuredOutputManager:
         from .structured_fields import (
             compute_structured_derived,
             derived_to_host,
-            probe_derived_host,
-            probe_samples,
+            gather_derived,
+            probe_rows,
         )
 
         model = self.model
         state = stepper.state
+        vectors = (state.displacement, state.velocity, state.acceleration)
         if frame_index % max(self.settings.vtu_stride, 1) == 0:
-            derived = derived_to_host(
-                model, compute_structured_derived(model, state.displacement)
-            )
-            u, v, a = (
-                model.to_nodal(t).cpu().numpy()
-                for t in (state.displacement, state.velocity,
-                          state.acceleration)
-            )
-            if self._x0 is None:
-                self._x0 = model.position0[: model.node_count].cpu().numpy()
-            args = (
-                _vtu_path(self.output_root, frame_index),
-                model.nx, model.ny, model.nz, self._x0 + u, u, v, a,
-                derived, simulation_time, frame_index,
-            )
-            self._writer.submit(write_vtu_structured, *args)
+            fields = compute_structured_derived(model, state.displacement)
+            if model.shard_group is not None:
+                from ..parallel.sharding import gather_structured
+
+                fields = gather_derived(model, fields)
+                vectors = [gather_structured(t, model.shard_group, 0)
+                           for t in vectors]
+            if fields is not None:
+                derived = derived_to_host(model, fields)
+                u, v, a = (model.to_nodal(t).cpu().numpy() for t in vectors)
+                if self._x0 is None:
+                    self._x0 = model.position0[: model.node_count].cpu().numpy()
+                args = (
+                    _vtu_path(self.output_root, frame_index),
+                    model.nx, model.ny, model.nz, self._x0 + u, u, v, a,
+                    derived, simulation_time, frame_index,
+                )
+                self._writer.submit(write_vtu_structured, *args)
         if self.settings.probes:
-            probes = tuple(int(p) for p in self.settings.probes)
-            kin, windows = probe_samples(model, state, probes)
-            self.probe_logger.log_sampled(
-                simulation_time,
-                frame_index,
-                model.node_count,
-                kin,
-                probe_derived_host(model, probes, windows),
-            )
+            rows = probe_rows(model, state, self.settings.probes)
+            if rows is not None:
+                self.probe_logger.log_sampled(
+                    simulation_time, frame_index, model.node_count, *rows)
 
     def flush(self) -> None:
         self._writer.flush()

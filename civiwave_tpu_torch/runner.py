@@ -199,7 +199,7 @@ def build_simulation(
     group; on the general path the node count is padded to a multiple of
     ``pad_nodes`` (``8 * n`` for an n-rank group, as the reference packs)
     so it divides the group (``parallel.sharding.shard_simulation``, which
-    refuses a simulation with output: ROADMAP A11)."""
+    keeps the output: rank 0 writes it)."""
     if isinstance(scenario, Config):
         cfg, scenario_path = scenario, ""
     else:

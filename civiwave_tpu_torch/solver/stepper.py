@@ -391,48 +391,99 @@ class NewmarkStepper:
     def _vector_dtype(self) -> torch.dtype:
         return torch.float64 if self.vector_precision == "fp64" else torch.float32
 
-    def _refuse_shard(self, what: str) -> None:
-        if getattr(self.model, "shard_group", None) is not None:
-            raise NotImplementedError(
-                f"{what} of a sharded simulation: the port's shards have no "
-                "checkpoint writer yet (ROADMAP A11)")
+    def _shard(self):
+        """The model's shard group, or None unsharded."""
+        return getattr(self.model, "shard_group", None)
 
     def save_checkpoint(self, manager, wait: bool = False) -> None:
         """Save state, dt, clock and frame in ``manager`` (a
         ``utils.checkpoint.CheckpointManager``), the vectors in the run's
         precision (the f32 zero state of an fp64 run before its first frame
-        widens exactly)."""
-        self._refuse_shard("a checkpoint")
+        widens exactly).  On a shard a collective: the four vectors are
+        gathered to rank 0, which writes one file of the padded global
+        model, the format of an unsharded run; the other ranks write
+        nothing, and the group meets at a barrier."""
         vdt = self._vector_dtype()
-        state = SimState(*(v.to(vdt) for v in (
-            self.state.displacement, self.state.velocity,
-            self.state.acceleration, self.state.warm_x)))
-        manager.save(self.frame_index, state, self.current_dt,
-                     self.accumulated_time, wait=wait)
+        fields = (self.state.displacement, self.state.velocity,
+                  self.state.acceleration, self.state.warm_x)
+        group = self._shard()
+        if group is not None:
+            from ..parallel.sharding import gather
+
+            fields = [gather(self.model, v, dst=0) for v in fields]
+        if group is None or group.rank == 0:
+            manager.save(self.frame_index, SimState(*(v.to(vdt) for v in fields)),
+                         self.current_dt, self.accumulated_time, wait=wait)
+        if group is not None:
+            torch.distributed.barrier()
 
     def restore_checkpoint(self, manager, step: int | None = None) -> int:
         """Restore state/dt/clock/frame; returns the restored frame index.
         Raises CwfError when the checkpoint's vectors are not this model's
-        layout and precision."""
-        self._refuse_shard("restoring a checkpoint")
-        state, current_dt, accumulated_time, frame_index = manager.restore(
-            step, model=self.model, dtype=self._vector_dtype())
+        layout and precision.  On a shard a collective: rank 0's write in
+        flight is joined, then every rank reads the one file of global
+        vectors and keeps its block (structured) or its rows (general)."""
+        group = self._shard()
+        if group is None:
+            restored = manager.restore(step, model=self.model,
+                                       dtype=self._vector_dtype())
+        else:
+            if group.rank == 0:
+                manager.wait()
+            torch.distributed.barrier()
+            restored = manager.restore(step, shape=self._global_vector_shape(),
+                                       dtype=self._vector_dtype())
+            state = restored[0]
+            restored = (SimState(*(self._own(getattr(state, f.name))
+                                   for f in dataclasses.fields(state))),
+                        *restored[1:])
+        state, current_dt, accumulated_time, frame_index = restored
         self.state = state
         self.current_dt = current_dt
         self.accumulated_time = accumulated_time
         self.frame_index = frame_index
         return frame_index
 
+    def _global_vector_shape(self):
+        """A shard's vectors' shape on the whole (padded) model."""
+        model = self.model
+        if hasattr(model, "global_grid_shape"):
+            return (3, *model.global_grid_shape)
+        return (model.padded_node_count, 3)
+
+    def _own(self, vector: torch.Tensor) -> torch.Tensor:
+        """This shard's block or rows of a global host vector, on its
+        device."""
+        model = self.model
+        if hasattr(model, "global_grid_shape"):
+            from ..parallel.sharding import cut_block
+
+            vector = cut_block(vector, model.x0, model.y0, *model.local_extent)
+        else:
+            vector = model.own_rows(vector)
+        return vector.to(model.device)
+
     # --- host views of the device state (unpadded nodal rows) ------------
     # On a shard (a model with a ``shard_group``) each view gathers the
     # global vector first: a collective, so every rank of the group calls
-    # it, and every rank gets the whole field.
-    def _nodal(self, vector: torch.Tensor) -> np.ndarray:
-        if getattr(self.model, "shard_group", None) is not None:
+    # it, and every rank gets the whole field (with ``dst``, that rank
+    # only; the others get None).
+    def _nodal(self, vector: torch.Tensor, dst: int | None = None):
+        if self._shard() is not None:
             from ..parallel.sharding import gather
 
-            vector = gather(self.model, vector)
+            vector = gather(self.model, vector, dst)
+            if vector is None:
+                return None
         return self.model.to_nodal(vector).cpu().numpy()
+
+    def host_kinematics(self, dst: int = 0):
+        """(u, v, a) nodal rows on rank ``dst`` of a shard (None on the
+        others; three gathers, a collective), or unsharded."""
+        views = [self._nodal(v, dst) for v in (
+            self.state.displacement, self.state.velocity,
+            self.state.acceleration)]
+        return None if views[0] is None else tuple(views)
 
     def displacement(self) -> np.ndarray:
         return self._nodal(self.state.displacement)

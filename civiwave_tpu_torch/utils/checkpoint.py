@@ -14,7 +14,10 @@ newest ``max_to_keep`` stay.
 writes the file on a worker thread, one write in flight at a time (the
 reference writes asynchronously too); ``wait`` and ``close`` join it.
 ``restore`` loads onto the model's device and refuses a checkpoint whose
-vectors are not the model's layout (shape and dtype).
+vectors are not the model's layout (shape and dtype).  A sharded run
+writes the same file from rank 0, its vectors gathered to the whole
+padded model (``solver/stepper.py``), so a checkpoint moves between a
+group and the unsharded build of the same padding either way.
 """
 
 from __future__ import annotations
@@ -104,12 +107,13 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, frame_index: Optional[int] = None, *, model=None,
-                dtype: Optional[torch.dtype] = None):
+                dtype: Optional[torch.dtype] = None, shape=None):
         """Returns (SimState, current_dt, accumulated_time, frame_index) of
         ``frame_index`` (default the latest), the vectors on ``model``'s
         device (the host without a model).  Raises FileNotFoundError when
         there is no such checkpoint and CwfError when its vectors are not
-        ``model.vector_shape`` or not ``dtype``."""
+        ``model.vector_shape`` (or ``shape``: a shard's global vectors) or
+        not ``dtype``."""
         step = frame_index if frame_index is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint found under {self.directory}")
@@ -118,13 +122,15 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoint for frame {step}: {path}")
         payload = torch.load(path, map_location="cpu", weights_only=True)
         device = "cpu" if model is None else model.device
+        if model is not None:
+            shape = model.vector_shape
         vectors = []
         for name in _FIELDS:
             v = payload[name]
-            if model is not None and tuple(v.shape) != tuple(model.vector_shape):
+            if shape is not None and tuple(v.shape) != tuple(shape):
                 raise CwfError(
                     f"checkpoint {name} has shape {tuple(v.shape)}, the model's "
-                    f"vectors {tuple(model.vector_shape)}", [path])
+                    f"vectors {tuple(shape)}", [path])
             if dtype is not None and v.dtype != dtype:
                 raise CwfError(
                     f"checkpoint {name} is {v.dtype}, the run's vectors {dtype} "

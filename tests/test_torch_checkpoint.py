@@ -10,7 +10,9 @@ CLI's ``--checkpoint-dir``, ``--checkpoint-every``, ``--resume`` and
   and adaptive dt, on the general path and in fp64;
 * ``max_to_keep`` prunes the oldest files; an interrupted write leaves no
   file the manager lists; a checkpoint of another layout or precision
-  raises CwfError; a shard's checkpoint raises naming ROADMAP A11;
+  raises CwfError; a one-rank group's checkpoint restores into the
+  unsharded build of the same padding and back, bit for bit, and its
+  output is written;
 * the CLI: the cadence, ``--checkpoint-every 0`` (the final save only),
   ``--resume`` with and without a checkpoint, and a ``--profile`` trace
   that names the reference's ranges.
@@ -130,16 +132,39 @@ def test_fp64_zero_state_is_saved_in_f64(tmp_path):
     assert build_simulation(cfg, device="cpu").stepper.restore_checkpoint(manager) == 0
 
 
-def test_a_shard_checkpoint_is_refused(tmp_path):
-    import dataclasses
+def test_a_one_rank_group_checkpoint_moves_to_the_unsharded_build(tmp_path):
+    """A one-rank group saves, restores and writes output: its checkpoint
+    is one file of the padded global model, which the unsharded build of
+    the same padding restores bit for bit, and the other way round; its
+    output directory holds the unsharded run's files."""
+    from civiwave_tpu_torch.parallel import sharding
 
-    sim = build_simulation(cantilever_config(mesh={"path": "synthetic://box/3,2,2"}),
-                           device="cpu")
-    sim.stepper.model = dataclasses.replace(sim.model, shard_group=object())
-    with pytest.raises(NotImplementedError, match="A11"):
-        sim.stepper.save_checkpoint(CheckpointManager(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match="A11"):
-        sim.stepper.restore_checkpoint(CheckpointManager(str(tmp_path)))
+    cfg = cantilever_config(mesh={"path": "synthetic://box/5,3,3"},
+                            output={"vtu_stride": 2, "probes": [0, 37]})
+    pads = dict(pad_x_multiple=2, pad_y_multiple=2)  # a pad plane, a dead row
+    group = sharding.make_shard_group_2d(1, 1, "cpu")
+    try:
+        sim = sharding.shard_simulation(build_simulation(
+            cfg, device="cpu", output_root=str(tmp_path / "out"), **pads), group)
+        manager = CheckpointManager(str(tmp_path / "ck"))
+        sim.run(3, checkpoint_manager=manager, checkpoint_every=2)
+        manager.wait()
+        assert manager.steps() == [3]
+        plain = build_simulation(cfg, device="cpu", **pads)
+        assert plain.stepper.restore_checkpoint(manager) == 3
+        _assert_same_run(plain, sim)
+        plain.run(1)
+        plain.stepper.save_checkpoint(manager, wait=True)
+        fresh = sharding.shard_simulation(
+            build_simulation(cfg, device="cpu", **pads), group)
+        assert fresh.stepper.restore_checkpoint(manager) == 4
+        _assert_same_run(fresh, plain)
+    finally:
+        sharding.close_shard_group()
+    out = tmp_path / "out"
+    assert sorted(os.listdir(out / "vtu")) == ["frame_00000.vtu", "frame_00002.vtu"]
+    with open(out / "probes" / "probes.csv", encoding="ascii") as f:
+        assert len(f.read().splitlines()) == 1 + 3 * 2
 
 
 def _cli(*args):

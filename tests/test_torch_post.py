@@ -13,8 +13,9 @@
   reference's writers on the same arrays, numpy writer and native writer
   (the native case skips where g++ is missing), and the Int32 guard;
 * ``ProbeLogger`` CSV text identical; ``OutputManager`` stride;
-  ``AsyncWriter`` raises a worker's exception; ``save_snapshot`` writes a
-  PNG;
+  ``AsyncWriter`` raises a worker's exception; a one-rank group's
+  ``StructuredOutputManager`` writes the unsharded manager's files;
+  ``save_snapshot`` writes a PNG;
 * ``examples/cantilever_box.yaml --output`` for 5 frames: the same file set
   as the reference runner and its probe CSV within the BASELINE
   tolerances.
@@ -328,12 +329,37 @@ def test_async_writer_raises_a_worker_error():
     writer.flush()
 
 
-def test_structured_output_manager_refuses_a_shard(tmp_path):
-    tm, _ = structured_pair((2, 2, 2), {})
-    cfg = synthetic.cantilever_config()
-    with pytest.raises(NotImplementedError, match="A11"):
-        output.StructuredOutputManager(
-            str(tmp_path), cfg.output, dataclasses.replace(tm, shard_group=object()))
+def test_structured_output_manager_on_a_one_rank_group(tmp_path):
+    """A one-rank group's manager (a shard: the derived fields from the
+    exchanged block, the probes through one gather) writes, for the same
+    states, byte for byte the files of the unsharded manager; dead +X
+    planes and a dead +Y row are stripped from both."""
+    from civiwave_tpu_torch.parallel import sharding
+
+    tm, _ = structured_pair((5, 3, 4), dict(pad_x_multiple=4, pad_y_multiple=3))
+    cfg = synthetic.cantilever_config(
+        output={"vtu_stride": 2, "probes": list(PROBES)})
+    rng = np.random.default_rng(8)
+    states = [tm.zero_state().__class__(*(torch.from_numpy(
+        rng.standard_normal(tm.vector_shape).astype(np.float32) * 1e-3)
+        for _ in range(4))) for _ in range(3)]
+    group = sharding.make_shard_group_2d(1, 1, "cpu")
+    try:
+        shard, _, _ = sharding.shard_structured(tm, tm.zero_state(),
+                                                tm.zero_state().displacement,
+                                                group)
+        for model, root in ((tm, tmp_path / "plain"), (shard, tmp_path / "shard")):
+            manager = output.StructuredOutputManager(str(root), cfg.output, model)
+            for frame, state in enumerate(states):
+                stepper = type("Stepper", (), {"model": model, "state": state})
+                manager.handle_from_stepper(0.01 * frame, frame, stepper)
+            manager.flush()
+    finally:
+        sharding.close_shard_group()
+    files = ["probes/probes.csv", "vtu/frame_00000.vtu", "vtu/frame_00002.vtu"]
+    for f in files:
+        assert (tmp_path / "shard" / f).read_bytes() == (
+            tmp_path / "plain" / f).read_bytes(), f
 
 
 def test_save_snapshot_writes_png(tmp_path):
