@@ -51,6 +51,7 @@ from ..physics import absorbing as absorbing_mod
 from ..physics import loads as loads_mod
 from ..physics import oracle
 from ..physics.materials import ElasticProperties, material_tables
+from ..utils import profiling
 from ..utils.errors import PackError
 from .model import Mesh, SENTINEL
 from .preprocess import PreprocessOutputs
@@ -238,7 +239,7 @@ class PackedModel:
     def from_nodal(self, rows) -> torch.Tensor:
         """(node_count, 3) rows in original mesh order -> solver vector of
         the whole model (a shard's rows: :meth:`own_rows`)."""
-        rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+        rows = profiling.from_host(rows, self.device)
         full = torch.zeros((self.padded_node_count, 3), dtype=torch.float32,
                            device=self.device)
         full[: self.node_count] = rows[: self.node_count]

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from ..physics.materials import ElasticProperties
+from ..utils import profiling
 
 # corner offsets in Gmsh hex ordering (matches preprocess._HEX_XI)
 CORNERS = (
@@ -205,7 +206,7 @@ class StructuredModel:
     def from_nodal(self, rows) -> torch.Tensor:
         """(node_count, 3) nodal rows -> CSG vector of the global grid (pad
         planes and dead rows zeroed)."""
-        rows = torch.as_tensor(rows, dtype=torch.float32, device=self.device)
+        rows = profiling.from_host(rows, self.device)
         real = (self.nx + 1 + self.pad_planes, self.ny + 1, self.nz + 1)
         flat = torch.zeros(
             (int(np.prod(real)), 3), dtype=torch.float32, device=self.device,

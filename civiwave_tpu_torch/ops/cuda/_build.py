@@ -7,7 +7,11 @@ together, and the objects are linked into one shared library under
 ``ctypes``.  The library's name carries a hash of the sources and the
 flags, so an edited source rebuilds and an unchanged one is reused within
 a checkout.  Nothing here runs at import time: the CPU tests import every
-module on hosts without ``nvcc``.
+module on hosts without ``nvcc``.  Every wrapper launches through
+:meth:`KernelLibrary.call`, which holds the device guard, the stream
+argument, the error check and ``utils.profiling.launch``: an operator range
+of the C entry's name while a trace has the program's ranges open, so that
+the profiler counts the kernels in the ranges around them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,9 @@ from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
+import torch
+
+from ...utils import profiling
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -127,6 +134,18 @@ class KernelLibrary:
     build_seconds: float  # 0.0 when an up-to-date library was reused
     log: str  # nvcc/ptxas output of the build ("" when reused)
 
+    def call(self, entry: str, device, *args) -> None:
+        """Launch C entry point ``entry`` with ``args`` and ``device``'s
+        current stream (every entry's last argument) under ``device``'s
+        guard and ``profiling.launch(entry)``; raise if it reports a CUDA
+        error."""
+        with torch.cuda.device(device), profiling.launch(entry):
+            code = getattr(self.lib, entry)(
+                *args, torch.cuda.current_stream(device).cuda_stream)
+        if code != 0:
+            text = self.lib.civi_error_string(code).decode()
+            raise RuntimeError(f"{entry}: CUDA error {code} ({text}) at launch")
+
 
 def _sources():
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
@@ -204,8 +223,6 @@ def instance(name: str, dtype) -> str:
     ``dtype``: ``name`` for torch.float32, ``name + "_f64"`` for
     torch.float64 (the five kernels with a double instance); any other
     dtype raises TypeError."""
-    import torch
-
     if dtype == torch.float32:
         return name
     if dtype == torch.float64:
@@ -216,27 +233,16 @@ def instance(name: str, dtype) -> str:
 def scalar(value, dtype) -> float:
     """A host scalar as the instance for ``dtype`` takes it: rounded to f32
     for f32 vectors, kept in f64 for f64 ones (the plain forms' rule)."""
-    import torch
-
     return float(np.float32(value)) if dtype == torch.float32 else float(value)
 
 
 def count_launch(wrapper, dtype) -> None:
     """One launch of ``wrapper``'s kernel: ``.launches`` for its f32
     instance, ``.launches_f64`` for its f64 one."""
-    import torch
-
     if dtype == torch.float64:
         wrapper.launches_f64 += 1
     else:
         wrapper.launches += 1
-
-
-def check_launch(library: KernelLibrary, name: str, code: int) -> None:
-    """Raise if a C entry point reported a CUDA error."""
-    if code != 0:
-        text = library.lib.civi_error_string(code).decode()
-        raise RuntimeError(f"{name}: CUDA error {code} ({text}) at launch")
 
 
 def check_aligned(t, name: str, nbytes: int) -> None:

@@ -92,14 +92,12 @@ def assemble_keff(model, rows, x, mass_factor):
     _build.check_aligned(rows, "rows", 2 * rows.element_size())
     library = _build.load_library()
     out = torch.empty_like(x)
-    with torch.cuda.device(dev):
-        code = getattr(library.lib, entry)(
-            rows.data_ptr(), model.csr_idx.data_ptr(),
-            model.csr_weight.data_ptr(), model.lumped_mass.data_ptr(),
-            x.data_ptr(), model.bc_mask.data_ptr(), out.data_ptr(), n, d,
-            float(mass_factor), *geom, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(library, "assemble_csr", code)
+    library.call(
+        entry, dev, rows.data_ptr(), model.csr_idx.data_ptr(),
+        model.csr_weight.data_ptr(), model.lumped_mass.data_ptr(),
+        x.data_ptr(), model.bc_mask.data_ptr(), out.data_ptr(), n, d,
+        float(mass_factor), *geom,
+    )
     _build.count_launch(assemble_keff, dtype)
     return out
 

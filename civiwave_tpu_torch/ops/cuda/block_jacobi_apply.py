@@ -47,13 +47,11 @@ def apply_block_jacobi(model, table, residual):
     library = _build.load_library()
     z = torch.empty_like(residual)
     X, Y, Z = model.grid_shape
-    with torch.cuda.device(dev):
-        code = getattr(library.lib, entry)(
-            table.data_ptr(), residual.data_ptr(), model.bc_mask.data_ptr(),
-            z.data_ptr(), X, Y, Z, model.nx, model.ny, model.nz,
-            model.x0, model.y0, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(library, "block_jacobi_apply", code)
+    library.call(
+        entry, dev, table.data_ptr(), residual.data_ptr(),
+        model.bc_mask.data_ptr(), z.data_ptr(), X, Y, Z, model.nx, model.ny,
+        model.nz, model.x0, model.y0,
+    )
     _build.count_launch(apply_block_jacobi, dtype)
     return z
 

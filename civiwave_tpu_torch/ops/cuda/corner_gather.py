@@ -243,19 +243,16 @@ def apply_keff_corner_gather(model, x, stiffness_scale, mass_factor,
         out = torch.empty_like(x)
     _build.check_tensor(out, "out", shape, dtype, dev)
     library = _build.load_library()
-    with torch.cuda.device(dev):
-        code = getattr(library.lib, entry)(
-            x.data_ptr(), model.bc_mask.data_ptr(), *ptrs,
-            model.lam_grid.data_ptr(), model.mu_grid.data_ptr(),
-            *_cell_ghost_ptrs(model, X, cell_y, model.nz, gy, dev),
-            model.mass_grid.data_ptr(), tables.ctypes.data, out.data_ptr(),
-            X, Y, Z, gy, model.x0, model.y0, model.nx, model.ny, model.nz,
-            cell_y, p0, p1, _build.scalar(stiffness_scale, dtype),
-            _build.scalar(mass_factor, dtype), *geom.launch_args()[:6],
-            geom.threads, geom.smem_bytes,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(library, "corner_gather", code)
+    library.call(
+        entry, dev, x.data_ptr(), model.bc_mask.data_ptr(), *ptrs,
+        model.lam_grid.data_ptr(), model.mu_grid.data_ptr(),
+        *_cell_ghost_ptrs(model, X, cell_y, model.nz, gy, dev),
+        model.mass_grid.data_ptr(), tables.ctypes.data, out.data_ptr(),
+        X, Y, Z, gy, model.x0, model.y0, model.nx, model.ny, model.nz,
+        cell_y, p0, p1, _build.scalar(stiffness_scale, dtype),
+        _build.scalar(mass_factor, dtype), *geom.launch_args()[:6],
+        geom.threads, geom.smem_bytes,
+    )
     _build.count_launch(apply_keff_corner_gather, dtype)
     return out
 

@@ -69,16 +69,11 @@ def _launch(model, x, stiffness_scale, block: str, out):
     # (double2 for f64)
     _build.check_aligned(conn, f"conn_{block}", 16)
     _build.check_aligned(out, "rows", 16)
-    library = _build.load_library()
-    fn = getattr(library.lib, entry)
-    with torch.cuda.device(dev):
-        code = fn(
-            x.data_ptr(), model.bc_mask.data_ptr(), conn.data_ptr(),
-            grads.data_ptr(), vol.data_ptr(), lam.data_ptr(), mu.data_ptr(),
-            out.data_ptr(), e, float(stiffness_scale),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(library, f"element_forces_{block}", code)
+    _build.load_library().call(
+        entry, dev, x.data_ptr(), model.bc_mask.data_ptr(), conn.data_ptr(),
+        grads.data_ptr(), vol.data_ptr(), lam.data_ptr(), mu.data_ptr(),
+        out.data_ptr(), e, float(stiffness_scale),
+    )
     return out
 
 

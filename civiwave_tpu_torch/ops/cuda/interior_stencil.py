@@ -57,13 +57,11 @@ def launch(xs: torch.Tensor, taps: np.ndarray, geom) -> torch.Tensor:
     library = _build.load_library()
     out = torch.empty_like(xs)
     _, X, Y, Z = xs.shape
-    with torch.cuda.device(dev):
-        code = library.lib.civi_interior_stencil(
-            xs.data_ptr(), t32.ctypes.data, out.data_ptr(), X, Y, Z,
-            *geom.launch_args(), plane_sweep.vector_copies(Z, xs),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(library, "interior_stencil", code)
+    library.call(
+        "civi_interior_stencil", dev, xs.data_ptr(), t32.ctypes.data,
+        out.data_ptr(), X, Y, Z, *geom.launch_args(),
+        plane_sweep.vector_copies(Z, xs),
+    )
     interior_stencil.launches += 1
     return out
 

@@ -258,16 +258,14 @@ def keff_boundary(model, interior, x, stiffness_scale, mass_factor):
     codes, rows = _device_tables(model.spacing, model.lam0, model.mu0, dev)
     ztaps = z_face_taps(model.spacing, model.lam0, model.mu0)
     library = _build.load_library()
-    with torch.cuda.device(dev):
-        code = library.lib.civi_keff_boundary(
-            interior.data_ptr(), x.data_ptr(), model.bc_mask.data_ptr(),
-            codes.data_ptr(), rows.data_ptr(), ztaps.ctypes.data,
-            out.data_ptr(), X, Y, Z, model.nx, model.ny, model.nz,
-            float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
-            float(np.float32(model.m8)), *geom.launch_args(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(library, "keff_boundary", code)
+    library.call(
+        "civi_keff_boundary", dev, interior.data_ptr(), x.data_ptr(),
+        model.bc_mask.data_ptr(), codes.data_ptr(), rows.data_ptr(),
+        ztaps.ctypes.data, out.data_ptr(), X, Y, Z, model.nx, model.ny,
+        model.nz, float(np.float32(stiffness_scale)),
+        float(np.float32(mass_factor)), float(np.float32(model.m8)),
+        *geom.launch_args(),
+    )
     keff_boundary.launches += 1
     return out
 

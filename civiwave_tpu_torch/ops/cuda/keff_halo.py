@@ -159,17 +159,14 @@ def launch_operator(model, x, ghosts, planes, out, stiffness_scale,
         out = torch.empty_like(x)
     _build.check_tensor(out, "out", shape, dtype, dev)
     library = _build.load_library()
-    with torch.cuda.device(dev):
-        code = getattr(library.lib, entry)(
-            x.data_ptr(), model.bc_mask.data_ptr(), *ptrs,
-            model.stencil_table.data_ptr(), taps.ctypes.data, out.data_ptr(),
-            xl, yl, z, gy, model.x0, model.y0, model.nx, model.ny, model.nz,
-            p0, p1, _build.scalar(stiffness_scale, dtype),
-            _build.scalar(mass_factor, dtype), float(np.float32(model.m8)),
-            *geom.launch_args(), plane_sweep.vector_copies(z, x),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check_launch(library, name, code)
+    library.call(
+        entry, dev, x.data_ptr(), model.bc_mask.data_ptr(), *ptrs,
+        model.stencil_table.data_ptr(), taps.ctypes.data, out.data_ptr(),
+        xl, yl, z, gy, model.x0, model.y0, model.nx, model.ny, model.nz,
+        p0, p1, _build.scalar(stiffness_scale, dtype),
+        _build.scalar(mass_factor, dtype), float(np.float32(model.m8)),
+        *geom.launch_args(), plane_sweep.vector_copies(z, x),
+    )
     return out
 
 

@@ -75,7 +75,7 @@ def pcg_iteration_fused(
             model, table, carries, alpha, beta, stiffness_scale, mass_factor,
             reduction_dtype,
         )
-    library, dev, stream = _launch_args(model, x)
+    library, dev = _launch_args(model, x)
     for name, v in zip("ruwps", (r, u, w, p, s)):
         _build.check_tensor(v, name, model.vector_shape, torch.float32, dev)
     _build.check_tensor(table, "pc_table", (6, 3, 3, 3), torch.float32, dev)
@@ -89,18 +89,17 @@ def pcg_iteration_fused(
     s_new = torch.empty_like(s)
     # (r,u), (r,r), (w,u) partials, one triple per block
     partials = torch.empty(geom.partials_shape, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        code = library.lib.civi_pcg_iteration_structured(
-            table.data_ptr(), model.stencil_table.data_ptr(), taps.ctypes.data,
-            alpha_beta.data_ptr(), x.data_ptr(), r.data_ptr(), u.data_ptr(),
-            w.data_ptr(), p.data_ptr(), s.data_ptr(), model.bc_mask.data_ptr(),
-            r_new.data_ptr(), w_new.data_ptr(), s_new.data_ptr(),
-            partials.data_ptr(), X, Y, Z, model.nx, model.ny, model.nz,
-            float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
-            float(np.float32(model.m8)), *geom.launch_args(),
-            plane_sweep.vector_copies(Z, r, w, s), stream,
-        )
-    _build.check_launch(library, "pcg_iteration_structured", code)
+    library.call(
+        "civi_pcg_iteration_structured", dev, table.data_ptr(),
+        model.stencil_table.data_ptr(), taps.ctypes.data,
+        alpha_beta.data_ptr(), x.data_ptr(), r.data_ptr(), u.data_ptr(),
+        w.data_ptr(), p.data_ptr(), s.data_ptr(), model.bc_mask.data_ptr(),
+        r_new.data_ptr(), w_new.data_ptr(), s_new.data_ptr(),
+        partials.data_ptr(), X, Y, Z, model.nx, model.ny, model.nz,
+        float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
+        float(np.float32(model.m8)), *geom.launch_args(),
+        plane_sweep.vector_copies(Z, r, w, s),
+    )
     pcg_iteration_fused.launches += 1
     gamma, rr, delta = partials.to(reduction_dtype).sum(dim=1)
     return (x, r_new, u, w_new, p, s_new), (gamma, delta, rr)

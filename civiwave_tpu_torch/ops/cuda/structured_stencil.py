@@ -33,7 +33,7 @@ from .plane_sweep import sweep_taps32
 
 
 def _launch_args(model, residual_or_x):
-    """Common shape/device checks; returns (library, device, stream)."""
+    """Common shape/device checks; returns (library, device)."""
     dev = residual_or_x.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
@@ -45,7 +45,7 @@ def _launch_args(model, residual_or_x):
         model.stencil_table, "stencil_table", (27, 27, 3, 3), torch.float32,
         dev,
     )
-    return _build.load_library(), dev, torch.cuda.current_stream(dev).cuda_stream
+    return _build.load_library(), dev
 
 
 def apply_keff_fused_plain(model, x, stiffness_scale, mass_factor):
@@ -106,7 +106,7 @@ def apply_pc_keff_fused(
             model, table, residual, stiffness_scale, mass_factor,
             with_dots=with_dots, reduction_dtype=reduction_dtype,
         )
-    library, dev, stream = _launch_args(model, residual)
+    library, dev = _launch_args(model, residual)
     _build.check_tensor(table, "pc_table", (6, 3, 3, 3), torch.float32, dev)
     _build.check_aligned(model.bc_mask, "bc_mask", 4)
     taps = sweep_taps32(model)
@@ -119,18 +119,16 @@ def apply_pc_keff_fused(
         torch.empty(geom.partials_shape, dtype=torch.float32, device=dev)
         if with_dots else None
     )
-    with torch.cuda.device(dev):
-        code = library.lib.civi_pc_keff_structured(
-            table.data_ptr(), model.stencil_table.data_ptr(),
-            taps.ctypes.data, residual.data_ptr(), model.bc_mask.data_ptr(),
-            u.data_ptr(), w.data_ptr(),
-            partials.data_ptr() if with_dots else None,
-            X, Y, Z, model.nx, model.ny, model.nz,
-            float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
-            float(np.float32(model.m8)), *geom.launch_args(),
-            plane_sweep.vector_copies(Z, residual), stream,
-        )
-    _build.check_launch(library, "pc_keff_structured", code)
+    library.call(
+        "civi_pc_keff_structured", dev, table.data_ptr(),
+        model.stencil_table.data_ptr(), taps.ctypes.data,
+        residual.data_ptr(), model.bc_mask.data_ptr(), u.data_ptr(),
+        w.data_ptr(), partials.data_ptr() if with_dots else None,
+        X, Y, Z, model.nx, model.ny, model.nz,
+        float(np.float32(stiffness_scale)), float(np.float32(mass_factor)),
+        float(np.float32(model.m8)), *geom.launch_args(),
+        plane_sweep.vector_copies(Z, residual),
+    )
     apply_pc_keff_fused.launches += 1
     if not with_dots:
         return u, w

@@ -33,6 +33,7 @@ import numpy as np
 from ..config.schema import OutputSettings
 from ..mesh.model import Mesh
 from ..mesh.preprocess import PreprocessOutputs
+from ..utils import profiling
 from .derived import DerivedFieldSet, compute_derived_fields
 from .probes import ProbeLogger
 from .vtu import write_vtu, write_vtu_structured
@@ -195,9 +196,11 @@ class StructuredOutputManager:
                            for t in vectors]
             if fields is not None:
                 derived = derived_to_host(model, fields)
-                u, v, a = (model.to_nodal(t).cpu().numpy() for t in vectors)
+                u, v, a = (profiling.to_host(model.to_nodal(t)).numpy()
+                           for t in vectors)
                 if self._x0 is None:
-                    self._x0 = model.position0[: model.node_count].cpu().numpy()
+                    self._x0 = profiling.to_host(
+                        model.position0[: model.node_count]).numpy()
                 args = (
                     _vtu_path(self.output_root, frame_index),
                     model.nx, model.ny, model.nz, self._x0 + u, u, v, a,

@@ -54,6 +54,7 @@ import torch
 
 from ..mesh.structured import CORNERS, StructuredModel
 from ..ops.structured import _element_tables, corner_views
+from ..utils import profiling
 from ..utils.errors import ProbeError
 from .derived import DerivedFieldSet
 
@@ -273,15 +274,16 @@ def derived_to_host(model: StructuredModel, device_fields) -> DerivedFieldSet:
     ys = model.ny + 1
 
     def rows6(a):
-        return a.permute(1, 2, 3, 0).reshape(-1, 6).cpu().numpy()
+        return profiling.to_host(a.permute(1, 2, 3, 0).reshape(-1, 6)).numpy()
 
     return DerivedFieldSet(
         element_strain=rows6(elem_strain),
         element_stress=rows6(elem_stress),
-        element_von_mises=elem_vm.reshape(-1).cpu().numpy(),
+        element_von_mises=profiling.to_host(elem_vm.reshape(-1)).numpy(),
         node_strain=rows6(node_strain[:, :, :ys])[:n],
         node_stress=rows6(node_stress[:, :, :ys])[:n],
-        node_von_mises=node_vm[:, :ys].reshape(-1)[:n].cpu().numpy(),
+        node_von_mises=profiling.to_host(
+            node_vm[:, :ys].reshape(-1)[:n]).numpy(),
     )
 
 
@@ -398,11 +400,11 @@ def probe_samples(model: StructuredModel, state, probes: Sequence[int]):
         tuple(model.grid_shape), (model.nx, model.ny, model.nz), probes,
         str(model.device),
     )
-    host = torch.cat([
+    host = profiling.to_host(torch.cat([
         state.displacement.reshape(-1)[u_idx],
         state.velocity.reshape(-1)[node],
         state.acceleration.reshape(-1)[node],
-    ]).cpu().numpy()
+    ])).numpy()
     return _split_samples(host, shapes, len(probes))
 
 
@@ -458,7 +460,8 @@ def _shard_probe_gather(model: StructuredModel, state, probes):
     parts = collectives.gather(torch.where(mine, buffer, 0.0), 0)
     if parts is None:
         return None
-    host = torch.stack(parts).cpu().numpy()[owner, np.arange(owner.size)]
+    host = profiling.to_host(torch.stack(parts)).numpy()
+    host = host[owner, np.arange(owner.size)]
     n_p = len(probes)
     kin, windows = _split_samples(host, shapes, n_p)
     dtype = np.float64 if state.displacement.dtype == f64 else np.float32
@@ -505,10 +508,10 @@ def probe_derived_host(
         cell_y = model.lam_grid.shape[1]
         flat = [(ci * cell_y + cj) * nz + ck for cells in incident
                 for ci, cj, ck in cells]
-        index = torch.as_tensor(flat, dtype=torch.int64, device=model.device)
-        materials = torch.stack([
+        index = profiling.from_host(flat, model.device, torch.int64)
+        materials = profiling.to_host(torch.stack([
             model.lam_grid.reshape(-1)[index], model.mu_grid.reshape(-1)[index],
-        ]).cpu().numpy()
+        ])).numpy()
     materials = np.asarray(materials, np.float64)
     out, start = [], 0
     for p, w, cells in zip(probes, windows, incident):

@@ -25,6 +25,30 @@ checkpoints (``utils/checkpoint.py``) every ``--checkpoint-every`` frames
 and after its last, resume from the latest with ``--resume``, and write a
 torch.profiler trace with ``--profile DIR``.
 
+The trace (``utils/profiling.py``) holds the reference's named ranges and
+the port's spans: ``frame`` around each frame of :meth:`Simulation.run`,
+inside it ``load_update`` (the curve loads re-evaluated and set),
+``pc_build`` (the preconditioner, when dt changes), the stepper's phases,
+``telemetry_read`` (the frame's one read of the solver's scalars),
+``output_frame`` and ``checkpoint_save``; in each PCG iteration
+``pcg_matvec`` / ``pcg_pc_matvec_dots``, ``pcg_dots``, ``pcg_scalars``,
+``pcg_vector_update`` (the axpys, the p/s update) and ``pcg_host_sync``
+(the flag read, the branching on it and the p/s update it decides, from
+the sync to the device's next launch); each launch of the kernel
+library is an operator range named by its C entry, so the ranges' device
+time holds the kernels.  ``--telemetry-json FILE`` writes one object per
+frame (``StepTelemetry``) with ``host_syncs``, the points in the frame
+where the host waited for the device (``utils.profiling.host_syncs``:
+the solver's flag and telemetry reads, the general path's load upload,
+output's and checkpoints' copies), and ``host_start_ns`` /
+``host_end_ns``, the frame's start and end as ``time.time_ns()``: the
+clock of the trace's events, so frame k of the JSON is the ``frame``
+range that starts within its stamps (a Chrome trace's ``ts`` is
+microseconds after its ``baseTimeNanoseconds``).  ``build_simulation``
+records the general path's ``preprocess`` and ``pack`` host seconds, and
+the first frame its own, in ``utils.profiling.phases`` (read by the
+benchmark).
+
 Usage::
 
     python -m civiwave_tpu_torch.runner scenario.yaml --frames 100 --output out/
@@ -85,6 +109,7 @@ class Simulation:
     preprocess: Optional[preprocess.PreprocessOutputs] = None
     output: Optional[object] = None
     _scenario_path: str = ""
+    _first_frame: bool = True  # the next frame is the first this one runs
 
     @property
     def structured(self) -> bool:
@@ -107,7 +132,12 @@ class Simulation:
         writing outputs per frame (the VTU writer is drained at the
         end).  With a ``checkpoint_manager`` the state is saved after
         every frame ``frame > 0`` with ``frame % checkpoint_every == 0``
-        (the write runs on the manager's thread; 0 saves none)."""
+        (the write runs on the manager's thread; 0 saves none).  Each
+        frame is the range ``frame`` (its parts ``load_update``,
+        ``output_frame``, ``checkpoint_save``) and stamps its telemetry's
+        ``host_syncs``, ``host_start_ns`` and ``host_end_ns``; the first
+        frame this simulation runs is the set-up phase ``first_frame``
+        (``utils.profiling.phases``, ended by a device sync)."""
         loads = self.config.loads
         has_curves = any(t.scale_curve for t in loads.tractions) or any(
             p.scale_curve for p in loads.points
@@ -116,22 +146,34 @@ class Simulation:
         t = self.stepper.accumulated_time
         start_frame = self.stepper.frame_index
         for frame in range(start_frame, start_frame + frames):
-            if has_curves and frame > 0:
-                self.stepper.set_external_force(self._force_at(t))
-            telemetry = self.stepper.step(t, paused_mode=paused_mode)
+            syncs = profiling.host_syncs
+            start_ns = time.time_ns()
+            first = (profiling.phase("first_frame", self.model.device)
+                     if self._first_frame else contextlib.nullcontext())
+            self._first_frame = False
+            with first, profiling.scope("frame"):
+                if has_curves and frame > 0:
+                    with profiling.scope("load_update"):
+                        self.stepper.set_external_force(self._force_at(t))
+                telemetry = self.stepper.step(t, paused_mode=paused_mode)
+                t = self.stepper.accumulated_time
+                if self.output is not None:
+                    with profiling.scope("output_frame"):
+                        self.output.handle_from_stepper(
+                            telemetry.simulation_time, frame, self.stepper
+                        )
+                if (
+                    checkpoint_manager is not None
+                    and checkpoint_every > 0
+                    and frame > 0
+                    and frame % checkpoint_every == 0
+                ):
+                    with profiling.scope("checkpoint_save"):
+                        self.stepper.save_checkpoint(checkpoint_manager)
+            telemetry.host_end_ns = time.time_ns()
+            telemetry.host_start_ns = start_ns
+            telemetry.host_syncs = profiling.host_syncs - syncs
             telemetries.append(telemetry)
-            t = self.stepper.accumulated_time
-            if self.output is not None:
-                self.output.handle_from_stepper(
-                    telemetry.simulation_time, frame, self.stepper
-                )
-            if (
-                checkpoint_manager is not None
-                and checkpoint_every > 0
-                and frame > 0
-                and frame % checkpoint_every == 0
-            ):
-                self.stepper.save_checkpoint(checkpoint_manager)
             if verbose:
                 print(
                     f"frame {frame:5d} t={telemetry.simulation_time:.6f}s "
@@ -200,6 +242,7 @@ def build_simulation(
     ``pad_nodes`` (``8 * n`` for an n-rank group, as the reference packs)
     so it divides the group (``parallel.sharding.shard_simulation``, which
     keeps the output: rank 0 writes it)."""
+    profiling.phases.clear()
     if isinstance(scenario, Config):
         cfg, scenario_path = scenario, ""
     else:
@@ -230,10 +273,12 @@ def build_simulation(
             )
         mats = [materials.make_properties(m) for m in cfg.materials]
         mesh = _load_mesh(cfg, scenario_path)
-        pre = preprocess.run(mesh, cfg)
-        model, _state, force = pack.build_packed_model(
-            mesh, pre, cfg, mats, pad_nodes=pad_nodes, device=device
-        )
+        with profiling.phase("preprocess"):
+            pre = preprocess.run(mesh, cfg)
+        with profiling.phase("pack", device):
+            model, _state, force = pack.build_packed_model(
+                mesh, pre, cfg, mats, pad_nodes=pad_nodes, device=device
+            )
         print(
             f"path: general gather path ({mesh.element_count:,} elements, "
             f"{model.dof_count:,} DOF, dual-CSR assembly, device {model.device})",
@@ -292,7 +337,8 @@ def run_static(sim: Simulation, variant: str = "auto") -> Tuple[torch.Tensor, di
         variant=variant,
         replace_every=cfg.solver.replace_every,
     )
-    residual, rhs_norm = torch.stack([pcg.residual_norm, pcg.rhs_norm]).tolist()
+    residual, rhs_norm = profiling.to_host(
+        torch.stack([pcg.residual_norm, pcg.rhs_norm])).tolist()
     elapsed = time.perf_counter() - start
     u_all = u
     if getattr(sim.model, "shard_group", None) is not None:

@@ -27,7 +27,14 @@ with ``CIVIWAVE_MEGA_PCG=1`` the whole-iteration K6 loop) and pipelined
 
 Under a torch.profiler trace the loops open the reference's named ranges
 (``pcg_matvec``, ``pcg_precondition``, ``pcg_pc_matvec``, ...;
-``utils/profiling.scope``), and nothing otherwise.
+``utils/profiling.scope``), and nothing otherwise.  Every flag read is
+one ``profiling.host_syncs`` and sits in a ``pcg_host_sync`` range with
+the host's branching on it; in the classic and fused loops that range
+also holds the p (and s) update the flags decide, as the nested range
+``pcg_vector_update``, so that it lasts from the sync to the device's next
+launch, and every other line of an iteration sits in a range of its own
+(``pcg_dots``, ``pcg_scalars``, ``pcg_vector_update`` for the axpys): the
+host's time between the device's kernels has a name.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from ..utils.profiling import scope
 
 _BREAKDOWN_TOL = 1.0e-18
@@ -104,8 +112,9 @@ def fused_dots(pairs, dtype=torch.float64, psum=None) -> torch.Tensor:
 
 
 def _flags(*conds: torch.Tensor):
-    """Read boolean 0-d device tensors on the host in one transfer."""
-    return [bool(v) for v in torch.stack(conds).tolist()]
+    """Read boolean 0-d device tensors on the host in one transfer (a host
+    sync, ``profiling.to_host``)."""
+    return [bool(v) for v in profiling.to_host(torch.stack(conds)).tolist()]
 
 
 def resolve_variant(model, variant: str, block_inverse, vector_dtype) -> str:
@@ -197,11 +206,13 @@ def solve_pcg(
     residual_norm = torch.sqrt(rdot(r, r))
     z = model.apply_preconditioner(block_inverse, r)
     rho = rdot(r, z)
-    converged, rho_small = _flags(
-        residual_norm <= tolerance, rho.abs() < _BREAKDOWN_TOL
-    )
-    breakdown = (not converged) and rho_small
-    p = z.masked_fill(bc, 0.0).to(f32)
+    with scope("pcg_host_sync"):
+        converged, rho_small = _flags(
+            residual_norm <= tolerance, rho.abs() < _BREAKDOWN_TOL
+        )
+        breakdown = (not converged) and rho_small
+        with scope("pcg_vector_update"):
+            p = z.masked_fill(bc, 0.0).to(f32)
     alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
     beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
 
@@ -209,38 +220,42 @@ def solve_pcg(
     while iteration < max_iterations and not converged and not breakdown:
         with scope("pcg_matvec"):
             ap = model.apply_keff(p, stiffness_scale, mass_factor)
-        denom = rdot(p, ap)
-        denom_small = denom.abs() < _BREAKDOWN_TOL
-        alpha = rho / torch.where(denom_small, 1.0, denom)
+        with scope("pcg_dots"):
+            denom = rdot(p, ap)
+            denom_small = denom.abs() < _BREAKDOWN_TOL
+            alpha = rho / torch.where(denom_small, 1.0, denom)
 
         # f32 axpys with an f32 scalar, as the reference's pcg_axpy.slang.
         # The per-iteration x/r Dirichlet re-clamp is an exact no-op by
         # invariant (p is zero on constrained axes and the identity rows
         # give ap = p = 0 there) and is elided, as in the reference.
-        alpha32 = alpha.to(f32)
-        x_new = x + alpha32 * p
-        r_new = r - alpha32 * ap
+        with scope("pcg_vector_update"):
+            alpha32 = alpha.to(f32)
+            x_new = x + alpha32 * p
+            r_new = r - alpha32 * ap
 
         with scope("pcg_precondition"):
             z = model.apply_preconditioner(block_inverse, r_new)
-        res_new = torch.sqrt(rdot(r_new, r_new))
-        rho_new = rdot(r_new, z)
-        rho_small = rho.abs() < _BREAKDOWN_TOL
-        beta = rho_new / torch.where(rho_small, 1.0, rho)
+        with scope("pcg_dots"):
+            res_new = torch.sqrt(rdot(r_new, r_new))
+            rho_new = rdot(r_new, z)
+            rho_small = rho.abs() < _BREAKDOWN_TOL
+            beta = rho_new / torch.where(rho_small, 1.0, rho)
+            conds = (res_new <= tolerance, denom_small, rho_small)
 
-        conv, denom_bd, rho_bd = _flags(
-            res_new <= tolerance, denom_small, rho_small
-        )
-        rho_bd = rho_bd and not conv
-        stop = conv or denom_bd or rho_bd
-        if not denom_bd:
-            x, r, residual_norm, alpha_last = x_new, r_new, res_new, alpha
-            iteration += 1
-        if not stop:
-            p = (z + beta.to(f32) * p).masked_fill(bc, 0.0)
-            rho, beta_last = rho_new, beta
-        converged = conv
-        breakdown = denom_bd or rho_bd
+        with scope("pcg_host_sync"):
+            conv, denom_bd, rho_bd = _flags(*conds)
+            rho_bd = rho_bd and not conv
+            stop = conv or denom_bd or rho_bd
+            if not denom_bd:
+                x, r, residual_norm, alpha_last = x_new, r_new, res_new, alpha
+                iteration += 1
+            converged = conv
+            breakdown = denom_bd or rho_bd
+            if not stop:
+                with scope("pcg_vector_update"):
+                    p = (z + beta.to(f32) * p).masked_fill(bc, 0.0)
+                rho, beta_last = rho_new, beta
 
     telemetry = PcgTelemetry(
         iterations=iteration,
@@ -331,11 +346,12 @@ def solve_pcg_fused(
     residual_norm = torch.sqrt(rr0)
     delta_small = delta0.abs() < _BREAKDOWN_TOL
     alpha = gamma / torch.where(delta_small, 1.0, delta0)
-    converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
-    breakdown = (not converged) and delta_bd
-
-    p = u.masked_fill(bc, 0.0).to(f32)
-    s = w.masked_fill(bc, 0.0).to(f32)
+    with scope("pcg_host_sync"):
+        converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
+        breakdown = (not converged) and delta_bd
+        with scope("pcg_vector_update"):
+            p = u.masked_fill(bc, 0.0).to(f32)
+            s = w.masked_fill(bc, 0.0).to(f32)
     alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
     beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
 
@@ -345,9 +361,10 @@ def solve_pcg_fused(
     dots_fn = getattr(model, "apply_pc_keff_dots", None)
     iteration = 0
     while iteration < max_iterations and not converged and not breakdown:
-        alpha32 = alpha.to(f32)
-        x = x + alpha32 * p
-        r = r - alpha32 * s
+        with scope("pcg_vector_update"):
+            alpha32 = alpha.to(f32)
+            x = x + alpha32 * p
+            r = r - alpha32 * s
         # constrained axes: p and s are zero there by recurrence, so x stays
         # = rhs and r stays = 0 bit for bit (the reference's elided clamp)
         with scope("pcg_pc_matvec_dots"):
@@ -365,28 +382,29 @@ def solve_pcg_fused(
                 gamma_new, delta, rr = fused_dots(
                     [(r, u), (w, u), (r, r)], rdt, psum
                 )
-        residual_norm = torch.sqrt(rr)
+        with scope("pcg_scalars"):
+            residual_norm = torch.sqrt(rr)
+            gamma_small = gamma.abs() < _BREAKDOWN_TOL
+            beta = gamma_new / torch.where(gamma_small, 1.0, gamma)
+            alpha_denom = delta - beta * gamma_new / torch.where(
+                alpha.abs() < _BREAKDOWN_TOL, 1.0, alpha
+            )
+            denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
+            alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
+            conds = (residual_norm <= tolerance, gamma_small, denom_small)
 
-        gamma_small = gamma.abs() < _BREAKDOWN_TOL
-        beta = gamma_new / torch.where(gamma_small, 1.0, gamma)
-        alpha_denom = delta - beta * gamma_new / torch.where(
-            alpha.abs() < _BREAKDOWN_TOL, 1.0, alpha
-        )
-        denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
-        alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
-
-        conv, g_bd, d_bd = _flags(
-            residual_norm <= tolerance, gamma_small, denom_small
-        )
-        alpha_last = alpha  # the step just applied
-        iteration += 1
-        converged = conv
-        breakdown = (not conv) and (g_bd or d_bd)
-        if not (converged or breakdown):
-            beta32 = beta.to(f32)
-            p = (u + beta32 * p).masked_fill(bc, 0.0)
-            s = (w + beta32 * s).to(f32).masked_fill(bc, 0.0)
-            gamma, alpha, beta_last = gamma_new, alpha_new, beta
+        with scope("pcg_host_sync"):
+            conv, g_bd, d_bd = _flags(*conds)
+            alpha_last = alpha  # the step just applied
+            iteration += 1
+            converged = conv
+            breakdown = (not conv) and (g_bd or d_bd)
+            if not (converged or breakdown):
+                with scope("pcg_vector_update"):
+                    beta32 = beta.to(f32)
+                    p = (u + beta32 * p).masked_fill(bc, 0.0)
+                    s = (w + beta32 * s).to(f32).masked_fill(bc, 0.0)
+                gamma, alpha, beta_last = gamma_new, alpha_new, beta
 
     telemetry = PcgTelemetry(
         iterations=iteration,
@@ -481,7 +499,8 @@ def solve_pcg_pipelined(
     # pre-loop check: an already-converged x0 (or max_iterations = 0)
     # reports the true initial residual and skips the loop
     residual_norm = torch.sqrt(rr0)
-    (converged,) = _flags(residual_norm <= tolerance)
+    with scope("pcg_host_sync"):
+        (converged,) = _flags(residual_norm <= tolerance)
     breakdown = False
 
     p = torch.zeros_like(r)
@@ -511,11 +530,12 @@ def solve_pcg_pipelined(
         denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
         alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
 
-        conv, g_bd, d_bd = _flags(
-            residual_norm <= tolerance, gamma_small, denom_small
-        )
-        converged = conv
-        breakdown = (not conv) and (g_bd or d_bd)
+        with scope("pcg_host_sync"):
+            conv, g_bd, d_bd = _flags(
+                residual_norm <= tolerance, gamma_small, denom_small
+            )
+            converged = conv
+            breakdown = (not conv) and (g_bd or d_bd)
         if converged or breakdown:
             break
         beta32, alpha32 = beta.to(f32), alpha_new.to(f32)
@@ -596,8 +616,9 @@ def _solve_pcg_megafused(
     residual_norm = torch.sqrt(rr0)
     delta_small = delta0.abs() < _BREAKDOWN_TOL
     alpha = gamma / torch.where(delta_small, 1.0, delta0)
-    converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
-    breakdown = (not converged) and delta_bd
+    with scope("pcg_host_sync"):
+        converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
+        breakdown = (not converged) and delta_bd
 
     # x, u (and p) are this loop's own tensors: K6 updates them in place
     carries = (x, r, u, w, torch.zeros_like(x), torch.zeros_like(x))
@@ -621,13 +642,14 @@ def _solve_pcg_megafused(
         denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
         alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
 
-        conv, g_bd, d_bd = _flags(
-            residual_norm <= tolerance, gamma_small, denom_small
-        )
-        alpha_last = alpha  # the step just applied
-        iteration += 1
-        converged = conv
-        breakdown = (not conv) and (g_bd or d_bd)
+        with scope("pcg_host_sync"):
+            conv, g_bd, d_bd = _flags(
+                residual_norm <= tolerance, gamma_small, denom_small
+            )
+            alpha_last = alpha  # the step just applied
+            iteration += 1
+            converged = conv
+            breakdown = (not conv) and (g_bd or d_bd)
         if not (converged or breakdown):
             gamma, alpha, beta, beta_last = gamma_new, alpha_new, beta_new, beta_new
 

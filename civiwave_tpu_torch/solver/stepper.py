@@ -20,7 +20,9 @@ nothing is rebuilt when they change except the hoisted preconditioner,
 which depends on dt.  ``NewmarkStepper.save_checkpoint`` /
 ``restore_checkpoint`` carry a run across processes
 (``utils/checkpoint.py``).  Under a torch.profiler trace the phases are
-the reference's named ranges (``utils/profiling.py``).
+the reference's named ranges (``utils/profiling.py``), and a frame's
+preconditioner build and telemetry read the ranges ``pc_build`` and
+``telemetry_read``.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch
 from ..config.schema import SolverSettings, TimeSettings
 from ..mesh.pack import SimState
 from ..physics.materials import RayleighCoefficients
+from ..utils import profiling
 from ..utils.profiling import scope
 from .pcg import PcgTelemetry, resolve_variant, solve_pcg
 
@@ -50,7 +53,12 @@ class AdaptivePolicy:
 
 @dataclass
 class StepTelemetry:
-    """Host-side per-frame telemetry (newmark_stepper.hpp:68-79)."""
+    """Host-side per-frame telemetry (newmark_stepper.hpp:68-79).
+
+    ``Simulation.run`` fills the last three: the frame's host syncs
+    (``utils.profiling.host_syncs``, its increase over the frame) and the
+    frame's start and end on the host, ``time.time_ns()`` (Unix-epoch
+    nanoseconds, the clock of torch.profiler's events)."""
 
     simulation_time: float
     time_step: float
@@ -67,6 +75,9 @@ class StepTelemetry:
     pcg_beta_last: float = 0.0
     pcg_converged: bool = False
     pcg_breakdown: bool = False
+    host_syncs: int = 0
+    host_start_ns: int = 0
+    host_end_ns: int = 0
 
 
 class StepOut(NamedTuple):
@@ -307,16 +318,17 @@ class NewmarkStepper:
             else self.solver_settings.runtime_tolerance
         )
         if self._precond_dt != self.current_dt:
-            ss, mf = effective_scalars(
-                self.current_dt,
-                self.rayleigh.alpha,
-                self.rayleigh.beta,
-                self.newmark_beta,
-                self.newmark_gamma,
-                vector_precision=self.vector_precision,
-            )
-            self._precond = self.model.build_preconditioner(ss, mf)
-            self._precond_dt = self.current_dt
+            with scope("pc_build"):
+                ss, mf = effective_scalars(
+                    self.current_dt,
+                    self.rayleigh.alpha,
+                    self.rayleigh.beta,
+                    self.newmark_beta,
+                    self.newmark_gamma,
+                    vector_precision=self.vector_precision,
+                )
+                self._precond = self.model.build_preconditioner(ss, mf)
+                self._precond_dt = self.current_dt
         out = newmark_step(
             self.model,
             self.state,
@@ -338,26 +350,28 @@ class NewmarkStepper:
         )
         self.state = out.state
         pcg = out.pcg
-        residual, rhs_norm, alpha_last, beta_last = torch.stack(
-            [pcg.residual_norm, pcg.rhs_norm, pcg.alpha_last, pcg.beta_last]
-        ).tolist()
+        with scope("telemetry_read"):
+            residual, rhs_norm, alpha_last, beta_last = profiling.to_host(
+                torch.stack([pcg.residual_norm, pcg.rhs_norm, pcg.alpha_last,
+                             pcg.beta_last])
+            ).tolist()
 
-        telemetry = StepTelemetry(
-            simulation_time=simulation_time_seconds,
-            time_step=self.current_dt,
-            applied_tolerance=tolerance,
-            paused_mode=paused_mode,
-            pcg_iterations=pcg.iterations,
-            pcg_residual_norm=residual,
-            pcg_rhs_norm=rhs_norm,
-            pcg_alpha_last=alpha_last,
-            pcg_beta_last=beta_last,
-            pcg_converged=pcg.converged,
-            pcg_breakdown=pcg.breakdown,
-        )
-        self._adapt_timestep(telemetry)
-        self.frame_index += 1
-        self.accumulated_time = simulation_time_seconds + self.current_dt
+            telemetry = StepTelemetry(
+                simulation_time=simulation_time_seconds,
+                time_step=self.current_dt,
+                applied_tolerance=tolerance,
+                paused_mode=paused_mode,
+                pcg_iterations=pcg.iterations,
+                pcg_residual_norm=residual,
+                pcg_rhs_norm=rhs_norm,
+                pcg_alpha_last=alpha_last,
+                pcg_beta_last=beta_last,
+                pcg_converged=pcg.converged,
+                pcg_breakdown=pcg.breakdown,
+            )
+            self._adapt_timestep(telemetry)
+            self.frame_index += 1
+            self.accumulated_time = simulation_time_seconds + self.current_dt
         return telemetry
 
     def _adapt_timestep(self, telemetry: StepTelemetry) -> None:
@@ -475,7 +489,7 @@ class NewmarkStepper:
             vector = gather(self.model, vector, dst)
             if vector is None:
                 return None
-        return self.model.to_nodal(vector).cpu().numpy()
+        return profiling.to_host(self.model.to_nodal(vector)).numpy()
 
     def host_kinematics(self, dst: int = 0):
         """(u, v, a) nodal rows on rank ``dst`` of a shard (None on the

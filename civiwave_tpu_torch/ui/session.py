@@ -34,6 +34,7 @@ from ..mesh.pack import SimState
 from ..physics import materials as materials_mod
 from ..post.derived import DerivedFieldSet, compute_derived_fields
 from ..solver.stepper import StepTelemetry
+from ..utils import profiling
 from ..utils.vec3 import magnitude, safe_normalize
 
 _FIELDS = ("displacement", "velocity", "acceleration", "warm_x")
@@ -98,7 +99,7 @@ class InteractiveSession:
             direction = safe_normalize(direction)
         load = (direction * request.magnitude_newtons).astype(np.float32)
 
-        rows = self._model.to_nodal(self._baseline_force).cpu().numpy()
+        rows = profiling.to_host(self._model.to_nodal(self._baseline_force)).numpy()
         rows = rows.astype(np.float32)
         rows[node] += load
         return self._model.from_nodal(rows).to(self._baseline_force.dtype)

@@ -30,6 +30,7 @@ from typing import List, Optional
 import torch
 
 from ..mesh.pack import SimState
+from . import profiling
 from .errors import CwfError
 
 _FIELDS = ("displacement", "velocity", "acceleration", "warm_x")
@@ -63,7 +64,7 @@ class CheckpointManager:
         the file written on the worker thread (joined when ``wait``)."""
         self.wait()
         payload = {
-            name: getattr(state, name).detach().to("cpu", copy=True)
+            name: profiling.to_host(getattr(state, name).detach(), copy=True)
             for name in _FIELDS
         }
         payload["current_dt"] = float(current_dt)
