@@ -20,7 +20,10 @@ Phases, each printing its result:
 4. structured main path at full width — ``build_simulation`` on the
    255^3-cell steel cantilever (50,331,648 DOF) — for 8 frames on the
    'auto' (fused) PCG and 2 on 'classic': every frame converged, the state
-   is finite and every kernel was launched;
+   is finite, every kernel was launched and U1 (the fused loop's direction
+   update) once per fused PCG iteration; then U1 against its plain version
+   at (3, 256, 256, 256), f32 and f64, first and later calls, bit for bit,
+   and timed;
 4b. the megafused main path (``CIVIWAVE_MEGA_PCG=1``, set for this phase
    only): the same 255^3 cantilever for 8 'auto' frames, one K6 launch per
    PCG iteration: every frame converged, iterations within +-1 of phase
@@ -279,6 +282,11 @@ KERNEL_BYTES_PER_NODE = {"keff": 27, "bj": 27, "pc": 39, "k6": 147}
 # class-table product; K2 both plus its three dot partials; K6 that plus the
 # p/s recurrence and the x/r axpys (4 multiply-adds per component)
 KERNEL_FLOPS_PER_NODE = {"keff": 498, "bj": 15, "pc": 531, "k6": 560}
+# U1 (the fused loop's direction update): x, r, p, s, u and w read and x,
+# r, p and s written once (12 B a node each in f32, 24 in f64) and the mask
+# (3 B); 24 operations a node (a product and a sum for each of p, s, x, r)
+U1_BYTES_PER_NODE = {torch.float32: 123, torch.float64: 243}
+U1_FLOPS_PER_NODE = 24
 MEGA = "CIVIWAVE_MEGA_PCG"  # the opt-in switch of the whole-iteration path
 HBM_TBPS = 3.35  # H100 SXM published device-memory bandwidth at 700 W
 F32_TFLOPS = 67.0  # H100 SXM published f32 rate outside the tensor cores
@@ -529,6 +537,7 @@ def kernel_phase(device):
 def main_path_phase(device):
     """Phase 4: the port's main path at full width."""
     from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import pcg_vector_update as u1
     from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
     from civiwave_tpu_torch.runner import build_simulation
     from civiwave_tpu_torch.utils.synthetic import cantilever_config
@@ -549,6 +558,8 @@ def main_path_phase(device):
     k12.apply_keff_fused.launches = 0
     k12.apply_pc_keff_fused.launches = 0
     k3.apply_block_jacobi.launches = 0
+    u1.cg_direction_update.launches = 0
+    u1.cg_direction_update.launches_f64 = 0
     reset_g3_counts()
 
     frame_s, telemetries = [], []
@@ -560,6 +571,14 @@ def main_path_phase(device):
             torch.cuda.synchronize()
             frame_s.append(time.perf_counter() - t0)
         if variant == "auto":  # the fused frames' result, for 4b and 15
+            # U1: one launch per iteration of the fused loop, f32 only
+            u1_launches = u1.cg_direction_update.launches
+            fused_iters = sum(t.pcg_iterations for t in telemetries)
+            if (u1_launches != fused_iters
+                    or u1.cg_direction_update.launches_f64):
+                fail(f"main path: U1 launched {u1_launches} times (f64 "
+                     f"{u1.cg_direction_update.launches_f64}) over "
+                     f"{fused_iters} fused PCG iterations")
             u8 = sim.stepper.state.displacement
             split = dict(tip=u8[2, FULL[0]].clone(), umax=float(u8.abs().max()),
                          u=u8.cpu(), a=sim.stepper.state.acceleration.cpu())
@@ -568,7 +587,10 @@ def main_path_phase(device):
         "keff": k12.apply_keff_fused.launches,
         "pc": k12.apply_pc_keff_fused.launches,
         "bj": k3.apply_block_jacobi.launches,
+        "u1": u1_launches,
     }
+    if u1.cg_direction_update.launches != u1_launches:
+        fail("main path: the classic frames launched U1")
     peak = torch.cuda.max_memory_allocated()
     iters = [t.pcg_iterations for t in telemetries]
     if not all(t.pcg_converged for t in telemetries):
@@ -603,7 +625,67 @@ def main_path_phase(device):
           flush=True)
     del sim, state
     torch.cuda.empty_cache()
+    split["u1"] = direction_update_check(device)
     return launches, split
+
+
+def direction_update_check(device):
+    """Phase 4's U1 block: the fused loop's direction update against its
+    plain version (the torch composition it replaced) at the main path's
+    shape (3, 256, 256, 256) on a random mask, f32 and f64, a solve's first
+    call and a later one, bit for bit (every value's bits, so -0.0 against
+    +0.0 counts), and both timed with CUDA events (later calls, in place
+    on copies; the first call's time beside them)."""
+    from civiwave_tpu_torch.ops.cuda import pcg_vector_update as u1
+
+    shape = (3, *(n + 1 for n in FULL))
+    nodes = int(np.prod(shape[1:]))
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    bc = torch.rand(shape, generator=gen, device=device) < 0.3
+    alpha = torch.tensor(0.37134791250387, dtype=torch.float64, device=device)
+    beta = torch.tensor(-0.61927358129, dtype=torch.float64, device=device)
+    result = {}
+    for dtype, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+        bits = torch.int32 if dtype == torch.float32 else torch.int64
+        vecs = [torch.randn(shape, generator=gen, device=device, dtype=dtype)
+                for _ in range(6)]
+        x, r, p, s, u, w = vecs
+        for call, b in (("first", None), ("later", beta)):
+            ref = u1.cg_direction_update_plain(bc, x, r, p, s, u, w, alpha, b, dtype)
+            got = u1.cg_direction_update(
+                bc, x.clone(), r.clone(), p.clone(), s.clone(), u, w, alpha, b,
+                dtype)
+            torch.cuda.synchronize()
+            for name, g, want in zip("xrps", got, ref):
+                if not torch.equal(g.view(bits), want.view(bits)):
+                    fail(f"U1 {label} {call} call 255^3: {name} differs from "
+                         f"the plain version in {int((g != want).sum()):,} of "
+                         f"{g.numel():,} values")
+            del ref, got
+        work = [x.clone(), r.clone(), p.clone(), s.clone()]
+
+        def later():
+            u1.cg_direction_update(bc, *work, u, w, alpha, beta, dtype)
+
+        def first():
+            u1.cg_direction_update(bc, work[0], work[1], None, None, u, w,
+                                   alpha, None, dtype)
+
+        ms = time_ms(later, 20)
+        ms_first = time_ms(first, 20)
+        plain_ms = time_ms(lambda: u1.cg_direction_update_plain(
+            bc, x, r, p, s, u, w, alpha, beta, dtype), 3)
+        least = U1_BYTES_PER_NODE[dtype] * nodes
+        tflops = F32_TFLOPS if dtype == torch.float32 else F64_TFLOPS
+        print(f"U1 {label} 255^3: first and later calls bit-equal to the plain "
+              f"version", flush=True)
+        result[label] = report_time(
+            f"255^3 U1 {label}", "x".join(map(str, shape)), ms, plain_ms,
+            least, U1_FLOPS_PER_NODE * nodes, tflops=tflops)
+        result[label]["ms_first"] = ms_first
+        del vecs, x, r, p, s, u, w, work
+        torch.cuda.empty_cache()
+    return result
 
 
 def structured_counts():
@@ -5476,6 +5558,19 @@ def main() -> int:
              ms=times["k6"][0], plain_ms=times["k6"][1],
              **structured_bound("k6"),
              launches_static=static_launches("k6")),
+        # U1, the fused loop's direction update (phase 4's U1 block at
+        # (3, 256, 256, 256)): bit-equal to its plain version (errors 0), its
+        # time on later calls with the first call's beside it, launches on
+        # the main path's 8 fused frames (one per PCG iteration)
+        dict(name="cg_direction_update", route="cuda",
+             source=src + "pcg_vector_update.cu",
+             replaces="civiwave_tpu/solver/pcg.py:484", launches=launches["u1"],
+             max_abs_err=0.0, max_rel_err=0.0, tol=0.0, bit_equal=True,
+             **split["u1"]["f32"],
+             ms_f64=split["u1"]["f64"]["ms"],
+             ms_first_f64=split["u1"]["f64"]["ms_first"],
+             plain_ms_f64=split["u1"]["f64"]["plain_ms"],
+             bound_ms_f64=split["u1"]["f64"]["bound_ms"]),
         dict(name="element_forces_hex", route="cuda",
              source=src + "element_forces.cu",
              replaces=pallas + "element_forces.py:125",

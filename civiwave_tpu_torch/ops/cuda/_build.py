@@ -45,6 +45,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 
 # C entry points and their argument types (each returns the cudaError_t
 # of its launch as an int).  An ``_f64`` entry is the f64 instance of the
@@ -124,6 +125,10 @@ _SIGNATURES = {
     "civi_corner_gather_f64": (
         *(_P,) * 19, *(_I,) * 12, _D, _D, *(_I,) * 8, _P,
     ),
+    # x, r, p, s (updated in place), u, w, bc, alpha, beta (0-d device
+    # scalars; beta NULL on a solve's first call), scalars_f64, n, stream
+    "civi_cg_direction_update": (*(_P,) * 9, _I, _L, _P),
+    "civi_cg_direction_update_f64": (*(_P,) * 9, _I, _L, _P),
 }
 
 
@@ -221,7 +226,7 @@ def load_library() -> KernelLibrary:
 def instance(name: str, dtype) -> str:
     """The C entry point of kernel ``name``'s instance for vectors of
     ``dtype``: ``name`` for torch.float32, ``name + "_f64"`` for
-    torch.float64 (the five kernels with a double instance); any other
+    torch.float64 (the kernels with a double instance); any other
     dtype raises TypeError."""
     if dtype == torch.float32:
         return name

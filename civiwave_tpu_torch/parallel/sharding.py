@@ -492,10 +492,13 @@ def _row_shard(model, s: int, n: int, window):
     def cut(t):
         return None if t is None else t[rows]
 
+    # the mask's rows of their own: a view starts s L * 3 bytes in, and the
+    # fused PCG loop's direction update reads the mask as 4-byte words
     return dataclasses.replace(
         model if window is None else _without_elements(window),
         position0=cut(model.position0), lumped_mass=cut(model.lumped_mass),
-        bc_mask=cut(model.bc_mask), bc_value=cut(model.bc_value),
+        bc_mask=_own(cut(model.bc_mask), model.bc_mask.device),
+        bc_value=cut(model.bc_value),
         damp_blocks=cut(model.damp_blocks), damp_factor=None,
         shard_row0=s * L, local_rows=L, shard_window=window,
     )

@@ -33,10 +33,10 @@ inside it ``load_update`` (the curve loads re-evaluated and set),
 ``output_frame`` and ``checkpoint_save``; in each PCG iteration
 ``pcg_matvec`` / ``pcg_pc_matvec_dots``, ``pcg_dots``, ``pcg_scalars``,
 ``pcg_vector_update`` (the axpys, the p/s update) and ``pcg_host_sync``
-(the flag read, the branching on it and the p/s update it decides, from
-the sync to the device's next launch); each launch of the kernel
-library is an operator range named by its C entry, so the ranges' device
-time holds the kernels.  ``--telemetry-json FILE`` writes one object per
+(the flag read, the branching on it and, in the classic loop, the p
+update it decides, from the sync to the device's next launch); each
+launch of the kernel library is an operator range named by its C entry,
+so the ranges' device time holds the kernels.  ``--telemetry-json FILE`` writes one object per
 frame (``StepTelemetry``) with ``host_syncs``, the points in the frame
 where the host waited for the device (``utils.profiling.host_syncs``:
 the solver's flag and telemetry reads, the general path's load upload,

@@ -29,10 +29,11 @@ Under a torch.profiler trace the loops open the reference's named ranges
 (``pcg_matvec``, ``pcg_precondition``, ``pcg_pc_matvec``, ...;
 ``utils/profiling.scope``), and nothing otherwise.  Every flag read is
 one ``profiling.host_syncs`` and sits in a ``pcg_host_sync`` range with
-the host's branching on it; in the classic and fused loops that range
-also holds the p (and s) update the flags decide, as the nested range
-``pcg_vector_update``, so that it lasts from the sync to the device's next
-launch, and every other line of an iteration sits in a range of its own
+the host's branching on it; in the classic loop that range also holds the
+p update the flags decide, as the nested range ``pcg_vector_update``, so
+that it lasts from the sync to the device's next launch (the fused loop
+runs its p/s update at the top of the next iteration, with the axpys),
+and every other line of an iteration sits in a range of its own
 (``pcg_dots``, ``pcg_scalars``, ``pcg_vector_update`` for the axpys): the
 host's time between the device's kernels has a name.
 """
@@ -43,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops.cuda.pcg_vector_update import cg_direction_update
 from ..utils import profiling
 from ..utils.profiling import scope
 
@@ -298,9 +300,13 @@ def solve_pcg_fused(
     K2 launch (``model.apply_pc_keff_dots``); a model without that method
     (the general path), or whose method returns None (absorbing faces, the
     slender route), composes ``apply_pc_keff`` and :func:`fused_dots`.
-    With ``CIVIWAVE_MEGA_PCG=1`` a model that builds a whole-iteration
-    bundle (the structured model) runs :func:`_solve_pcg_megafused`
-    instead: the whole iteration is one K6 launch on CUDA.
+    The p/s recurrence an iteration decides runs at the top of the next,
+    with that iteration's x/r axpys: one ``cg_direction_update`` pass
+    (``ops/cuda/pcg_vector_update``, in place on CUDA), which a stop never
+    launches.  With ``CIVIWAVE_MEGA_PCG=1`` a model that builds a
+    whole-iteration bundle (the structured model) runs
+    :func:`_solve_pcg_megafused` instead: the whole iteration is one K6
+    launch on CUDA.
     """
     f32 = vector_dtype
     rdt = reduction_dtype
@@ -349,9 +355,6 @@ def solve_pcg_fused(
     with scope("pcg_host_sync"):
         converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
         breakdown = (not converged) and delta_bd
-        with scope("pcg_vector_update"):
-            p = u.masked_fill(bc, 0.0).to(f32)
-            s = w.masked_fill(bc, 0.0).to(f32)
     alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
     beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
 
@@ -359,12 +362,13 @@ def solve_pcg_fused(
     # model has it (the structured K2 kernel), else composed (also where
     # the model's method declines with None)
     dots_fn = getattr(model, "apply_pc_keff_dots", None)
+    # p and s are made by the first update (from u and w, no beta); each
+    # later one applies the p/s recurrence the previous iteration decided
+    p = s = beta = None
     iteration = 0
     while iteration < max_iterations and not converged and not breakdown:
         with scope("pcg_vector_update"):
-            alpha32 = alpha.to(f32)
-            x = x + alpha32 * p
-            r = r - alpha32 * s
+            x, r, p, s = cg_direction_update(bc, x, r, p, s, u, w, alpha, beta, f32)
         # constrained axes: p and s are zero there by recurrence, so x stays
         # = rhs and r stays = 0 bit for bit (the reference's elided clamp)
         with scope("pcg_pc_matvec_dots"):
@@ -385,8 +389,8 @@ def solve_pcg_fused(
         with scope("pcg_scalars"):
             residual_norm = torch.sqrt(rr)
             gamma_small = gamma.abs() < _BREAKDOWN_TOL
-            beta = gamma_new / torch.where(gamma_small, 1.0, gamma)
-            alpha_denom = delta - beta * gamma_new / torch.where(
+            beta_new = gamma_new / torch.where(gamma_small, 1.0, gamma)
+            alpha_denom = delta - beta_new * gamma_new / torch.where(
                 alpha.abs() < _BREAKDOWN_TOL, 1.0, alpha
             )
             denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
@@ -400,11 +404,7 @@ def solve_pcg_fused(
             converged = conv
             breakdown = (not conv) and (g_bd or d_bd)
             if not (converged or breakdown):
-                with scope("pcg_vector_update"):
-                    beta32 = beta.to(f32)
-                    p = (u + beta32 * p).masked_fill(bc, 0.0)
-                    s = (w + beta32 * s).to(f32).masked_fill(bc, 0.0)
-                gamma, alpha, beta_last = gamma_new, alpha_new, beta
+                gamma, alpha, beta, beta_last = gamma_new, alpha_new, beta_new, beta_new
 
     telemetry = PcgTelemetry(
         iterations=iteration,

@@ -155,6 +155,23 @@ def test_in_process_shards_match_the_reference_operator(case):
     np.testing.assert_array_equal(out[off], plain[off])
 
 
+@pytest.mark.parametrize("shards", [2, 4])
+def test_row_shards_own_their_mask_rows(shards):
+    """The all-gather form's shards (no plan): each rank's mask rows in a
+    buffer of their own, which the fused loop's direction update reads as
+    4-byte words.  At 424 padded nodes over 4 ranks a view of rank 1's rows
+    would start 318 bytes in."""
+    tm = to_port_packed(_jax_fixture(*FIXTURES["tet"], pad=8))
+    L = tm.padded_node_count // shards
+    for s in range(shards):
+        local = sharding._row_shard(tm, s, shards, None)
+        assert local.bc_mask.data_ptr() % 16 == 0
+        assert local.bc_mask.is_contiguous()
+        assert torch.equal(local.bc_mask, tm.bc_mask[s * L:(s + 1) * L])
+        assert local.bc_mask.untyped_storage().data_ptr() != (
+            tm.bc_mask.untyped_storage().data_ptr())
+
+
 def test_convert_carries_the_reference_plan():
     """The reference's plan, attached as its shard_simulation attaches it,
     crosses ``convert``; the shards cut from it give what the port's own

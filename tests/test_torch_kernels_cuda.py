@@ -17,7 +17,11 @@ refusing a heterogeneous grid, and a heterogeneous cantilever on the
 card against the CPU; G3 on the slabs and tiles of a heterogeneous grid
 (its plane range, ghost planes, rows and cells) against its plain shard
 version and, gathered, against the whole-grid G3, and a heterogeneous
-cantilever on one-rank shards.
+cantilever on one-rank shards.  The fused loop's direction update
+against its plain version bit for bit (f32 and f64, first and later calls,
+random masks, lengths that are not a multiple of 4 or below 4; buffers
+off a 16-byte boundary refused), and a fused solve with it against the
+solve with the plain update.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -55,10 +59,12 @@ from civiwave_tpu_torch.ops.cuda import element_forces as k7
 from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
 from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
 from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
+from civiwave_tpu_torch.ops.cuda import pcg_vector_update as cgu
 from civiwave_tpu_torch.ops.cuda import plane_sweep
 from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 from civiwave_tpu_torch.physics import materials
 from civiwave_tpu_torch.runner import build_simulation
+from civiwave_tpu_torch.solver import pcg as tpcg
 from civiwave_tpu_torch.utils.synthetic import (
     box_mesh,
     cantilever_config,
@@ -298,6 +304,108 @@ def test_small_cantilever_runs_megafused_on_the_card(device, monkeypatch):
     np.testing.assert_allclose(
         ug.numpy(), uc.numpy(), rtol=0, atol=2.5e-4 * float(uc.abs().max())
     )
+
+
+# the direction update's layouts: a structured (3, X, Y, Z) vector (length
+# a multiple of 4, four blocks), general (N, 3) rows of odd N (a scalar
+# tail) and a single row (the tail alone)
+UPDATE_LAYOUTS = {"structured": (3, 9, 10, 12), "rows_37": (37, 3),
+                  "rows_1": (1, 3)}
+
+
+def _update_inputs(device, layout, dtype, seed=11):
+    shape = UPDATE_LAYOUTS[layout]
+    g = torch.Generator().manual_seed(seed)
+
+    def vec():
+        return torch.randn(shape, generator=g, dtype=torch.float64).to(dtype).to(device)
+
+    bc = (torch.rand(shape, generator=g) < 0.3).to(device)
+    x, r, p, s, u, w = (vec() for _ in range(6))
+    u[bc] = float("nan")  # a select writes +0.0 there whatever u holds
+    return bc, x, r, p, s, u, w
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("call", ["first", "later", "beta0", "f32_scalars"])
+@pytest.mark.parametrize("layout", sorted(UPDATE_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_direction_update_kernel_matches_plain(device, dtype, layout, call):
+    """The kernel writes x, r, p and s in place with the plain version's
+    bits (+0.0 on constrained components), from 0-d device scalars."""
+    bc, x, r, p, s, u, w = _update_inputs(device, layout, dtype)
+    sdt = torch.float32 if call == "f32_scalars" else torch.float64
+    alpha = torch.tensor(0.37134791250387, dtype=sdt, device=device)
+    beta = {"first": None, "beta0": torch.zeros((), dtype=sdt, device=device)}.get(
+        call, torch.tensor(-0.61927358129, dtype=sdt, device=device))
+    ref = cgu.cg_direction_update_plain(bc, x, r, p, s, u, w, alpha, beta, dtype)
+    xk, rk, pk, sk = x.clone(), r.clone(), p.clone(), s.clone()
+    counter = "launches" if dtype == torch.float32 else "launches_f64"
+    before = getattr(cgu.cg_direction_update, counter)
+    out = cgu.cg_direction_update(bc, xk, rk, pk, sk, u, w, alpha, beta, dtype)
+    torch.cuda.synchronize()
+    assert getattr(cgu.cg_direction_update, counter) == before + 1
+    assert out[0] is xk and out[1] is rk
+    if call != "first":
+        assert out[2] is pk and out[3] is sk
+    for got, want in zip(out, ref):
+        assert torch.equal(_bits(got), _bits(want))
+    assert not _bits(out[2])[bc].any() and not _bits(out[3])[bc].any()
+
+
+def test_direction_update_refuses_wrong_inputs(device):
+    bc, x, r, p, s, u, w = _update_inputs(device, "structured", torch.float32)
+    alpha = beta = torch.tensor(0.5, dtype=torch.float64, device=device)
+    args = dict(bc=bc, x=x, r=r, p=p, s=s, u=u, w=w, alpha=alpha, beta=beta,
+                dtype=torch.float32)
+    for key, bad, error in (
+            ("x", x.transpose(1, 2), ValueError),  # not contiguous
+            ("u", u.double(), TypeError),  # mixed dtypes
+            ("w", w[:, :, :, :4].contiguous(), ValueError),  # shape
+            ("s", s.reshape(-1), ValueError),
+            ("bc", bc.to(torch.uint8), TypeError),
+            ("beta", beta.float(), TypeError),  # alpha's dtype
+            ("alpha", alpha.cpu(), ValueError),
+            # one value off a 16-byte boundary; the mask off a 4-byte one
+            ("x", torch.empty(x.numel() + 1, device=device)[1:].view(x.shape),
+             ValueError),
+            ("bc", torch.zeros(bc.numel() + 1, dtype=torch.bool,
+                               device=device)[1:].view(bc.shape), ValueError)):
+        with pytest.raises(error):
+            cgu.cg_direction_update(**{**args, key: bad})
+    with pytest.raises(TypeError):  # f32 and f64 instances only
+        cgu.cg_direction_update(**{**args, **{k: args[k].half() for k in "xrpsuw"},
+                                   "dtype": torch.float16})
+
+
+def test_fused_solve_with_the_update_kernel_matches_plain_update(device, monkeypatch):
+    """A fused solve of the small cantilever on the card: one update launch
+    per iteration, and the same x bit for bit and the same iterations as
+    the solve whose update is the torch composition on the same tensors."""
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120,
+                            mesh={"path": "synthetic://box/12,6,6"})
+    model = build_simulation(cfg, device=device).model
+    g = torch.Generator().manual_seed(4)
+    rhs = (1e3 * torch.randn(model.vector_shape, generator=g)).to(device)
+    x0 = (1e-6 * torch.randn(model.vector_shape, generator=g)).to(device)
+
+    def solve():
+        return tpcg.solve_pcg(model, rhs, SS, MF, 2e-4, 120, x0, variant="fused")
+
+    before = cgu.cg_direction_update.launches
+    x, tel = solve()
+    torch.cuda.synchronize()
+    launches = cgu.cg_direction_update.launches - before
+    monkeypatch.setattr(tpcg, "cg_direction_update", cgu.cg_direction_update_plain)
+    x_ref, tel_ref = solve()
+    assert tel.converged and tel.iterations > 3
+    assert launches == tel.iterations == tel_ref.iterations
+    assert torch.equal(_bits(x), _bits(x_ref))
+    for field in ("residual_norm", "alpha_last", "beta_last"):
+        assert torch.equal(getattr(tel, field), getattr(tel_ref, field)), field
 
 
 # --- slender route: K4 and G2 --------------------------------------------

@@ -4,7 +4,9 @@ tests/test_torch_pipelined.py), the 'auto' policy on the
 CPU, a zero right-hand side, max_iterations = 0 and the telemetry fields.
 Tolerances: iterations within +-1 (equality expected), solution at
 1e-4 * max|ref| (tests/test_pcg.py:313), dots at rtol 1e-6 (f32 chunk
-partials summed in another order).
+partials summed in another order).  The fused loop, whose p/s update runs
+at the top of the next iteration, against the form that updated p and s
+right after the flag read: bit for bit.
 """
 
 import functools
@@ -16,8 +18,11 @@ import torch
 import jax
 import jax.numpy as jnp
 from civiwave_tpu.solver import pcg as jpcg
+from civiwave_tpu_torch.mesh import pack, preprocess
+from civiwave_tpu_torch.physics import materials
 from civiwave_tpu_torch.solver import pcg as tpcg
 from civiwave_tpu_torch.solver.stepper import effective_scalars
+from civiwave_tpu_torch.utils.synthetic import box_mesh, cantilever_config
 
 from test_torch_structured import build_pair
 
@@ -179,3 +184,101 @@ def test_dots_match_reference():
     assert float(tpcg.dot_f64(
         torch.from_numpy(a), torch.from_numpy(b), torch.float32
     )) == pytest.approx(float(ref), rel=1e-5)
+
+
+def _fused_update_after_sync(model, rhs, ss, mf, rel_tol, max_it, x0):
+    """The Chronopoulos-Gear loop as it was before its p/s update moved to
+    the top of the next iteration: p and s updated right after the flag
+    read (the reference for the deferred form; no K6, f64 reductions, f32
+    vectors, warm start)."""
+    f32, rdt, bc = torch.float32, torch.float64, model.bc_mask
+    block_inverse = model.build_preconditioner(ss, mf)
+    x = x0
+    r = (rhs - model.apply_keff(x, ss, mf)).to(f32)
+    x, r = tpcg._clamp_dirichlet(model, rhs, x, r)
+    u, w = model.apply_pc_keff(block_inverse, r, ss, mf)
+    gamma, delta0, rr0, rhs2 = tpcg.fused_dots([(r, u), (w, u), (r, r), (rhs, rhs)], rdt)
+    rhs_norm_true = torch.sqrt(rhs2)
+    rhs_norm = torch.where(rhs_norm_true < tpcg._RHS_NORM_FLOOR, 1.0, rhs_norm_true)
+    tolerance = rel_tol * rhs_norm
+    residual_norm = torch.sqrt(rr0)
+    delta_small = delta0.abs() < tpcg._BREAKDOWN_TOL
+    alpha = gamma / torch.where(delta_small, 1.0, delta0)
+    converged, delta_bd = tpcg._flags(residual_norm <= tolerance, delta_small)
+    breakdown = (not converged) and delta_bd
+    p = u.masked_fill(bc, 0.0).to(f32)
+    s = w.masked_fill(bc, 0.0).to(f32)
+    alpha_last = torch.zeros((), dtype=rdt)
+    beta_last = torch.zeros((), dtype=rdt)
+    iteration = 0
+    while iteration < max_it and not converged and not breakdown:
+        alpha32 = alpha.to(f32)
+        x = x + alpha32 * p
+        r = r - alpha32 * s
+        u, w = model.apply_pc_keff(block_inverse, r, ss, mf)
+        gamma_new, delta, rr = tpcg.fused_dots([(r, u), (w, u), (r, r)], rdt)
+        residual_norm = torch.sqrt(rr)
+        gamma_small = gamma.abs() < tpcg._BREAKDOWN_TOL
+        beta = gamma_new / torch.where(gamma_small, 1.0, gamma)
+        alpha_denom = delta - beta * gamma_new / torch.where(
+            alpha.abs() < tpcg._BREAKDOWN_TOL, 1.0, alpha)
+        denom_small = alpha_denom.abs() < tpcg._BREAKDOWN_TOL
+        alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
+        conv, g_bd, d_bd = tpcg._flags(residual_norm <= tolerance, gamma_small,
+                                       denom_small)
+        alpha_last = alpha
+        iteration += 1
+        converged = conv
+        breakdown = (not conv) and (g_bd or d_bd)
+        if not (converged or breakdown):
+            beta32 = beta.to(f32)
+            p = (u + beta32 * p).masked_fill(bc, 0.0)
+            s = (w + beta32 * s).to(f32).masked_fill(bc, 0.0)
+            gamma, alpha, beta_last = gamma_new, alpha_new, beta
+    return x, tpcg.PcgTelemetry(iteration, residual_norm, rhs_norm_true,
+                                alpha_last, beta_last, converged, breakdown)
+
+
+def _general_problem(seed=5):
+    """A tet box on the general path: its load plus noise, clamped to the
+    fixed components' zero targets, and a small random start."""
+    cfg = cantilever_config()
+    mesh = box_mesh(5, 3, 3)
+    mats = [materials.make_properties(m) for m in cfg.materials]
+    model, _, force = pack.build_packed_model(
+        mesh, preprocess.run(mesh, cfg), cfg, mats, device="cpu")
+    rng = np.random.default_rng(seed)
+    rhs = force.numpy() + 1e3 * rng.standard_normal(force.shape).astype(np.float32)
+    rhs = np.where(model.bc_mask.numpy(), 0.0, rhs).astype(np.float32)
+    x0 = (1e-6 * rng.standard_normal(force.shape)).astype(np.float32)
+    return model, rhs, x0
+
+
+@pytest.mark.parametrize("case", ["structured", "general", "stops_at_setup",
+                                  "max_iterations"])
+def test_fused_deferred_update_is_bit_equal(case):
+    """The fused loop with its p/s update deferred to the top of the next
+    iteration gives the same x bit for bit, the same iterations and the
+    same telemetry as the update right after the flag read."""
+    tol, max_it = 1e-6, 200
+    if case == "general":
+        model, rhs, x0 = _general_problem()
+    else:
+        _, model, rhs, x0 = _problem()
+    if case == "stops_at_setup":
+        rhs, x0 = np.zeros_like(rhs), np.zeros_like(x0)
+    if case == "max_iterations":
+        tol, max_it = 1e-12, 5
+    rhs_t, x0_t = torch.from_numpy(rhs), torch.from_numpy(x0)
+    x, tel = tpcg.solve_pcg(model, rhs_t, SS, MF, tol, max_it, x0_t.clone(),
+                            variant="fused")
+    x_ref, tel_ref = _fused_update_after_sync(model, rhs_t, SS, MF, tol, max_it, x0_t)
+    assert torch.equal(x, x_ref)
+    assert (tel.iterations, tel.converged, tel.breakdown) == (
+        tel_ref.iterations, tel_ref.converged, tel_ref.breakdown)
+    for field in ("residual_norm", "rhs_norm", "alpha_last", "beta_last"):
+        assert torch.equal(getattr(tel, field), getattr(tel_ref, field)), field
+    want = {"structured": tel.iterations > 3, "general": tel.iterations > 3,
+            "stops_at_setup": tel.iterations == 0 and tel.converged,
+            "max_iterations": tel.iterations == 5 and not tel.converged}
+    assert want[case]
