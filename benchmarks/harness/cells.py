@@ -7,6 +7,10 @@ limits or one per-layer metric lives in a file of its own, found by name:
     benchmarks/traffic/<traffic>.json   the parameters of the load history
     benchmarks/limits/<cell>.json       the limits of the comparison
     benchmarks/metrics/<metric>.py      the reader of a per-layer metric
+    benchmarks/reference/materials/<config>.py
+                                        the configuration's own material
+                                        layout, where it has more than one
+                                        material (optional)
 
 so a later change adds a configuration, a mix, a cell or a metric by adding
 files and entries, without editing one that is there.
@@ -76,11 +80,17 @@ def compose(name: str, config: str, traffic: str, chips: int = 1,
     )
 
 
-def metric_reader(name: str):
-    """The ``read(ctx)`` function of ``benchmarks/metrics/<name>.py``."""
-    path = BENCH_DIR / "metrics" / f"{name}.py"
+def load_file_module(prefix: str, path: Path):
+    """The module of the Python file ``path``, loaded by its path and named
+    ``prefix`` and its stem (a file of the benchmark is named by a name of
+    it, which may hold ``-`` and ``.``)."""
     spec = importlib.util.spec_from_file_location(
-        "bench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + path.stem.replace(".", "_").replace("-", "_"), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def metric_reader(name: str):
+    """The ``read(ctx)`` function of ``benchmarks/metrics/<name>.py``."""
+    return load_file_module("bench_metric_", BENCH_DIR / "metrics" / f"{name}.py").read

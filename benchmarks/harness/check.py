@@ -78,11 +78,13 @@ def control_answers(system, node: dict, answers: dict, probe_rows, dtype):
 
 
 def judge(node: dict, traffic, answers: dict, probe_rows, device,
-          control_dtype=None) -> dict:
+          control_dtype=None, config=None) -> dict:
     """{number name: value}; ``answers`` maps a label to (state before or
-    None for rest, state after, frame index).  With ``control_dtype`` the
-    answers judged are the control's (``control_answers``)."""
-    system = build_system(node, traffic.dt, traffic.curve, device)
+    None for rest, state after, frame index).  ``config`` names the
+    configuration, whose own material layout the reference takes where it
+    has one (``benchmarks/reference/materials``).  With ``control_dtype``
+    the answers judged are the control's (``control_answers``)."""
+    system = build_system(node, traffic.dt, traffic.curve, device, config)
     if control_dtype is not None:
         answers, probe_rows = control_answers(system, node, answers, probe_rows,
                                               control_dtype)

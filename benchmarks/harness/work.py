@@ -18,6 +18,13 @@ read once and each output byte written once, f32 values, 1-byte masks.
   node the mass (4 B), x (12 B) and mask (3 B) read and the result
   (12 B) written: 20 B and 6 operations per incidence, 31 B and 7 per
   node.
+* ``pcg_update`` (U1, the fused PCG loop's direction update) on a
+  structured grid of N nodes: six f32 3-vectors read (x, r, p, s, u, w:
+  72 B) and four written (x, r, p, s: 48 B), the 1-byte mask per
+  component (3 B): 123 B and 24 operations per node (the p and s
+  recurrences and the x and r axpys, a product and a sum each).  A
+  solve's first update reads no p and s and computes no recurrence: 99 B
+  and 12 operations per node.
 """
 
 from __future__ import annotations
@@ -36,6 +43,10 @@ def pc_keff(box) -> tuple:
     n = box.node_count
     return 39 * n, 531 * n
 
+
+def pcg_update(box, first: bool = False) -> tuple:
+    n = box.node_count
+    return (99 * n, 12 * n) if first else (123 * n, 24 * n)
 
 
 def _tets(box) -> int:

@@ -13,7 +13,9 @@ with (u, v, a) the state after frame k - 1, then
 
 where u_pred = u + dt v + (1/2 - beta) dt^2 a and v_pred = v + (1 -
 gamma) dt a.  Fixed rows hold u = 0: their equation is the identity.
-Everything here is float64 unless a dtype is passed.
+Everything here is float64 unless a dtype is passed.  The materials are
+one (lam, mu and rho as floats) or a configuration's own layout (per-cell
+float64 tensors, ``benchmarks/reference/materials``).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import elastic
+from . import elastic, materials
 from .mesh import Box, parse_box
 
 BETA, GAMMA = 0.25, 0.5
@@ -32,9 +34,9 @@ BETA, GAMMA = 0.25, 0.5
 @dataclass
 class System:
     box: Box
-    lam: float
-    mu: float
-    rho: float
+    lam: float | torch.Tensor  # a float, or (cells,) float64 per cell
+    mu: float | torch.Tensor
+    rho: float | torch.Tensor
     alpha: float  # Rayleigh mass factor
     beta_r: float  # Rayleigh stiffness factor
     dt: float
@@ -98,23 +100,49 @@ class System:
         return v_pred + GAMMA / (BETA * dt) * delta, delta / (BETA * dt * dt)
 
 
-def build_system(scenario: dict, dt: float, curve, device) -> System:
-    """The reference's own system for a scenario node (the cells' one
-    material, one traction group on the x = nx face, the x = 0 plane
-    fixed) and the load curve as (t, value) points."""
-    box = parse_box(scenario["mesh"]["path"])
-    (mat,) = scenario["materials"]
+def material_fields(box: Box, scenario: dict, device, config: str | None = None):
+    """(lam, mu, rho): the layout of ``materials/<config>.py`` where the
+    configuration has one, as (cells,) float64 tensors; otherwise the
+    scenario's one material, as floats."""
+    cell_fields = materials.layout(config)
+    if cell_fields is not None:
+        fields = tuple(cell_fields(box, scenario, device))
+        for f in fields:
+            if f.dtype != torch.float64 or tuple(f.shape) != (box.cell_count,):
+                raise ValueError(
+                    f"{materials.path(config)} gave a {f.dtype} field of shape "
+                    f"{tuple(f.shape)}; the reference takes float64 "
+                    f"({box.cell_count},)")
+        return fields
+    mats = scenario["materials"]
+    if len(mats) != 1:
+        needs = materials.path(config or "<config>")
+        raise ValueError(
+            f"the scenario has {len(mats)} materials and no layout says which "
+            f"cells each takes: the reference needs {needs}")
+    (mat,) = mats
     lam, mu = elastic.lame(float(mat["E"]), float(mat["nu"]))
+    return lam, mu, float(mat["rho"])
+
+
+def build_system(scenario: dict, dt: float, curve, device,
+                 config: str | None = None) -> System:
+    """The reference's own system for a scenario node (its materials, as
+    ``material_fields`` finds them for the configuration ``config``; one
+    traction group on the x = nx face; the x = 0 plane fixed) and the load
+    curve as (t, value) points."""
+    box = parse_box(scenario["mesh"]["path"])
+    lam, mu, rho = material_fields(box, scenario, device, config)
     damping = scenario["damping"]
     xi, w1, w2 = float(damping["xi"]), float(damping["w1"]), float(damping["w2"])
     (traction,) = scenario["loads"]["tractions"]
     points = np.asarray(curve, dtype=np.float64)
     return System(
-        box=box, lam=lam, mu=mu, rho=float(mat["rho"]),
+        box=box, lam=lam, mu=mu, rho=rho,
         alpha=2.0 * xi * w1 * w2 / (w1 + w2), beta_r=2.0 * xi / (w1 + w2),
         dt=float(dt), traction=tuple(float(t) for t in traction["value"]),
         curve_t=points[:, 0], curve_v=points[:, 1],
-        mass=elastic.lumped_mass(box, float(mat["rho"]), device),
+        mass=elastic.lumped_mass(box, rho, device),
         fixed=box.fixed_mask(device), face=box.face_weights(device))
 
 

@@ -234,7 +234,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         if cuda:
             torch.cuda.empty_cache()
 
-        numbers = check.judge(node, traffic, answers, probe_rows, device, control_dtype)
+        numbers = check.judge(node, traffic, answers, probe_rows, device, control_dtype,
+                              config=cell.config_name)
     finally:
         if out_dir is not None:
             shutil.rmtree(out_dir, ignore_errors=True)

@@ -12,11 +12,10 @@ from __future__ import annotations
 import pytest
 import torch
 
-from benchmarks.tests.support import run_small
+from benchmarks.tests.support import CELLS, OUTPUT_CELL, run_small
 
 
-@pytest.mark.parametrize("cell", ["cantilever-255.sway", "tet-cantilever-66.sway",
-                                  "tet-cantilever-66.probes"])
+@pytest.mark.parametrize("cell", CELLS + [OUTPUT_CELL])
 def test_control_is_not_correct(cell):
     program = run_small(cell, 31)
     control = run_small(cell, 31, control_dtype=torch.bfloat16)

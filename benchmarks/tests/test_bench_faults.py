@@ -15,7 +15,7 @@ import torch
 from civiwave_tpu_torch.mesh.pack import SimState
 from civiwave_tpu_torch.post import output as output_mod
 from civiwave_tpu_torch.solver import stepper as stepper_mod
-from benchmarks.tests.support import run_small
+from benchmarks.tests.support import CELLS, OUTPUT_CELL, run_small
 
 
 def _fields(state):
@@ -53,7 +53,7 @@ FAULTS = {"unchanged": _unchanged, "half_left_out": _half_left_out,
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell", ["cantilever-255.sway", "tet-cantilever-66.sway"])
+@pytest.mark.parametrize("cell", CELLS)
 def test_fault_is_not_correct(monkeypatch, cell, fault):
     real = stepper_mod.newmark_step
 
@@ -76,6 +76,6 @@ def test_probe_row_altered_is_not_correct(monkeypatch):
         return fields
 
     monkeypatch.setattr(output_mod, "compute_derived_fields", broken)
-    result = run_small("tet-cantilever-66.probes", 17)
+    result = run_small(OUTPUT_CELL, 17)
     assert not result["correct"], result["check"]
     assert result["check"]["probe_gap.w0"]["value"] > result["check"]["probe_gap.w0"]["limit"]

@@ -18,12 +18,11 @@ from benchmarks.harness.cells import BENCH_DIR, ROOT, load_benchmark, metric_rea
 from benchmarks.harness.traffic import generate
 from benchmarks.harness.work import assemble_tet, tet_element_forces
 from benchmarks.reference.mesh import parse_box
-from benchmarks.tests.support import run_small, small_cell
+from benchmarks.tests.support import CELLS, OUTPUT_CELL, run_small, small_cell, small_mesh
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 BENCH = load_benchmark()
-CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -129,8 +128,7 @@ def test_work_counts_of_the_kernel_table():
     assert assemble_tet(box)[0] == 147_321_733
 
 
-@pytest.mark.parametrize("cell", ["cantilever-255.sway", "tet-cantilever-66.sway",
-                                  "tet-cantilever-66.probes"])
+@pytest.mark.parametrize("cell", CELLS + [OUTPUT_CELL])
 def test_result_line_schema(cell):
     """Every end-to-end metric of the cell in a plain run but those read
     from the device's trace, which find nothing to read on the CPU; the
@@ -162,10 +160,9 @@ def test_small_run_on_the_card(cell):
     import time
 
     from benchmarks.run import run_cell
-    from benchmarks.tests.support import SMALL_MESH, small_cell
 
     c = small_cell(cell)
     result = run_cell(c, 7, 0.5, True, torch.device("cuda", 0), time.monotonic(),
-                      mesh_path=SMALL_MESH[c.config_name], log=io.StringIO())
+                      mesh_path=small_mesh(c.config), log=io.StringIO())
     assert result["correct"], result["check"]
     assert result["device"]["platform"] == "gpu" and result["device"]["busy_s"] > 0
