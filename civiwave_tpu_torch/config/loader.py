@@ -20,6 +20,13 @@ with the same diagnostics:
 * dirichlet.fixes: dof subset of {x,y,z}, non-empty, optional per-axis value
   overrides (config.cpp:501-567)
 * output: vtu_stride >= 1, probes list of ints (config.cpp:570-602)
+
+Two extensions of the reference's schema, both optional:
+``boundaries.absorbing`` (surface groups with viscous dashpots) and
+``box_regions`` (named boxes of cells of a ``synthetic://box`` mesh, by
+fractions of its extent: a list of ``{group, lo: [fx, fy, fz], hi: [fx,
+fy, fz]}`` with 0 <= lo < hi <= 1, unique names none of which is one of
+the box's own groups).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 from ..utils.errors import ConfigError
 from .schema import (
     Assignment,
+    BoxRegion,
     Config,
     Curve,
     Damping,
@@ -42,6 +50,14 @@ from .schema import (
     SolverSettings,
     SurfaceTraction,
     TimeSettings,
+)
+
+
+BOX_PREFIX = "synthetic://box/"
+# the physical groups of the synthetic box mesh itself (utils/synthetic.py)
+BOX_GROUPS = (
+    "FIXED", "LOAD_FACE", "SOLID",
+    "SIDE_X0", "SIDE_X1", "SIDE_Y0", "SIDE_Y1", "SIDE_Z0", "SIDE_Z1",
 )
 
 
@@ -447,6 +463,8 @@ def parse_config_node(root: Any) -> Config:
                     )
                 absorbing.append(name)
 
+    box_regions = _parse_box_regions(root.get("box_regions"), mesh_path)
+
     return Config(
         mesh_path=mesh_path,
         materials=tuple(materials),
@@ -460,4 +478,47 @@ def parse_config_node(root: Any) -> Config:
         dirichlet=tuple(dirichlet),
         output=output,
         absorbing=tuple(absorbing),
+        box_regions=box_regions,
     )
+
+
+def _parse_box_regions(node: Any, mesh_path: str) -> Tuple[BoxRegion, ...]:
+    """``box_regions`` (extension; absent = no regions): named boxes of
+    cells of a ``synthetic://box`` mesh, by fractions of its extent."""
+    if node is None:
+        return ()
+    if not mesh_path.startswith(BOX_PREFIX):
+        raise _err("box_regions requires a synthetic://box mesh", ["box_regions"])
+    if not isinstance(node, list):
+        raise _err("box_regions must be a sequence when present", ["box_regions"])
+    regions: List[BoxRegion] = []
+    names = set()
+    for i, entry in enumerate(node):
+        ctx = ["box_regions", f"[{i}]"]
+        if not isinstance(entry, dict):
+            raise _err("box region must be a map", ctx)
+        for key in ("group", "lo", "hi"):
+            if key not in entry:
+                raise _err(f"box region missing required key '{key}'", ctx)
+        group = _as_str(entry["group"], [*ctx, "group"])
+        if not group:
+            raise _err("box region group name must be non-empty", [*ctx, "group"])
+        if group in BOX_GROUPS:
+            raise _err("box region group name is one of the box's own groups",
+                       [*ctx, "group"])
+        if group in names:
+            raise _err("box region group names must be unique", [*ctx, "group"])
+        names.add(group)
+        lo = _node_to_vec3(entry["lo"], [*ctx, "lo"])
+        hi = _node_to_vec3(entry["hi"], [*ctx, "hi"])
+        for key, values in (("lo", lo), ("hi", hi)):
+            for a, value in enumerate(values):
+                if not 0.0 <= value <= 1.0:
+                    raise _err("box region fractions must be in [0, 1]",
+                               [*ctx, key, f"[{a}]"])
+        for a in range(3):
+            if lo[a] >= hi[a]:
+                raise _err("box region needs lo < hi on every axis",
+                           [*ctx, "hi", f"[{a}]"])
+        regions.append(BoxRegion(group, lo, hi))
+    return tuple(regions)

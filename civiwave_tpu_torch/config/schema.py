@@ -140,6 +140,18 @@ class OutputSettings:
 
 
 @dataclass(frozen=True)
+class BoxRegion:
+    """A named box of cells of a ``synthetic://box`` mesh, as fractions of
+    the box's extent per axis (``0 <= lo < hi <= 1``): a cell belongs to
+    the first listed region that holds its centre, else to ``SOLID``, and
+    ``assignments`` bind the name as they bind a Gmsh physical volume."""
+
+    group: str
+    lo: Tuple[float, float, float]
+    hi: Tuple[float, float, float]
+
+
+@dataclass(frozen=True)
 class Config:
     """Full scenario bundle (config.hpp:224-237).
 
@@ -147,7 +159,10 @@ class Config:
     boundaries anywhere): surface-group names whose faces receive
     Lysmer-Kuhlemeyer viscous dashpots (physics/absorbing.py) — the
     truncated-domain machinery BASELINE.json's seismic-basin config
-    needs.  Optional; omitted = byte-compatible reference behavior."""
+    needs.  ``box_regions`` extends it too: named boxes of cells of a
+    ``synthetic://box`` mesh (:class:`BoxRegion`), the box's volume groups
+    besides ``SOLID``.  Both optional; omitted = byte-compatible reference
+    behavior."""
 
     mesh_path: str
     materials: Tuple[Material, ...]
@@ -161,3 +176,4 @@ class Config:
     dirichlet: Tuple[DirichletFix, ...] = ()
     output: OutputSettings = OutputSettings(vtu_stride=1)
     absorbing: Tuple[str, ...] = ()
+    box_regions: Tuple[BoxRegion, ...] = ()

@@ -44,6 +44,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..physics.materials import ElasticProperties
 from ..utils import profiling
@@ -105,7 +106,8 @@ class StructuredModel:
     # interior lumped mass rho*V_cell; every built grid's stored mass is m8
     # times 0.5 per boundary axis, bit for bit, so the kernels synthesize
     # the mass instead of streaming the grid (see interior_mass); a
-    # multigrid coarse level's is not, and carries mass_correction
+    # multigrid coarse level's is not, and carries mass_correction; NaN on
+    # a grid of per-cell densities, which only mass_grid describes
     m8: float = 0.0
     # Lysmer-Kuhlemeyer absorbing axis planes ("x0".."z1") with viscous
     # dashpots of per-unit-area normal/tangential impedances rho*c_p /
@@ -139,6 +141,9 @@ class StructuredModel:
     # coarse level's P^T m_f): an ops.structured.MassCorrection the
     # operator adds after the kernels on CUDA; None on every built grid
     mass_correction: Optional[object] = None
+    # cells per bound material, (name, cells) in the scenario's material
+    # order (mesh.structured_config); empty on a grid built by API
+    material_cells: Tuple[Tuple[str, int], ...] = ()
 
     @property
     def device(self) -> torch.device:
@@ -420,8 +425,9 @@ def build_structured_model(
     pad_y_multiple: int = 1,
     *,
     device,
-    lam_grid: Optional[np.ndarray] = None,
-    mu_grid: Optional[np.ndarray] = None,
+    lam_grid=None,
+    mu_grid=None,
+    rho_grid=None,
 ):
     """Build the structured cantilever-style model + initial force on
     ``device``.
@@ -439,21 +445,26 @@ def build_structured_model(
     absorbing faces; their impedances rho*c_p = sqrt(rho (lam + 2 mu)) and
     rho*c_s = sqrt(rho mu) come from the one material.
 
-    ``lam_grid``/``mu_grid`` (host arrays of (nx, ny, nz) cells, stored as
-    f32; a missing one is filled with ``material``'s) give per-cell
-    materials, as in the reference: a grid whose cells are all equal is
-    homogeneous (lam0/mu0 taken from it), any other is heterogeneous, with
-    lam0 = mu0 = 0.0, and refuses absorbing faces with the reference's
-    ValueError.  The cell grids are padded with zero cells along +X to the
-    padded node extent and, under ``pad_y_multiple`` > 1, along +Y too.
+    ``lam_grid``/``mu_grid`` (arrays or tensors of (nx, ny, nz) cells,
+    stored as f32; a missing one is filled with ``material``'s) give
+    per-cell materials, as in the reference: a grid whose cells are all
+    equal is homogeneous (lam0/mu0 taken from it), any other is
+    heterogeneous, with lam0 = mu0 = 0.0, and refuses absorbing faces with
+    the reference's ValueError.  The cell grids are padded with zero cells
+    along +X to the padded node extent and, under ``pad_y_multiple`` > 1,
+    along +Y too.  ``rho_grid`` ((nx, ny, nz) cells, f64; beyond the
+    reference) gives per-cell densities: a node's mass is the sum over its
+    cells of rho_c hx hy hz / 8 in f64, cast to f32 once, and gravity
+    rides it.  A grid whose densities differ is heterogeneous whatever its
+    lam and mu, and its ``m8`` is NaN: the kernels that synthesize the
+    mass from ``m8`` decline it, and every reader of its mass reads
+    ``mass_grid``.  An all-equal ``rho_grid`` is ``density``.
 
-    Every node-grid array is an analytic per-axis cell-adjacency count
-    product (values in {0,1,2}) scaled by one f64 scalar, built in f64 on
-    the device and cast to the storage dtype at the end — the same
+    Every other node-grid array is an analytic per-axis cell-adjacency
+    count product (values in {0,1,2}) scaled by one f64 scalar, built in
+    f64 on the device and cast to the storage dtype at the end — the same
     arithmetic as the reference's numpy and on-device builders, so the
-    fields agree with both bit for bit.  None of them depends on the
-    material, so a heterogeneous grid differs only in its cell grids,
-    uploaded from the host.
+    fields agree with both bit for bit.
 
     Returns (model, external_force (3, X, Y, Z) f32 tensor).
     """
@@ -467,23 +478,37 @@ def build_structured_model(
     hx, hy, hz = (float(s) for s in spacing)
     lam0 = float(np.float32(material.lame.lam))
     mu0 = float(np.float32(material.lame.mu))
-    homogeneous = lam_grid is None and mu_grid is None
-    if not homogeneous:
-        cells = []
-        for grid, value in ((lam_grid, lam0), (mu_grid, mu0)):
-            grid = np.asarray(
-                np.full((nx, ny, nz), value) if grid is None else grid,
-                np.float32,
+    f64, f32 = torch.float64, torch.float32
+
+    def cell_grid(grid, dtype):
+        grid = torch.as_tensor(
+            np.asarray(grid) if not torch.is_tensor(grid) else grid
+        ).to(device, dtype)
+        if tuple(grid.shape) != (nx, ny, nz):
+            raise ValueError(
+                f"material grid of shape {tuple(grid.shape)}, expected "
+                f"{(nx, ny, nz)} cells"
             )
-            if grid.shape != (nx, ny, nz):
-                raise ValueError(
-                    f"material grid of shape {grid.shape}, expected "
-                    f"{(nx, ny, nz)} cells"
-                )
-            cells.append(grid)
-        if all(np.all(g == g.flat[0]) for g in cells):
+        return grid
+
+    def uniform(grid) -> bool:
+        return bool(torch.all(grid == grid.reshape(-1)[0]))
+
+    rho = None
+    if rho_grid is not None:
+        rho = cell_grid(rho_grid, f64)
+        if uniform(rho):
+            density, rho = float(rho.reshape(-1)[0]), None
+    homogeneous = lam_grid is None and mu_grid is None and rho is None
+    if not homogeneous:
+        cells = [
+            torch.full((nx, ny, nz), value, dtype=f32, device=device)
+            if grid is None else cell_grid(grid, f32)
+            for grid, value in ((lam_grid, lam0), (mu_grid, mu0))
+        ]
+        if rho is None and all(uniform(g) for g in cells):
             homogeneous = True
-            lam0, mu0 = (float(g.flat[0]) for g in cells)
+            lam0, mu0 = (float(g.reshape(-1)[0]) for g in cells)
         else:
             lam0 = mu0 = 0.0
     if absorb_planes and not homogeneous:
@@ -496,7 +521,6 @@ def build_structured_model(
         fixes = [(tag, (True, True, True), (None, None, None))
                  for tag in fixed_axis_planes]
 
-    f64, f32 = torch.float64, torch.float32
     ix = torch.arange(xs_pad, device=device)[:, None, None]
     iy = torch.arange(ys_pad, device=device)[None, :, None]
     iz = torch.arange(zs, device=device)[None, None, :]
@@ -507,7 +531,14 @@ def build_structured_model(
     ax_, ay_, az_ = adj(ix, nx), adj(iy, ny), adj(iz, nz)
     counts = ax_ * ay_ * az_  # cells per node: 0 on pads and dead rows
     cm = density * (hx * hy * hz) / 8.0
-    mass = (cm * counts).to(f32)
+    if rho is None:
+        node_mass = counts * cm
+    else:  # each node's cells, the 8 shifts of the zero-bordered cell grid
+        share = F.pad(rho * ((hx * hy * hz) / 8.0), (1, 1, 1, 1, 1, 1))
+        node_mass = torch.zeros((xs_pad, ys_pad, zs), dtype=f64, device=device)
+        for a, b, c in CORNERS:
+            node_mass[:xs, :ys] += share[a : a + xs, b : b + ys, c : c + zs]
+    mass = node_mass.to(f32)
 
     # material grids: the cell values on real cells, 0 on the x/y pad tails
     if homogeneous:
@@ -518,8 +549,7 @@ def build_structured_model(
         lam = torch.where(cell_real, lam0, 0.0).to(f32)
         mu = torch.where(cell_real, mu0, 0.0).to(f32)
     else:
-        pads = ((0, xs_pad - nx), (0, cell_ys - ny), (0, 0))
-        lam, mu = (torch.as_tensor(np.pad(g, pads), device=device)
+        lam, mu = (F.pad(g, (0, 0, 0, cell_ys - ny, 0, xs_pad - nx))
                    for g in cells)
 
     # Dirichlet planes, then the dead-pad override (the reference's order)
@@ -559,10 +589,14 @@ def build_structured_model(
     face = face_adj[0] * face_adj[1] * face_adj[2]
     fd = [d for d in range(3) if d != t_axis]
     face_area = (hx, hy, hz)[fd[0]] * (hx, hy, hz)[fd[1]]
-    cmg = cm * np.asarray(gravity, np.float64)
     a4t = (face_area / 4.0) * np.asarray(traction, np.float64)
+    if rho is None:
+        cmg = cm * np.asarray(gravity, np.float64)
+        weight = [counts * float(cmg[c]) for c in range(3)]
+    else:
+        weight = [node_mass * float(gravity[c]) for c in range(3)]
     force = torch.stack(
-        [counts * float(cmg[c]) + face * float(a4t[c]) for c in range(3)]
+        [weight[c] + face * float(a4t[c]) for c in range(3)]
     ).to(f32)
 
     from ..ops.structured import class_stencil_table, sweep_taps
@@ -590,7 +624,7 @@ def build_structured_model(
         homogeneous=homogeneous,
         lam0=lam0,
         mu0=mu0,
-        m8=float(np.float32(cm * 8.0)),
+        m8=float(np.float32(cm * 8.0)) if rho is None else float("nan"),
         absorb_faces=tuple(absorb_planes),
         rho_cp=float(np.sqrt(density * (lam0 + 2.0 * mu0)))
         if absorb_planes else 0.0,

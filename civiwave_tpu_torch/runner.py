@@ -3,12 +3,15 @@
 Port of :mod:`civiwave_tpu.runner`.  Two routes, as in the reference:
 
 * the structured route, for ``synthetic://box`` hex scenarios with one
-  material and loads/fixes on the box's axis planes::
+  material or with ``box_regions`` that place several (per-cell lam, mu
+  and rho: G3 and the per-node block-Jacobi), and loads/fixes on the
+  box's axis planes::
 
       load_config -> try_build_structured -> NewmarkStepper -> per-frame step
 
 * the general gather path, for every other scenario (Gmsh files, tet or
-  mixed meshes, several materials, point loads)::
+  mixed meshes, several materials without ``box_regions``, point
+  loads)::
 
       load_config -> load mesh -> preprocess.run -> build_packed_model
       -> NewmarkStepper -> per-frame step (curve loads re-assembled)
@@ -45,9 +48,12 @@ output's and checkpoints' copies), and ``host_start_ns`` /
 clock of the trace's events, so frame k of the JSON is the ``frame``
 range that starts within its stamps (a Chrome trace's ``ts`` is
 microseconds after its ``baseTimeNanoseconds``).  ``build_simulation``
-records the general path's ``preprocess`` and ``pack`` host seconds, and
-the first frame its own, in ``utils.profiling.phases`` (read by the
-benchmark).
+records the general path's ``preprocess`` and ``pack`` host seconds, the
+structured route's ``materials`` (the per-cell fields of ``box_regions``),
+and the first frame its own, in ``utils.profiling.phases`` (read by the
+benchmark); the first frame's object of ``--telemetry-json`` carries the
+cells of each material (``Simulation.material_cells``), the layout the run
+ran.
 
 Usage::
 
@@ -67,8 +73,9 @@ import os
 import sys
 import time
 from dataclasses import asdict, dataclass
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from .config.loader import load_config_from_file
@@ -115,6 +122,16 @@ class Simulation:
     def structured(self) -> bool:
         """Whether the scenario runs on the structured route."""
         return self.force_schedule is not None
+
+    @property
+    def material_cells(self) -> Dict[str, int]:
+        """The cells (the general path: the elements) of each material the
+        model holds, by name: the layout it runs."""
+        if self.structured:
+            return dict(self.model.material_cells)
+        counts = np.bincount(self.preprocess.element_material_index,
+                             minlength=len(self.config.materials))
+        return {m.name: int(c) for m, c in zip(self.config.materials, counts) if c}
 
     def ensure_host_mesh(self) -> None:
         """Build the host mesh and preprocess on demand (the structured
@@ -201,7 +218,8 @@ class Simulation:
 def _load_mesh(cfg: Config, scenario_path: str) -> Mesh:
     """Resolve the mesh: a Gmsh file (a relative path is tried against the
     working directory, then against the scenario file's directory), or
-    the synthetic box scheme ``synthetic://box/nx,ny,nz[,tet|hex][,spacing]``."""
+    the synthetic box scheme ``synthetic://box/nx,ny,nz[,tet|hex][,spacing]``
+    with the scenario's ``box_regions`` as volume groups."""
     mesh_path = cfg.mesh_path
     if mesh_path.startswith(BOX_PREFIX):
         from .utils.synthetic import box_mesh
@@ -216,6 +234,7 @@ def _load_mesh(cfg: Config, scenario_path: str) -> Mesh:
             nx, ny, nz, hex_elements=hex_elements, spacing=spacing,
             # the six SIDE_* face groups whenever the scenario names one
             side_groups=any(g.startswith("SIDE_") for g in refs),
+            regions=cfg.box_regions,
         )
     if not os.path.isabs(mesh_path):
         candidate = os.path.join(os.getcwd(), mesh_path)
@@ -470,7 +489,10 @@ def _run_cli(args) -> int:
     )
     if args.telemetry_json:
         with open(args.telemetry_json, "w", encoding="utf-8") as f:
-            json.dump([asdict(t) for t in telemetries], f, indent=2)
+            frames = [asdict(t) for t in telemetries]
+            if frames:  # the layout, once: on the first frame's object
+                frames[0]["material_cells"] = sim.material_cells
+            json.dump(frames, f, indent=2)
     return 0
 
 

@@ -29,7 +29,8 @@ device's queue ahead of it has run; a host device counts the same points,
 where nothing waits, so that a CPU run counts what a CUDA run waits for.
 ``phases`` holds the host seconds of the set-up phases the benchmark
 reads (:func:`phase`): ``build_simulation``'s ``preprocess`` and ``pack``
-on the general path, and ``first_frame``.
+on the general path, ``materials`` (the per-cell fields of a box's
+``box_regions``) on the structured route, and ``first_frame``.
 """
 
 from __future__ import annotations

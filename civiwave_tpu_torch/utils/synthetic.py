@@ -5,20 +5,28 @@ Port of :mod:`civiwave_tpu.utils.synthetic` (numpy host code, copied):
 [0,nx]x[0,ny]x[0,nz] with FIXED (x=0 quads), LOAD_FACE (x=nx quads) and
 SOLID groups — hex8 cells or their 6-tet split — and ``shuffle_mesh_nodes``
 scrambles its node numbering.  Both give the same arrays as the JAX
-package's from the same arguments and seed.  The structured route builds
-its grid from the ``synthetic://box/nx,ny,nz`` mesh path directly; the
-general gather path meshes the box with ``box_mesh``.
+package's from the same arguments and seed.  A scenario's ``box_regions``
+(:func:`box_cell_groups`, which the JAX package lacks) add volume groups
+that take the cells of their boxes from ``SOLID``.  The structured route
+builds its grid from the ``synthetic://box/nx,ny,nz`` mesh path directly;
+the general gather path meshes the box with ``box_mesh``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import numpy as np
+import torch
 
 from ..config.loader import parse_config_node
-from ..config.schema import Config
+from ..config.schema import BoxRegion, Config
 from ..mesh.model import Mesh, PhysicalGroup, SENTINEL
+from .errors import ConfigError
+
+# physical-group id of box region r: after FIXED, LOAD_FACE, SOLID (1-3)
+# and the six SIDE_* face groups (4-9)
+REGION_GROUP_ID0 = 10
 
 # consistent 6-tet decomposition of a hex (shared main diagonal 0-6)
 _TET_CORNERS = np.array(
@@ -34,16 +42,53 @@ _TET_CORNERS = np.array(
 )
 
 
+def _region_range(lo: float, hi: float, n: int):
+    """The cells [i0, i1) of an axis of n cells whose centre fraction
+    (i + 0.5) / n, in float64, lies in [lo, hi); None where there is none."""
+    inside = np.nonzero((np.arange(n) + 0.5) / n >= lo)[0]
+    inside = inside[(inside + 0.5) / n < hi]
+    return None if inside.size == 0 else (int(inside[0]), int(inside[-1]) + 1)
+
+
+def box_cell_groups(
+    regions: Sequence[BoxRegion], nx: int, ny: int, nz: int, device="cpu",
+) -> torch.Tensor:
+    """(nx, ny, nz) int64 on ``device``: per cell, 0 for ``SOLID`` or
+    r + 1 for the first of ``regions`` that holds the cell's centre.  A
+    region that holds no cell at this size (too small, or shadowed by the
+    regions before it) raises ConfigError naming it."""
+    groups = torch.zeros((nx, ny, nz), dtype=torch.int64, device=device)
+    for r in reversed(range(len(regions))):  # earlier regions paint last
+        spans = [_region_range(regions[r].lo[a], regions[r].hi[a], n)
+                 for a, n in enumerate((nx, ny, nz))]
+        if None not in spans:
+            (i0, i1), (j0, j1), (k0, k1) = spans
+            groups[i0:i1, j0:j1, k0:k1] = r + 1
+    if regions:
+        counts = torch.bincount(groups.reshape(-1),
+                                minlength=len(regions) + 1).tolist()
+        for r, region in enumerate(regions):
+            if counts[r + 1] == 0:
+                raise ConfigError(
+                    f"box region '{region.group}' holds no cell of the "
+                    f"{nx}x{ny}x{nz} box", ["box_regions", f"[{r}]"])
+    return groups
+
+
 def box_mesh(
     nx: int, ny: int, nz: int, hex_elements: bool = False,
     spacing: float = 1.0, side_groups: bool = False,
+    regions: Sequence[BoxRegion] = (),
 ) -> Mesh:
     """Structured box mesh; hex8 cells or their 6-tet decomposition.
 
     ``side_groups``: also emit the six face quad groups SIDE_X0..SIDE_Z1
     (ids 4-9) so scenarios can reference any box face — absorbing
     boundaries in particular (physics/absorbing.py).  Off by default to
-    keep the canonical FIXED/LOAD_FACE-only surface table."""
+    keep the canonical FIXED/LOAD_FACE-only surface table.  ``regions``
+    (a scenario's ``box_regions``): region r is the volume group of id
+    ``REGION_GROUP_ID0 + r`` and takes its cells (a hex, or its six tets)
+    from SOLID, as :func:`box_cell_groups` places them."""
     xs, ys, zs = nx + 1, ny + 1, nz + 1
     grid = np.stack(
         np.meshgrid(
@@ -92,6 +137,11 @@ def box_mesh(
 
     mesh.element_node_counts = counts
     mesh.element_physical_group = np.full(len(mesh.elements), 3, dtype=np.int64)
+    if regions:
+        cell_group = box_cell_groups(regions, nx, ny, nz).reshape(-1).numpy()
+        ids = np.where(cell_group == 0, 3, REGION_GROUP_ID0 - 1 + cell_group)
+        mesh.element_physical_group = (
+            ids if hex_elements else np.repeat(ids, len(_TET_CORNERS)))
     mesh.element_original_ids = np.arange(1, len(mesh.elements) + 1, dtype=np.int64)
 
     # boundary quads at x=0 (FIXED, id 1) and x=nx (LOAD_FACE, id 2)
@@ -164,6 +214,8 @@ def box_mesh(
     ).astype(np.int64)
     mesh.surface_original_ids = np.arange(1, len(surfaces) + 1, dtype=np.int64)
 
+    groups += [PhysicalGroup(3, REGION_GROUP_ID0 + r, region.group)
+               for r, region in enumerate(regions)]
     mesh.physical_groups = groups
     mesh.group_lookup = {g.id: i for i, g in enumerate(groups)}
     mesh.surface_groups = {}

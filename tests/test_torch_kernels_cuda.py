@@ -17,7 +17,8 @@ refusing a heterogeneous grid, and a heterogeneous cantilever on the
 card against the CPU; G3 on the slabs and tiles of a heterogeneous grid
 (its plane range, ghost planes, rows and cells) against its plain shard
 version and, gathered, against the whole-grid G3, and a heterogeneous
-cantilever on one-rank shards.  The fused loop's direction update
+cantilever on one-rank shards; G3 on a grid of per-cell densities and a
+box_regions scenario stepped on G3 through build_simulation.  The fused loop's direction update
 against its plain version bit for bit (f32 and f64, first and later calls,
 random masks, lengths that are not a multiple of 4 or below 4; buffers
 off a 16-byte boundary refused), and a fused solve with it against the
@@ -1322,6 +1323,61 @@ def test_heterogeneous_cantilever_runs_g3_only(device, precision):
     for name, tol in (("displacement", 2.5e-4), ("acceleration", 3e-3)):
         got, ref = getattr(state, name).cpu(), getattr(cstate, name)
         assert float((got - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+def test_corner_gather_takes_the_mass_of_per_cell_densities(device):
+    """A grid of per-cell lam, mu and rho (its m8 NaN, which no kernel may
+    read): G3 against its plain version at 1e-5 of max|ref|, finite."""
+    dims, kw = HETERO["x_1_mod_32"]
+    mat = cantilever_config().materials[0]
+    props = materials.make_properties(mat)
+    rng = np.random.default_rng(23)
+    model, _ = build_structured_model(
+        *dims, props, mat.density, device=device, **kw,
+        lam_grid=props.lame.lam * (1.0 + rng.uniform(0.0, 1.0, dims)),
+        mu_grid=props.lame.mu * (1.0 + rng.uniform(0.0, 1.0, dims)),
+        rho_grid=rng.uniform(1500.0, 8000.0, dims))
+    assert np.isnan(model.m8)
+    x = torch.as_tensor(np.random.default_rng(24).standard_normal(model.vector_shape),
+                        dtype=torch.float32, device=device)
+    out = model.apply_keff(x, SS, MF)
+    ref = tops.apply_keff_structured_plain(model, x, SS, MF)
+    assert bool(torch.isfinite(out).all())
+    assert float((out - ref).abs().max()) <= OP_TOL * float(ref.abs().max())
+
+
+def test_box_regions_scenario_steps_on_g3_through_build_simulation(device):
+    """examples/seismic_column_box.yaml at 32 x 5 x 7 cells, three frames
+    through build_simulation on the card and on the CPU: classic PCG,
+    iterations within 1, u within 2.5e-4 of max; on the card G3 on every
+    matvec and no constant-stencil kernel."""
+    from civiwave_tpu_torch.config.loader import load_config_from_file
+    from civiwave_tpu_torch.ops.cuda import corner_gather as g3
+
+    cfg = load_config_from_file(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "examples", "seismic_column_box.yaml"))
+    cfg = dataclasses.replace(cfg, mesh_path="synthetic://box/32,5,7,0.25")
+    counters = (k12.apply_keff_fused, k12.apply_pc_keff_fused,
+                k3.apply_block_jacobi, k4.interior_stencil, k6.pcg_iteration_fused)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        sim = build_simulation(cfg, device=dev)
+        assert sim.structured and not sim.model.homogeneous
+        before = [c.launches for c in counters], g3.apply_keff_corner_gather.launches
+        tel = sim.run(3)
+        torch.cuda.synchronize()
+        after = [c.launches for c in counters], g3.apply_keff_corner_gather.launches
+        runs[dev.type] = (tel, sim.stepper.displacement(), sim.stepper.pcg_variant(),
+                          before, after)
+    tel, u, variant, before, after = runs["cuda"]
+    ctel, cu, _, _, _ = runs["cpu"]
+    assert variant == "classic" and all(t.pcg_converged for t in tel)
+    assert before[0] == after[0]
+    assert after[1] - before[1] >= sum(t.pcg_iterations for t in tel)
+    for a, b in zip(tel, ctel):
+        assert abs(a.pcg_iterations - b.pcg_iterations) <= 1
+    assert np.abs(u - cu).max() <= 2.5e-4 * np.abs(cu).max()
 
 
 # --- G3 on a shard: plane ranges, ghost planes, rows and cells --------------
