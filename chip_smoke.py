@@ -23,7 +23,10 @@ Phases, each printing its result:
    is finite, every kernel was launched and U1 (the fused loop's direction
    update) once per fused PCG iteration; then U1 against its plain version
    at (3, 256, 256, 256), f32 and f64, first and later calls, bit for bit,
-   and timed;
+   and timed; the stepper's three vector passes once a frame each, and
+   each against its plain version there, on the hetero column's grid of
+   odd planes and on the tet-66 cantilever's node rows, bit for bit, and
+   timed;
 4b. the megafused main path (``CIVIWAVE_MEGA_PCG=1``, set for this phase
    only): the same 255^3 cantilever for 8 'auto' frames, one K6 launch per
    PCG iteration: every frame converged, iterations within +-1 of phase
@@ -287,6 +290,15 @@ KERNEL_FLOPS_PER_NODE = {"keff": 498, "bj": 15, "pc": 531, "k6": 560}
 # (3 B); 24 operations a node (a product and a sum for each of p, s, x, r)
 U1_BYTES_PER_NODE = {torch.float32: 123, torch.float64: 243}
 U1_FLOPS_PER_NODE = 24
+# the stepper's three passes (csrc/newmark_vectors.cu), least bytes a node
+# (f32 vectors, 12 B a node each, f64 24; f32 mass, 1-byte mask
+# components): rhs reads u, v, a, f and the mass and writes u_pred, d and
+# rhs; the clamp reads rhs, K d and the mask and writes rhs; the update
+# reads x, u_pred, v, a and writes u, v, a.  Operations a node: 57 (19 a
+# component), 6, 21
+NEWMARK_PASSES = ("newmark_rhs", "newmark_rhs_clamp", "newmark_update")
+NEWMARK_BYTES_PER_NODE = {torch.float32: (88, 39, 84), torch.float64: (172, 75, 168)}
+NEWMARK_FLOPS_PER_NODE = (57, 6, 21)
 MEGA = "CIVIWAVE_MEGA_PCG"  # the opt-in switch of the whole-iteration path
 HBM_TBPS = 3.35  # H100 SXM published device-memory bandwidth at 700 W
 F32_TFLOPS = 67.0  # H100 SXM published f32 rate outside the tensor cores
@@ -537,6 +549,7 @@ def kernel_phase(device):
 def main_path_phase(device):
     """Phase 4: the port's main path at full width."""
     from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
+    from civiwave_tpu_torch.ops.cuda import newmark_vectors as nv
     from civiwave_tpu_torch.ops.cuda import pcg_vector_update as u1
     from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
     from civiwave_tpu_torch.runner import build_simulation
@@ -560,6 +573,9 @@ def main_path_phase(device):
     k3.apply_block_jacobi.launches = 0
     u1.cg_direction_update.launches = 0
     u1.cg_direction_update.launches_f64 = 0
+    for name in NEWMARK_PASSES:
+        setattr(getattr(nv, name), "launches", 0)
+        setattr(getattr(nv, name), "launches_f64", 0)
     reset_g3_counts()
 
     frame_s, telemetries = [], []
@@ -591,6 +607,14 @@ def main_path_phase(device):
     }
     if u1.cg_direction_update.launches != u1_launches:
         fail("main path: the classic frames launched U1")
+    # the stepper's passes: each once a frame (the cantilever has beta_R >
+    # 0), f32 only, on fused and classic frames alike
+    newmark = {name: (getattr(nv, name).launches, getattr(nv, name).launches_f64)
+               for name in NEWMARK_PASSES}
+    if any(n != (len(frame_s), 0) for n in newmark.values()):
+        fail(f"main path: the stepper's passes launched {newmark} (f32, f64) "
+             f"times over {len(frame_s)} frames, not once a frame each")
+    launches["newmark"] = sum(n for n, _ in newmark.values())
     peak = torch.cuda.max_memory_allocated()
     iters = [t.pcg_iterations for t in telemetries]
     if not all(t.pcg_converged for t in telemetries):
@@ -626,6 +650,7 @@ def main_path_phase(device):
     del sim, state
     torch.cuda.empty_cache()
     split["u1"] = direction_update_check(device)
+    split["newmark"] = newmark_vectors_check(device)
     return launches, split
 
 
@@ -685,6 +710,92 @@ def direction_update_check(device):
         result[label]["ms_first"] = ms_first
         del vecs, x, r, p, s, u, w, work
         torch.cuda.empty_cache()
+    return result
+
+
+# the layouts the stepper's passes run on the main paths: the 255^3
+# cantilever's grid, the soil-over-rock column's grid (planes of an odd
+# node count) and the 66^3 tet cantilever's node rows (67^3 nodes padded
+# to a multiple of 8), each with its mass: (1, X, Y, Z) or (N*, 1)
+NEWMARK_LAYOUTS = (("255^3", (3, *(n + 1 for n in FULL))),
+                   ("hetero 641x161x161", (3, 641, 161, 161)),
+                   ("tet-66 rows", (300_768, 3)))
+
+
+def newmark_vectors_check(device):
+    """Phase 4's block of the stepper's three passes: each against its
+    plain version (the torch composition it replaced) on every layout of
+    ``NEWMARK_LAYOUTS`` with a random mask, f32 and f64, with K d and delta
+    written, bit for bit, and kernel and plain version timed with CUDA
+    events.  Returns {layout: {"f32": ..., "f64": ...}}."""
+    from civiwave_tpu_torch.ops.cuda import newmark_vectors as nv
+
+    k = nv.NewmarkScalars(
+        dt=1e-3, c_pred=0.25e-6, a0=4e6, a2=4e3, a3=1.0, a1=2e3, a4=1.0, a5=0.0,
+        alpha_r=0.36363636363636365, beta_r=3.6363636363636364e-4,
+        c_vpred=0.5e-3, c_v=2e3, c_a=4e6)
+    result = {}
+    for layout, shape in NEWMARK_LAYOUTS:
+        grid = len(shape) == 4
+        nodes = int(np.prod(shape[1:])) if grid else shape[0]
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        bc = torch.rand(shape, generator=gen, device=device) < 0.3
+        bc_value = 1e-3 * torch.randn(shape, generator=gen, device=device)
+        mass_shape = (1, *shape[1:]) if grid else (nodes, 1)
+        mass = 7800.0 * (1.0 + torch.rand(mass_shape, generator=gen, device=device))
+        result[layout] = {}
+        for dtype, label in ((torch.float32, "f32"), (torch.float64, "f64")):
+            bits = torch.int32 if dtype == torch.float32 else torch.int64
+            u, v, a, f, x, kd = (
+                scale * torch.randn(shape, generator=gen, device=device, dtype=dtype)
+                for scale in (1e-4, 1e-2, 10.0, 1e5, 1e-4, 1e7))
+            ref_a = nv.newmark_rhs_plain(mass, u, v, a, f, k)
+            got_a = nv.newmark_rhs(mass, u, v, a, f, k)
+            ref_b = nv.newmark_rhs_clamp_plain(ref_a[2], kd, None, bc, bc_value, k)
+            got_b = nv.newmark_rhs_clamp(got_a[2], kd, None, bc, bc_value, k)
+            ref_c = nv.newmark_update_plain(x, ref_a[0], v, a, k, True)
+            got_c = nv.newmark_update(x, got_a[0], v, a, k, True)
+            torch.cuda.synchronize()
+            pairs = [("u_pred", got_a[0], ref_a[0]), ("d", got_a[1], ref_a[1]),
+                     ("rhs", got_b, ref_b),
+                     *zip(("u", "v", "a", "delta"), got_c, ref_c)]
+            for name, g, want in pairs:
+                if not torch.equal(g.view(bits), want.view(bits)):
+                    fail(f"newmark passes {label} {layout}: {name} differs from "
+                         f"the plain version in {int((g != want).sum()):,} of "
+                         f"{g.numel():,} values")
+            u_pred, rhs = got_a[0], got_b
+            del pairs, ref_a, ref_b, ref_c, got_a, got_b, got_c
+            calls = (
+                (lambda: nv.newmark_rhs(mass, u, v, a, f, k),
+                 lambda: nv.newmark_rhs_plain(mass, u, v, a, f, k)),
+                (lambda: nv.newmark_rhs_clamp(rhs, kd, None, bc, bc_value, k),
+                 lambda: nv.newmark_rhs_clamp_plain(rhs, kd, None, bc, bc_value, k)),
+                (lambda: nv.newmark_update(x, u_pred, v, a, k),
+                 lambda: nv.newmark_update_plain(x, u_pred, v, a, k, False)))
+            tflops = F32_TFLOPS if dtype == torch.float32 else F64_TFLOPS
+            print(f"newmark passes {label} {layout}: rhs, clamp and update "
+                  f"bit-equal to the plain versions", flush=True)
+            passes = {}
+            for name, (kernel, plain), nbytes, flops in zip(
+                    NEWMARK_PASSES, calls, NEWMARK_BYTES_PER_NODE[dtype],
+                    NEWMARK_FLOPS_PER_NODE):
+                passes[name] = report_time(
+                    f"{layout} {name} {label}", "x".join(map(str, shape)),
+                    time_ms(kernel, 20), time_ms(plain, 3), nbytes * nodes,
+                    flops * nodes, tflops=tflops)
+            total = {key: sum(p[key] for p in passes.values())
+                     for key in ("ms", "plain_ms", "bound_ms")}
+            print(f"newmark passes {label} {layout}: the three {total['ms']:.4f} "
+                  f"ms, plain {total['plain_ms']:.4f} ms, bound "
+                  f"{total['bound_ms']:.4f} ms ({total['bound_ms'] / total['ms']:.3f} "
+                  f"of it)", flush=True)
+            result[layout][label] = dict(
+                total, bound_by="bytes", library_ms=None,
+                passes={n: p["ms"] for n, p in passes.items()})
+            del u, v, a, f, x, kd, u_pred, rhs, calls
+            torch.cuda.empty_cache()
+        del bc, bc_value, mass
     return result
 
 
@@ -5571,6 +5682,25 @@ def main() -> int:
              ms_first_f64=split["u1"]["f64"]["ms_first"],
              plain_ms_f64=split["u1"]["f64"]["plain_ms"],
              bound_ms_f64=split["u1"]["f64"]["bound_ms"]),
+        # the stepper's three passes (phase 4's block): each bit-equal to
+        # its plain version (errors 0) on the three layouts; the summed
+        # time and bound at (3, 256, 256, 256) (1.057 ms in f32, 2.07 in
+        # f64) and, under "layouts", on the other two; launches of the
+        # three over the main path's 10 frames (once a frame each)
+        dict(name="newmark_vectors", route="cuda",
+             source=src + "newmark_vectors.cu",
+             replaces="civiwave_tpu/solver/stepper.py:161",
+             launches=launches["newmark"],
+             max_abs_err=0.0, max_rel_err=0.0, tol=0.0, bit_equal=True,
+             **split["newmark"]["255^3"]["f32"],
+             ms_f64=split["newmark"]["255^3"]["f64"]["ms"],
+             plain_ms_f64=split["newmark"]["255^3"]["f64"]["plain_ms"],
+             bound_ms_f64=split["newmark"]["255^3"]["f64"]["bound_ms"],
+             passes_f64=split["newmark"]["255^3"]["f64"]["passes"],
+             layouts={layout: {label: {key: r[key] for key in ("ms", "bound_ms")}
+                               for label, r in by_dtype.items()}
+                      for layout, by_dtype in split["newmark"].items()
+                      if layout != "255^3"}),
         dict(name="element_forces_hex", route="cuda",
              source=src + "element_forces.cu",
              replaces=pallas + "element_forces.py:125",

@@ -129,6 +129,20 @@ _SIGNATURES = {
     # scalars; beta NULL on a solve's first call), scalars_f64, n, stream
     "civi_cg_direction_update": (*(_P,) * 9, _I, _L, _P),
     "civi_cg_direction_update_f64": (*(_P,) * 9, _I, _L, _P),
+    # (the stepper's passes: nodes, then plane, the grid's nodes per
+    # component plane or 0 for node rows)
+    # u, v, a, f, mass, u_pred, d, rhs, dt, c_pred, a0, a2, a3, a1, a4, a5,
+    # alpha_r (f32 in both instances), nodes, plane, stream
+    "civi_newmark_rhs": (*(_P,) * 8, *(_F,) * 9, _L, _L, _P),
+    "civi_newmark_rhs_f64": (*(_P,) * 8, *(_D,) * 8, _F, _L, _L, _P),
+    # rhs (in place), Kd, absorbing term (each NULL where absent), bc,
+    # bc_value, beta_r, nodes, plane, stream
+    "civi_newmark_rhs_clamp": (*(_P,) * 5, _F, _L, _L, _P),
+    "civi_newmark_rhs_clamp_f64": (*(_P,) * 5, _D, _L, _L, _P),
+    # x, u_pred, v, a, u_out, v_out, a_out, delta (NULL but under the
+    # "delta" policy), c_vpred, c_v, c_a, nodes, plane, stream
+    "civi_newmark_update": (*(_P,) * 8, *(_F,) * 3, _L, _L, _P),
+    "civi_newmark_update_f64": (*(_P,) * 8, *(_D,) * 3, _L, _L, _P),
 }
 
 

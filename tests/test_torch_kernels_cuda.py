@@ -22,7 +22,12 @@ box_regions scenario stepped on G3 through build_simulation.  The fused loop's d
 against its plain version bit for bit (f32 and f64, first and later calls,
 random masks, lengths that are not a multiple of 4 or below 4; buffers
 off a 16-byte boundary refused), and a fused solve with it against the
-solve with the plain update.
+solve with the plain update.  The stepper's three vector passes against
+their plain versions bit for bit (f32 and f64, grids of planes of 4 k
+nodes and of an odd count, node rows, every set of added terms, views at
+any offset), and
+frames of a small cantilever with them against the frames with the plain
+passes, three launches a frame.
 
 Marked ``cuda``: each test skips where no CUDA device is present (the
 kernels are compiled with nvcc for sm_90a at first use and cannot run
@@ -58,6 +63,7 @@ from civiwave_tpu_torch.ops.cuda import assemble_csr as g1
 from civiwave_tpu_torch.ops.cuda import block_jacobi_apply as k3
 from civiwave_tpu_torch.ops.cuda import element_forces as k7
 from civiwave_tpu_torch.ops.cuda import interior_stencil as k4
+from civiwave_tpu_torch.ops.cuda import newmark_vectors as nv
 from civiwave_tpu_torch.ops.cuda import keff_boundary as g2
 from civiwave_tpu_torch.ops.cuda import pcg_iteration as k6
 from civiwave_tpu_torch.ops.cuda import pcg_vector_update as cgu
@@ -66,6 +72,7 @@ from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
 from civiwave_tpu_torch.physics import materials
 from civiwave_tpu_torch.runner import build_simulation
 from civiwave_tpu_torch.solver import pcg as tpcg
+from civiwave_tpu_torch.solver import stepper as tstepper
 from civiwave_tpu_torch.utils.synthetic import (
     box_mesh,
     cantilever_config,
@@ -407,6 +414,155 @@ def test_fused_solve_with_the_update_kernel_matches_plain_update(device, monkeyp
     assert torch.equal(_bits(x), _bits(x_ref))
     for field in ("residual_norm", "alpha_last", "beta_last"):
         assert torch.equal(getattr(tel, field), getattr(tel_ref, field)), field
+
+
+# the stepper's passes: a grid of planes of 4 k nodes, one of an odd
+# count, node rows of N % 4 != 0 and a single row
+NEWMARK_LAYOUTS = {"grid": (3, 8, 9, 12), "grid_odd": (3, 5, 9, 7),
+                   "rows_37": (37, 3), "rows_1": (1, 3)}
+NEWMARK_SCALARS = nv.NewmarkScalars(
+    dt=1e-3, c_pred=0.25e-6, a0=4e6, a2=4e3, a3=1.0, a1=2e3, a4=1.0, a5=0.0,
+    alpha_r=0.36363636363636365, beta_r=3.6363636363636364e-4, c_vpred=0.5e-3,
+    c_v=2e3, c_a=4e6)
+
+
+def _newmark_inputs(device, layout, dtype, seed=5):
+    shape = NEWMARK_LAYOUTS[layout]
+    g = torch.Generator().manual_seed(seed)
+
+    def vec(scale):
+        return (scale * torch.randn(shape, generator=g, dtype=torch.float64)
+                ).to(dtype).to(device)
+
+    u, v, a, f, x, kd, cd = (vec(s) for s in (1e-4, 1e-2, 10.0, 1e5, 1e-4, 1e7, 1e3))
+    mass_shape = (1, *shape[1:]) if len(shape) == 4 else (shape[0], 1)
+    mass = ((1.0 + torch.rand(mass_shape, generator=g)) * 7800.0).to(device)
+    bc = (torch.rand(shape, generator=g) < 0.3).to(device)
+    bc_value = (1e-3 * torch.randn(shape, generator=g)).to(device)
+    return u, v, a, f, x, kd, cd, mass, bc, bc_value
+
+
+def _newmark_launches():
+    return {w.__name__: (w.launches, w.launches_f64) for w in (
+        nv.newmark_rhs, nv.newmark_rhs_clamp, nv.newmark_update)}
+
+
+@pytest.mark.parametrize("terms", ["kd", "kd_absorb", "absorb", "none"])
+@pytest.mark.parametrize("layout", sorted(NEWMARK_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_newmark_passes_match_plain(device, dtype, layout, terms):
+    """Each pass gives its plain version's bits; the clamp writes rhs in
+    place; delta is written under the "delta" policy only."""
+    u, v, a, f, x, kd, cd, mass, bc, bc_value = _newmark_inputs(device, layout, dtype)
+    k = NEWMARK_SCALARS
+    kd = kd if "kd" in terms else None
+    cd = cd if "absorb" in terms else None
+    write_delta = terms in ("kd_absorb", "none")
+    before = _newmark_launches()
+    ref_a = nv.newmark_rhs_plain(mass, u, v, a, f, k)
+    got_a = nv.newmark_rhs(mass, u, v, a, f, k)
+    ref_b = nv.newmark_rhs_clamp_plain(ref_a[2], kd, cd, bc, bc_value, k)
+    rhs = got_a[2]
+    got_b = nv.newmark_rhs_clamp(rhs, kd, cd, bc, bc_value, k)
+    ref_c = nv.newmark_update_plain(x, ref_a[0], v, a, k, write_delta)
+    got_c = nv.newmark_update(x, got_a[0], v, a, k, write_delta)
+    torch.cuda.synchronize()
+    assert got_b is rhs
+    # (got_a's rhs is the clamp's, written in place)
+    for got, want in zip((*got_a[:2], got_b, *got_c[:3]),
+                         (*ref_a[:2], ref_b, *ref_c[:3])):
+        assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(got_b[bc]), _bits(bc_value[bc].to(dtype)))
+    if write_delta:
+        assert torch.equal(_bits(got_c[3]), _bits(ref_c[3]))
+    else:
+        assert got_c[3] is None
+    slot = 0 if dtype == torch.float32 else 1
+    after = _newmark_launches()
+    for name, counts in after.items():
+        assert counts[slot] == before[name][slot] + 1, name
+        assert counts[1 - slot] == before[name][1 - slot], name
+
+
+def test_newmark_passes_refuse_wrong_inputs(device):
+    u, v, a, f, x, kd, cd, mass, bc, bc_value = _newmark_inputs(
+        device, "grid", torch.float32)
+    k = NEWMARK_SCALARS
+    strided = torch.empty((*u.shape[:-1], 2 * u.shape[-1]), device=device)[..., ::2]
+    for call, error in (
+            (lambda: nv.newmark_rhs(mass.reshape(-1), u, v, a, f, k), ValueError),
+            (lambda: nv.newmark_rhs(mass, strided, v, a, f, k), ValueError),
+            (lambda: nv.newmark_rhs(mass, u, v.double(), a, f, k), TypeError),
+            (lambda: nv.newmark_rhs(mass, u, v, a, f.cpu(), k), ValueError),
+            (lambda: nv.newmark_rhs_clamp(f, kd, None, bc, bc_value.double(), k),
+             TypeError),
+            (lambda: nv.newmark_update(x, strided, v, a, k), ValueError)):
+        with pytest.raises(error):
+            call()
+
+
+def _newmark_off16(t):
+    """``t``'s values in a view that starts one value past a 16-byte
+    boundary."""
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("layout", sorted(NEWMARK_LAYOUTS))
+def test_newmark_passes_take_views_at_any_offset(device, layout):
+    """The kernels read and write single values: views off a 16-byte
+    boundary give the plain versions' bits."""
+    u, v, a, f, x, kd, cd, mass, bc, bc_value = _newmark_inputs(
+        device, layout, torch.float32)
+    k = NEWMARK_SCALARS
+    off = _newmark_off16
+    ref_a = nv.newmark_rhs_plain(mass, u, v, a, f, k)
+    got_a = nv.newmark_rhs(off(mass), off(u), v, off(a), f, k)
+    ref_b = nv.newmark_rhs_clamp_plain(ref_a[2], kd, cd, bc, bc_value, k)
+    got_b = nv.newmark_rhs_clamp(off(got_a[2]), off(kd), cd, off(bc), off(bc_value), k)
+    ref_c = nv.newmark_update_plain(x, ref_a[0], v, a, k, True)
+    got_c = nv.newmark_update(off(x), got_a[0], off(v), a, k, True)
+    torch.cuda.synchronize()
+    for got, want in zip((*got_a[:2], got_b, *got_c), (*ref_a[:2], ref_b, *ref_c)):
+        assert torch.equal(_bits(got), _bits(want))
+
+
+@pytest.mark.parametrize("precision,policy", [("fp32", "predictor"), ("fp64", "delta")])
+def test_newmark_step_with_the_passes_matches_plain_passes(device, monkeypatch,
+                                                          precision, policy):
+    """Frames of a small cantilever (Rayleigh beta_R > 0) with the three
+    passes: three launches a frame, and the state bits and iterations of
+    the same frames with the plain passes on the same card."""
+    cfg = cantilever_config(tol_runtime=2e-4, max_iters=120,
+                            mesh={"path": "synthetic://box/12,6,6"})
+    frames = 4
+
+    def run():
+        sim = build_simulation(cfg, device=device)
+        sim.stepper.vector_precision = precision
+        sim.stepper.warm_start_policy = policy
+        tel = sim.run(frames)
+        torch.cuda.synchronize()
+        return sim.stepper.state, [t.pcg_iterations for t in tel]
+
+    assert materials.compute_rayleigh(cfg.damping).beta > 0.0
+    before = _newmark_launches()
+    state, iters = run()
+    after = _newmark_launches()
+    slot = 0 if precision == "fp32" else 1
+    assert sum(after[n][slot] - before[n][slot] for n in after) == 3 * frames
+    for name in after:
+        assert after[name][slot] - before[name][slot] == frames, name
+    for name, plain in (("newmark_rhs", nv.newmark_rhs_plain),
+                        ("newmark_rhs_clamp", nv.newmark_rhs_clamp_plain),
+                        ("newmark_update", nv.newmark_update_plain)):
+        monkeypatch.setattr(tstepper, name, plain)
+    ref, ref_iters = run()
+    assert iters == ref_iters and all(n > 0 for n in iters)
+    for field in dataclasses.fields(state):
+        assert torch.equal(_bits(getattr(state, field.name)),
+                           _bits(getattr(ref, field.name))), field.name
 
 
 # --- slender route: K4 and G2 --------------------------------------------

@@ -142,7 +142,7 @@ def test_launches_go_through_the_library_call():
     cuda = ROOT / "civiwave_tpu_torch" / "ops" / "cuda"
     wrappers = [f for f in sorted(cuda.glob("*.py")) if f.name != "_build.py"]
     calls = [f.name for f in wrappers if ".call(" in f.read_text()]
-    assert len(calls) == 10
+    assert len(calls) == 11
     assert [f.name for f in wrappers if ".lib" in f.read_text()] == []
 
 
