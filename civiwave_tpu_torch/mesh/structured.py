@@ -261,17 +261,15 @@ class StructuredModel:
         )
 
     def prefers_fused_pcg(self, block_inverse, vector_dtype) -> bool:
-        """'auto' variant probe: Chronopoulos-Gear on a shard and wherever
-        the fused pc+matvec+dots kernel runs (CUDA, f32, homogeneous),
-        classic elsewhere (a heterogeneous grid included) and under
-        multigrid."""
+        """'auto' variant probe: Chronopoulos-Gear on a shard (one
+        all-reduce per iteration) and where K2 runs on CUDA, classic
+        elsewhere."""
         from ..ops import structured as _ops
 
-        if self.shard_group is not None:
-            return True  # one all-reduce per iteration on a shard
-        if self.multigrid:
-            return False
-        return _ops.pc_keff_kernel_eligible(self, block_inverse, vector_dtype)
+        return self.shard_group is not None or (
+            self.device.type == "cuda"
+            and _ops.pc_keff_kernel_eligible(self, block_inverse, vector_dtype)
+        )
 
     def build_fused_pcg_iteration(self, block_inverse, stiffness_scale,
                                   mass_factor, reduction_dtype,
@@ -280,8 +278,6 @@ class StructuredModel:
         CUDA), or None when ineligible — see ops.structured."""
         from ..ops import structured as _ops
 
-        if self.multigrid:
-            return None
         return _ops.build_fused_pcg_iteration(
             self, block_inverse, stiffness_scale, mass_factor,
             reduction_dtype, vector_dtype,
@@ -289,13 +285,10 @@ class StructuredModel:
 
     def apply_pc_keff(self, block_inverse, residual, stiffness_scale,
                       mass_factor):
-        """(u, w) = (M^-1 r, K_eff u) — one kernel launch on CUDA; under
-        multigrid the V-cycle, then the operator."""
+        """(u, w) = (M^-1 r, K_eff u) — one kernel launch on CUDA where K2
+        runs, else the preconditioner then the operator."""
         from ..ops import structured as _ops
 
-        if self.multigrid:
-            u = self.apply_preconditioner(block_inverse, residual)
-            return u, self.apply_keff(u, stiffness_scale, mass_factor)
         return _ops.apply_pc_keff_structured(
             self, block_inverse, residual, stiffness_scale, mass_factor
         )
@@ -303,12 +296,10 @@ class StructuredModel:
     def apply_pc_keff_dots(self, block_inverse, residual, stiffness_scale,
                            mass_factor, reduction_dtype):
         """(u, w, (gamma, delta, rr)) with the three iteration dots
-        reduced in the same kernel pass on CUDA; None under multigrid
+        reduced in the same kernel pass, or None where K2 does not run
         (the PCG loop composes)."""
         from ..ops import structured as _ops
 
-        if self.multigrid:
-            return None
         return _ops.apply_pc_keff_dots_structured(
             self, block_inverse, residual, stiffness_scale, mass_factor,
             reduction_dtype,

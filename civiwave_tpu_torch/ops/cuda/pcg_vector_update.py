@@ -55,11 +55,6 @@ def _check_scalar(t, name: str, device) -> None:
         raise ValueError(f"{name}: {t.numel()} values, expected one")
 
 
-def _check_aligned(t, name: str, nbytes: int) -> None:
-    if t.data_ptr() % nbytes:
-        raise ValueError(f"{name}: starts off a {nbytes}-byte boundary")
-
-
 def cg_direction_update(bc, x, r, p, s, u, w, alpha, beta, dtype):
     """The direction update of ``dtype`` vectors; kernel on CUDA, plain
     version on CPU.  Returns ``(x, r, p, s)``."""
@@ -83,8 +78,8 @@ def cg_direction_update(bc, x, r, p, s, u, w, alpha, beta, dtype):
         _build.check_tensor(p, "p", shape, dtype, dev)
         _build.check_tensor(s, "s", shape, dtype, dev)
     for name, v in (("x", x), ("r", r), ("p", p), ("s", s), ("u", u), ("w", w)):
-        _check_aligned(v, name, 16)
-    _check_aligned(bc, "bc_mask", 4)
+        _build.check_aligned(v, name, 16)
+    _build.check_aligned(bc, "bc_mask", 4)
     library = _build.load_library()
     library.call(
         entry, dev, x.data_ptr(), r.data_ptr(), p.data_ptr(), s.data_ptr(),

@@ -880,33 +880,32 @@ def apply_compact_preconditioner_structured(
 
 
 def pc_keff_kernel_eligible(model: StructuredModel, pc, dtype) -> bool:
-    """Whether the fused pc+matvec(+dots) kernel K2 runs: class-table
-    preconditioner, a homogeneous grid, f32 vectors (K2 declines f64, as
-    the reference's kernel), model on a CUDA device, not a shard and not
-    the slender route (where the reference's kernel is not profitable)."""
+    """The structured route's fused kernels, K2 and (behind its switch) K6,
+    serve the iteration: an unsharded grid, the class-table preconditioner
+    (which a V-cycle or a heterogeneous grid's per-node inverse is not),
+    f32 vectors (the kernels are f32 only, as the reference's) and not the
+    slender route (where the reference's stream kernels are not
+    profitable).  The device does not enter: CPU tensors run the kernels'
+    plain forms."""
     return (
         model.shard_group is None
         and model.homogeneous
         and isinstance(pc, CompactBlockJacobi)
         and dtype == torch.float32
-        and model.device.type == "cuda"
         and not slender_route(model, dtype)
     )
 
 
 def apply_pc_keff_structured(
-    model: StructuredModel, pc: CompactBlockJacobi, residual: torch.Tensor,
-    stiffness_scale, mass_factor,
+    model: StructuredModel, pc, residual: torch.Tensor, stiffness_scale,
+    mass_factor,
 ):
     """(u, w) = (M^-1 r, K_eff u) — the back-to-back pc apply + matvec of
     the Chronopoulos-Gear iteration: one K2 launch on CUDA (the
     composition of the two plain forms on CPU) plus the absorbing term on
-    w; on a shard, on a heterogeneous grid, on the slender route and for
-    f64 vectors (K2 is f32 only) the composition of the preconditioner and
-    the operator."""
-    if (model.shard_group is not None or not model.homogeneous
-            or residual.dtype != torch.float32
-            or slender_route(model, residual.dtype)):
+    w; off :func:`pc_keff_kernel_eligible` the model's preconditioner
+    (the V-cycle under multigrid) and operator composed."""
+    if not pc_keff_kernel_eligible(model, pc, residual.dtype):
         u = model.apply_preconditioner(pc, residual)
         return u, model.apply_keff(u, stiffness_scale, mass_factor)
     u, w = _k12.apply_pc_keff_fused(
@@ -916,22 +915,20 @@ def apply_pc_keff_structured(
 
 
 def apply_pc_keff_dots_structured(
-    model: StructuredModel, pc: CompactBlockJacobi, residual: torch.Tensor,
+    model: StructuredModel, pc, residual: torch.Tensor,
     stiffness_scale, mass_factor, reduction_dtype=torch.float64,
 ):
     """(u, w, (gamma, delta, rr)) with the three Chronopoulos-Gear dots
     (r,u), (w,u), (r,r) reduced in ``reduction_dtype``: on CUDA emitted as
-    row partials by the same K2 pass; on CPU the composition followed by
+    row partials by the same K2 pass; on CPU the plain K2 followed by
     :func:`~civiwave_tpu_torch.solver.pcg.fused_dots`.
 
-    None — the caller composes ``apply_pc_keff`` and ``fused_dots`` — on
-    a shard, on a heterogeneous grid, on the slender route, for f64
-    vectors and with absorbing faces: the face term is added to w after
-    the kernel, so an in-kernel (w, u) partial would miss it."""
-    if (model.shard_group is not None or model.absorb_faces
-            or not model.homogeneous
-            or residual.dtype != torch.float32
-            or slender_route(model, residual.dtype)):
+    None — the caller composes ``apply_pc_keff`` and ``fused_dots`` — off
+    :func:`pc_keff_kernel_eligible` and with absorbing faces: the face term
+    is added to w after the kernel, so an in-kernel (w, u) partial would
+    miss it."""
+    if model.absorb_faces or not pc_keff_kernel_eligible(
+            model, pc, residual.dtype):
         return None
     return _k12.apply_pc_keff_fused(
         model, pc.table, residual, stiffness_scale, mass_factor,
@@ -956,24 +953,13 @@ def build_fused_pcg_iteration(
 
     Opt-in through ``CIVIWAVE_MEGA_PCG=1``, read at call time, as in the
     reference (its ADR-22: on v5e the whole-iteration kernel lost to the
-    split form).  Eligibility is the reference's minus its TPU-only rules
-    (VMEM plane fit, even plane count, stream profitability, TPU backend):
-    the class-table block-Jacobi, a homogeneous unsharded grid, f32 vectors,
-    no absorbing faces (the kernel could not add the face term to w) and
-    not the slender route (the reference's stream-profitability rule, by
-    shape).  The device does not gate it: CPU tensors take the plain K6, as
-    every other dispatch of the port goes by device.
+    split form).  Eligibility is :func:`pc_keff_kernel_eligible` (the
+    reference's rules minus its TPU-only ones: VMEM plane fit, even plane
+    count, TPU backend) and no absorbing faces (the kernel could not add
+    the face term to w).
     """
-    if os.environ.get("CIVIWAVE_MEGA_PCG", "0") != "1":
-        return None
-    if not (
-        isinstance(pc, CompactBlockJacobi)
-        and not model.absorb_faces
-        and model.homogeneous
-        and model.shard_group is None
-        and vector_dtype == torch.float32
-        and not slender_route(model, vector_dtype)
-    ):
+    if (os.environ.get("CIVIWAVE_MEGA_PCG", "0") != "1" or model.absorb_faces
+            or not pc_keff_kernel_eligible(model, pc, vector_dtype)):
         return None
 
     def iteration(carries, alpha, beta):

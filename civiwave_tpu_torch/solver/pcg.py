@@ -22,8 +22,11 @@ Degenerate denominators (|p.Ap| or |rho| < 1e-18) set ``breakdown`` and stop
 the loop with converged=False.
 
 Variants: classic, fused (Chronopoulos-Gear, one reduction per iteration;
-with ``CIVIWAVE_MEGA_PCG=1`` the whole-iteration K6 loop) and pipelined
-(Ghysels-Vanroose with periodic residual replacement).
+one loop whose iteration body is U1 then K2, or with
+``CIVIWAVE_MEGA_PCG=1`` one whole-iteration K6 call) and pipelined
+(Ghysels-Vanroose with periodic residual replacement).  Every variant's
+loop runs inside :func:`_solve`, which holds what they share: the
+preconditioner, the initial residual and the telemetry.
 
 Under a torch.profiler trace the loops open the reference's named ranges
 (``pcg_matvec``, ``pcg_precondition``, ``pcg_pc_matvec``, ...;
@@ -93,6 +96,14 @@ def _clamp_dirichlet(model, rhs, x, r):
     return x, r
 
 
+def _norm_and_tolerance(rhs2, relative_tolerance):
+    """(||rhs||, the absolute stopping tolerance) from (rhs, rhs): the
+    norm floored to 1 below ``_RHS_NORM_FLOOR`` (pcg.cpp:774)."""
+    rhs_norm = torch.sqrt(rhs2)
+    floored = torch.where(rhs_norm < _RHS_NORM_FLOOR, 1.0, rhs_norm)
+    return rhs_norm, relative_tolerance * floored
+
+
 def dot_partials(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """f32 minor-axis-chunked partial products of one dot (the chunk phase
     of :func:`dot_f64` without the final accumulate)."""
@@ -125,9 +136,36 @@ def resolve_variant(model, variant: str, block_inverse, vector_dtype) -> str:
     otherwise, as the reference (pcg.py:173-182); any other is kept."""
     if variant != "auto":
         return variant
-    prefers = getattr(model, "prefers_fused_pcg", None)
-    fused = prefers is not None and prefers(block_inverse, vector_dtype)
+    fused = model.prefers_fused_pcg(block_inverse, vector_dtype)
     return "fused" if fused else "classic"
+
+
+def _block_inverse(model, preconditioner, stiffness_scale, mass_factor):
+    """``preconditioner``, or the model's built for these scalars."""
+    if preconditioner is None:
+        return model.build_preconditioner(stiffness_scale, mass_factor)
+    return preconditioner
+
+
+def _solve(loop, model, rhs, stiffness_scale, mass_factor, relative_tolerance,
+           max_iterations, x0, warm_start, reduction_dtype, vector_dtype,
+           preconditioner, **options):
+    """Run one variant's ``loop`` inside what every variant shares: the
+    preconditioner, the initial residual (x0 or zeros, rhs - K_eff x in
+    the vector dtype, Dirichlet-clamped) and the telemetry.  ``loop``
+    returns x and the telemetry's fields in order."""
+    block_inverse = _block_inverse(
+        model, preconditioner, stiffness_scale, mass_factor
+    )
+    x = x0 if warm_start else torch.zeros_like(x0)
+    r = (rhs - model.apply_keff(x, stiffness_scale, mass_factor)).to(vector_dtype)
+    x, r = _clamp_dirichlet(model, rhs, x, r)
+    x, *stats = loop(
+        model, rhs, x, r, block_inverse, stiffness_scale, mass_factor,
+        relative_tolerance, max_iterations, reduction_dtype, vector_dtype,
+        **options,
+    )
+    return x, PcgTelemetry(*stats)
 
 
 def solve_pcg(
@@ -165,46 +203,36 @@ def solve_pcg(
     (the YAML ``solver.replace_every``); 0 disables replacement.  The other
     variants ignore it.
     """
-    block_inverse = (
-        model.build_preconditioner(stiffness_scale, mass_factor)
-        if preconditioner is None
-        else preconditioner
+    block_inverse = _block_inverse(
+        model, preconditioner, stiffness_scale, mass_factor
     )
     variant = resolve_variant(model, variant, block_inverse, vector_dtype)
+    args = (model, rhs, stiffness_scale, mass_factor, relative_tolerance,
+            max_iterations, x0)
+    kwargs = dict(warm_start=warm_start, reduction_dtype=reduction_dtype,
+                  vector_dtype=vector_dtype, preconditioner=block_inverse)
     if variant == "fused":
-        return solve_pcg_fused(
-            model, rhs, stiffness_scale, mass_factor, relative_tolerance,
-            max_iterations, x0, warm_start=warm_start,
-            reduction_dtype=reduction_dtype, vector_dtype=vector_dtype,
-            preconditioner=block_inverse,
-        )
+        return solve_pcg_fused(*args, **kwargs)
     if variant == "pipelined":
-        return solve_pcg_pipelined(
-            model, rhs, stiffness_scale, mass_factor, relative_tolerance,
-            max_iterations, x0, warm_start=warm_start,
-            reduction_dtype=reduction_dtype, vector_dtype=vector_dtype,
-            preconditioner=block_inverse, replace_every=replace_every,
-        )
+        return solve_pcg_pipelined(*args, replace_every=replace_every, **kwargs)
     if variant != "classic":
         raise ValueError(f"unknown PCG variant {variant!r}")
-    f32 = vector_dtype
-    rdt = reduction_dtype
-    bc = model.bc_mask
-    psum = getattr(model, "psum", None)
+    return _solve(_classic_loop, *args, warm_start, reduction_dtype,
+                  vector_dtype, block_inverse)
+
+
+def _classic_loop(model, rhs, x, r, block_inverse, stiffness_scale,
+                  mass_factor, relative_tolerance, max_iterations, rdt, f32):
+    """The reference's 3-dot loop (pcg.cpp:830-915), from the clamped
+    initial residual."""
+    bc, psum = model.bc_mask, model.psum
 
     def rdot(a, b):
         return dot_f64(a, b, rdt, psum)
 
-    x = x0 if warm_start else torch.zeros_like(x0)
-
-    ax = model.apply_keff(x, stiffness_scale, mass_factor)
-    r = (rhs - ax).to(f32)
-    x, r = _clamp_dirichlet(model, rhs, x, r)
-
-    rhs_norm_true = torch.sqrt(rdot(rhs, rhs))
-    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
-    tolerance = relative_tolerance * rhs_norm
-
+    rhs_norm_true, tolerance = _norm_and_tolerance(
+        rdot(rhs, rhs), relative_tolerance
+    )
     residual_norm = torch.sqrt(rdot(r, r))
     z = model.apply_preconditioner(block_inverse, r)
     rho = rdot(r, z)
@@ -259,16 +287,8 @@ def solve_pcg(
                     p = (z + beta.to(f32) * p).masked_fill(bc, 0.0)
                 rho, beta_last = rho_new, beta
 
-    telemetry = PcgTelemetry(
-        iterations=iteration,
-        residual_norm=residual_norm,
-        rhs_norm=rhs_norm_true,
-        alpha_last=alpha_last,
-        beta_last=beta_last,
-        converged=converged,
-        breakdown=breakdown,
-    )
-    return x, telemetry
+    return (x, iteration, residual_norm, rhs_norm_true, alpha_last, beta_last,
+            converged, breakdown)
 
 
 def solve_pcg_fused(
@@ -296,48 +316,48 @@ def solve_pcg_fused(
         alpha = gamma' / (delta - beta gamma'/alpha)
         p = u + beta p ; s = w + beta s
 
-    On CUDA the structured model's pc apply, matvec and three dots are one
-    K2 launch (``model.apply_pc_keff_dots``); a model without that method
-    (the general path), or whose method returns None (absorbing faces, the
-    slender route), composes ``apply_pc_keff`` and :func:`fused_dots`.
-    The p/s recurrence an iteration decides runs at the top of the next,
-    with that iteration's x/r axpys: one ``cg_direction_update`` pass
-    (``ops/cuda/pcg_vector_update``, in place on CUDA), which a stop never
-    launches.  With ``CIVIWAVE_MEGA_PCG=1`` a model that builds a
-    whole-iteration bundle (the structured model) runs
-    :func:`_solve_pcg_megafused` instead: the whole iteration is one K6
-    launch on CUDA.
+    One loop, one scalar recurrence and one host read of the flags per
+    iteration; the iteration's vector work is one of two bodies, each on
+    the carries ``(x, r, u, w, p, s)``:
+
+    * the split body: the p/s recurrence the previous iteration decided
+      runs at the top of the next, with that iteration's x/r axpys, as one
+      ``cg_direction_update`` pass (U1, ``ops/cuda/pcg_vector_update``, in
+      place on CUDA), which a stop never launches; p and s are made by the
+      first from u and w (no beta).  Then the structured model's pc
+      apply, matvec and three dots are one K2 launch on CUDA
+      (``model.apply_pc_keff_dots``); a model without that method (the
+      general path), or whose method returns None (absorbing faces, the
+      slender route), composes ``apply_pc_keff`` and :func:`fused_dots`.
+    * the whole-iteration body, with ``CIVIWAVE_MEGA_PCG=1`` on a model
+      that builds the bundle (the structured model; the reference's
+      ``_solve_pcg_megafused``, pcg.py:809-947): one K6 launch on CUDA.
+      Body n feeds (u_{n-1}, w_{n-1}, p_{n-2}, s_{n-2}, alpha_{n-1},
+      beta_{n-1}) to the kernel, which forms p_{n-1}/s_{n-1} in flight,
+      applies the axpys, preconditions, applies the operator and emits
+      the three dots.  beta starts at 0 on zero p/s, so the first body
+      forms p_0 = u_0; the carries advance every body (on exit p/s are
+      one iterate old and consumed by nothing).
+
+    gamma, alpha, beta and beta_last freeze on the stopping body, and the
+    count is iteration + 1 every body, as in the reference.
     """
-    f32 = vector_dtype
-    rdt = reduction_dtype
-    bc = model.bc_mask
-    psum = getattr(model, "psum", None)
+    return _solve(_chronopoulos_gear_loop, model, rhs, stiffness_scale,
+                  mass_factor, relative_tolerance, max_iterations, x0,
+                  warm_start, reduction_dtype, vector_dtype, preconditioner)
 
-    block_inverse = (
-        model.build_preconditioner(stiffness_scale, mass_factor)
-        if preconditioner is None
-        else preconditioner
+
+def _chronopoulos_gear_loop(model, rhs, x, r, block_inverse, stiffness_scale,
+                            mass_factor, relative_tolerance, max_iterations,
+                            rdt, f32):
+    """The loop of :func:`solve_pcg_fused`, from the clamped initial
+    residual."""
+    bc, psum = model.bc_mask, model.psum
+    build = getattr(model, "build_fused_pcg_iteration", None)
+    mega = None if build is None else build(
+        block_inverse, stiffness_scale, mass_factor, rdt, f32
     )
-
-    # the whole-iteration path (the reference's pcg.py:381-396)
-    builder = getattr(model, "build_fused_pcg_iteration", None)
-    if builder is not None:
-        iteration_fn = builder(
-            block_inverse, stiffness_scale, mass_factor, rdt, f32
-        )
-        if iteration_fn is not None:
-            return _solve_pcg_megafused(
-                model, rhs, stiffness_scale, mass_factor, relative_tolerance,
-                max_iterations, x0, warm_start=warm_start,
-                reduction_dtype=rdt, vector_dtype=f32,
-                block_inverse=block_inverse, iteration_fn=iteration_fn,
-            )
-
-    x = x0 if warm_start else torch.zeros_like(x0)
-
-    ax = model.apply_keff(x, stiffness_scale, mass_factor)
-    r = (rhs - ax).to(f32)
-    x, r = _clamp_dirichlet(model, rhs, x, r)
+    dots_fn = getattr(model, "apply_pc_keff_dots", None)
 
     with scope("pcg_pc_matvec"):
         u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
@@ -345,10 +365,7 @@ def solve_pcg_fused(
     gamma, delta0, rr0, rhs2 = fused_dots(
         [(r, u), (w, u), (r, r), (rhs, rhs)], rdt, psum
     )
-    rhs_norm_true = torch.sqrt(rhs2)
-    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
-    tolerance = relative_tolerance * rhs_norm
-
+    rhs_norm_true, tolerance = _norm_and_tolerance(rhs2, relative_tolerance)
     residual_norm = torch.sqrt(rr0)
     delta_small = delta0.abs() < _BREAKDOWN_TOL
     alpha = gamma / torch.where(delta_small, 1.0, delta0)
@@ -358,34 +375,39 @@ def solve_pcg_fused(
     alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
     beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
 
-    # the pc apply, the matvec and the three dots in one pass where the
-    # model has it (the structured K2 kernel), else composed (also where
-    # the model's method declines with None)
-    dots_fn = getattr(model, "apply_pc_keff_dots", None)
-    # p and s are made by the first update (from u and w, no beta); each
-    # later one applies the p/s recurrence the previous iteration decided
-    p = s = beta = None
-    iteration = 0
-    while iteration < max_iterations and not converged and not breakdown:
+    def split_body(carries, alpha, beta):
+        x, r, u, w, p, s = carries
         with scope("pcg_vector_update"):
             x, r, p, s = cg_direction_update(bc, x, r, p, s, u, w, alpha, beta, f32)
         # constrained axes: p and s are zero there by recurrence, so x stays
         # = rhs and r stays = 0 bit for bit (the reference's elided clamp)
         with scope("pcg_pc_matvec_dots"):
-            fused_out = None if dots_fn is None else dots_fn(
+            out = None if dots_fn is None else dots_fn(
                 block_inverse, r, stiffness_scale, mass_factor, rdt
             )
-        if fused_out is not None:
-            u, w, (gamma_new, delta, rr) = fused_out
-        else:
+        if out is None:
             with scope("pcg_pc_matvec"):
                 u, w = model.apply_pc_keff(
                     block_inverse, r, stiffness_scale, mass_factor
                 )
             with scope("pcg_fused_reduction"):
-                gamma_new, delta, rr = fused_dots(
-                    [(r, u), (w, u), (r, r)], rdt, psum
-                )
+                out = u, w, fused_dots([(r, u), (w, u), (r, r)], rdt, psum)
+        u, w, dots = out
+        return (x, r, u, w, p, s), dots
+
+    def mega_body(carries, alpha, beta):
+        with scope("pcg_mega_iteration"):
+            return mega(carries, alpha.to(f32), beta.to(f32))
+
+    if mega is None:
+        body, beta, carries = split_body, None, (x, r, u, w, None, None)
+    else:
+        # x, u (and p) are this loop's own tensors: K6 updates them in place
+        body, beta = mega_body, torch.zeros((), dtype=rdt, device=rhs.device)
+        carries = (x, r, u, w, torch.zeros_like(x), torch.zeros_like(x))
+    iteration = 0
+    while iteration < max_iterations and not converged and not breakdown:
+        carries, (gamma_new, delta, rr) = body(carries, alpha, beta)
         with scope("pcg_scalars"):
             residual_norm = torch.sqrt(rr)
             gamma_small = gamma.abs() < _BREAKDOWN_TOL
@@ -406,16 +428,8 @@ def solve_pcg_fused(
             if not (converged or breakdown):
                 gamma, alpha, beta, beta_last = gamma_new, alpha_new, beta_new, beta_new
 
-    telemetry = PcgTelemetry(
-        iterations=iteration,
-        residual_norm=residual_norm,
-        rhs_norm=rhs_norm_true,
-        alpha_last=alpha_last,
-        beta_last=beta_last,
-        converged=converged,
-        breakdown=breakdown,
-    )
-    return x, telemetry
+    return (carries[0], iteration, residual_norm, rhs_norm_true, alpha_last,
+            beta_last, converged, breakdown)
 
 
 def solve_pcg_pipelined(
@@ -464,21 +478,18 @@ def solve_pcg_pipelined(
     keep their old values and the count does not advance, as the
     reference's ``where(stop, old, new)``.
     """
-    f32 = vector_dtype
-    rdt = reduction_dtype
-    bc = model.bc_mask
-    psum = getattr(model, "psum", None)
+    return _solve(_pipelined_loop, model, rhs, stiffness_scale, mass_factor,
+                  relative_tolerance, max_iterations, x0, warm_start,
+                  reduction_dtype, vector_dtype, preconditioner,
+                  replace_every=replace_every)
 
-    block_inverse = (
-        model.build_preconditioner(stiffness_scale, mass_factor)
-        if preconditioner is None
-        else preconditioner
-    )
 
-    x = x0 if warm_start else torch.zeros_like(x0)
-    ax = model.apply_keff(x, stiffness_scale, mass_factor)
-    r = (rhs - ax).to(f32)
-    x, r = _clamp_dirichlet(model, rhs, x, r)
+def _pipelined_loop(model, rhs, x, r, block_inverse, stiffness_scale,
+                    mass_factor, relative_tolerance, max_iterations, rdt, f32,
+                    replace_every):
+    """The loop of :func:`solve_pcg_pipelined`, from the clamped initial
+    residual."""
+    bc, psum = model.bc_mask, model.psum
 
     def pc_keff(v):
         a, b = model.apply_pc_keff(block_inverse, v, stiffness_scale,
@@ -492,9 +503,7 @@ def solve_pcg_pipelined(
     with scope("pcg_pc_matvec"):
         u, w = pc_keff_masked(r)
     rhs2, rr0 = fused_dots([(rhs, rhs), (r, r)], rdt, psum)
-    rhs_norm_true = torch.sqrt(rhs2)
-    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
-    tolerance = relative_tolerance * rhs_norm
+    rhs_norm_true, tolerance = _norm_and_tolerance(rhs2, relative_tolerance)
 
     # pre-loop check: an already-converged x0 (or max_iterations = 0)
     # reports the true initial residual and skips the loop
@@ -554,112 +563,5 @@ def solve_pcg_pipelined(
         alpha_last, beta_last = alpha_new, beta
         iteration += 1
 
-    telemetry = PcgTelemetry(
-        iterations=iteration,
-        residual_norm=residual_norm,
-        rhs_norm=rhs_norm_true,
-        alpha_last=alpha_last,
-        beta_last=beta_last,
-        converged=converged,
-        breakdown=breakdown,
-    )
-    return x, telemetry
-
-
-def _solve_pcg_megafused(
-    model,
-    rhs: torch.Tensor,
-    stiffness_scale,
-    mass_factor,
-    relative_tolerance,
-    max_iterations,
-    x0: torch.Tensor,
-    *,
-    warm_start: bool,
-    reduction_dtype,
-    vector_dtype,
-    block_inverse,
-    iteration_fn,
-):
-    """Chronopoulos-Gear PCG with the WHOLE iteration in one call of
-    ``iteration_fn`` (one K6 launch on CUDA).
-
-    Port of the reference's ``_solve_pcg_megafused`` (pcg.py:809-947).
-    Same algebra as :func:`solve_pcg_fused` with the p/s direction update
-    deferred across the loop boundary: body n feeds (u_{n-1}, w_{n-1},
-    p_{n-2}, s_{n-2}, alpha_{n-1}, beta_{n-1}) to the kernel, which forms
-    p_{n-1}/s_{n-1} in flight, applies the axpys, preconditions, applies
-    the operator and emits the three dots.  beta starts at 0, so the first
-    update forms p_0 = u_0.  The carries advance every body (on exit p/s
-    are one iterate old and consumed by nothing); gamma, alpha, beta and
-    beta_last freeze on the stopping body, and the count is iteration + 1
-    every body, as in the reference.  One host read of the flags per
-    iteration, as the other loops.
-    """
-    f32 = vector_dtype
-    rdt = reduction_dtype
-
-    x = x0 if warm_start else torch.zeros_like(x0)
-    ax = model.apply_keff(x, stiffness_scale, mass_factor)
-    r = (rhs - ax).to(f32)
-    x, r = _clamp_dirichlet(model, rhs, x, r)
-
-    with scope("pcg_pc_matvec"):
-        u, w = model.apply_pc_keff(block_inverse, r, stiffness_scale, mass_factor)
-    gamma, delta0, rr0, rhs2 = fused_dots(
-        [(r, u), (w, u), (r, r), (rhs, rhs)], rdt
-    )
-    rhs_norm_true = torch.sqrt(rhs2)
-    rhs_norm = torch.where(rhs_norm_true < _RHS_NORM_FLOOR, 1.0, rhs_norm_true)
-    tolerance = relative_tolerance * rhs_norm
-
-    residual_norm = torch.sqrt(rr0)
-    delta_small = delta0.abs() < _BREAKDOWN_TOL
-    alpha = gamma / torch.where(delta_small, 1.0, delta0)
-    with scope("pcg_host_sync"):
-        converged, delta_bd = _flags(residual_norm <= tolerance, delta_small)
-        breakdown = (not converged) and delta_bd
-
-    # x, u (and p) are this loop's own tensors: K6 updates them in place
-    carries = (x, r, u, w, torch.zeros_like(x), torch.zeros_like(x))
-    beta = torch.zeros((), dtype=rdt, device=rhs.device)
-    alpha_last = torch.zeros((), dtype=rdt, device=rhs.device)
-    beta_last = torch.zeros((), dtype=rdt, device=rhs.device)
-
-    iteration = 0
-    while iteration < max_iterations and not converged and not breakdown:
-        with scope("pcg_mega_iteration"):
-            carries, (gamma_new, delta, rr) = iteration_fn(
-                carries, alpha.to(f32), beta.to(f32)
-            )
-        residual_norm = torch.sqrt(rr)
-
-        gamma_small = gamma.abs() < _BREAKDOWN_TOL
-        beta_new = gamma_new / torch.where(gamma_small, 1.0, gamma)
-        alpha_denom = delta - beta_new * gamma_new / torch.where(
-            alpha.abs() < _BREAKDOWN_TOL, 1.0, alpha
-        )
-        denom_small = alpha_denom.abs() < _BREAKDOWN_TOL
-        alpha_new = gamma_new / torch.where(denom_small, 1.0, alpha_denom)
-
-        with scope("pcg_host_sync"):
-            conv, g_bd, d_bd = _flags(
-                residual_norm <= tolerance, gamma_small, denom_small
-            )
-            alpha_last = alpha  # the step just applied
-            iteration += 1
-            converged = conv
-            breakdown = (not conv) and (g_bd or d_bd)
-        if not (converged or breakdown):
-            gamma, alpha, beta, beta_last = gamma_new, alpha_new, beta_new, beta_new
-
-    telemetry = PcgTelemetry(
-        iterations=iteration,
-        residual_norm=residual_norm,
-        rhs_norm=rhs_norm_true,
-        alpha_last=alpha_last,
-        beta_last=beta_last,
-        converged=converged,
-        breakdown=breakdown,
-    )
-    return carries[0], telemetry
+    return (x, iteration, residual_norm, rhs_norm_true, alpha_last, beta_last,
+            converged, breakdown)

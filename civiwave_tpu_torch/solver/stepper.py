@@ -421,7 +421,7 @@ class NewmarkStepper:
 
     def _shard(self):
         """The model's shard group, or None unsharded."""
-        return getattr(self.model, "shard_group", None)
+        return self.model.shard_group
 
     def save_checkpoint(self, manager, wait: bool = False) -> None:
         """Save state, dt, clock and frame in ``manager`` (a

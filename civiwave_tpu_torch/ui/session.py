@@ -14,7 +14,7 @@ with :mod:`civiwave_tpu_torch.post.snapshot`, the web viewer
 (``ui/viewer.py``) or ParaView via the VTU output.
 
 The reference's baseline is a set of immutable arrays.  The port's loops
-may write their vectors in place (the megafused loop updates x, u and p,
+may write their vectors in place (the fused loop's K6 body updates x, u and p,
 and with ``warm_start_policy: solution`` x starts as ``state.warm_x``
 itself), so the session owns clones of the baseline state and force and
 every :meth:`InteractiveSession.reset` hands the stepper fresh clones of

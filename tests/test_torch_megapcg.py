@@ -12,6 +12,9 @@ against the JAX reference.
 * the megafused loop (``CIVIWAVE_MEGA_PCG=1``) against the reference's
   split ``solve_pcg_fused``: iterations within +-1, x at 2e-5 * max|ref|,
   equal converged/breakdown flags (tests/test_pcg.py:544-589);
+* the fused loop with and without the switch: each body once per
+  iteration, x bit-equal between the two, and the iteration count and x
+  the two loops gave before they were folded into one;
 * 6 Newmark frames of a 12^3 cantilever on variant 'fused' against the
   reference stepper, at the BASELINE stepping tolerances (u 2.5e-4 and
   a 3e-3 of max|ref|, iterations +-1 per frame);
@@ -324,6 +327,61 @@ def test_switch_off_runs_the_split_loop(monkeypatch):
         torch.zeros(tm.vector_shape), warm_start=False,
     )
     assert tel.converged and len(seen) == tel.iterations > 3
+
+
+# the folded loop's answers on the warm-started 6x5x4 problem below, as
+# both the split Chronopoulos-Gear loop and the separate whole-iteration
+# loop gave them before the two became bodies of one loop (bit-equal to
+# each other on the CPU)
+FOLDED_ITERATIONS = 38
+FOLDED_SAMPLES = {(2, 5, 2, 3): -1.2275832887098659e-05,
+                  (0, 3, 1, 1): -2.152868773919181e-06,
+                  (1, 6, 4, 4): -3.396136207811651e-07}
+
+
+def test_folded_loop_runs_either_body(monkeypatch):
+    """``solve_pcg_fused`` with and without ``CIVIWAVE_MEGA_PCG=1`` on one
+    warm-started problem: each body runs once per iteration, both give
+    the same x bit for bit, the iteration count and x the loops gave
+    before they were folded, and the reference's split loop's answer."""
+    jm, tm, rhs = _cantilever_problem((6, 5, 4))
+    x0 = (1e-7 * np.random.default_rng(3).standard_normal(jm.vector_shape)
+          ).astype(np.float32)
+    x_ref, tel_ref = jpcg.solve_pcg_fused(
+        jm, jnp.asarray(rhs), SS, MF, 1e-6, 300, jnp.asarray(x0),
+        preconditioner=jm.build_preconditioner(SS, MF),
+    )
+    dots = []
+    real_dots = tops.apply_pc_keff_dots_structured
+
+    def counted_dots(*args, **kwargs):
+        dots.append(1)
+        return real_dots(*args, **kwargs)
+
+    outs = {}
+    for mega in ("0", "1"):
+        monkeypatch.setenv("CIVIWAVE_MEGA_PCG", mega)
+        if mega == "1":
+            calls = _spy_route(monkeypatch)
+        else:
+            monkeypatch.setattr(tops, "apply_pc_keff_dots_structured", counted_dots)
+        x, tel = tpcg.solve_pcg_fused(
+            tm, torch.from_numpy(rhs), SS, MF, 1e-6, 300,
+            torch.from_numpy(x0).clone(),
+        )
+        assert (tel.iterations, tel.converged, tel.breakdown) == (
+            FOLDED_ITERATIONS, True, False), mega
+        assert abs(tel.iterations - int(tel_ref.iterations)) <= 1
+        for index, value in FOLDED_SAMPLES.items():
+            assert float(x[index]) == pytest.approx(value, rel=1e-6), index
+        _close(x.numpy(), np.asarray(x_ref), VEC_TOL, "x")
+        outs[mega] = x, tel
+    assert len(dots) == FOLDED_ITERATIONS
+    assert calls["built"] == 1 and calls["iterations"] == FOLDED_ITERATIONS
+    (xs, ts), (xk, tk) = outs["0"], outs["1"]
+    assert torch.equal(xs, xk)
+    for field in ("residual_norm", "rhs_norm", "alpha_last", "beta_last"):
+        assert torch.equal(getattr(ts, field), getattr(tk, field)), field
 
 
 def test_general_path_has_no_hook(monkeypatch):

@@ -15,7 +15,18 @@ import jax.numpy as jnp
 from civiwave_tpu.ops import structured as jops
 from civiwave_tpu.ops.pallas.structured_stencil import apply_pc_keff_fused_pallas
 from civiwave_tpu.solver.pcg import fused_dots as jfused_dots
+from civiwave_tpu_torch.mesh import structured as tstructured
+from civiwave_tpu_torch.ops import multigrid as tmg
+from civiwave_tpu_torch.ops import structured as tops
 from civiwave_tpu_torch.ops.cuda import structured_stencil as k12
+from civiwave_tpu_torch.parallel.sharding import (
+    close_shard_group,
+    make_shard_group,
+    shard_structured,
+)
+from civiwave_tpu_torch.physics import materials as tmaterials
+from civiwave_tpu_torch.solver.pcg import resolve_variant
+from civiwave_tpu_torch.utils.synthetic import cantilever_config
 
 from test_torch_block_jacobi import emulate_block_jacobi
 from test_torch_structured import CASES, build_pair, emulate_keff
@@ -99,3 +110,77 @@ def test_matches_reference_composition(case):
     bc = tm.bc_mask.numpy()
     for v in (u.numpy(), w.numpy()):
         assert not v[bc].any() and not np.signbit(v[bc]).any()
+
+
+# --- the route table -----------------------------------------------------------
+
+F32, F64 = torch.float32, torch.float64
+# route: (K2 predicate, apply_pc_keff_dots declines, a K6 bundle under
+# CIVIWAVE_MEGA_PCG=1, what 'auto' resolves to on the CPU).  The last three
+# columns are the answers of the code before the route's terms were written
+# once; its predicate read the device as well (False on every CPU route),
+# which now only 'auto' reads.
+ROUTE_TABLE = {
+    "homogeneous_f32": (True, False, True, "classic"),
+    "fp64_vectors": (False, True, False, "classic"),
+    "heterogeneous": (False, True, False, "classic"),
+    "slender": (False, True, False, "classic"),
+    "one_rank_shard": (False, True, False, "fused"),
+    "multigrid": (False, True, False, "classic"),
+    "absorbing_faces": (True, True, False, "classic"),
+}
+
+
+def _route_model(route, monkeypatch):
+    """(model, vector dtype) of one structured route, built on the CPU."""
+    mat = cantilever_config().materials[0]
+    props = tmaterials.make_properties(mat)
+
+    def build(dims=(6, 5, 4), **kw):
+        return tstructured.build_structured_model(
+            *dims, props, mat.density, device="cpu",
+            traction=(0.0, 0.0, -1.0e6), **kw)
+
+    if route == "heterogeneous":
+        rng = np.random.default_rng(7)
+        grids = {name: base * (1.0 + rng.uniform(0.0, 1.0, (6, 5, 4)))
+                 for name, base in (("lam_grid", props.lame.lam),
+                                    ("mu_grid", props.lame.mu))}
+        return build(**grids)[0], F32
+    if route == "multigrid":
+        return tmg.attach_multigrid(build((10, 6, 6), pad_x_multiple=4)[0]), F32
+    if route == "absorbing_faces":
+        return build(absorb_planes=("x1", "y0"))[0], F32
+    model, force = build()
+    if route == "slender":
+        monkeypatch.setattr(tops, "_FLAT_INTERIOR_NODE_THRESHOLD", 0)
+    if route == "one_rank_shard":
+        group = make_shard_group(1, "cpu")
+        try:
+            model = shard_structured(model, model.zero_state(), force, group)[0]
+        finally:
+            close_shard_group()
+    return model, F64 if route == "fp64_vectors" else F32
+
+
+@pytest.mark.parametrize("route", sorted(ROUTE_TABLE))
+def test_route_table(route, monkeypatch):
+    """Every structured route buildable on the CPU: the one K2 predicate,
+    whether the K2-with-dots call declines, whether the whole-iteration
+    bundle is built under its switch, and the 'auto' variant."""
+    model, dtype = _route_model(route, monkeypatch)
+    assert model.multigrid == (route == "multigrid")
+    assert (model.shard_group is not None) == (route == "one_rank_shard")
+    assert model.homogeneous == (route != "heterogeneous")
+    assert bool(model.absorb_faces) == (route == "absorbing_faces")
+    assert tops.slender_route(model, dtype) == (route == "slender")
+    pc = model.build_preconditioner(SS, MF)
+    r = torch.ones(model.vector_shape, dtype=dtype).masked_fill(model.bc_mask, 0.0)
+    monkeypatch.setenv("CIVIWAVE_MEGA_PCG", "1")
+    got = (
+        tops.pc_keff_kernel_eligible(model, pc, dtype),
+        model.apply_pc_keff_dots(pc, r, SS, MF, F64) is None,
+        model.build_fused_pcg_iteration(pc, SS, MF, F64, dtype) is not None,
+        resolve_variant(model, "auto", pc, dtype),
+    )
+    assert got == ROUTE_TABLE[route]
