@@ -57,7 +57,10 @@ Phases, each printing its result:
     outputs exactly x) against their plain versions, and the split
     operator (sanitize + K4 + G2) against K1, on small and odd grids, a
     column-shaped grid, the soil column's grid and 255^3; print the ptxas
-    registers and spills of both kernels and K4's geometry; time K4 (CUDA
+    registers and spills of both kernels, their SASS mix and beside it the
+    plane sweeps' (K1/K5 f32 and f64, K2, K6: ptxas registers, stack and
+    spills, whole kernel and each stencil block, the factored interior, the
+    class table and the z-face ghosts), and K4's geometry; time K4 (CUDA
     events per call and device events; every tile and chunk K4 is built
     for; one cuDNN conv3d in full f32, the yardstick), G2 (both timings)
     and the split operator against K1;
@@ -1504,6 +1507,106 @@ def sass_mix(path, names, top=6):
     return {name: counts.most_common(top) for name, counts in mix.items()}
 
 
+SWEEP_KERNELS = ("keff_sweep_kernel", "pc_keff_sweep_kernel",
+                 "pcg_iteration_sweep_kernel")
+BLOCK_OPS = ("FFMA", "FADD", "FMUL", "DFMA", "DADD", "DMUL", "ULDC", "LDS",
+             "LDG")
+
+
+def sass_text(path):
+    """The library's SASS (cuobjdump beside nvcc; "" where the toolkit has
+    none)."""
+    from civiwave_tpu_torch.ops.cuda import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return ""
+    return subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, timeout=120).stdout
+
+
+def sass_blocks(text, names):
+    """{kernel: [Counter, ...]}: the opcode counts of every basic block,
+    most FMAs first, of each kernel in the SASS ``text`` whose mangled
+    name contains one of ``names``.  The plane sweeps' stencil is unrolled,
+    so each branch of ``apply_plane`` is one block, run once per node and
+    plane visit: its counts are the instructions a visit issues."""
+    import re
+    from collections import Counter
+
+    found = {}
+    for part in re.split(r"\s+Function : ", text)[1:]:
+        name = part.split()[0]
+        if not any(n in name for n in names):
+            continue
+        code = []
+        for line in part.splitlines():
+            m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+            if m:
+                text_ = re.sub(r"^@!?U?P\w+\s+", "", m.group(2))
+                code.append((int(m.group(1), 16), text_))
+        # leaders: the first instruction, branch targets, and what follows
+        # a branch, an exit or a barrier
+        leaders = {code[0][0]} if code else set()
+        for i, (_, ins) in enumerate(code):
+            op = ins.split()[0].split(".")[0]
+            target = re.search(r"\b(?:BRA|BRX|JMP|CALL\S*|BSSY)\b.*?(0x[0-9a-f]+)",
+                               ins)
+            if target:
+                leaders.add(int(target.group(1), 16))
+            if op in ("BRA", "BRX", "JMP", "EXIT", "RET", "CALL", "BSYNC",
+                      "WARPSYNC", "BAR") and i + 1 < len(code):
+                leaders.add(code[i + 1][0])
+        blocks, current = [], Counter()
+        for addr, ins in code:
+            if addr in leaders and current:
+                blocks.append(current)
+                current = Counter()
+            current[ins.split()[0].split(".")[0]] += 1
+        blocks.append(current)
+        blocks.sort(key=lambda c: -(c["FFMA"] + c["DFMA"]))
+        found[name] = blocks
+    return found
+
+
+def stencil_role(counts):
+    """Which branch of ``apply_plane`` a SASS block is, or None: the class
+    table's (its 243 taps by LDG), the factored interior (27 LDS of the
+    transformed plane, no LDG) or a z face's ghost taps (81 FMAs, no
+    loads)."""
+    fma = counts["FFMA"] + counts["DFMA"]
+    if counts["LDG"] >= 243 and fma >= 243:
+        return "class table"
+    if counts["LDS"] == 27 and not counts["LDG"] and fma:
+        return "interior"
+    if fma >= 81 and not counts["LDS"] and not counts["LDG"]:
+        return "z ghosts"
+    return None
+
+
+def print_sweep_sass(lib, label):
+    """K1/K5 (f32, f64), K2's and K6's ptxas registers, stack and spills
+    (K1/K5 and K2 are built for ``kSweepBlocksPerSm`` blocks an SM), their
+    whole-kernel SASS mix and the mix of their largest stencil blocks: the
+    interior branch (the factored stencil, constant-bank coefficients), the
+    class-table branch (LDG taps) and the z-face ghost taps."""
+    for line in ptxas_report(lib.log, SWEEP_KERNELS):
+        print(f"  ptxas {label}: {line}", flush=True)
+    text = sass_text(lib.path)
+    for name, counts in sass_mix(lib.path, SWEEP_KERNELS, top=8).items():
+        print(f"  SASS {label} {name[-44:]}: " + ", ".join(
+            f"{op} {n}" for op, n in counts), flush=True)
+    for name, blocks in sass_blocks(text, SWEEP_KERNELS).items():
+        for c in blocks:
+            role = stencil_role(c)
+            if role is None:
+                continue
+            print(f"  SASS {label} {role} block {name[-44:]}: "
+                  f"{sum(c.values())} instructions, " + ", ".join(
+                      f"{op} {c[op]}" for op in BLOCK_OPS if c[op]),
+                  flush=True)
+
+
 def k4_candidates(xs, taps, label):
     """Device ms of K4 with every tile and chunk it is built for, beside
     the one its geometry function picks for this grid."""
@@ -1546,6 +1649,8 @@ def slender_kernel_phase(device, ss, mf):
                                             "keff_boundary_kernel")).items():
         print(f"  SASS K4/G2 {name[-40:]}: " + ", ".join(
             f"{op} {n}" for op, n in counts), flush=True)
+    # beside them the plane sweeps', whole and per stencil branch
+    print_sweep_sass(lib, "K1/K5/K2/K6")
     cfg = cantilever_config()
     mat = materials.make_properties(cfg.materials[0])
     rho = cfg.materials[0].density

@@ -38,11 +38,11 @@
 // of [p0, p1).  Each plane's x and mask, tile plus a one-node halo, arrive
 // by cp.async two planes ahead; each node is sanitized once (select) into
 // shared memory, and three register accumulators per thread take the
-// outputs at x = j + 1, j and j - 1.  The interior taps and the z-face
-// ghost taps are a kernel parameter (constant bank); only y-face rows and
-// the planes next to an x face read the class table.  The own x and mask
-// stay in registers from one plane to the next for the mass term and the
-// identity row.  The stencil stays f32 FMA: the tensor cores' TF32 keeps
+// outputs at x = j + 1, j and j - 1.  The interior stencil's factored
+// coefficients and the z-face ghost taps are a kernel parameter (constant
+// bank); only y-face rows and the planes next to an x face read the class
+// table.  The own x and mask stay in registers from one plane to the next
+// for the mass term and the identity row.  The stencil stays f32 FMA: the tensor cores' TF32 keeps
 // about three digits, far from the 1e-5 of max|ref| the kernel is held to.
 //
 // Ghosts and plane ranges.  A staged row of plane jx, row jy (local) comes
@@ -70,15 +70,15 @@
 // declines).  The same sweep templated on the element type T: x, the
 // ghosts, out, the staged planes, the transformed plane and the three
 // accumulators are double; the taps, the class table and m8 stay the f32
-// values the plain form reads, widened (the 405 by-value taps on the
-// host, so the DFMAs take them from the constant bank; the z-face ghost
-// taps are the exact f64 differences of the f32 interior and class rows);
+// values the plain form reads, widened (the by-value taps on the host, so
+// the DFMAs take them from the constant bank; the z-face ghost taps are
+// the exact f64 differences of the f32 interior and class rows);
 // ss and mf are f64 launch arguments, as the plain form's host scalars.
 // Staged rows are 8-byte elements, 16-byte copies of two where Z % 4 == 0;
 // the ring takes 40,560 bytes of shared memory (f32: 22,080).  Bound at
 // 255^3: ~0.86 GB (x and out 8 B per value, the mask) ~0.26 ms at 3.35
-// TB/s, and 243 DFMA per node, ~0.24 ms at the published 34 TFLOP/s f64
-// rate outside the tensor cores.
+// TB/s, and the factored stencil's ~80 f64 operations per node, ~0.08 ms
+// at the published 34 TFLOP/s f64 rate outside the tensor cores.
 #include <cstring>
 
 #include "structured.cuh"
@@ -246,7 +246,8 @@ __device__ __forceinline__ void transform(const HaloArgs<T>& a, const T* sp,
 }
 
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads) keff_sweep_kernel(
+__global__ void __launch_bounds__(kThreads, kSweepBlocksPerSm)
+    keff_sweep_kernel(
     const __grid_constant__ HaloArgs<T> a,
     const __grid_constant__ TapsT<T> taps, const float* __restrict__ stencil,
     T* __restrict__ out) {
@@ -416,7 +417,7 @@ int launch_checked(const T* x, const unsigned char* bc, const T* gx_lo,
   a.mf = mf;
   a.m8 = m8;
   TapsT<T> t;
-  static_assert(sizeof(TapsT<T>) == 405 * sizeof(T), "Taps is 405 values");
+  static_assert(sizeof(TapsT<T>) == kSweepTaps * sizeof(T), "Taps size");
   std::memcpy(&t, taps, sizeof(TapsT<T>));
   const dim3 grid(grid_x, grid_y, grid_z);
   const auto s = static_cast<cudaStream_t>(stream);
@@ -426,7 +427,7 @@ int launch_checked(const T* x, const unsigned char* bc, const T* gx_lo,
 
 }  // namespace
 
-// taps: the 405 floats of Taps (host memory, copied into the launch's
+// taps: the kSweepTaps floats of Taps (host memory, copied into the launch's
 // parameters); tile, chunk, grid and smem as computed by
 // ops/cuda/plane_sweep.py for planes [p0, p1), refused unless they match
 // this build; vec: 16-byte copies of the block's rows (Z % 4 == 0, x
@@ -447,7 +448,7 @@ extern "C" int civi_keff_structured_halo(
       mf, m8, tile_y, tile_z, chunk, grid_x, grid_y, grid_z, smem, vec, stream);
 }
 
-// The f64 instance: x, the ghosts and out double, taps the 405 doubles of
+// The f64 instance: x, the ghosts and out double, taps the doubles of
 // TapsT<double> (ops.cuda.plane_sweep.sweep_taps64), ss and mf double, the
 // class table f32; smem as sweep_geometry computes it for 8-byte elements;
 // vec: 16-byte copies (Z % 4 == 0, x 16-byte aligned).

@@ -27,12 +27,14 @@
 // (3 of r, 3 of the mask, 6 class coefficients and 9 taps per neighbour) and
 // ran at 11 % of that bound, limited by instruction issue, not bytes.  Here
 // a node costs ~1.3 transforms (the y and z halo), 27 shared-memory reads
-// and 243 FMAs for the stencil, and a few cp.async per plane precomputed
-// once per thread; the 243 interior taps are a kernel parameter (constant
-// bank: uniform-register loads, no memory instructions) and the interior
-// class's six pc coefficients are loaded once per thread.  Only rows on a
-// y face, and the planes next to an x face, read taps from the class table;
-// a z-face column adds its class's ghost taps at dz = 0.  A chunk of 32
+// and, in the interior, the factored stencil (structured.cuh
+// add_plane_factored: ~80 adds and FMAs where the 243 taps one by one took
+// 243 FMAs, which set the pace), and a few cp.async per plane precomputed
+// once per thread; its 30 coefficients are a kernel parameter (constant
+// bank) and the interior class's six pc coefficients are loaded once per
+// thread.  Only rows on a y face, and the planes next to an x face, read
+// taps from the class table; a z-face column adds its class's ghost taps
+// at dz = 0.  A chunk of 32
 // planes re-reads 2 halo planes (6 %) and gives 2,048 blocks at 255^3.  The
 // stencil stays f32 FMA: the tensor cores' TF32 keeps about three digits,
 // far from the 1e-5 of max|ref| the kernel is held to.
@@ -87,7 +89,8 @@ __device__ __forceinline__ void transform(
 }
 
 template <bool VEC>
-__global__ void __launch_bounds__(kThreads) pc_keff_sweep_kernel(
+__global__ void __launch_bounds__(kThreads, kSweepBlocksPerSm)
+    pc_keff_sweep_kernel(
     const __grid_constant__ Args a, const __grid_constant__ Taps taps,
     const float* __restrict__ pc_table,
     const float* __restrict__ stencil, const float* __restrict__ r,
@@ -229,7 +232,7 @@ int launch(const Args& a, const Taps& taps, const float* pc_table,
 
 }  // namespace
 
-// taps: the 405 floats of Taps (host memory, copied into the launch's
+// taps: the kSweepTaps floats of Taps (host memory, copied into the launch's
 // parameters); tile, chunk, grid and smem as computed by
 // ops/cuda/plane_sweep.py, refused unless they match this build
 extern "C" int civi_pc_keff_structured(
@@ -247,7 +250,7 @@ extern "C" int civi_pc_keff_structured(
   }
   const Args a{X, Y, Z, nx, ny, nz, chunk, ss, mf, m8};
   Taps t;
-  static_assert(sizeof(Taps) == 405 * sizeof(float), "Taps is 405 floats");
+  static_assert(sizeof(Taps) == kSweepTaps * sizeof(float), "Taps size");
   std::memcpy(&t, taps, sizeof(Taps));
   const dim3 grid(grid_x, grid_y, grid_z);
   const auto s = static_cast<cudaStream_t>(stream);

@@ -37,7 +37,7 @@
 // from r, w, s and the mask in device memory) issued ~730 load
 // instructions per node and ran at 27 % of that bound, limited by
 // instruction issue.  Here a node costs ~1.3 transforms (the y and z
-// halo), 27 shared-memory reads and 243 FMAs for the stencil, a few
+// halo), 27 shared-memory reads and K2's factored interior stencil, a few
 // cp.async per plane precomputed once per thread, and its own x, u, p
 // loads: the interior taps are a kernel parameter as in K2, and the
 // interior class's six pc coefficients are loaded once per thread.  The
@@ -277,7 +277,7 @@ int launch(const Args& a, const Taps& taps, const float* pc_table,
 
 }  // namespace
 
-// taps: the 405 floats of Taps (host memory, copied into the launch's
+// taps: the kSweepTaps floats of Taps (host memory, copied into the launch's
 // parameters); tile, chunk, grid and smem as computed by
 // ops/cuda/plane_sweep.py, refused unless they match this build
 extern "C" int civi_pcg_iteration_structured(
@@ -297,7 +297,7 @@ extern "C" int civi_pcg_iteration_structured(
   }
   const Args a{X, Y, Z, nx, ny, nz, chunk, ss, mf, m8};
   Taps t;
-  static_assert(sizeof(Taps) == 405 * sizeof(float), "Taps is 405 floats");
+  static_assert(sizeof(Taps) == kSweepTaps * sizeof(float), "Taps size");
   std::memcpy(&t, taps, sizeof(Taps));
   const dim3 grid(grid_x, grid_y, grid_z);
   const auto st = static_cast<cudaStream_t>(stream);

@@ -179,6 +179,14 @@ constexpr int kStageRow = 40;
 constexpr int kStagePlane = kHaloY * kStageRow;
 // staging buffers in the ring
 constexpr int kStages = 3;
+// Blocks per SM that K1/K5 and K2 are compiled for (__launch_bounds__):
+// 3 caps them at 80 registers.  With the factored interior stencil the
+// sweep's staging, transforms and barriers set the pace, and a third
+// resident block hides more of their latency: on an H100 at 255^3, K1 0.43
+// -> 0.41 ms, its f64 instance 0.84 -> 0.74, K2 0.46 -> 0.45.  K6, which
+// holds three vectors' state, slows at 3 (1.11 -> 1.24 ms) and keeps the
+// default.
+constexpr int kSweepBlocksPerSm = 3;
 
 // Dynamic shared memory of a sweep over `vectors` staged vectors of
 // `elem`-byte elements (4: f32, 8: f64): kStages staging buffers of
@@ -189,23 +197,37 @@ __host__ __device__ constexpr int smem_bytes(int vectors, int elem = 4) {
          kStages * 3 * kHaloY * kMaskRow;
 }
 
-// Taps passed by value (the constant bank; with compile-time indices the
-// FMAs take them through uniform registers, with no memory instruction):
-// the grid's interior stencil, class (1, 1, 1) of the
-// class table, as [dx+1][dy+1][dz+1][b][c], and the ghost taps (interior
-// minus class) of the z-face classes (1, 1, 0) and (1, 1, 2) at dz = 0,
-// as [side][dx+1][dy+1][b][c] — the only offsets where a z-face node's
+// Taps passed by value (the constant bank).  The grid's interior stencil,
+// class (1, 1, 1) of the class table, in its factored form
+// (ops.structured.factored_taps): a homogeneous isotropic grid of
+// rectangular cells is mirror-symmetric on each axis, so the diagonal
+// blocks are even in dx, dy and dz, the b-c coupling (b != c) is odd along
+// axes b and c and even along the third, and 30 coefficients hold the 153
+// taps that are not zero.  Then the ghost taps (interior minus class) of
+// the z-face classes (1, 1, 0) and (1, 1, 2) at dz = 0, as
+// [side][dx+1][dy+1][b][c] — the only offsets where a z-face node's
 // stencil differs from the interior one at an in-grid neighbour.  The f64
-// instance of K1/K5 takes TapsT<double>: the same f32 interior taps
-// widened, and ghost taps that are the exact f64 differences between them
-// and the f32 z-face class rows, so that interior minus ghost is the class
-// table's f32 tap at every z-face node, as the plain version reads it.
+// instance of K1/K5 takes TapsT<double>: the same f32 coefficients
+// widened, and ghost taps that are the exact f64 differences between the
+// interior they give and the f32 z-face class rows, so that interior minus
+// ghost is the class table's f32 tap at every z-face node, as the plain
+// version reads it.
+template <typename T>
+struct Factored {
+  T d[3][2][4];  // diagonal block b at |dx|: centre, +-y pair, +-z pair, corners
+  T xy[2];       // x-y coupling at dx = dy = +1, by |dz|
+  T xz[2];       // x-z coupling at dx = dz = +1, by |dy|
+  T yz[2];       // y-z coupling at dy = dz = +1, by |dx|
+};
+
 template <typename T>
 struct TapsT {
-  T t[243];
+  Factored<T> f;
   T gz[2][81];
 };
 using Taps = TapsT<float>;
+// the values of a TapsT (ops/cuda/plane_sweep.SWEEP_TAPS)
+constexpr int kSweepTaps = 30 + 2 * 81;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -432,12 +454,12 @@ __device__ __forceinline__ void fma_block(const K* k, T v0, T v1, T v2,
 
 // Adds one transformed plane j (ub: [3][kHaloY][kHaloZ]) to the thread's
 // three outputs: acc[n] is the output at x = j - 1 + n, which sees plane j
-// at offset dx = 1 - n, with its 27 x 9 taps at k0, k1, k2.  kConst: all
-// three point at the Taps parameter; else at class rows of the table.
-template <bool kConst, typename T, typename K>
+// at offset dx = 1 - n, with its 27 x 9 taps at the class rows k0, k1, k2
+// of the table.
+template <typename T>
 __device__ __forceinline__ void add_plane(const T* ub, int ty, int tz,
-                                          const K* k0, const K* k1,
-                                          const K* k2, T (&acc)[3][3]) {
+                                          const float* k0, const float* k1,
+                                          const float* k2, T (&acc)[3][3]) {
 #pragma unroll
   for (int dy = -1; dy <= 1; ++dy) {
 #pragma unroll
@@ -447,11 +469,106 @@ __device__ __forceinline__ void add_plane(const T* ub, int ty, int tz,
       const T v1 = ub[kPlane + h];
       const T v2 = ub[2 * kPlane + h];
       const int d = (dy + 1) * 3 + (dz + 1);
-      fma_block<kConst>(k0 + (18 + d) * 9, v0, v1, v2, acc[0]);
-      fma_block<kConst>(k1 + (9 + d) * 9, v0, v1, v2, acc[1]);
-      fma_block<kConst>(k2 + d * 9, v0, v1, v2, acc[2]);
+      fma_block<false>(k0 + (18 + d) * 9, v0, v1, v2, acc[0]);
+      fma_block<false>(k1 + (9 + d) * 9, v0, v1, v2, acc[1]);
+      fma_block<false>(k2 + d * 9, v0, v1, v2, acc[2]);
     }
   }
+}
+
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+
+// The sums over the symmetric groups of one component's 3 x 3 (dy, dz)
+// neighbourhood in a transformed plane (p: the centre), as far as the
+// component's taps need them: component 0 couples to 1 through terms odd
+// in dy and to 2 through terms odd in dz, 1 to 2 through the corners odd
+// in both.
+template <int kC, typename T>
+struct Groups {
+  T c, ys, zs, cs;  // centre, +-y pair, +-z pair, four corners
+  T yd, cyd;        // odd in dy: the pair's and the corners' (+y minus -y)
+  T zd, czd;        // odd in dz: the pair's and the corners' (+z minus -z)
+  T yz;             // odd in dy and dz: the corners with sign dy * dz
+
+  __device__ __forceinline__ explicit Groups(const T* p) {
+    const T mm = p[-kHaloZ - 1], m0 = p[-kHaloZ], mp = p[-kHaloZ + 1];
+    const T cm = p[-1], cp = p[1];
+    const T pm = p[kHaloZ - 1], p0 = p[kHaloZ], pp = p[kHaloZ + 1];
+    c = p[0];
+    ys = m0 + p0;
+    zs = cm + cp;
+    if constexpr (kC != 2) {  // by rows: dy = -1, +1
+      const T lo = mm + mp, hi = pm + pp;
+      cs = lo + hi;
+      cyd = hi - lo;
+      yd = p0 - m0;
+    }
+    if constexpr (kC != 1) {  // by columns: dz = -1, +1
+      const T lo = mm + pm, hi = mp + pp;
+      if constexpr (kC == 2) cs = lo + hi;
+      czd = hi - lo;
+      zd = cp - cm;
+    }
+    if constexpr (kC != 0) yz = (mm + pp) - (mp + pm);
+  }
+};
+
+// sum over the diagonal group sums of component b's taps at |dx| = a,
+// onto s (y-z coupling: the other component's signed corners yz)
+template <int kC, typename T>
+__device__ __forceinline__ T diagonal(const Factored<T>& k, int a,
+                                      const Groups<kC, T>& g, T s) {
+  s = fma_rn(k.d[kC][a][0], g.c, s);
+  s = fma_rn(k.d[kC][a][1], g.ys, s);
+  s = fma_rn(k.d[kC][a][2], g.zs, s);
+  return fma_rn(k.d[kC][a][3], g.cs, s);
+}
+
+// Adds one transformed plane j to the three outputs with the factored
+// interior stencil: the group sums of each component once, then per output
+// component its dx = 0 terms into acc[1], and its |dx| = 1 terms (even e,
+// odd o, at dx = +1) as e + o into acc[0] and e - o into acc[2].  The same
+// taps as add_plane over the interior class row, with ~80 operations a
+// node for 243 FMAs.
+template <typename T>
+__device__ __forceinline__ void add_plane_factored(const T* ub, int ty,
+                                                   int tz,
+                                                   const Factored<T>& k,
+                                                   T (&acc)[3][3]) {
+  const int h = (ty + 1) * kHaloZ + tz + 1;
+  const Groups<0, T> g0(ub + h);
+  const Groups<1, T> g1(ub + kPlane + h);
+  const Groups<2, T> g2(ub + 2 * kPlane + h);
+  // couplings odd in dx
+  const T o0 = fma_rn(k.xz[1], g2.czd,
+                      fma_rn(k.xz[0], g2.zd,
+                             fma_rn(k.xy[1], g1.cyd, mul_rn(k.xy[0], g1.yd))));
+  const T o1 = fma_rn(k.xy[1], g0.cyd, mul_rn(k.xy[0], g0.yd));
+  const T o2 = fma_rn(k.xz[1], g0.czd, mul_rn(k.xz[0], g0.zd));
+  // couplings even in dx: y-z, at dx = 0 and |dx| = 1
+  const T e0 = diagonal(k, 1, g0, T(0));
+  const T e1 = diagonal(k, 1, g1, mul_rn(k.yz[1], g2.yz));
+  const T e2 = diagonal(k, 1, g2, mul_rn(k.yz[1], g1.yz));
+  acc[1][0] = diagonal(k, 0, g0, acc[1][0]);
+  acc[1][1] = diagonal(k, 0, g1, fma_rn(k.yz[0], g2.yz, acc[1][1]));
+  acc[1][2] = diagonal(k, 0, g2, fma_rn(k.yz[0], g1.yz, acc[1][2]));
+  acc[0][0] += e0 + o0;
+  acc[2][0] += e0 - o0;
+  acc[0][1] += e1 + o1;
+  acc[2][1] += e1 - o1;
+  acc[0][2] += e2 + o2;
+  acc[2][2] += e2 - o2;
 }
 
 // acc -= G v over the three dz = 0 neighbours (dy = -1, 0, 1) of plane j,
@@ -477,9 +594,9 @@ __device__ __forceinline__ void subtract_z_ghosts(const T* ub, int ty, int tz,
 // adds its offset) and ocy its row's global class, so which taps apply
 // depends on global classes only.  Where the thread's row (y) and the
 // three output planes (x) are of the interior class — every warp but those
-// of a y face and every plane but the two next to an x face — from the
-// constant bank: the interior stencil, then at a z-face column the ghost
-// taps at dz = 0 subtracted.  Elsewhere from the class table.
+// of a y face and every plane but the two next to an x face — the factored
+// interior stencil from the constant bank, then at a z-face column the
+// ghost taps at dz = 0 subtracted.  Elsewhere the class table.
 template <typename T>
 __device__ __forceinline__ void apply_plane(const T* ub, int ty, int tz,
                                             int j, int ocy, int ocz, int nx,
@@ -490,7 +607,7 @@ __device__ __forceinline__ void apply_plane(const T* ub, int ty, int tz,
   const int cc = node_class(j, nx);
   const int cp = node_class(j + 1, nx);
   if (ocy == 1 && cm == 1 && cc == 1 && cp == 1) {
-    add_plane<true>(ub, ty, tz, taps.t, taps.t, taps.t, acc);
+    add_plane_factored(ub, ty, tz, taps.f, acc);
     if (ocz == 0) {
       subtract_z_ghosts(ub, ty, tz, taps.gz[0], acc);
     } else if (ocz == 2) {
@@ -498,9 +615,9 @@ __device__ __forceinline__ void apply_plane(const T* ub, int ty, int tz,
     }
   } else {
     const int yz = ocy * 3 + ocz;
-    add_plane<false>(ub, ty, tz, stencil + (cm * 9 + yz) * 243,
-                     stencil + (cc * 9 + yz) * 243,
-                     stencil + (cp * 9 + yz) * 243, acc);
+    add_plane(ub, ty, tz, stencil + (cm * 9 + yz) * 243,
+              stencil + (cc * 9 + yz) * 243, stencil + (cp * 9 + yz) * 243,
+              acc);
   }
 }
 

@@ -83,9 +83,10 @@ class StructuredModel:
     # stencil (ops.structured.class_stencil_table) read by the K1/K2
     # kernels; uploaded once per model
     stencil_table: torch.Tensor
-    # host copy of its interior class (1, 1, 1) and the z-face ghost taps
-    # at dz = 0 (ops.structured.sweep_taps): (405,) f32 numpy, passed by
-    # value to K2 and K6 at each launch (no device read)
+    # host copy of its interior class (1, 1, 1) in factored form and the
+    # z-face ghost taps at dz = 0 (ops.structured.sweep_taps): (192,) f32
+    # numpy, passed by value to K1/K5, K2 and K6 at each launch (no device
+    # read)
     sweep_taps: Optional[np.ndarray] = None
     nx: int = 0
     ny: int = 0

@@ -50,7 +50,7 @@ _L = ctypes.c_longlong
 # C entry points and their argument types (each returns the cudaError_t
 # of its launch as an int).  An ``_f64`` entry is the f64 instance of the
 # kernel above it: the same arguments with f64 vectors, ss and mf as
-# doubles (K1/K5 also takes its taps as 405 host doubles)
+# doubles (K1/K5 also takes its taps as host doubles)
 _SIGNATURES = {
     # pc_table, r, bc, z, X, Y, Z, nx, ny, nz, x0, y0, stream
     "civi_block_jacobi_apply": (
@@ -59,9 +59,9 @@ _SIGNATURES = {
     "civi_block_jacobi_apply_f64": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ),
-    # (K2 and K6 take their 405 taps in host memory, then after the scalars
-    # the plane-sweep geometry: tile_y, tile_z, chunk, grid_x, grid_y,
-    # grid_z, smem, and vec: 16-byte copies)
+    # (K2 and K6 take their plane_sweep.SWEEP_TAPS taps in host memory,
+    # then after the scalars the plane-sweep geometry: tile_y, tile_z,
+    # chunk, grid_x, grid_y, grid_z, smem, and vec: 16-byte copies)
     # pc_table, stencil, taps, r, bc, u, w, partials, X, Y, Z, nx, ny, nz,
     # ss, mf, m8, geometry, stream
     "civi_pc_keff_structured": (

@@ -29,7 +29,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, plane_sweep
 
 BOUNDARY_THREADS = 256  # threads per block, every kind
 SLAB = 16  # X planes per slab of envelope blocks
@@ -89,13 +89,17 @@ def ghost_tap_rows(spacing, lam0: float, mu0: float):
 def z_face_taps(spacing, lam0: float, mu0: float) -> np.ndarray:
     """The (162,) f32 taps G2 takes by value: the rows of the z-face
     classes (1, 1, 0) and (1, 1, 2), whose 9 offsets are dz = 0 in (dx, dy)
-    order, as [side][dx+1][dy+1][b][c]."""
-    codes, rows = ghost_tap_rows(tuple(spacing), lam0, mu0)
+    order, as [side][dx+1][dy+1][b][c]; the plane sweeps' own z-face ghost
+    taps (``ops.structured.sweep_taps``)."""
+    from ..structured import sweep_taps
+
+    codes, _ = ghost_tap_rows(tuple(spacing), lam0, mu0)
     in_plane = [(dx * 3 + dy) * 3 + 1 for dx in range(3) for dy in range(3)]
     for cls in Z_FACE_CLASSES:
         if codes[cls, 0] != 9 or list(codes[cls, 1:]) != in_plane:
             raise ValueError(f"class {cls}: ghost taps off the z face")
-    return np.ascontiguousarray(rows[list(Z_FACE_CLASSES)].reshape(-1))
+    taps = sweep_taps(tuple(spacing), lam0, mu0)[plane_sweep.FACTORED_TAPS:]
+    return np.ascontiguousarray(taps)
 
 
 @lru_cache(maxsize=16)

@@ -15,7 +15,7 @@ dot partials per block.  The C entry points refuse a geometry that does
 not match the constants they were built with.  K1/K5's f64 instance
 sweeps the same tiles and chunks with 8-byte elements: only the shared
 memory doubles (``elem``), 40,560 bytes against 22,080, and it takes the
-405 taps as doubles (:func:`sweep_taps64`).
+taps as doubles (:func:`sweep_taps64`).
 
 A chunk of 32 planes re-reads 2 halo planes (6 %) and cuts the 256^3-node
 grid into 2,048 blocks, several waves over the H100's 132 SMs.
@@ -61,6 +61,11 @@ SM_COUNT = 132  # H100 SXM
 STENCIL_TILES = {(8, 32): 40, (16, 16): 48}
 STENCIL_CHUNKS = (32, 16, 8)
 STENCIL_BLOCKS_PER_SM = 8
+# the taps K1/K5, K2 and K6 take by value (``csrc/structured.cuh``
+# ``TapsT``): the interior stencil's factored coefficients
+# (``ops.structured.factored_taps``), then the z-face ghost taps, 2 x 81
+FACTORED_TAPS = 30
+SWEEP_TAPS = FACTORED_TAPS + 2 * 81
 
 
 @dataclass(frozen=True)
@@ -172,6 +177,39 @@ def corner_gather_geometry(grid_shape, elem: int = 4,
     )
 
 
+@lru_cache(maxsize=64)
+def factored_visits(geometry: SweepGeometry, grid_shape, cells,
+                    offsets=(0, 0), ghosts=(False, False)) -> Tuple[int, int]:
+    """(factored, total): the (thread, plane) visits of the sweep
+    ``geometry`` over a block of node grid ``grid_shape`` (Xl, Yl, Z) at
+    global node ``offsets`` (x0, y0) of a grid of ``cells`` (nx, ny, nz)
+    that take the interior stencil's factored form, and all of them, as the
+    kernels decide it (``csrc/structured.cuh`` ``apply_plane``: the
+    thread's row and the three output planes of the interior class).
+    Each block sweeps its chunk plus the plane on either side where that
+    lies in the block or, per side, ``ghosts`` gives a ghost plane (K5)."""
+    xl = int(grid_shape[0])
+    nx, ny = int(cells[0]), int(cells[1])
+    x0, y0 = int(offsets[0]), int(offsets[1])
+    gz, gy, gx = geometry.grid
+    ty, tz = geometry.tile
+    p0, p1 = geometry.planes
+    rows = gy * ty
+    interior_rows = sum(1 <= y0 + row < ny for row in range(rows))
+    factored = total = 0
+    for bz in range(gx):
+        x_lo = p0 + bz * geometry.chunk
+        x_hi = min(x_lo + geometry.chunk, p1)
+        jlo = x_lo - 1 if (x_lo > 0 or ghosts[0]) else x_lo
+        jhi = x_hi if (x_hi < xl or ghosts[1]) else x_hi - 1
+        total += (jhi - jlo + 1) * rows
+        # planes whose outputs x0 + j - 1 .. x0 + j + 1 are all interior
+        factored += max(0, min(jhi, nx - 2 - x0) - max(jlo, 2 - x0) + 1
+                        ) * interior_rows
+    threads = gz * tz
+    return factored * threads, total * threads
+
+
 def corner_gather_cells(geometry: SweepGeometry, block, cells):
     """The ``[lo, hi)`` cell ranges along (x, y, z) whose element forces G3's
     block ``(bx, by, bz)`` computes and gathers, as the kernel computes
@@ -235,41 +273,42 @@ def vector_copies(Z: int, *tensors) -> int:
 
 @lru_cache(maxsize=32)
 def _taps64(spacing, lam0: float, mu0: float) -> np.ndarray:
-    from ..structured import class_stencil_table
+    from .. import structured as ops
 
-    table = class_stencil_table(spacing, lam0, mu0).reshape(27, 3, 3, 3, 3, 3)
-    interior = table[13].astype(np.float64)
-    # interior minus the z-face class rows at dz = 0, exact in f64
-    ghost = np.stack([interior[:, :, 1] - table[12][:, :, 1],
-                      interior[:, :, 1] - table[14][:, :, 1]])
-    taps = np.concatenate([interior.reshape(-1), ghost.reshape(-1)])
+    coef = ops.factored_taps(spacing, lam0, mu0).astype(np.float32)
+    # interior minus the f32 z-face class rows at dz = 0, exact in f64
+    ghost = ops.z_face_ghost_taps(
+        coef, ops.class_stencil_table(spacing, lam0, mu0))
+    taps = np.concatenate([coef.astype(np.float64), ghost.reshape(-1)])
     taps.setflags(write=False)
     return taps
 
 
 def sweep_taps64(model) -> np.ndarray:
-    """The 405 f64 taps K1/K5's f64 instance takes by value: the model's f32
-    interior taps widened, then the z-face ghost taps as the exact f64
-    differences between those and the f32 class-table rows of (1, 1, 0) and
-    (1, 1, 2) at dz = 0, so that interior minus ghost is the class table's
-    f32 tap (the f32 ghost taps are f32(interior - class) in f64, which
-    differs from it by a rounding)."""
+    """The f64 taps K1/K5's f64 instance takes by value: the model's f32
+    factored coefficients widened, then the z-face ghost taps as the exact
+    f64 differences between the interior those give and the f32 class-table
+    rows of (1, 1, 0) and (1, 1, 2) at dz = 0, so that interior minus ghost
+    is the class table's f32 tap (the f32 ghost taps are the f32-rounded
+    f64 differences from the f64 class rows)."""
     taps32 = sweep_taps32(model)
     taps = _taps64(tuple(float(h) for h in model.spacing), float(model.lam0),
                    float(model.mu0))
-    if not np.array_equal(taps[:243], taps32[:243]):
+    n = FACTORED_TAPS
+    if not np.array_equal(taps[:n], taps32[:n]):
         raise ValueError("sweep_taps do not match the model's class table")
     return taps
 
 
 def sweep_taps32(model) -> np.ndarray:
-    """The model's host copy of the taps the sweeps take by value (405 f32:
-    ``ops.structured.sweep_taps``)."""
+    """The model's host copy of the taps the sweeps take by value
+    (``SWEEP_TAPS`` f32: ``ops.structured.sweep_taps``)."""
     taps = model.sweep_taps
     if taps is None:
         raise ValueError("model has no sweep_taps (build it with "
                          "build_structured_model or convert)")
     taps = np.ascontiguousarray(taps, dtype=np.float32)
-    if taps.shape != (405,):
-        raise ValueError(f"sweep_taps: shape {taps.shape}, expected (405,)")
+    if taps.shape != (SWEEP_TAPS,):
+        raise ValueError(f"sweep_taps: shape {taps.shape}, expected "
+                         f"({SWEEP_TAPS},)")
     return taps

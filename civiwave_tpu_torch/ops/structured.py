@@ -87,6 +87,7 @@ from .cuda import interior_stencil as _k4
 from .cuda import keff_boundary as _g2
 from .cuda import pcg_iteration as _k6
 from .cuda import structured_stencil as _k12
+from .cuda.plane_sweep import FACTORED_TAPS
 
 _DET_TOL = 1.0e-12
 
@@ -225,19 +226,92 @@ def ghost_stencil_table(spacing, lam0: float, mu0: float) -> np.ndarray:
     return np.ascontiguousarray(table.astype(np.float32))
 
 
-def sweep_taps(spacing, lam0: float, mu0: float) -> np.ndarray:
-    """The (405,) f32 taps the plane-sweep kernels K2 and K6 take by value:
-    the interior class (1, 1, 1) row of :func:`class_stencil_table` as
-    [dx+1][dy+1][dz+1][b][c] (243), then the ghost taps
-    (:func:`ghost_stencil_table`) of the z-face classes (1, 1, 0) and
-    (1, 1, 2) at dz = 0 as [side][dx+1][dy+1][b][c] (2 x 81).  A z-face
+# The interior stencil of a homogeneous isotropic grid of rectangular cells
+# is mirror-symmetric on each axis: reflecting axis k multiplies the tap
+# [d][b][c] by s_b s_c (s = -1 on component k).  So the diagonal blocks are
+# even in dx, dy and dz, the b-c coupling (b != c) is odd along axes b and c
+# and even along the third, and 153 of the 243 taps are non-zero in
+# structure.  FACTORED_TAPS coefficients hold all of them:
+#   [0:24)  diagonal, [b][|dx|][group], group 0 the centre (dy = dz = 0),
+#           1 the +-y pair, 2 the +-z pair, 3 the four corners
+#   [24:26) x-y coupling at dx = dy = +1, [|dz|]
+#   [26:28) x-z coupling at dx = dz = +1, [|dy|]
+#   [28:30) y-z coupling at dy = dz = +1, [|dx|]
+# (FACTORED_TAPS = 30 of them; the sweeps take SWEEP_TAPS by value, these
+# and the z-face ghost taps of :func:`sweep_taps`)
+_DIAG_GROUP = ((0, 2), (1, 3))  # [|dy|][|dz|] -> group
+_SYMMETRY_RTOL = 1e-12
+
+
+def expand_factored(coef: np.ndarray) -> np.ndarray:
+    """The (3, 3, 3, 3, 3) interior taps [dx+1][dy+1][dz+1][b][c] that
+    factored coefficients stand for, in their dtype."""
+    coef = np.asarray(coef)
+    taps = np.zeros((3, 3, 3, 3, 3), dtype=coef.dtype)
+    for d in np.ndindex(3, 3, 3):
+        a = [abs(o - 1) for o in d]
+        s = [o - 1 for o in d]  # the offset's signs
+        for b in range(3):
+            taps[d][b, b] = coef[(b * 2 + a[0]) * 4 + _DIAG_GROUP[a[1]][a[2]]]
+        taps[d][0, 1] = taps[d][1, 0] = s[0] * s[1] * coef[24 + a[2]]
+        taps[d][0, 2] = taps[d][2, 0] = s[0] * s[2] * coef[26 + a[1]]
+        taps[d][1, 2] = taps[d][2, 1] = s[1] * s[2] * coef[28 + a[0]]
+    return taps
+
+
+@lru_cache(maxsize=32)
+def factored_taps(spacing, lam0: float, mu0: float) -> np.ndarray:
+    """The (30,) f64 coefficients (layout at ``FACTORED_TAPS``) of the
+    interior row of the class table: each the mean of its taps with their
+    signs.  Raises ValueError unless they rebuild every tap of the f64
+    interior row, structural zeros included, to 1e-12 of the largest."""
+    row = _class_stencil_table64(tuple(spacing), lam0, mu0)[13].reshape(
+        3, 3, 3, 3, 3)
+    total = np.zeros(FACTORED_TAPS)
+    count = np.zeros(FACTORED_TAPS)
+    for i in range(FACTORED_TAPS):
+        unit = np.zeros(FACTORED_TAPS)
+        unit[i] = 1.0
+        shape = expand_factored(unit)  # where coefficient i sits, signed
+        total[i] = float((shape * row).sum())
+        count[i] = float(np.abs(shape).sum())
+    coef = total / count
+    err = float(np.abs(expand_factored(coef) - row).max())
+    if err > _SYMMETRY_RTOL * float(np.abs(row).max()):
+        raise ValueError(
+            f"the interior stencil at spacing {tuple(spacing)}, lam {lam0}, "
+            f"mu {mu0} is not mirror-symmetric: factored taps miss it by "
+            f"{err:.3e} of max {float(np.abs(row).max()):.3e}")
+    coef.setflags(write=False)
+    return coef
+
+
+def z_face_ghost_taps(coef, table) -> np.ndarray:
+    """The (2, 3, 3, 3, 3) f64 ghost taps of the z-face classes (1, 1, 0)
+    and (1, 1, 2) at dz = 0, as [side][dx+1][dy+1][b][c]: the interior that
+    the factored coefficients ``coef`` give minus those classes' rows of the
+    class table ``table`` (27, 27, 3, 3), both taken in f64.  A z-face
     node's stencil differs from the interior one at an in-grid neighbour
-    only at dz = 0, so interior taps minus these give it."""
-    table = class_stencil_table(spacing, lam0, mu0).reshape(27, 3, 3, 3, 3, 3)
-    ghost = ghost_stencil_table(tuple(spacing), lam0, mu0).reshape(
-        27, 3, 3, 3, 3, 3)
-    z_faces = np.stack([ghost[12][:, :, 1], ghost[14][:, :, 1]])
-    return np.concatenate([table[13].reshape(-1), z_faces.reshape(-1)])
+    only at dz = 0, so interior minus these taps gives its class row.  The
+    one definition of the z-face ghosts: the f32 sweeps' and G2's
+    (:func:`sweep_taps`) and the f64 sweeps' (``plane_sweep.sweep_taps64``)."""
+    interior = expand_factored(np.asarray(coef, np.float64))[:, :, 1]
+    rows = np.asarray(table, np.float64).reshape(27, 3, 3, 3, 3, 3)
+    return np.stack([interior - rows[cls][:, :, 1] for cls in (12, 14)])
+
+
+def sweep_taps(spacing, lam0: float, mu0: float) -> np.ndarray:
+    """The (192,) f32 taps the plane-sweep kernels K1/K5, K2 and K6 take
+    by value: the interior stencil's factored coefficients
+    (:func:`factored_taps`, rounded to f32), then the z-face ghost taps
+    (:func:`z_face_ghost_taps` of those coefficients and the f64 class
+    table, rounded to f32; G2 takes the same).  A z-face node's stencil
+    differs from the interior one at an in-grid neighbour only at dz = 0,
+    so interior minus ghost taps give it."""
+    coef = factored_taps(tuple(spacing), lam0, mu0).astype(np.float32)
+    ghost = z_face_ghost_taps(
+        coef, _class_stencil_table64(tuple(spacing), lam0, mu0))
+    return np.concatenate([coef, ghost.reshape(-1).astype(np.float32)])
 
 
 def axis_classes(size: int, cells: int, offset: int = 0) -> np.ndarray:

@@ -258,9 +258,9 @@ def test_vector_copies_rule(dtype):
 
 
 def test_sweep_taps64_give_the_class_table():
-    """The f64 taps: the f32 interior taps widened, and z-face ghost taps
-    with interior - ghost equal to the f32 class-table rows exactly (the
-    f32 ghost taps miss them by a rounding)."""
+    """The f64 taps: the f32 factored interior coefficients widened, and
+    z-face ghost taps with interior - ghost equal to the f32 class-table
+    rows exactly (the f32 ghost taps miss them by a rounding)."""
     cfg = synthetic.cantilever_config()
     mat = cfg.materials[0]
     from civiwave_tpu_torch.mesh.structured import build_structured_model
@@ -268,18 +268,29 @@ def test_sweep_taps64_give_the_class_table():
     model, _ = build_structured_model(5, 4, 6, materials.make_properties(mat),
                                       mat.density, spacing=(0.3, 0.7, 1.1),
                                       device="cpu")
+    from civiwave_tpu_torch.ops.structured import (
+        _class_stencil_table64,
+        expand_factored,
+    )
+
     t64 = plane_sweep.sweep_taps64(model)
     t32 = plane_sweep.sweep_taps32(model)
-    assert t64.dtype == np.float64 and t64.shape == (405,)
-    np.testing.assert_array_equal(t64[:243], t32[:243].astype(np.float64))
+    n = plane_sweep.FACTORED_TAPS
+    assert t64.dtype == np.float64 and t64.shape == (plane_sweep.SWEEP_TAPS,)
+    np.testing.assert_array_equal(t64[:n], t32[:n].astype(np.float64))
     table = model.stencil_table.numpy().reshape(27, 3, 3, 3, 3, 3)
-    interior = t64[:243].reshape(3, 3, 3, 3, 3)[:, :, 1]
-    ghost = t64[243:].reshape(2, 3, 3, 3, 3)
+    interior = expand_factored(t64[:n])[:, :, 1]
+    ghost = t64[n:].reshape(2, 3, 3, 3, 3)
     for side, cls in ((0, 12), (1, 14)):
         np.testing.assert_array_equal(interior - ghost[side],
                                       table[cls][:, :, 1].astype(np.float64))
-    # the f32 ghost taps are the f32-rounded differences
-    np.testing.assert_array_equal(t64[243:].astype(np.float32), t32[243:])
+    # the f32 ghost taps are the f32-rounded differences from the f64 rows
+    table64 = _class_stencil_table64(
+        tuple(float(h) for h in model.spacing), float(model.lam0),
+        float(model.mu0)).reshape(27, 3, 3, 3, 3, 3)
+    want = np.stack([interior - table64[12][:, :, 1],
+                     interior - table64[14][:, :, 1]])
+    np.testing.assert_array_equal(want.reshape(-1).astype(np.float32), t32[n:])
 
 
 def test_mass_correction_delta_is_exact_in_f64():

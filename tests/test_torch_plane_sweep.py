@@ -18,6 +18,7 @@ from civiwave_tpu_torch.parallel import sharding
 from civiwave_tpu_torch.ops.structured import (
     apply_keff_structured_plain,
     class_stencil_table,
+    expand_factored,
 )
 from civiwave_tpu_torch.physics import materials
 from civiwave_tpu_torch.utils.synthetic import cantilever_config
@@ -171,20 +172,26 @@ def test_sweep_geometry_shared_memory():
 
 
 def test_models_carry_the_sweep_taps():
-    """The host copy K2 and K6 pass by value: the class table's interior
-    row, then the z-face ghost taps at dz = 0, on models from the builder
-    and from arrays."""
+    """The host copy K1/K5, K2 and K6 pass by value: the class table's
+    interior row in factored form (every tap not zero in structure equal
+    to the f32 table's, the others at most 1e-12 of the largest), then the
+    z-face ghost taps at dz = 0, on models from the builder and from
+    arrays."""
     mat = cantilever_config().materials[0]
     model, _ = build_structured_model(
         4, 3, 5, materials.make_properties(mat), mat.density, device="cpu"
     )
     table = class_stencil_table(model.spacing, model.lam0, model.mu0)
     taps = sweep_taps32(model)
-    assert taps.shape == (405,) and taps.dtype == np.float32
-    np.testing.assert_array_equal(taps[:243], table[13].reshape(-1))
-    np.testing.assert_array_equal(
-        taps[:243], model.stencil_table[13].numpy().reshape(-1)
-    )
+    assert taps.shape == (plane_sweep.SWEEP_TAPS,)
+    assert taps.dtype == np.float32
+    interior = expand_factored(taps[:plane_sweep.FACTORED_TAPS]).reshape(-1)
+    structural = interior != 0
+    assert structural.sum() == 153
+    for row in (table[13].reshape(-1),
+                model.stencil_table[13].numpy().reshape(-1)):
+        np.testing.assert_array_equal(interior[structural], row[structural])
+        assert np.abs(row[~structural]).max() <= 1e-12 * np.abs(row).max()
     arrays = {name: getattr(model, name).numpy() for name in (
         "lam_grid", "mu_grid", "mass_grid", "bc_mask", "bc_value", "position0")}
     meta = {name: getattr(model, name) for name in (
@@ -197,8 +204,9 @@ def test_models_carry_the_sweep_taps():
 
 @pytest.mark.parametrize("side, z", [(0, 0), (1, -1)], ids=["z0", "z1"])
 def test_sweep_taps_give_the_z_face_stencil(side, z):
-    """What K2 and K6 do at a z-face column of an interior row: the
-    interior taps over all 27 neighbours, minus the face class's ghost taps
+    """What K1/K5, K2 and K6 do at a z-face column of an interior row: the
+    factored interior taps over all 27 neighbours, minus the face class's
+    ghost taps
     at the dz = 0 neighbours, equal the plain operator there (the
     neighbours across the face are outside the grid)."""
     mat = cantilever_config().materials[0]
@@ -210,8 +218,8 @@ def test_sweep_taps_give_the_z_face_stencil(side, z):
     u = rng.standard_normal(model.vector_shape).astype(np.float64)
     ref = apply_keff_structured_plain(model, torch.as_tensor(u), 1.0, 0.0).numpy()
     taps = model.sweep_taps.astype(np.float64)
-    interior = taps[:243].reshape(3, 3, 3, 3, 3)
-    ghost = taps[243:].reshape(2, 3, 3, 3, 3)[side]
+    interior = expand_factored(taps[:plane_sweep.FACTORED_TAPS])
+    ghost = taps[plane_sweep.FACTORED_TAPS:].reshape(2, 3, 3, 3, 3)[side]
     X, Y, Z = model.grid_shape
     iz = z % Z
     for ix, iy in ((2, 2), (1, 3)):
